@@ -1,8 +1,8 @@
-"""Port attention against the JAX package: K1's plain version against the
-Pallas kernel K1 (interpret mode), its LSE, and ``dot_product_attention``'s
-dispatch on every route.  Inputs come from a seeded numpy generator and go to
-both packages; comparisons are in f32 with atol = 1e-5·max|ref| (the two
-sides sum in different orders)."""
+"""Port attention against the JAX package: the plain versions of K1, K2 and
+K4 against the Pallas kernels (interpret mode), their LSEs, and
+``dot_product_attention``'s dispatch on every route.  Inputs come from a
+seeded numpy generator and go to both packages; comparisons are in f32 with
+atol = 1e-5·max|ref| (the two sides sum in different orders)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,13 +77,18 @@ _CASES = [
     ("bounded_d32_k3", 1, 136, 2, 32, None, False, False, True, False),
     ("causal_k2", 1, 136, 2, 32, None, False, True, False, False),
     ("kv_valid_k4", 2, 136, 2, 64, None, False, False, False, True),
+    # STDiT at d=72: the spatial self-attention (K2) and the masked
+    # cross-attention to the caption (K4, 136 queries over 40 keys)
+    ("stdit_spatial_k2", 2, 256, 2, 72, None, False, False, False, False),
+    ("stdit_cross_k4", 2, 136, 2, 72, None, False, False, False, True),
 ]
 
 
 @pytest.mark.parametrize("case", _CASES, ids=[c[0] for c in _CASES])
 def test_dispatch_matches_jax(case):
-    _, b, sq, h, d, kh, with_bias, causal, bounded, masked = case
-    q, k, v = _qkv(2, b, sq, h, d, kh=kh)
+    name, b, sq, h, d, kh, with_bias, causal, bounded, masked = case
+    sk = 40 if name == "stdit_cross_k4" else sq
+    q, k, v = _qkv(2, b, sq, h, d, sk=sk, kh=kh)
     rng = np.random.default_rng(3)
     if bounded:
         q, k = _layernorm(q), _layernorm(k)
@@ -91,8 +96,8 @@ def test_dispatch_matches_jax(case):
             if with_bias else None)
     kv_valid = None
     if masked:
-        kv_valid = np.ones((b, sq), bool)
-        kv_valid[0, 100:] = False
+        kv_valid = np.ones((b, sk), bool)
+        kv_valid[0, min(100, sk - 27):] = False
     kw = dict(causal=causal, bounded_logits=bounded)
 
     old = A._FA_INTERPRET
@@ -121,13 +126,16 @@ def test_dispatch_matches_jax(case):
     ("K4", 64, False, False, True),
 ])
 def test_unported_kernels_raise_off_cpu(kernel, d, causal, bounded, masked):
-    """A route whose TPU kernel is not ported raises on a non-CPU tensor
-    (meta here) instead of running the math path quietly."""
+    """Off the CPU (meta here) no route runs the math path quietly: K2 and
+    K4 reach ``flash_fwd``, which launches its kernel on a CUDA tensor only
+    and raises on any other device; K3, not ported, raises naming it."""
     q = torch.empty((1, 256, 2, d), device="meta")
     kv_valid = torch.ones((1, 256), dtype=torch.bool, device="meta") \
         if masked else None
+    err, match = ((NotImplementedError, kernel) if kernel == "K3"
+                  else (ValueError, "flash_fwd: unsupported device meta"))
     with P.attention_options(static_max=0.0):
-        with pytest.raises(NotImplementedError, match=kernel):
+        with pytest.raises(err, match=match):
             P.dot_product_attention(q, q, q, causal=causal,
                                     bounded_logits=bounded,
                                     kv_valid=kv_valid)
@@ -135,6 +143,107 @@ def test_unported_kernels_raise_off_cpu(kernel, d, causal, bounded, masked):
 
 def test_k1_launch_counter_untouched_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 128, 2, 64))
-    before = P.flash_fwd_d64.launches
+    before = dict(P.flash_fwd_d64.launches)
     P.flash_fwd_d64(q, k, v, sm_scale=0.125, static_max=0.0)
     assert P.flash_fwd_d64.launches == before
+
+
+def test_k2_k4_launch_counters_untouched_on_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 128, 2, 72))
+    before = dict(P.flash_fwd.launches)
+    P.flash_fwd(q, k, v, sm_scale=0.125, causal=True)
+    P.flash_fwd(q, k, v, sm_scale=0.125,
+                kv_valid=torch.ones((1, 128), dtype=torch.bool))
+    assert P.flash_fwd.launches == before
+
+
+# ---------------------------------------------------------------- K2
+# (name, d, sq, sk, causal, static_max); static_max runs on LayerNormed q, k
+_K2_CASES = [
+    ("d72_stdit", 72, 256, 256, False, None),
+    ("d72_ragged", 72, 200, 200, False, None),
+    ("d72_130x300", 72, 130, 300, False, None),
+    ("d32_causal", 32, 130, 300, True, None),
+    ("d128_causal", 128, 200, 200, True, None),
+    ("d256_static", 256, 200, 200, False, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", _K2_CASES, ids=[c[0] for c in _K2_CASES])
+def test_k2_plain_matches_pallas(case):
+    _, d, sq, sk, causal, static_max = case
+    q, k, v = _qkv(5, 1, sq, 2, d, sk=sk)
+    if static_max is not None:
+        q, k = _layernorm(q), _layernorm(k)
+    ref = A.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal, interpret=True,
+                            static_max=static_max)
+    out = P.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), sm_scale=d ** -0.5, causal=causal,
+                      static_max=static_max)
+    _close(out, ref)
+
+
+# ---------------------------------------------------------------- K4
+def _mask(b, sk, prefix):
+    """Row 0 keeps 13 keys (the first 13, or every 9th), row 1 all."""
+    m = np.ones((b, sk), bool)
+    m[0] = False
+    m[0, :13] = True if prefix else False
+    if not prefix:
+        m[0, ::9] = True
+    return m
+
+
+@pytest.mark.parametrize("static_max", [None, 0.0])
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "strided"])
+def test_k4_plain_matches_pallas(prefix, static_max):
+    b, sq, h, d, sk = 2, 512, 2, 72, 120
+    q, k, v = _qkv(6, b, sq, h, d, sk=sk)
+    if static_max is not None:
+        q, k = _layernorm(q), _layernorm(k)
+    kv_valid = _mask(b, sk, prefix)
+    ref = A.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            interpret=True, kv_valid=jnp.asarray(kv_valid),
+                            static_max=static_max)
+    out = P.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), sm_scale=d ** -0.5,
+                      kv_valid=torch.from_numpy(kv_valid),
+                      static_max=static_max)
+    _close(out, ref)
+
+
+def test_k4_plain_lse_matches_pallas():
+    """K4 with its LSE, as the masked training forward calls it: the caller
+    zeroes the masked keys and values and passes their count."""
+    b, sq, h, d, sk = 2, 256, 2, 72, 120
+    q, k, v = _qkv(7, b, sq, h, d, sk=sk)
+    kv_valid = _mask(b, sk, prefix=False)
+    vm = kv_valid[:, :, None, None].astype(np.float32)
+    counts = (1.0 - kv_valid.astype(np.float32)).sum(axis=1)
+    old = A._FA_INTERPRET
+    A._FA_INTERPRET = True
+    try:
+        ref_out, res = A._fa_masked_fwd(
+            jnp.asarray(q), jnp.asarray(k * vm), jnp.asarray(v * vm),
+            jnp.asarray(counts), None)
+    finally:
+        A._FA_INTERPRET = old
+    ref_lse = np.asarray(res[-1]).reshape(b, h, -1)[..., :sq]
+    out, lse = P.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), sm_scale=d ** -0.5,
+                           kv_valid=torch.from_numpy(kv_valid),
+                           emit_lse=True)
+    _close(out, ref_out)
+    _close(lse, ref_lse)
+
+
+def test_k6_maps_onto_k1_online():
+    """``pack2=True`` (K6, the natural-layout packed baseline) computes K1's
+    online-softmax function: the Pallas K6 against the port's route."""
+    q, k, v = _qkv(8, 1, 200, 2, 64, sk=136)
+    ref = A.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            interpret=True, pack2=True)
+    out = P.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), pack2=True)
+    _close(out, ref)

@@ -28,6 +28,9 @@ from videotuna_tpu_torch.tools.from_jax import load_flow_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "configs", "000_tiny", "tiny_cogvideox.yaml")
+TINY_T2V = os.path.join(ROOT, "configs", "000_tiny", "tiny_t2v.yaml")
+OPENSORA_V10 = os.path.join(ROOT, "configs", "003_opensora",
+                            "opensorav10_256x256.yaml")
 TRAJ_TOL = 1e-4
 PIXEL_TOL = 1e-3
 
@@ -152,28 +155,33 @@ def test_unported_inference_options_raise(argv, what, tmp_path):
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """The port imports neither jax, flax nor the JAX package."""
+    """The port imports neither jax, flax nor the JAX package: both tiny
+    flows (CogVideoX and Open-Sora) run with them blocked."""
+    runs = [(TINY, tmp_path / "cogvideox"), (TINY_T2V, tmp_path / "t2v")]
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'videotuna_tpu'):\n"
         "    sys.modules[m] = None\n"
         "from videotuna_tpu_torch.cli.inference import run_inference\n"
-        f"run_inference(['--config', {TINY!r}, '--device', 'cpu', "
-        f"'--quiet', '--savedir', {str(tmp_path)!r}])\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        + "".join(f"run_inference(['--config', {cfg!r}, '--device', 'cpu', "
+                  f"'--quiet', '--savedir', {str(out)!r}])\n"
+                  for cfg, out in runs)
+        + "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'videotuna_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert os.path.isfile(tmp_path / "metric.json")
+    for _, out in runs:
+        assert os.path.isfile(out / "metric.json")
 
 
 _CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "004_cogvideox",
                                          "*.yaml"))
                   + glob.glob(os.path.join(ROOT, "configs", "000_tiny",
-                                           "*.yaml")))
+                                           "*.yaml"))
+                  + [OPENSORA_V10])
 
 
 @pytest.mark.parametrize("path", _CONFIGS, ids=os.path.basename)
@@ -193,5 +201,21 @@ def test_cogvideox_targets_resolve_to_the_port(path):
                                     "first_stage_config", "cond_stage_config")
         if k in flow]
     for target in targets:
+        obj = pregistry.resolve(target)
+        assert obj.__module__.startswith("videotuna_tpu_torch."), target
+
+
+def _flow_targets(path):
+    flow = pconfig.load_configs([path])["flow"]
+    return [flow["target"]] + [
+        flow["params"][k]["target"]
+        for k in ("denoiser_config", "scheduler_config",
+                  "first_stage_config", "cond_stage_config")]
+
+
+@pytest.mark.parametrize("path", [TINY_T2V, OPENSORA_V10],
+                         ids=os.path.basename)
+def test_opensora_targets_resolve_to_the_port(path):
+    for target in _flow_targets(path):
         obj = pregistry.resolve(target)
         assert obj.__module__.startswith("videotuna_tpu_torch."), target

@@ -47,12 +47,14 @@ def _close(out, ref, tol=MODULE_TOL):
                                atol=tol * float(np.abs(ref).max()))
 
 
-def jax_params(jmodule, *inputs, seed=0):
+def jax_params(jmodule, *inputs, seed=0, **kwargs):
     """The flax tree of ``jmodule`` with seeded numpy values: kernels
     N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), everything else N(0, 0.1²).
-    ``eval_shape`` traces ``init`` without compiling it."""
+    ``eval_shape`` traces ``init`` (given ``inputs`` and ``kwargs``) without
+    compiling it."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(jmodule.init, jax.random.key(0), *inputs)
+    shapes = jax.eval_shape(functools.partial(jmodule.init, **kwargs),
+                            jax.random.key(0), *inputs)
 
     def fill(path, leaf):
         name = str(path[-1].key)

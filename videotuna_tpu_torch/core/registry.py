@@ -24,10 +24,12 @@ UNCONDITIONAL_SENTINEL = "__is_unconditional__"
 
 # Modules imported for their @register side effects.
 _MODULES = (
+    "videotuna_tpu_torch.models.vae2d",
     "videotuna_tpu_torch.models.vae3d",
     "videotuna_tpu_torch.models.cogvideo.vae",
     "videotuna_tpu_torch.models.text_encoders",
     "videotuna_tpu_torch.models.cogvideo.mmdit",
+    "videotuna_tpu_torch.models.opensora.stdit",
     "videotuna_tpu_torch.schedulers",
     "videotuna_tpu_torch.flows",
 )

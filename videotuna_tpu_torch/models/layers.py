@@ -1,6 +1,6 @@
 """Shared building blocks (torch): the subset of the JAX package's
-``models/layers.py`` that the CogVideoX MMDiT uses, plus the norms and the
-random initialiser every module of the port shares.
+``models/layers.py`` that the CogVideoX MMDiT and the Open-Sora STDiT use,
+plus the norms and the random initialiser every module of the port shares.
 
 Parameter names follow the flax modules (``fc1``, ``q_norm``, …) so that
 ``tools/from_jax.py`` maps a flax tree onto these modules by name.
@@ -9,11 +9,13 @@ Parameter names follow the flax modules (``fc1``, ``q_norm``, …) so that
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from videotuna_tpu_torch.kernels.attention import dot_product_attention
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -85,9 +87,111 @@ class LayerNorm(nn.Module):
                             self.eps).to(x.dtype)
 
 
+def modulate(x: torch.Tensor, shift: torch.Tensor,
+             scale: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation: x·(1+scale)+shift, broadcasting (B,D)→(B,…,D)."""
+    while shift.ndim < x.ndim:
+        shift = shift[:, None]
+        scale = scale[:, None]
+    return x * (1.0 + scale) + shift
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """flax's default ``nn.gelu`` (tanh approximation)."""
+    return F.gelu(x, approximate="tanh")
+
+
+class Mlp(nn.Module):
+    """fc1 → tanh GELU → fc2, back to ``dim``."""
+
+    def __init__(self, dim: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden, dtype=dtype)
+        self.fc2 = nn.Linear(hidden, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(gelu_tanh(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    """Multi-head attention over the second-to-last axis, the counterpart of
+    the JAX package's ``layers.Attention`` (``models/layers.py:244-291``):
+    q, k, v projections over heads (flax ``DenseGeneral``), an optional
+    ``context`` for cross-attention, a key-validity ``mask`` (B, Sk),
+    per-head RMS ``q_norm`` / ``k_norm`` with ``qk_norm`` (which also
+    declares bounded logits), optional RoPE tables, and the ``out``
+    projection."""
+
+    def __init__(self, dim: int, heads: int, head_dim: Optional[int] = None,
+                 qkv_bias: bool = True, qk_norm: bool = False,
+                 out_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.heads = heads
+        self.head_dim = head_dim or dim // heads
+        self.qk_norm = qk_norm
+        inner = heads * self.head_dim
+        self.q = nn.Linear(dim, inner, bias=qkv_bias, dtype=dtype)
+        self.k = nn.Linear(dim, inner, bias=qkv_bias, dtype=dtype)
+        self.v = nn.Linear(dim, inner, bias=qkv_bias, dtype=dtype)
+        if qk_norm:
+            self.q_norm = RMSNorm(self.head_dim, dtype=dtype)
+            self.k_norm = RMSNorm(self.head_dim, dtype=dtype)
+        self.out = nn.Linear(inner, dim, bias=out_bias, dtype=dtype)
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        heads = (self.heads, self.head_dim)
+        q = self.q(x).unflatten(-1, heads)
+        k = self.k(ctx).unflatten(-1, heads)
+        v = self.v(ctx).unflatten(-1, heads)
+        if self.qk_norm:
+            q = self.q_norm(q)
+            k = self.k_norm(k)
+        if rope is not None:
+            cos, sin = rope
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        # the masked flash kernel writes zeros for a row with no valid key:
+        # callers keep at least one valid key per row
+        out = dot_product_attention(q, k, v, kv_valid=mask,
+                                    bounded_logits=self.qk_norm)
+        return self.out(out.flatten(-2))
+
+
+class PatchEmbed3D(nn.Module):
+    """(B, T, H, W, C) video latents → (B, T', H'·W' or merged tokens, D):
+    a conv with stride = patch size (flax ``Conv`` "VALID"), channel-last in
+    and out as in the JAX package."""
+
+    def __init__(self, in_channels: int, dim: int,
+                 patch: Sequence[int] = (1, 2, 2), flatten: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.flatten = flatten
+        self.proj = nn.Conv3d(in_channels, dim, tuple(patch),
+                              stride=tuple(patch), dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.proj(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        return x.flatten(1, 3) if self.flatten else x
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
+
+def rope_frequencies(dim: int, positions: torch.Tensor,
+                     theta: float = 10000.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables: positions (N,) → (N, dim/2), f32."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    freqs = positions.float()[:, None] * inv[None]
+    return torch.cos(freqs), torch.sin(freqs)
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:

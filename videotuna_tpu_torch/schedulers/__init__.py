@@ -1,5 +1,6 @@
-"""Schedulers of the port: the DDPM/LDM buffers, DDIM with CFG wrappers, and
-the CogVideoX SDE-DPM++(2M) and trailing DDIM samplers."""
+"""Schedulers of the port: the DDPM/LDM buffers, DDIM with CFG wrappers, the
+CogVideoX SDE-DPM++(2M) and trailing DDIM samplers, and IDDPM spaced
+sampling with learned variance."""
 
 from videotuna_tpu_torch.schedulers.common import (extract_into,
                                                    make_beta_schedule,
@@ -11,9 +12,12 @@ from videotuna_tpu_torch.schedulers.cogvideox_dpm import (
     CogVideoXDPMSchedule, build_cogvideox_ddim)
 from videotuna_tpu_torch.schedulers.ddim import (DDIMSchedule, cfg_denoise,
                                                  dynamic_cfg_denoise)
+from videotuna_tpu_torch.schedulers.iddpm import (SpacedSchedule,
+                                                  space_timesteps)
 
 __all__ = [
-    "DDPMSchedule", "DDIMSchedule", "CogVideoXDPMSchedule",
+    "DDPMSchedule", "DDIMSchedule", "CogVideoXDPMSchedule", "SpacedSchedule",
+    "space_timesteps",
     "build_cogvideox_ddim", "cfg_denoise", "dynamic_cfg_denoise",
     "extract_into", "make_beta_schedule", "make_ddim_timesteps",
     "rescale_noise_cfg", "rescale_zero_terminal_snr",

@@ -11,8 +11,9 @@ changes is the layout of each leaf:
 - ``Conv`` kernel (…spatial, I, O) → (O, I, …spatial);
 - LayerNorm / GroupNorm / RMSNorm ``scale`` → ``weight``;
 - ``Embed.embedding`` → ``Embedding.weight``;
-- ``block_{i}`` → ``blocks[i]``, and the ``scan_blocks`` layout (every
-  block leaf stacked on axis 0 under ``blocks``) is unstacked.
+- ``block_{i}`` → ``blocks[i]`` and ``pair_{i}`` → ``pairs[i]`` (STDiT's
+  paired layout); the ``scan_blocks`` layouts (every leaf stacked on axis 0
+  under ``blocks`` or ``pairs``) are unstacked.
 
 The copy is strict: a flax leaf with no counterpart, a shape mismatch, or a
 module parameter left unassigned raises.
@@ -30,7 +31,8 @@ from torch import nn
 from videotuna_tpu_torch.models.layers import LayerNorm, RMSNorm
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, LayerNorm, RMSNorm)
-_BLOCK = re.compile(r"^block_(\d+)$")
+_BLOCK = re.compile(r"^(block|pair)_(\d+)$")
+_STACKS = {"block": "blocks", "pair": "pairs"}
 
 
 def _copy(param: torch.Tensor, arr: np.ndarray, where: str,
@@ -70,8 +72,10 @@ def _child(module: nn.Module, key: str, where: str) -> nn.Module:
     if hasattr(module, key):
         return getattr(module, key)
     match = _BLOCK.match(key)
-    if match and isinstance(getattr(module, "blocks", None), nn.ModuleList):
-        return module.blocks[int(match.group(1))]
+    if match:
+        stack = getattr(module, _STACKS[match.group(1)], None)
+        if isinstance(stack, nn.ModuleList):
+            return stack[int(match.group(2))]
     raise KeyError(f"{where}.{key}: no counterpart in "
                    f"{type(module).__name__}")
 
@@ -90,9 +94,9 @@ def _load(module: nn.Module, tree: Mapping[str, Any], where: str,
                 raise KeyError(f"{name}: no counterpart in "
                                f"{type(module).__name__}")
             _copy(param, sub, name, done)
-        elif key == "blocks" and isinstance(getattr(module, "blocks", None),
-                                            nn.ModuleList):
-            for i, block in enumerate(module.blocks):
+        elif key in _STACKS.values() \
+                and isinstance(getattr(module, key, None), nn.ModuleList):
+            for i, block in enumerate(getattr(module, key)):
                 _load(block, _index(sub, i), f"{name}[{i}]", done)
         else:
             _load(_child(module, key, where), sub, name, done)
