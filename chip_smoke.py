@@ -49,28 +49,61 @@ without a result line:
                 launches and no K1 launch, finite latents and pixels, a
                 (16, 256, 256, 3) video and metric.json.
 9. reference-opensora — that flow at narrow width (hidden 144, 2 heads of
-                d=72, depth 2, a narrow T5, the VAE at ch 72) on the card and
+                d=72, depth 2, a narrow T5, the VAE at ch 32) on the card and
                 on the CPU, same weights, x_T and prompt, TF32 off, 4×32×32
                 latents, so that K2 (256 spatial tokens) and K4 (1024 cross
                 queries) are on the path: one denoiser call, the latents
                 after 5 steps and the decode must agree.  The VAE's mid
-                attention has ch·4 channels over 32×32 tokens; at ch 72 that
-                is d=288, the math path, as at full width (d=512).  At
-                ch ≤ 64 it would take the flash route in f32, which the
-                bf16 kernel refuses.
+                attention (f32, one head of d=128 over 32×32 tokens) takes
+                flash_fwd's f32 path on the card.
 10. profile-opensora — one full-size STDiT-XL/2 denoiser call (CFG batch
                 2) timed with CUDA events and traced with torch.profiler:
                 device time by kernel group and the busy share.
-11. kernels   — status of every TPU kernel of the JAX package.
+11. bwd       — the flash backward (flash_bwd.cu) against its plain version:
+                K7 at the CogVideoX-2B training shape (B=1, S=17776, H=30,
+                d=64) on the LSE of K1 under the fixed max and online, the
+                plain version 256 query rows at a time; K8 at the STDiT-XL/2
+                spatial shape (B=16, S=256, H=16, d=72) and cross shape
+                (4096 queries over 120 keys with a ragged mask, and a batch
+                row with no valid key: zeros); d=64 causal 333×333, d=128
+                300×4322, d=32 causal at a ragged edge; K9 and K10 through
+                single_pass=False; the custom VJPs' gradients against
+                autograd of the plain math.  K5 (flash_fwd with the LSE) at
+                the spatial shape.  Times beside the bound, the plain
+                version and SDPA's backward (fwd+bwd minus fwd, backend
+                named; a yardstick the port never calls).
+12. f32       — flash_fwd with f32 inputs against the f32 plain version at
+                the narrow VAE's mid-attention shape.
+13. train-cog — the training CLI's trainer on
+                configs/004_cogvideox/cogvideo2b_lora.yaml at full width and
+                depth (dim 1920, 30 layers, 30 heads of d=64, T5-XXL, the
+                CogVideoX VAE; LoRA rank 128 on every projection; remat), 3
+                steps on dummy video at 49×480×720 (17,776 tokens), cut to
+                13 frames only when the f32 VAE encode of 49 does not fit
+                (the cut and the peak memory at the encode are printed).
+                Asserts K1 = 60 and K7 = 30 per step, finite losses and
+                gradient norms, the step-3 checkpoint and a --resume run
+                that restores step 3.
+14. train-stdit — the same on configs/003_opensora/opensorav10_256x256.yaml
+                (STDiT-XL/2 full fine-tune, EMA 0.9999, 16×256×256):
+                K5 = K4 = 28 and K8 = 56 per step, and the EMA moved.
+15. train-reference — one training step of each flow at narrow width on the
+                card and on the CPU with the same weights, batch, t, noise
+                and LoRA tree: loss and trainable gradients must agree.
+16. kernels   — status of every TPU kernel of the JAX package.
 
-Every launch count (K1, K6, K2, K4) is set to 0 just before each e2e run
-and read just after; the kernels' JSON record, on the line before the
-last, gives each kernel's launches summed over the two e2e runs.  The last
-line is {"ok": true, "device": {...}}.
+They run in the order 1–5, 11, 12, 6–10, 13–16.  Every launch count
+(K1, K2, K4–K10) is set to 0 just before each main-path run (the two
+sampling runs and the two training runs) and read just after; the
+kernels' JSON record, on the line before the last, gives each kernel's
+launches summed over those four runs.  The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import os
@@ -106,6 +139,23 @@ OS_STEPS = 50        # Open-Sora e2e: every DDIM step of the config
 OS_DEPTH = 28
 OS_REF_STEPS = 5     # narrow Open-Sora card-vs-CPU trajectory
 FWD_TOL = 2e-2       # K2/K4, of max|o|: bf16 output and bf16 p on both sides
+
+CONFIG_2B_LORA = os.path.join(ROOT, "configs", "004_cogvideox",
+                              "cogvideo2b_lora.yaml")
+TOY_CSV = os.path.join(ROOT, "configs", "000_tiny", "toy_anno.csv")
+SHAPE_2B = dict(b=1, s=17776, h=30)   # 226 text + 13·30·45 video tokens
+TRAIN_STEPS = 3
+# of max|grad| per output: p and ds are bf16 operands of the products and
+# the gradients are bf16, against the f32 plain backward
+BWD_TOL = 2e-2
+# f32 flash_fwd against the f32 plain version, of max|o| (and absolute for
+# the LSE): each product is split into bf16 hi + lo parts, ~16 mantissa bits
+F32_TOL = 1e-4
+# one narrow training step, card against CPU: both run the bf16 model, the
+# card through the kernels, the CPU through their plain versions, summing
+# in other orders; loss relative, gradients of max|g|
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_GRAD_TOL = 3e-2
 
 
 def log(phase: str, **fields) -> None:
@@ -405,12 +455,14 @@ def check_k4(A) -> dict:
 def zero_counts(A) -> None:
     """Set every kernel's launch count to 0 just before a main-path run."""
     A.flash_fwd_d64.launches = {"K1": 0, "K6": 0}
-    A.flash_fwd.launches = {"K2": 0, "K4": 0}
+    A.flash_fwd.launches = {"K2": 0, "K4": 0, "K5": 0}
+    A.flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
 
 
 def read_counts(A) -> dict:
     """Every kernel's launch count, read just after a main-path run."""
-    return dict(A.flash_fwd_d64.launches, **A.flash_fwd.launches)
+    return dict(A.flash_fwd_d64.launches, **A.flash_fwd.launches,
+                **A.flash_bwd.launches)
 
 
 def _read_video(path: str):
@@ -582,7 +634,7 @@ def check_small_reference_opensora() -> None:
         f"{den}.caption_channels=64",
         f"{t5}.dim=64", f"{t5}.heads=2", f"{t5}.head_dim=32",
         f"{t5}.ff_dim=128", f"{t5}.num_layers=2",
-        "flow.params.first_stage_config.params.ch=72",
+        "flow.params.first_stage_config.params.ch=32",
         "flow.params.first_stage_config.params.num_res_blocks=1",
         f"flow.params.ddim_steps={OS_REF_STEPS}",
     ])
@@ -600,20 +652,26 @@ def check_small_reference_opensora() -> None:
     import videotuna_tpu_torch.kernels.attention as A
     outs, z_cpu = [], None
     for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
-        A.flash_fwd.launches = {"K2": 0, "K4": 0}
+        zero_counts(A)
         cond = flow.encode_text(["a panda playing guitar by a lake"])
         uncond = flow.encode_text([""])
         with torch.inference_mode():
             call = flow.denoise_apply(x_T.to(dev), t.to(dev), cond)
         z = flow.sample(cond, uncond, shape, None, 7.0, x_T=x_T.to(dev))
+        launches = {k: v for k, v in read_counts(A).items() if v}
         z_cpu = z if z_cpu is None else z_cpu
         video = flow.decode_latents(z_cpu.to(dev))
+        decode_launches = {k: v for k, v in read_counts(A).items() if v}
         outs.append([x.float().cpu() for x in (call, z, video)])
-        launches = dict(A.flash_fwd.launches)
     expected = 2 * (1 + OS_REF_STEPS)     # depth 2 × (one call + the steps)
     if launches != {"K2": expected, "K4": expected}:
         raise AssertionError(f"narrow Open-Sora flow on the card launched "
                              f"{launches}, expected {expected} of each")
+    # the decoder's f32 mid attention (one head of d=128 over 32×32 tokens)
+    # takes flash_fwd's f32 path once
+    if decode_launches != {"K2": expected + 1, "K4": expected}:
+        raise AssertionError(f"narrow Open-Sora decode launched "
+                             f"{decode_launches}, expected one more K2")
 
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
@@ -623,6 +681,7 @@ def check_small_reference_opensora() -> None:
     ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
     log("reference-opensora", what="narrow opensorav10 flow, cuda vs cpu",
         steps=OS_REF_STEPS, card_launches=launches,
+        decode_f32_k2=decode_launches["K2"] - launches["K2"],
         denoiser_call_rel_err=f"{errs[0]:.3e}", call_tol=REF_TOL_CALL,
         latent_rel_err=f"{errs[1]:.3e}", latent_tol=REF_TOL_TRAJ,
         decode_rel_err=f"{errs[2]:.3e}", decode_tol=REF_TOL_DECODE, ok=ok)
@@ -685,11 +744,656 @@ def profile_opensora_call() -> dict:
     return groups
 
 
+# ---------------------------------------------------------------- phase 11
+def _bwd_plain_chunked(A, q, k, v, out, g, lse, sm_scale, rows=256):
+    """The plain backward (non-causal) over all query rows, a block of rows
+    at a time in f32 (the whole score tensor would not fit): dq of each
+    block, dk and dv summed over the blocks."""
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i in range(0, q.shape[1], rows):
+        sl = slice(i, i + rows)
+        a, b, c = A.flash_bwd_plain(q[:, sl].float(), kf, vf,
+                                    out[:, sl].float(), g[:, sl].float(),
+                                    lse[:, :, sl], sm_scale=sm_scale)
+        dq[:, sl] = a
+        dk += b
+        dv += c
+    return dq, dk, dv
+
+
+def _bwd_errs(got, ref):
+    """(max|err| over dq, dk, dv; whether each output is finite and within
+    BWD_TOL of its own max|ref|; the per-output errors and tolerances)."""
+    ok, rows = True, []
+    for x, r in zip(got, ref):
+        err = (x.float() - r.float()).abs().max().item()
+        tol = BWD_TOL * r.float().abs().max().item()
+        ok = ok and bool(torch.isfinite(x.float()).all()) and err <= tol
+        rows.append(f"{err:.3e}/{tol:.3e}")
+    return max(float(r.split("/")[0]) for r in rows), ok, rows
+
+
+def sdpa_bwd_ms(q, k, v, g, reps: int, attn_mask=None):
+    """Backward time of torch's scaled_dot_product_attention on the same
+    tensors, a yardstick only (the port never calls it): forward plus
+    backward minus forward, for the fastest backend that takes the inputs,
+    and that backend's name."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    kw = {} if attn_mask is None else {"attn_mask": attn_mask}
+
+    def fwd():
+        return sdpa(qt, kt, vt, **kw)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), gt)
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fwd_bwd()
+                torch.cuda.synchronize()
+                times[backend.name] = (cuda_time_ms(fwd_bwd, reps)
+                                       - cuda_time_ms(fwd, reps))
+        except RuntimeError:   # this backend does not take the inputs
+            continue
+    log("sdpa-bwd", **{k: f"{v:.4f}" for k, v in times.items()})
+    best = min(times, key=times.get)
+    return times[best], best
+
+
+def _check_bwd_case(A, label, route, q, k, v, g, single_pass=True,
+                    chunked=False, **kw):
+    """flash_bwd against flash_bwd_plain on the forward's own output and
+    LSE; returns (max|err|, o, lse, reference, plain ms)."""
+    sm_scale = q.shape[-1] ** -0.5
+    out, lse = A.flash_fwd(q, k, v, sm_scale=sm_scale, emit_lse=True, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if chunked:
+        ref = _bwd_plain_chunked(A, q, k, v, out, g, lse, sm_scale)
+    else:
+        ref = A.flash_bwd_plain(q.float(), k.float(), v.float(), out.float(),
+                                g.float(), lse, sm_scale=sm_scale, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    before = dict(A.flash_bwd.launches)
+    got = A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm_scale,
+                      single_pass=single_pass, **kw)
+    torch.cuda.synchronize()
+    err, ok, rows = _bwd_errs(got, ref)
+    ok = ok and A.flash_bwd.launches == dict(before,
+                                             **{route: before[route] + 1})
+    b, sq, h, d = q.shape
+    log(route, case=label, shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}",
+        causal=kw.get("causal", False), single_pass=single_pass,
+        dq=rows[0], dk=rows[1], dv=rows[2], ok=ok)
+    if not ok:
+        raise AssertionError(f"{route} disagrees with the plain backward "
+                             f"({label})")
+    return err, out, lse, ref, plain_ms, got
+
+
+def check_bwd(A) -> dict:
+    """K7, K8 (and K9, K10 through single_pass=False) against the plain
+    backward at the shapes of both training runs and at ragged, causal and
+    masked shapes; gradients through the custom VJPs against autograd of
+    the plain math.  Timed beside the bound, the plain version and SDPA's
+    backward."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rec = {}
+
+    # K7: CogVideoX-2B training, B=1, S=17776, H=30, d=64; the LSE from K1
+    # under the fixed max M=0 (the flow's mode) and online
+    b, s, h = SHAPE_2B["b"], SHAPE_2B["s"], SHAPE_2B["h"]
+    q, k, v = _qkv(b, s, s, h, gen)
+    g = _rand((b, s, h, 64), gen)
+    out, lse = A.flash_fwd_d64(q, k, v, sm_scale=0.125, static_max=0.0,
+                               emit_lse=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = _bwd_plain_chunked(A, q, k, v, out, g, lse, 0.125)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for mode in ("static_max=0", "online"):
+        if mode == "online":
+            out, lse = A.flash_fwd_d64(q, k, v, sm_scale=0.125,
+                                       emit_lse=True)
+        for route, single_pass in (("K7", True), ("K10", False)):
+            before = dict(A.flash_bwd.launches)
+            got = A.flash_bwd(q, k, v, out, g, lse, sm_scale=0.125,
+                              single_pass=single_pass)
+            torch.cuda.synchronize()
+            err, ok, rows = _bwd_errs(got, ref)
+            ok = ok and A.flash_bwd.launches == dict(
+                before, **{route: before[route] + 1})
+            log(route, forward=f"K1 {mode}", shape=f"B{b}xS{s}xH{h}xd64",
+                dq=rows[0], dk=rows[1], dv=rows[2], ok=ok)
+            if not ok:
+                raise AssertionError(f"{route} disagrees with the plain "
+                                     f"backward at the 2B shape ({mode})")
+            rec.setdefault(route, {"max_abs_err": err})
+            del got
+    flops = 10.0 * b * h * s * s * 64
+    io = 8 * q.numel() * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by = _bound(flops, io)
+    library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=3)
+    for route, single_pass in (("K7", True), ("K10", False)):
+        ms = cuda_time_ms(lambda: A.flash_bwd(
+            q, k, v, out, g, lse, sm_scale=0.125, single_pass=single_pass),
+            reps=3)
+        rec[route].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=library_ms)
+        log(route, case="cogvideox-2b timing", ms=f"{ms:.3f}",
+            bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+            plain_ms=f"{plain_ms:.1f}", tflops=f"{flops / ms / 1e9:.1f}",
+            library=f"sdpa backward[{backend}]",
+            library_ms=f"{library_ms:.3f}")
+    del q, k, v, g, out, lse, ref
+
+    # K8 (and K9), K5: STDiT-XL/2 spatial self-attention, batch 1 × 16
+    # frames: B=16, S=256, H=16, d=72
+    b, s, h, d = 16, 256, 16, 72
+    q, k, v, g = (_rand((b, s, h, d), gen) for _ in range(4))
+    err, out, lse, ref, plain_ms, _ = _check_bwd_case(
+        A, "stdit-xl2 spatial", "K8", q, k, v, g)
+    err9 = _check_bwd_case(A, "stdit-xl2 spatial", "K9", q, k, v, g,
+                           single_pass=False)[0]
+    io = 8 * q.numel() * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by = _bound(10.0 * b * h * s * s * d, io)
+    library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=20)
+    for route, single_pass, e in (("K8", True, err), ("K9", False, err9)):
+        ms = cuda_time_ms(lambda: A.flash_bwd(
+            q, k, v, out, g, lse, sm_scale=d ** -0.5,
+            single_pass=single_pass), reps=50)
+        rec[route] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+        log(route, case="stdit-xl2 spatial timing", ms=f"{ms:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            plain_ms=f"{plain_ms:.3f}", library=f"sdpa backward[{backend}]",
+            library_ms=f"{library_ms:.4f}")
+    # K5: the training forward (flash_fwd with the LSE) at the same shape
+    before = A.flash_fwd.launches["K5"]
+    o5, lse5 = A.flash_fwd(q, k, v, sm_scale=d ** -0.5, emit_lse=True,
+                           route="K5")
+    r5, rl5 = A.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5, emit_lse=True)
+    torch.cuda.synchronize()
+    err5 = (o5.float() - r5.float()).abs().max().item()
+    lse_err5 = (lse5 - rl5).abs().max().item()
+    ok = (err5 <= FWD_TOL * r5.float().abs().max().item()
+          and lse_err5 <= LSE_TOL
+          and A.flash_fwd.launches["K5"] == before + 1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    bound_ms, bound_by = _bound(
+        4.0 * b * h * s * s * d,
+        4 * q.numel() * q.element_size() + lse5.numel() * 4)
+    library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=50)
+    k5 = dict(
+        ms=cuda_time_ms(lambda: A.flash_fwd(q, k, v, sm_scale=d ** -0.5,
+                                            emit_lse=True, route="K5"),
+                        reps=50),
+        plain_ms=cuda_time_ms(lambda: A.flash_fwd_plain(
+            q, k, v, sm_scale=d ** -0.5, emit_lse=True), reps=5),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    rec["K5"] = dict(max_abs_err=err5, **k5)
+    log("K5", case="stdit-xl2 spatial, emit_lse", max_abs_err=f"{err5:.3e}",
+        lse_err=f"{lse_err5:.3e}", ms=f"{k5['ms']:.4f}",
+        bound_ms=f"{k5['bound_ms']:.4f}", bound_by=k5["bound_by"],
+        plain_ms=f"{k5['plain_ms']:.3f}",
+        library=f"scaled_dot_product_attention[{backend}]",
+        library_ms=f"{k5['library_ms']:.4f}", ok=ok)
+    if not ok:
+        raise AssertionError("K5 (flash_fwd with the LSE) disagrees with "
+                             "its plain version")
+    del q, k, v, g, out, lse, ref, qt, kt, vt
+
+    # K8 with the key mask: STDiT-XL/2 cross-attention, 4096 queries over
+    # the 120-token caption; B=1 with 13 valid keys (timed), then B=2 with a
+    # strided row and a row with no valid key (zeros, no NaN)
+    sq, sk, h, d = 4096, 120, 16, 72
+    q, g = (_rand((2, sq, h, d), gen) for _ in range(2))
+    k, v = (_rand((2, sk, h, d), gen) for _ in range(2))
+    m = torch.zeros((2, sk), dtype=torch.bool, device="cuda")
+    m[0, ::9] = True
+    dq, dk, dv = _check_bwd_case(A, "stdit-xl2 cross, empty row", "K8",
+                                 q, k, v, g, kv_valid=m)[-1]
+    if dq[1].abs().max().item() != 0 or dk[0, ~m[0]].abs().max().item() \
+            or dv[0, ~m[0]].abs().max().item():
+        raise AssertionError("masked backward: a row with no valid key must "
+                             "give dq = 0, a masked key dk = dv = 0")
+    q1, k1, v1, g1 = (x[:1].contiguous() for x in (q, k, v, g))
+    m1 = torch.zeros((1, sk), dtype=torch.bool, device="cuda")
+    m1[0, :13] = True
+    err, out, lse, _, plain_ms, _ = _check_bwd_case(
+        A, "stdit-xl2 cross, 13 of 120 keys", "K8", q1, k1, v1, g1,
+        kv_valid=m1)
+    io = (4 * q1.numel() + 4 * k1.numel()) * q1.element_size() \
+        + lse.numel() * 4 + m1.numel()
+    bound_ms, bound_by = _bound(10.0 * h * sq * 13 * d, io)
+    ms = cuda_time_ms(lambda: A.flash_bwd(q1, k1, v1, out, g1, lse,
+                                          sm_scale=d ** -0.5, kv_valid=m1),
+                      reps=50)
+    library_ms, backend = sdpa_bwd_ms(q1, k1, v1, g1, reps=20,
+                                      attn_mask=m1[:, None, None, :])
+    log("K8", case="stdit-xl2 cross timing", ms=f"{ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.3f}",
+        library=f"sdpa backward[{backend}](attn_mask)",
+        library_ms=f"{library_ms:.4f}", empty_row_zero=True)
+    rec["K8_cross"] = dict(ms=ms, bound_ms=bound_ms, library_ms=library_ms)
+    del q, k, v, g, q1, k1, v1, g1, out, lse
+
+    # ragged, causal and narrow widths
+    for label, (bb, sq, sk, hh, dd, causal) in {
+            "d64 causal": (2, 333, 333, 2, 64, True),
+            "d128 ragged long": (1, 300, 4322, 2, 128, False),
+            "d32 causal ragged edge": (1, 130, 300, 2, 32, True)}.items():
+        qq, gg = (_rand((bb, sq, hh, dd), gen) for _ in range(2))
+        kk, vv = (_rand((bb, sk, hh, dd), gen) for _ in range(2))
+        _check_bwd_case(A, label, "K8", qq, kk, vv, gg, causal=causal)
+
+    # gradients through the custom VJPs (dot_product_attention under
+    # autograd, and flash_attention_diff with single_pass=False) against
+    # autograd of the plain math in f32
+    for label, (dd, sk, masked, single_pass, route) in {
+            "d64 K1+K7": (64, 512, False, True, "K7"),
+            "d64 K1+K10": (64, 512, False, False, "K10"),
+            "d72 K5+K9": (72, 512, False, False, "K9"),
+            "d72 masked K4+K8": (72, 120, True, True, "K8")}.items():
+        base = [_rand((2, 512, 2, dd), gen)] + \
+            [_rand((2, sk, 2, dd), gen) for _ in range(2)]
+        gg = _rand((2, 512, 2, dd), gen)
+        mask = None
+        if masked:
+            mask = torch.ones((2, sk), dtype=torch.bool, device="cuda")
+            mask[0, 30:] = False
+        x = [t.clone().requires_grad_() for t in base]
+        before = dict(A.flash_bwd.launches)
+        if single_pass:
+            o = A.dot_product_attention(*x, kv_valid=mask)
+        else:
+            o = A.flash_attention_diff(*x, single_pass=False)
+        o.backward(gg)
+        r = [t.float().requires_grad_() for t in base]
+        bias = None if mask is None else \
+            torch.where(mask, 0.0, -1e30)[:, None, None, :]
+        A.reference_attention(*r, bias=bias).backward(gg.float())
+        torch.cuda.synchronize()
+        err, ok, rows = _bwd_errs([t.grad for t in x], [t.grad for t in r])
+        ok = ok and A.flash_bwd.launches == dict(
+            before, **{route: before[route] + 1})
+        log("vjp", case=label, dq=rows[0], dk=rows[1], dv=rows[2], ok=ok)
+        if not ok:
+            raise AssertionError(f"gradients through the custom VJP "
+                                 f"disagree with autograd ({label})")
+    return rec
+
+
+# ---------------------------------------------------------------- phase 12
+def check_f32_forward(A) -> None:
+    """flash_fwd with f32 q, k, v against the f32 plain version at the 2D
+    VAE's mid-attention shape of the narrow Open-Sora check (ch 32: one head
+    of d=128 over 32×32 tokens, 4 frames) and one ragged causal shape."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for label, (b, sq, sk, h, d, causal) in {
+            "vae2d mid-attention, ch 32": (4, 1024, 1024, 1, 128, False),
+            "d72 causal ragged": (2, 333, 333, 2, 72, True)}.items():
+        q = torch.randn((b, sq, h, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda")
+                for _ in range(2))
+        before = A.flash_fwd.launches["K2"]
+        out, lse = A.flash_fwd(q, k, v, sm_scale=d ** -0.5, causal=causal,
+                               emit_lse=True)
+        ref, ref_lse = A.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5,
+                                         causal=causal, emit_lse=True)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = F32_TOL * ref.abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ok = (out.dtype == torch.float32 and err <= tol
+              and lse_err <= F32_TOL
+              and A.flash_fwd.launches["K2"] == before + 1)
+        ms = cuda_time_ms(lambda: A.flash_fwd(q, k, v, sm_scale=d ** -0.5,
+                                              causal=causal), reps=20)
+        log("f32", case=label, shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd{d}",
+            max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+            lse_err=f"{lse_err:.3e}", lse_tol=F32_TOL, ms=f"{ms:.4f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"f32 flash_fwd disagrees with its plain "
+                                 f"version ({label})")
+
+
+# ---------------------------------------------------------------- phases 13-14
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dummy_data(frames: int, height: int, width: int) -> str:
+    return (f"data.dataset={{target: videotuna_tpu.data.DatasetFromCSV, "
+            f"params: {{csv_path: {TOY_CSV}, dummy: true, "
+            f"num_frames: {frames}, resolution: [{height}, {width}]}}}}")
+
+
+def _train_run(A, tag: str, argv, per_step: dict, lora: bool) -> dict:
+    """``TRAIN_STEPS`` steps through the training CLI's trainer: loss,
+    grad-norm and seconds per step, peak memory, launches per step (checked
+    against ``per_step``), the trainable count, the checkpoint; then a
+    ``--resume`` run of ``run_train`` that must restore the last step."""
+    import shutil
+    from videotuna_tpu_torch.cli.train import build_trainer, run_train
+    workdir = argv[argv.index("--workdir") + 1]
+    shutil.rmtree(workdir, ignore_errors=True)
+    trainer, loader, _ = build_trainer(argv)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    n_trainable = trainer.num_trainable(state)
+    ema0 = ({k: v.cpu() for k, v in state.ema_params.items()}
+            if state.ema_params is not None else None)   # off the card
+    p0 = {k: v.clone() for k, v in list(state.params.items())[:8]}
+    zero_counts(A)
+    state = trainer.fit(loader, state)
+    torch.cuda.synchronize()
+    launches = read_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.metrics_history
+    for m in hist:
+        log(tag, step=m["step"], loss=f"{m['loss']:.6f}",
+            grad_norm=f"{m['grad_norm']:.6f}",
+            sec=f"{1.0 / m['steps_per_sec']:.3f}")
+    sec = [1.0 / m["steps_per_sec"] for m in hist[1:]]
+    moved = max((state.params[k] - v).abs().max().item()
+                for k, v in p0.items())
+    ema_moved = (max((v.cpu() - ema0[k]).abs().max().item()
+                     for k, v in state.ema_params.items())
+                 if ema0 is not None else None)
+    got = {k: launches[k] / TRAIN_STEPS for k in per_step}
+    ckpt = os.path.join(workdir, f"step_{TRAIN_STEPS}")
+    files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    log(tag, steps=len(hist), sec_per_step_2_3=",".join(f"{x:.3f}"
+                                                         for x in sec),
+        peak_mem_gb=f"{peak / 1e9:.2f}", trainable=n_trainable,
+        launches_per_step=got, params_moved=f"{moved:.3e}",
+        ema_moved=("none" if ema_moved is None else f"{ema_moved:.3e}"),
+        checkpoint=",".join(files))
+    finite = all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                 for m in hist)
+    if len(hist) != TRAIN_STEPS or not finite:
+        raise AssertionError(f"{tag}: {len(hist)} steps, finite={finite}")
+    if got != per_step:
+        raise AssertionError(f"{tag}: launches per step {got}, expected "
+                             f"{per_step}")
+    if "state.pt" not in files or (lora and "lora.pt" not in files):
+        raise AssertionError(f"{tag}: checkpoint files {files}")
+    if ema_moved is not None and not ema_moved > 0:
+        raise AssertionError(f"{tag}: the EMA did not move")
+    del ema0, p0
+    _step_breakdown(trainer, loader, state, tag)
+    del trainer, loader, state
+    _free()
+    zero_counts(A)
+    resumed = run_train(argv + ["--resume"])
+    step = resumed.step
+    del resumed
+    _free()
+    log(tag, resume=f"restored step {step}", launches=read_counts(A))
+    if step != TRAIN_STEPS or any(read_counts(A).values()):
+        raise AssertionError(f"{tag}: --resume gave step {step}")
+    return dict(launches=launches, sec_per_step=sec, peak_gb=peak / 1e9)
+
+
+def _step_breakdown(trainer, loader, state, tag: str) -> None:
+    """One more step taken apart, host clock around synchronised parts:
+    the host data pipeline, the T5 encode, the VAE encode, the denoiser's
+    forward and backward, and the whole step (the optimizer's update is
+    the difference).  After the checkpoint; its launches are not counted."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    batch, t_data = timed(lambda: next(iter(loader)))
+    batch, t_text = timed(lambda: trainer.prepare_batch(batch))
+    z, t_vae = timed(lambda: trainer.flow.encode_video(batch.pop("video"),
+                                                       gen))
+    batch["latents"] = z
+
+    def fwd_bwd():
+        if trainer.lora is None:
+            trainer._bind(state.params)
+        with trainer.loss_scope():
+            loss, _ = trainer.flow.training_loss(batch, gen)
+            loss.backward()
+        if trainer.lora is None:
+            trainer._module_grads(state.params)
+        else:
+            for p in state.params.values():
+                p.grad = None
+
+    _, t_fb = timed(fwd_bwd)
+    _, t_step = timed(lambda: trainer.compiled_step()(state, batch, gen))
+    log(tag, breakdown_sec=f"data={t_data:.3f},text_encode={t_text:.3f},"
+        f"vae_encode={t_vae:.3f},denoiser_fwd_bwd={t_fb:.3f},"
+        f"optimizer={t_step - t_fb:.3f}",
+        step_without_data_and_encoders=f"{t_step:.3f}")
+
+
+def run_train_cog(A) -> dict:
+    """CogVideoX-2B LoRA (rank 128 on every projection) at full width and
+    depth, remat on, 3 steps on dummy video at 49×480×720 (13 latent
+    frames + 226 text = 17,776 tokens), or 13 frames when the f32 VAE encode
+    of 49 does not fit beside T5-XXL and the 2B weights."""
+    from videotuna_tpu_torch.cli.train import build_trainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    frames, cut = 49, "none"
+    argv = None
+    for frames in (49, 13):
+        lat = (frames - 1) // 4 + 1
+        argv = ["--config", CONFIG_2B_LORA, "--device", "cuda", "--quiet",
+                "--workdir", os.path.join(OUT_DIR, f"train_cog_{frames}"),
+                _dummy_data(frames, 480, 720),
+                "flow.params.denoiser_config.params.remat=true",
+                f"flow.params.denoiser_config.params.video_tokens="
+                f"{lat * 30 * 45}",
+                f"train.max_steps={TRAIN_STEPS}",
+                f"train.ckpt_every={TRAIN_STEPS}", "train.log_every=1"]
+        trainer = build_trainer(argv)[0]
+        try:
+            with torch.no_grad():
+                trainer.flow.encode_video(
+                    torch.zeros((1, frames, 480, 720, 3), device="cuda"),
+                    torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+            log("train-cog", encode_frames=frames,
+                encode_peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                cut=cut)
+            break
+        except torch.cuda.OutOfMemoryError:
+            cut = (f"13 frames: the f32 VAE encode of 49 frames ran out of "
+                   f"memory at {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+                   " GB beside T5-XXL and the 2B weights")
+            log("train-cog", cut=cut.replace(" ", "_"))
+        finally:
+            del trainer
+            _free()
+    tokens = ((frames - 1) // 4 + 1) * 1350 + 226
+    log("train-cog", config="cogvideo2b_lora", frames=frames, height=480,
+        width=720, tokens=tokens, lora_rank=128, remat=True, cut=cut)
+    # forward K1 per layer, K1 again when remat recomputes it, K7 backward
+    per_step = {"K1": 60, "K7": 30, "K2": 0, "K5": 0, "K8": 0}
+    out = _train_run(A, "train-cog", argv, per_step, lora=True)
+    return dict(out, frames=frames, cut=cut)
+
+
+def run_train_stdit(A) -> dict:
+    """Open-Sora v1.0 STDiT-XL/2 full fine-tune at full width and depth
+    (lr 2e-5, warmup 1000, EMA 0.9999, clip 1): 3 steps on dummy video at
+    16×256×256."""
+    argv = ["--config", CONFIG_OS, "--device", "cuda", "--quiet",
+            "--workdir", os.path.join(OUT_DIR, "train_stdit"),
+            _dummy_data(16, 256, 256), f"train.max_steps={TRAIN_STEPS}",
+            f"train.ckpt_every={TRAIN_STEPS}", "train.log_every=1"]
+    torch.cuda.empty_cache()
+    log("train-stdit", config="opensorav10_256x256", frames=16, height=256,
+        width=256, remat=False)
+    # spatial self-attention K5 forward + K8 backward; caption
+    # cross-attention K4 forward + K8 backward with the key mask
+    per_step = {"K5": OS_DEPTH, "K4": OS_DEPTH, "K8": 2 * OS_DEPTH,
+                "K7": 0, "K1": 0}
+    return _train_run(A, "train-stdit", argv, per_step, lora=False)
+
+
+# ---------------------------------------------------------------- phase 15
+def _grads_close(tag, named_gpu, named_cpu):
+    """Each trainable gradient, card against CPU, within TRAIN_GRAD_TOL of
+    its own max|g| plus TRAIN_GRAD_TOL/100 of the largest (gradients that
+    are 0 in exact arithmetic, such as a key projection's bias, are bf16
+    rounding noise on both sides).  Returns the largest err/tol and its
+    gradient's name, and the largest err/max|g| over the gradients whose
+    max is at least 1% of the largest."""
+    gmax = max(g.abs().max().item() for g in named_cpu.values())
+    worst, worst_name, worst_rel = 0.0, "", 0.0
+    for name, gc_ in named_cpu.items():
+        gg = named_gpu[name].float().cpu()
+        err = (gg - gc_).abs().max().item()
+        own = gc_.abs().max().item()
+        tol = TRAIN_GRAD_TOL * (own + gmax / 100)
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"{tag}: gradient of {name} differs by "
+                                 f"{err:.3e} > {tol:.3e}")
+        if err / tol > worst:
+            worst, worst_name = err / tol, name
+        if own >= gmax / 100:
+            worst_rel = max(worst_rel, err / own)
+    return worst, worst_name, worst_rel
+
+
+def check_train_reference(A) -> None:
+    """One training step of each flow at narrow width, on the card and on
+    the CPU, with the same weights, batch, t, noise and LoRA tree, TF32 off:
+    CogVideoX (2 layers, 2 heads of d=64, LoRA rank 8, 128 video + 226 text
+    tokens: K1 and K7) and STDiT (2 layers, 2 heads of d=72, 4×32×32
+    latents, 256 spatial tokens and a 13-of-120 caption: K5, K4, K8).  Loss
+    within TRAIN_LOSS_TOL relative, gradients within TRAIN_GRAD_TOL (bf16
+    models on both sides, summed in other orders)."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.training.lora import (flatten_tree, init_lora,
+                                                   lora_scope,
+                                                   unflatten_tree)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    den = "flow.params.denoiser_config.params"
+    t5 = "flow.params.cond_stage_config.params"
+    narrow_t5 = [f"{t5}.dim=64", f"{t5}.heads=2", f"{t5}.head_dim=32",
+                 f"{t5}.ff_dim=128", f"{t5}.num_layers=1",
+                 "flow.params.first_stage_config.params.ch=32",
+                 "flow.params.first_stage_config.params.num_res_blocks=1"]
+    cases = {
+        "cogvideox": (CONFIG_2B_LORA,
+                      [f"{den}.dim=128", f"{den}.heads=2",
+                       f"{den}.num_layers=2", f"{den}.text_dim=64",
+                       f"{den}.video_tokens=128"] + narrow_t5,
+                      (1, 2, 16, 16, 16), (1, 226, 64), None,
+                      {"K1": 2, "K7": 2}),
+        "stdit": (CONFIG_OS,
+                  [f"{den}.hidden_size=144", f"{den}.num_heads=2",
+                   f"{den}.depth=2", f"{den}.caption_channels=64"]
+                  + narrow_t5,
+                  (1, 4, 32, 32, 4), (1, 120, 64), 13,
+                  {"K5": 2, "K4": 2, "K8": 4}),
+    }
+    for name, (config, overrides, zshape, yshape, n_valid, expect) \
+            in cases.items():
+        cfg = load_configs([config], overrides)
+        cpu = instantiate(cfg["flow"], device="cpu")
+        gpu = instantiate(cfg["flow"], device="cuda")
+        cpu.init_params(seed=1)
+        for comp, module in cpu.components().items():
+            gpu.components()[comp].load_state_dict(module.state_dict())
+        gen = torch.Generator().manual_seed(2)
+        z = torch.randn(zshape, generator=gen)
+        noise = torch.randn(zshape, generator=gen)
+        y = torch.randn(yshape, generator=gen)
+        t = torch.tensor([417])
+        batch = {"latents": z, "text_states": y}
+        if n_valid is not None:
+            mask = torch.zeros(yshape[:2], dtype=torch.bool)
+            mask[:, :n_valid] = True
+            batch["text_mask"] = mask
+        tree = None
+        if name == "cogvideox":    # LoRA: a from the init, b small random
+            tree = init_lora(cpu.denoiser, rank=8,
+                             generator=torch.Generator().manual_seed(3))
+            for path, leaf in flatten_tree(tree).items():
+                if path.endswith("/b"):
+                    with torch.no_grad():
+                        leaf.normal_(0.0, 0.01, generator=gen)
+        losses, grads = [], []
+        for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            flow_tree = None
+            if tree is not None:
+                flow_tree = unflatten_tree(
+                    {k: v.detach().to(dev).requires_grad_()
+                     for k, v in flatten_tree(tree).items()})
+                params = flatten_tree(flow_tree)
+            else:
+                flow.denoiser.requires_grad_(True)
+                params = dict(flow.denoiser.named_parameters())
+            zero_counts(A)
+            with contextlib.ExitStack() as stack:
+                if flow_tree is not None:
+                    stack.enter_context(lora_scope(flow.denoiser, flow_tree))
+                stack.enter_context(flow._attn_scope())
+                loss, _ = flow.training_loss(
+                    {k: v.to(dev) for k, v in batch.items()},
+                    t=t.to(dev), noise=noise.to(dev))
+                loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in read_counts(A).items() if v}
+            losses.append(loss.item())
+            grads.append({k: p.grad.float().cpu() for k, p in params.items()
+                          if p.grad is not None})
+        rel = abs(losses[1] - losses[0]) / abs(losses[0])
+        worst, worst_name, worst_rel = _grads_close(
+            f"train-reference {name}", grads[1], grads[0])
+        ok = (math.isfinite(rel) and rel <= TRAIN_LOSS_TOL
+              and launches == expect and set(grads[0]) == set(grads[1]))
+        log("train-reference", flow=name, loss_cpu=f"{losses[0]:.6f}",
+            loss_card=f"{losses[1]:.6f}", loss_rel_err=f"{rel:.3e}",
+            loss_tol=TRAIN_LOSS_TOL, grads=len(grads[0]),
+            worst_grad_err_over_tol=f"{worst:.3f}", worst_grad=worst_name,
+            grad_rel_err=f"{worst_rel:.3e}", grad_tol=TRAIN_GRAD_TOL,
+            card_launches=launches, ok=ok)
+        if not ok:
+            raise AssertionError(f"train-reference {name}: card and CPU "
+                                 "disagree")
+        del cpu, gpu
+        _free()
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
+    os.chdir(ROOT)   # configs name their defaults relative to the root
     import videotuna_tpu_torch
     if not os.path.abspath(videotuna_tpu_torch.__file__).startswith(ROOT):
         raise SystemExit("chip_smoke: videotuna_tpu_torch is not this "
@@ -718,32 +1422,58 @@ def main() -> None:
     k6 = k1.pop("k6")
     k2 = check_k2(A)
     k4 = check_k4(A)
-    cog_launches = run_e2e(A)
+    bwd = check_bwd(A)
+    check_f32_forward(A)
+    runs = [run_e2e(A)]
     check_small_reference()
-    os_launches = run_e2e_opensora(A)
-    # each kernel's launches over both main-path runs
-    launches = {k: cog_launches[k] + os_launches[k] for k in cog_launches}
+    runs.append(run_e2e_opensora(A))
     check_small_reference_opensora()
     profile_opensora_call()
+    cog = run_train_cog(A)
+    stdit = run_train_stdit(A)
+    runs += [cog["launches"], stdit["launches"]]
+    check_train_reference(A)
+    # each kernel's launches over the four main-path runs
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     statuses = {f"K{i}": "to port" for i in range(1, 11)}
-    statuses.update({"K1": "ported, checked", "K2": "ported, checked",
-                     "K4": "ported, checked",
-                     "K6": "ported (mapped onto K1's kernel), checked"})
+    statuses.update({
+        "K1": "ported, checked", "K2": "ported, checked",
+        "K4": "ported, checked",
+        "K5": "ported (mapped onto flash_fwd with the LSE), checked",
+        "K6": "ported (mapped onto K1's kernel), checked",
+        "K7": "ported, checked", "K8": "ported, checked",
+        "K9": "ported (mapped onto flash_bwd), checked",
+        "K10": "ported (mapped onto flash_bwd), checked"})
     log("kernels", **statuses)
     d64 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_d64.cu"
     fwd = "videotuna_tpu_torch/kernels/csrc/flash_fwd.cu"
+    bwd_src = "videotuna_tpu_torch/kernels/csrc/flash_bwd.cu"
     tpu = "videotuna_tpu/kernels/attention.py"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def entry(name, source, replaces, kernel, rec):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": f"{tpu}:{replaces}",
+                "launches": launches[kernel],
+                **{k: rec[k] for k in keys}}
+
     print(json.dumps({"kernels": [
-        {"name": "flash_fwd_d64 (K1)", "route": "cuda", "source": d64,
-         "replaces": f"{tpu}:268", "launches": launches["K1"], **k1},
-        {"name": "flash_fwd (K2)", "route": "cuda", "source": fwd,
-         "replaces": f"{tpu}:78", "launches": launches["K2"], **k2},
-        {"name": "flash_fwd kv_valid (K4)", "route": "cuda", "source": fwd,
-         "replaces": f"{tpu}:970", "launches": launches["K4"], **k4},
-        {"name": "flash_fwd_d64 online, pack2=True (K6)", "route": "cuda",
-         "source": d64, "replaces": f"{tpu}:163", "launches": launches["K6"],
-         **k6},
+        entry("flash_fwd_d64 (K1)", d64, 268, "K1", k1),
+        entry("flash_fwd (K2)", fwd, 78, "K2", k2),
+        entry("flash_fwd kv_valid (K4)", fwd, 970, "K4", k4),
+        entry("flash_fwd emit_lse, training forward (K5)", fwd, 867, "K5",
+              bwd["K5"]),
+        entry("flash_fwd_d64 online, pack2=True (K6)", d64, 163, "K6", k6),
+        entry("flash_bwd d=64 single pass (K7)", bwd_src, 1424, "K7",
+              bwd["K7"]),
+        entry("flash_bwd generic and kv_valid (K8)", bwd_src, 1148, "K8",
+              bwd["K8"]),
+        entry("flash_bwd single_pass=False, generic (K9)", bwd_src, 1107,
+              "K9", bwd["K9"]),
+        entry("flash_bwd single_pass=False, d=64 (K10)", bwd_src, 1260,
+              "K10", bwd["K10"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ K4 against the Pallas kernels (interpret mode), their LSEs, and
 seeded numpy generator and go to both packages; comparisons are in f32 with
 atol = 1e-5·max|ref| (the two sides sum in different orders)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -247,3 +248,111 @@ def test_k6_maps_onto_k1_online():
     out = P.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                             torch.from_numpy(v), pack2=True)
     _close(out, ref)
+
+
+# ---------------------------------------------------------------- backward
+def _jax_bwd(q, k, v, g, causal):
+    """JAX's fused backward in interpret mode on its own forward's output
+    and LSE → (out, lse (B, H, Sq), dq, dk, dv)."""
+    b, sq, h, _ = q.shape
+    old = A._FA_INTERPRET
+    A._FA_INTERPRET = True
+    try:
+        out, res = A._fa_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal, None)
+        grads = A._fa_bwd(causal, None, None, True, True, res,
+                          jnp.asarray(g))
+    finally:
+        A._FA_INTERPRET = old
+    lse = np.asarray(res[4]).reshape(b, h, -1)[..., :sq]
+    return (np.asarray(out), lse) + tuple(np.asarray(x) for x in grads)
+
+
+@pytest.mark.parametrize("d,causal", [(64, False), (72, False), (64, True)],
+                         ids=["k7_d64", "k8_d72", "k8_d64_causal"])
+def test_bwd_plain_matches_pallas(d, causal):
+    """``flash_bwd_plain`` against the Pallas fused backward (K7 for d=64
+    non-causal, K8 otherwise) on the same q, k, v, o, dO and LSE."""
+    q, k, v = _qkv(9, 1, 256, 2, d)
+    g = np.random.default_rng(10).standard_normal(q.shape, dtype=np.float32)
+    out, lse, *ref = _jax_bwd(q, k, v, g, causal)
+    got = P.flash_bwd_plain(*(torch.tensor(x) for x in (q, k, v, out, g,
+                                                           lse)),
+                            sm_scale=d ** -0.5, causal=causal)
+    for x, r in zip(got, ref):
+        _close(x, r)
+
+
+def test_masked_vjp_matches_jax():
+    """Gradients through the masked route against the JAX package's
+    ``_flash_diff_masked`` (with its outer k·mask multiply), a batch row
+    with no valid key included: its dq is 0 and so are masked keys'
+    dk, dv."""
+    b, sq, sk, h, d = 2, 256, 120, 2, 72
+    q, k, v = _qkv(11, b, sq, h, d, sk=sk)
+    g = np.random.default_rng(12).standard_normal(q.shape, dtype=np.float32)
+    kv_valid = np.ones((b, sk), bool)
+    kv_valid[0, 13:] = False
+    kv_valid[1] = False
+
+    def loss(q, k, v):
+        return jnp.sum(A.dot_product_attention(
+            q, k, v, kv_valid=jnp.asarray(kv_valid)) * g)
+
+    old = A._FA_INTERPRET
+    A._FA_INTERPRET = True
+    try:
+        ref = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    finally:
+        A._FA_INTERPRET = old
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = P.dot_product_attention(qt, kt, vt,
+                                  kv_valid=torch.from_numpy(kv_valid))
+    (out * torch.from_numpy(g)).sum().backward()
+    for x, r in zip((qt, kt, vt), ref):
+        _close(x.grad, r)
+    assert qt.grad[1].abs().max() == 0
+    assert kt.grad[0, 13:].abs().max() == 0 == vt.grad[0, 13:].abs().max()
+
+
+@pytest.mark.parametrize("case", ["k1", "k5", "k5_causal", "masked"])
+def test_functions_match_autograd_of_reference(case):
+    """The custom VJPs (forward with LSE, plain backward on the CPU) against
+    torch.autograd through ``reference_attention``."""
+    d = 64 if case in ("k1", "k5_causal") else 72
+    sk = 120 if case == "masked" else 256
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(13, 2, 256, 2, d, sk=sk))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(14))
+    causal = case == "k5_causal"
+    kv_valid = bias = None
+    if case == "masked":
+        kv_valid = torch.ones((2, sk), dtype=torch.bool)
+        kv_valid[0, 40:] = False
+        bias = torch.where(kv_valid, 0.0, -1e30)[:, None, None, :]
+    out = P.dot_product_attention(q, k, v, causal=causal, kv_valid=kv_valid)
+    out.backward(g)
+    got = [x.grad.clone() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    P.reference_attention(q, k, v, bias=bias, causal=causal).backward(g)
+    for x, r in zip(got, (q.grad, k.grad, v.grad)):
+        _close(x, r)
+
+
+def test_bwd_routes_and_launch_counts_on_cpu():
+    """The route a backward stands for, and no launch counted on the CPU."""
+    assert P._bwd_route(30, 64, False, None, True) == "K7"
+    assert P._bwd_route(30, 64, False, None, False) == "K10"
+    assert P._bwd_route(16, 72, False, None, True) == "K8"
+    assert P._bwd_route(16, 72, False, None, False) == "K9"
+    assert P._bwd_route(2, 64, True, None, True) == "K8"
+    assert P._bwd_route(2, 64, False, torch.ones(1, 4), True) == "K8"
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(15, 1, 128, 2, 64))
+    before = (dict(P.flash_bwd.launches), dict(P.flash_fwd.launches),
+              dict(P.flash_fwd_d64.launches))
+    P.flash_attention_diff(q, k, v, single_pass=False).sum().backward()
+    assert (P.flash_bwd.launches, P.flash_fwd.launches,
+            P.flash_fwd_d64.launches) == before

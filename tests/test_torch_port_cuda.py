@@ -155,3 +155,125 @@ def test_vae2d_attention_takes_k2_in_bf16():
     assert P.flash_fwd.launches["K2"] == before + 1
     # bf16 attention output and projection: 2e-2 of max|ref|
     assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+# ---------------------------------------------------------------- f32 K2
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [
+    (1, 1024, 1024, 1, 128, False),   # the 2D VAE's mid attention at ch 32
+    (2, 200, 333, 2, 72, False),
+    (1, 130, 130, 2, 256, True),
+])
+def test_k2_kernel_takes_f32(b, sq, sk, h, d, causal):
+    """f32 q, k, v: split into bf16 hi + lo, three products each: the f32
+    plain version to 1e-4 of max|o| (about 16 mantissa bits per product)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(sq + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).cuda()
+               for s in (sq, sk, sk))
+    before = P.flash_fwd.launches["K2"]
+    out, lse = P.flash_fwd(q, k, v, sm_scale=d ** -0.5, causal=causal,
+                           emit_lse=True)
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5,
+                                     causal=causal, emit_lse=True)
+    torch.cuda.synchronize()
+    assert P.flash_fwd.launches["K2"] == before + 1
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (lse - ref_lse).abs().max() <= 1e-4
+
+
+# ---------------------------------------------------------------- backward
+def _bwd_inputs(b, sq, sk, h, d, seed, causal=False, kv_valid=None):
+    """bf16 q, k, v, dO and the forward's output and LSE from the card."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen).cuda().bfloat16()
+                  for shape in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d),
+                                (b, sq, h, d)))
+    out, lse = P.flash_fwd(q, k, v, sm_scale=d ** -0.5, causal=causal,
+                           kv_valid=kv_valid, emit_lse=True)
+    return q, k, v, out, g, lse
+
+
+# (b, sq, sk, h, d, causal, masked, single_pass, route)
+_BWD_CUDA = [
+    (1, 256, 256, 2, 64, False, False, True, "K7"),
+    (1, 300, 4322, 2, 64, False, False, True, "K7"),
+    (2, 256, 256, 2, 72, False, False, True, "K8"),
+    (2, 333, 333, 2, 64, True, False, True, "K8"),
+    (1, 300, 4322, 2, 128, False, False, True, "K8"),
+    (1, 130, 300, 2, 32, True, False, True, "K8"),
+    (2, 512, 120, 2, 72, False, True, True, "K8"),
+    (1, 256, 256, 2, 64, False, False, False, "K10"),
+    (2, 256, 256, 2, 72, False, False, False, "K9"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,masked,single_pass,route",
+                         _BWD_CUDA)
+def test_flash_bwd_kernel_matches_plain(b, sq, sk, h, d, causal, masked,
+                                        single_pass, route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    kv_valid = None
+    if masked:   # row 0 keeps 13 keys, row 1 none: dq = 0 there
+        kv_valid = torch.zeros((b, sk), dtype=torch.bool, device="cuda")
+        kv_valid[0, :13] = True
+    q, k, v, out, g, lse = _bwd_inputs(b, sq, sk, h, d, seed=sq + d,
+                                       causal=causal, kv_valid=kv_valid)
+    before = dict(P.flash_bwd.launches)
+    got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=d ** -0.5,
+                      causal=causal, kv_valid=kv_valid,
+                      single_pass=single_pass)
+    ref = P.flash_bwd_plain(q, k, v, out, g, lse, sm_scale=d ** -0.5,
+                            causal=causal, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert P.flash_bwd.launches == dict(before, **{route: before[route] + 1})
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.bfloat16
+        assert torch.isfinite(x.float()).all()
+        # p and ds are bf16 operands of the products, gradients bf16:
+        # 2e-2 of max|grad|
+        assert (x.float() - r.float()).abs().max() \
+            <= 2e-2 * r.float().abs().max()
+    if masked:
+        dq, dk, dv = got
+        assert dq[1].abs().max() == 0          # no valid key
+        assert dk[0, 13:].abs().max() == 0 and dv[0, 13:].abs().max() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,masked", [(64, False), (72, False), (72, True)])
+def test_grads_reach_q_k_v_on_cuda(d, masked):
+    """A loss through ``dot_product_attention`` on CUDA tensors gives q, k
+    and v their gradients, computed by flash_bwd: the autograd of the plain
+    math on the same bf16 values, in f32, to 2e-2 of max|grad|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(d)
+    b, s, sk, h = 2, 256, (120 if masked else 256), 2
+    base = [torch.randn(shape, generator=gen).bfloat16()
+            for shape in ((b, s, h, d), (b, sk, h, d), (b, sk, h, d))]
+    g = torch.randn((b, s, h, d), generator=gen)
+    kv_valid = None
+    if masked:
+        kv_valid = torch.ones((b, sk), dtype=torch.bool)
+        kv_valid[0, 30:] = False
+    q, k, v = (x.cuda().requires_grad_() for x in base)
+    before = sum(P.flash_bwd.launches.values())
+    out = P.dot_product_attention(
+        q, k, v, kv_valid=None if kv_valid is None else kv_valid.cuda())
+    out.backward(g.cuda().bfloat16())
+    torch.cuda.synchronize()
+    assert sum(P.flash_bwd.launches.values()) == before + 1
+    qr, kr, vr = (x.float().cuda().requires_grad_() for x in base)
+    bias = None if kv_valid is None else \
+        torch.where(kv_valid.cuda(), 0.0, -1e30)[:, None, None, :]
+    P.reference_attention(qr, kr, vr, bias=bias).backward(
+        g.cuda().bfloat16().float())
+    for x, r in ((q, qr), (k, kr), (v, vr)):
+        assert x.grad is not None
+        assert (x.grad.float() - r.grad).abs().max() \
+            <= 2e-2 * r.grad.abs().max()

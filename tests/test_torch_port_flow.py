@@ -142,13 +142,15 @@ def test_run_inference_needs_cuda_unless_cpu_is_asked_for(tmp_path):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--lora", "x"], "LoRA"),
+    (["--lora", "{tmp}/step_4"], "LoRA"),     # a JAX (orbax) LoRA dir
     (["inference.quantize=int8"], "int8"),
     (["inference.mesh.dp=2"], "parallelism"),
     (["--ckpt", "x"], "checkpoint"),
 ])
 def test_unported_inference_options_raise(argv, what, tmp_path):
     from videotuna_tpu_torch.cli.inference import run_inference
+    (tmp_path / "step_4" / "lora").mkdir(parents=True)
+    argv = [a.format(tmp=tmp_path) for a in argv]
     with pytest.raises(NotImplementedError, match=what):
         run_inference(["--config", TINY, "--device", "cpu", "--quiet",
                        "--savedir", str(tmp_path), *argv])
@@ -156,16 +158,27 @@ def test_unported_inference_options_raise(argv, what, tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax, flax nor the JAX package: both tiny
-    flows (CogVideoX and Open-Sora) run with them blocked."""
+    flows (CogVideoX and Open-Sora) sample and train (two steps, one of
+    them with LoRA) with them blocked, and every module of the port
+    imports."""
     runs = [(TINY, tmp_path / "cogvideox"), (TINY_T2V, tmp_path / "t2v")]
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'videotuna_tpu'):\n"
         "    sys.modules[m] = None\n"
+        "import videotuna_tpu_torch\n"
+        "for info in pkgutil.walk_packages(videotuna_tpu_torch.__path__, "
+        "'videotuna_tpu_torch.'):\n"
+        "    importlib.import_module(info.name)\n"
         "from videotuna_tpu_torch.cli.inference import run_inference\n"
+        "from videotuna_tpu_torch.cli.train import run_train\n"
         + "".join(f"run_inference(['--config', {cfg!r}, '--device', 'cpu', "
                   f"'--quiet', '--savedir', {str(out)!r}])\n"
-                  for cfg, out in runs)
+                  f"run_train(['--config', {cfg!r}, '--device', 'cpu', "
+                  f"'--quiet', '--workdir', {str(out) + '_train'!r}, "
+                  f"'--max_steps', '2'{extra}])\n"
+                  for (cfg, out), extra in zip(runs, [", 'train.lora.rank=2'",
+                                                      ""]))
         + "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'videotuna_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
@@ -175,6 +188,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-2000:]
     for _, out in runs:
         assert os.path.isfile(out / "metric.json")
+        assert os.path.isfile(f"{out}_train/step_2/state.pt")
 
 
 _CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "004_cogvideox",

@@ -233,9 +233,24 @@ def test_spaced_schedule_sampling_matches():
 
 
 def test_iddpm_vb_loss_waits_for_training():
-    sched = piddpm.build_spaced(timesteps=10, section_counts="5")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sched.vb_loss_term(None, None, None, None)
+    """The hybrid loss's vb term, ported with the training slice: against
+    the JAX package's on the respaced chain, eps half frozen."""
+    jsched = jiddpm.build_spaced(timesteps=100, section_counts="10")
+    psched = piddpm.build_spaced(timesteps=100, section_counts="10")
+    rng = np.random.default_rng(11)
+    x0, xt = (rng.standard_normal((2, 3, 4, 4, 4)).astype(np.float32)
+              for _ in range(2))
+    out = rng.standard_normal((2, 3, 4, 4, 8)).astype(np.float32)
+    t = np.array([0, 7], np.int32)
+    ref = jsched.vb_loss_term(jnp.asarray(out), jnp.asarray(x0),
+                              jnp.asarray(xt), jnp.asarray(t))
+    model_out = torch.from_numpy(out).requires_grad_()
+    got = psched.vb_loss_term(model_out, torch.from_numpy(x0),
+                              torch.from_numpy(xt), torch.from_numpy(t))
+    _close(got, ref)
+    got.sum().backward()
+    assert model_out.grad[..., :4].abs().max() == 0    # eps half frozen
+    assert model_out.grad[..., 4:].abs().max() > 0
 
 
 # ---------------------------------------------------------------- flow
@@ -279,8 +294,12 @@ def test_opensora_flow_branches():
     flow = pregistry.instantiate(cfg, device="cpu")
     assert type(flow.scheduler).__name__ == "DDIMSchedule"
     assert flow.scheduler.num_steps == 4
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flow.training_loss({}, None)
+    z = torch.randn((1, 4, 8, 8, 4), generator=torch.Generator()
+                    .manual_seed(0))
+    loss, aux = flow.training_loss(
+        {"latents": z, "text_states": torch.zeros((1, 8, 16))},
+        torch.Generator().manual_seed(1))
+    assert torch.isfinite(loss) and set(aux) == {"loss", "t_mean"}
     fm = dict(cfg, params=dict(cfg["params"], scheduler_config={
         "target": "videotuna_tpu.schedulers.FlowMatchSchedule",
         "params": {"num_steps": 4}}))

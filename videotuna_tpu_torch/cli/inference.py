@@ -11,6 +11,7 @@ Runs on ``cuda`` unless ``--device`` says otherwise.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
@@ -30,8 +31,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt", default=None,
                    help="checkpoint dir (not ported yet)")
     p.add_argument("--lora", default=None, metavar="PATH",
-                   help="LoRA-only checkpoint (not ported yet)")
-    p.add_argument("--lora-alpha", type=float, default=None)
+                   help="LoRA-only checkpoint of the port's trainer (a "
+                        "step_<n> dir or its lora.pt) to merge into the "
+                        "weights")
+    p.add_argument("--lora-alpha", type=float, default=None,
+                   help="merge scale (default: train.lora.alpha or 1.0)")
     p.add_argument("--savedir", default=None)
     p.add_argument("--prompt", default=None)
     p.add_argument("--seed", type=int, default=None)
@@ -41,6 +45,36 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("overrides", nargs="*",
                    help="dotlist overrides key.sub=value")
     return p
+
+
+def merge_lora_checkpoint(flow, path: str, alpha: Optional[float],
+                          config: dict) -> None:
+    """Merge a LoRA-only checkpoint ({component: delta tree}, the trainer's
+    ``lora.pt``) into the flow's weights.  A JAX (orbax) LoRA directory
+    cannot be read: orbax needs JAX."""
+    import torch
+    from videotuna_tpu_torch.training.lora import merge_lora
+    if os.path.isdir(path):
+        if os.path.isdir(os.path.join(path, "lora")) \
+                and not os.path.isfile(os.path.join(path, "lora.pt")):
+            raise NotImplementedError(
+                f"{path} holds an orbax LoRA checkpoint of the JAX package; "
+                "the port reads its own lora.pt (carry a JAX tree across "
+                "with tools/from_jax.load_jax_lora)")
+        path = os.path.join(path, "lora.pt")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"LoRA checkpoint not found: {path}")
+    tree = torch.load(path, map_location=flow.device, weights_only=True)
+    if alpha is None:
+        alpha = float(config.get("train", {}).get("lora", {})
+                      .get("alpha", 1.0))
+    comps = flow.components()
+    merged = [c for c in tree if c in comps]
+    if not merged:
+        raise ValueError(f"LoRA checkpoint {path!r} has no components "
+                         f"matching the flow's ({sorted(comps)})")
+    for c in merged:
+        merge_lora(comps[c], tree[c], alpha)
 
 
 def run_inference(argv: Optional[List[str]] = None) -> dict:
@@ -56,8 +90,6 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
         raise NotImplementedError(
             "checkpoint loading is not ported yet: weights are random from "
             "the seed, or carried across with tools/from_jax.py")
-    if args.lora:
-        raise NotImplementedError("LoRA merging waits for the training slice")
     if str(inf.get("quantize", "")) == "int8":
         raise NotImplementedError(
             "int8 serving waits for the quantization slice")
@@ -77,6 +109,8 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
     print("[videotuna-tpu-torch] no checkpoint given — using random init",
           file=sys.stderr)
     flow.init_params(seed=int(inf.get("seed", 0)))
+    if args.lora:
+        merge_lora_checkpoint(flow, args.lora, args.lora_alpha, config)
     result, metrics = monitor_resources()(flow.inference)(config)
     result["metrics"]["resources"] = metrics
     if not args.quiet:

@@ -32,6 +32,7 @@ _MODULES = (
     "videotuna_tpu_torch.models.opensora.stdit",
     "videotuna_tpu_torch.schedulers",
     "videotuna_tpu_torch.flows",
+    "videotuna_tpu_torch.data.datasets",
 )
 
 

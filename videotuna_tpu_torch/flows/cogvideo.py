@@ -1,21 +1,22 @@
-"""CogVideoXFlow (torch): CogVideoX text-to-video sampling, the counterpart
-of ``videotuna_tpu/flows/cogvideo.py``: T5 → CogVideoX MMDiT with CFG on the
-SNR-shifted zero-terminal-SNR v-prediction schedule (SDE-DPM++(2M) or
-trailing DDIM, optional cosine dynamic guidance) → 3D causal VAE.
+"""CogVideoXFlow (torch): CogVideoX text-to-video sampling and training, the
+counterpart of ``videotuna_tpu/flows/cogvideo.py``: T5 → CogVideoX MMDiT
+with CFG on the SNR-shifted zero-terminal-SNR v-prediction schedule
+(SDE-DPM++(2M) or trailing DDIM, optional cosine dynamic guidance) → 3D
+causal VAE; training is v-prediction with the 1/(1 − ᾱ_t) weight.
 
-The image-to-video path and the training loss wait for later slices.
+The image-to-video path waits for a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from videotuna_tpu_torch.core.registry import register
 from videotuna_tpu_torch.flows.generation import Cond, GenerationFlow
 from videotuna_tpu_torch.schedulers import (DDPMSchedule, build_cogvideox_ddim,
-                                            dynamic_cfg_denoise)
+                                            dynamic_cfg_denoise, extract_into)
 
 
 @register("videotuna_tpu_torch.flows.CogVideoXFlow",
@@ -57,6 +58,31 @@ class CogVideoXFlow(GenerationFlow):
     def denoise_apply(self, x: torch.Tensor, t: torch.Tensor,
                       cond: Cond) -> torch.Tensor:
         return self.denoiser(x, t, cond["y"])
+
+    def training_loss(self, batch: Dict[str, Any],
+                      generator: Optional[torch.Generator] = None, *,
+                      t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      posterior_noise: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """v-prediction MSE weighted per sample by 1/(1 − ᾱ_t), with a
+        sample whose loss is NaN counted as 0.  ``batch``: "video"
+        (B, T, H, W, 3) in [−1, 1] or "latents", and "text_states"."""
+        z = batch.get("latents")
+        if z is None:
+            z = self.encode_video(batch["video"], generator,
+                                  noise=posterior_noise)
+        sched = self.base_schedule
+        t, noise = self._draw_t_noise(z, generator, t, noise)
+        x_t = sched.q_sample(z, t, noise)
+        model_out = self.denoise_apply(x_t, t, {"y": batch["text_states"]})
+        target = sched.get_v(z, noise, t)
+        w = 1.0 / (1.0 - extract_into(sched.alphas_cumprod, t, z.ndim))
+        per = (w * (model_out - target) ** 2).mean(
+            dim=tuple(range(1, z.ndim)))
+        per = torch.where(torch.isnan(per), 0.0, per)
+        loss = per.mean()
+        return loss, {"loss": loss}
 
     @torch.inference_mode()
     def sample(self, cond: Cond, uncond: Optional[Cond], shape,

@@ -30,7 +30,9 @@ from videotuna_tpu_torch.core.registry import instantiate
 from videotuna_tpu_torch.data.video_io import save_video
 from videotuna_tpu_torch.models.layers import init_weights_
 from videotuna_tpu_torch.models.text_encoders import tokenize
+from videotuna_tpu_torch.models.vae2d import DiagonalGaussian
 from videotuna_tpu_torch.schedulers import cfg_denoise
+from videotuna_tpu_torch.schedulers.common import randn
 
 Cond = Dict[str, torch.Tensor]
 
@@ -108,14 +110,46 @@ class GenerationFlow:
             init_weights_(module, keys(f"init_{name}"))
 
     # ------------------------------------------------------------ components
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_text(self, texts: Sequence[str]) -> Cond:
-        """The conditioning dict {"y", "mask"}."""
+        """The conditioning dict {"y", "mask"}.  Under ``no_grad``, not
+        ``inference_mode``: training feeds these states to a denoiser that
+        autograd records, which refuses inference tensors."""
         ids, mask = tokenize(texts, pretrained=self.tokenizer,
                              max_length=self.model_max_length)
         ids = torch.as_tensor(ids, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
         return {"y": self.cond_stage(ids, mask), "mask": mask}
+
+    @torch.no_grad()
+    def encode_video(self, video: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Pixels (B, T, H, W, 3) in [−1, 1] → a scaled latent sample of the
+        frozen VAE's posterior, mean + std·noise.  ``noise`` (the latent's
+        shape) replaces the draw from ``generator``."""
+        moments = self.first_stage.encode(video.to(self.device))
+        post = DiagonalGaussian(moments)
+        if noise is None:
+            return post.sample(generator) * self.scale_factor
+        return (post.mean + post.std * noise.to(post.mean)) \
+            * self.scale_factor
+
+    def _draw_t_noise(self, z: torch.Tensor,
+                      generator: Optional[torch.Generator],
+                      t: Optional[torch.Tensor],
+                      noise: Optional[torch.Tensor]):
+        """Training timesteps (B,) uniform over the base chain and the
+        q_sample noise; given values replace the draws."""
+        if t is None:
+            if generator is None:
+                raise ValueError("drawing t needs a torch.Generator")
+            t = torch.randint(0, self.base_schedule.num_timesteps,
+                              (z.shape[0],), generator=generator,
+                              device=z.device)
+        if noise is None:
+            noise = randn(z.shape, generator, z.device)
+        return t.to(z.device), noise.to(z)
 
     @torch.inference_mode()
     def decode_latents(self, z: torch.Tensor) -> torch.Tensor:
@@ -126,6 +160,17 @@ class GenerationFlow:
     def denoise_apply(self, x: torch.Tensor, t: torch.Tensor,
                       cond: Cond) -> torch.Tensor:
         """Raw denoiser application; subclasses adapt the cond signature."""
+        raise NotImplementedError
+
+    # -------------------------------------------------------------- training
+    def training_loss(self, batch: Dict[str, Any],
+                      generator: Optional[torch.Generator] = None, *,
+                      t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      posterior_noise: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, aux) of one batch.  ``t``, ``noise`` and
+        ``posterior_noise`` replace the draws from ``generator``."""
         raise NotImplementedError
 
     # -------------------------------------------------------------- sampling

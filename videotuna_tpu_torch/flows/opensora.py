@@ -1,20 +1,22 @@
-"""OpenSoraFlow (torch): Open-Sora v1.0 STDiT text-to-video sampling, the
-counterpart of ``videotuna_tpu/flows/opensora.py``: T5 → STDiT with CFG
-under DDIM over the DDPM chain (or IDDPM spaced sampling with learned
-variance) → the frame-wise 2D KL VAE.
+"""OpenSoraFlow (torch): Open-Sora v1.0 STDiT text-to-video sampling and
+training, the counterpart of ``videotuna_tpu/flows/opensora.py``: T5 →
+STDiT with CFG under DDIM over the DDPM chain (or IDDPM spaced sampling with
+learned variance) → the frame-wise 2D KL VAE.  Training is the eps-MSE, plus
+IDDPM's vb term when the model's output keeps both halves.
 
-The Open-Sora 1.2 rectified-flow sampler and the training loss wait for
-later slices.
+The Open-Sora 1.2 rectified-flow sampler and loss wait for a later slice.
 """
 
 from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from videotuna_tpu_torch.core.registry import register
 from videotuna_tpu_torch.flows.generation import Cond, GenerationFlow
 from videotuna_tpu_torch.schedulers import DDIMSchedule, DDPMSchedule
-from videotuna_tpu_torch.schedulers.iddpm import SpacedSchedule
+from videotuna_tpu_torch.schedulers.iddpm import SpacedSchedule, vb_loss_term
 
 
 @register("videotuna_tpu_torch.flows.OpenSoraFlow",
@@ -64,6 +66,42 @@ class OpenSoraFlow(GenerationFlow):
             out = out[..., :c]
         return out
 
-    def training_loss(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the Open-Sora training loss waits for the training slice")
+    def training_loss(self, batch: Dict[str, Any],
+                      generator: Optional[torch.Generator] = None, *,
+                      t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      posterior_noise: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """eps-MSE over q_sample'd VAE latents; when ``denoise_apply`` keeps
+        2·C channels (a ``pred_sigma`` model under IDDPM's
+        ``SpacedSchedule``) IDDPM's hybrid loss adds the vb term × T/1000.
+        A ``pred_sigma`` model under DDIM is handed the eps half only, as
+        in the JAX package, so its loss is the eps-MSE.  NaN samples count
+        as 0.  ``batch``: "video" or "latents", "text_states" and
+        optionally "text_mask"."""
+        z = batch.get("latents")
+        if z is None:
+            z = self.encode_video(batch["video"], generator,
+                                  noise=posterior_noise)
+        sched = self.base_schedule
+        t, noise = self._draw_t_noise(z, generator, t, noise)
+        x_t = sched.q_sample(z, t, noise)
+        model_out = self.denoise_apply(
+            x_t, t, {"y": batch["text_states"],
+                     "mask": batch.get("text_mask")})
+        target = sched.training_target(z, noise, t)
+        c = z.shape[-1]
+        axes = tuple(range(1, z.ndim))
+        aux: Dict[str, torch.Tensor] = {}
+        if model_out.shape[-1] == 2 * c:
+            vb = vb_loss_term(sched, model_out, z, x_t, t) \
+                * (sched.num_timesteps / 1000.0)
+            per = ((model_out[..., :c] - target) ** 2).mean(dim=axes)
+            aux["loss_vb"] = vb.mean()
+            per = per + vb
+        else:
+            per = ((model_out - target) ** 2).mean(dim=axes)
+        per = torch.where(torch.isnan(per), 0.0, per)
+        loss = per.mean()
+        aux.update({"loss": loss, "t_mean": t.float().mean()})
+        return loss, aux

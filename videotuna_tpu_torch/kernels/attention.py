@@ -1,25 +1,34 @@
 """Attention for the port: ``dot_product_attention`` with the JAX package's
 dispatch (``videotuna_tpu/kernels/attention.py:2166-2254``), its
-``flash_attention`` route choice (:689), the plain ``reference_attention``,
-and the wrappers of the Hopper flash kernels.
+``flash_attention`` route choice (:689), the custom VJPs of training
+(``flash_attention_diff`` and ``_flash_diff_masked``, :1918-2074), the plain
+``reference_attention``, and the wrappers of the Hopper flash kernels.
 
 Layout: (batch, seq, heads, head_dim), as in the JAX package.
 
 The JAX package sends an attention call to a Pallas kernel when it has no
 additive bias, head_dim ≤ 256 and at least 128 query tokens; otherwise to the
-math path.  The forward kernels it can reach, and where each is in the port:
+math path.  The kernels it can reach, and where each is in the port:
 
 - K1 (d=64, even heads, non-causal): ``flash_fwd_d64``, CUDA;
 - K6 (``pack2=True``, K1's online softmax in another layout): mapped onto
   K1's kernel;
 - K2 (generic: any d ≤ 256, causal, fixed max) and K4 (``kv_valid``-masked):
-  ``flash_fwd``, one CUDA kernel;
+  ``flash_fwd``, one CUDA kernel, which also takes f32 q, k, v;
+- K5 (the training forward with the LSE): mapped onto ``flash_fwd`` with
+  ``emit_lse``;
+- K7 (d=64 single-pass backward) and K8 (generic and masked single-pass
+  backward), and their two-kernel baselines K10 and K9: ``flash_bwd``, one
+  CUDA source;
 - K3 (d ≤ 128 non-causal fixed max): not ported yet.  On a CUDA tensor it
   raises ``NotImplementedError`` naming K3; on a CPU tensor it runs K2's
   plain version, which computes the same function.
 
-Every wrapper runs its kernel's plain version for a CPU tensor and launches
-the kernel, or raises, for a CUDA tensor.
+Under autograd (``torch.is_grad_enabled()`` and q, k or v requiring grad)
+``dot_product_attention`` takes the custom VJPs: the forward kernel with
+its LSE, and ``flash_bwd`` for the gradients.  Every wrapper runs its
+kernel's plain version for a CPU tensor and launches the kernel, or raises,
+for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 # TPU kernels of videotuna_tpu/kernels/attention.py that the forward dispatch
 # can reach, with what each computes and where the port has it.
@@ -45,8 +55,18 @@ _KERNELS = {
     "K3": "d=128 non-causal fixed-max flash forward (_flash_t128): "
           "not ported",
     "K4": "kv_valid-masked flash forward (_flash_dynpad): csrc/flash_fwd.cu",
+    "K5": "generic flash forward with the LSE (_flash_forward_lse): "
+          "mapped onto csrc/flash_fwd.cu (flash_fwd with emit_lse)",
     "K6": "d=64 natural-layout packed forward (_flash_packed2): "
           "mapped onto csrc/flash_fwd_d64.cu",
+    "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
+          "csrc/flash_bwd.cu",
+    "K8": "single-pass generic and kv_valid-masked flash backward "
+          "(flash_attention_bwd): csrc/flash_bwd.cu",
+    "K9": "two-kernel generic flash backward (flash_attention_bwd, "
+          "single_pass=False): mapped onto csrc/flash_bwd.cu",
+    "K10": "two-kernel d=64 flash backward (_flash_bwd_packed2, "
+           "single_pass=False): mapped onto csrc/flash_bwd.cu",
 }
 
 
@@ -79,13 +99,16 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Shared checks of the CUDA wrappers
 # ---------------------------------------------------------------------------
 
-def _check_layout(name: str, q, k, v) -> None:
-    """What every flash kernel takes: bf16 (B,Sq,H,d) q and (B,Sk,H,d) k, v
-    on one device, read in place with 16-byte cp.async copies."""
+def _check_layout(name: str, q, k, v,
+                  dtypes: Tuple[torch.dtype, ...] = (torch.bfloat16,)
+                  ) -> None:
+    """What every flash kernel takes: (B,Sq,H,d) q and (B,Sk,H,d) k, v of
+    one of ``dtypes`` on one device, read in place with 16-byte copies."""
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"{name} takes bf16 q/k/v on CUDA, got "
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in dtypes):
+        names = "/".join(_DTYPE_NAMES[t] for t in dtypes)
+        raise TypeError(f"{name} takes {names} q/k/v on CUDA, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be (B, S, H, D)")
@@ -98,12 +121,17 @@ def _check_layout(name: str, q, k, v) -> None:
     if sq < 1 or k.shape[1] < 1:
         raise ValueError("empty sequence")
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        # 16-byte cp.async copies: rows contiguous, row starts 16-byte aligned
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+        if not _aligned(t):
             raise ValueError(
                 f"{arg} must have a contiguous head_dim, strides that are "
-                "multiples of 8 elements and a 16-byte aligned start")
+                "multiples of 16 bytes and a 16-byte aligned start")
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte copies: rows contiguous, row starts 16-byte aligned."""
+    per16 = 16 // t.element_size()
+    return (t.stride(-1) == 1 and not any(s % per16 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
 
 
 def _launch(source: str, symbol: str, argtypes, *args) -> None:
@@ -212,6 +240,20 @@ flash_fwd_d64.launches = {"K1": 0, "K6": 0}
 # K2 / K4: generic and kv_valid-masked flash forward
 # ---------------------------------------------------------------------------
 
+def _valid_mask(sq: int, sk: int, causal: bool,
+                kv_valid: Optional[torch.Tensor],
+                device: torch.device) -> Optional[torch.Tensor]:
+    """Bool mask of the (query, key) pairs that count, broadcastable to
+    (B, H, Sq, Sk), or None when every pair does."""
+    valid = None
+    if causal:
+        valid = torch.ones((sq, sk), dtype=torch.bool, device=device).tril()
+    if kv_valid is not None:
+        kv = kv_valid.bool()[:, None, None, :]
+        valid = kv if valid is None else valid & kv
+    return valid
+
+
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: float, causal: bool = False,
                     kv_valid: Optional[torch.Tensor] = None,
@@ -232,13 +274,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
         * (sm_scale * _LOG2E)
-    valid = None
-    if causal:
-        valid = torch.ones((sq, sk), dtype=torch.bool,
-                           device=q.device).tril()
-    if kv_valid is not None:
-        kv = kv_valid.bool()[:, None, None, :]
-        valid = kv if valid is None else valid & kv
+    valid = _valid_mask(sq, sk, causal, kv_valid, q.device)
     if valid is not None:
         s = s.masked_fill(~valid, float("-inf"))
     if static_max is None:
@@ -270,9 +306,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: float, causal: bool = False,
               kv_valid: Optional[torch.Tensor] = None,
               static_max: Optional[float] = None,
-              emit_lse: bool = False
+              emit_lse: bool = False, route: Optional[str] = None
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """K2 and K4: flash attention forward for any head_dim ≤ 256.
+    """K2, K4 and K5: flash attention forward for any head_dim ≤ 256.
 
     q (B, Sq, H, d), k and v (B, Sk, H, d) → o (B, Sq, H, d) in q's dtype,
     and with ``emit_lse`` the natural-log LSE, f32 (B, H, Sq).  Options:
@@ -280,19 +316,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pattern, ``static_max`` (fixed softmax max, log2 domain).
 
     On a CUDA tensor it launches the hand-written kernel
-    ``csrc/flash_fwd.cu`` (bf16, d a multiple of 8; anything else raises)
-    and adds one to ``flash_fwd.launches["K4"]`` when a mask is given, else
-    to ``flash_fwd.launches["K2"]``.  On a CPU tensor it runs
-    ``flash_fwd_plain``.  Replaces the TPU kernels ``_flash_kernel`` /
-    ``flash_attention`` (K2, videotuna_tpu/kernels/attention.py:78, :812)
-    and ``_flash_kernel_dynpad`` / ``_flash_dynpad`` (K4, :970, :1059)."""
+    ``csrc/flash_fwd.cu`` (bf16 or f32, d a multiple of 8; anything else
+    raises) and adds one to ``flash_fwd.launches[route]``: by default "K4"
+    when a mask is given, else "K2"; the training forward passes "K5".  On
+    a CPU tensor it runs ``flash_fwd_plain``.  Replaces the TPU kernels
+    ``_flash_kernel`` / ``flash_attention`` (K2,
+    videotuna_tpu/kernels/attention.py:78, :812), ``_flash_kernel_dynpad``
+    / ``_flash_dynpad`` (K4, :970, :1059) and, by mapping,
+    ``_flash_fwd_lse_kernel`` / ``_flash_forward_lse`` (K5, :867, :933)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, sm_scale=sm_scale, causal=causal,
                                kv_valid=kv_valid, static_max=static_max,
                                emit_lse=emit_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    _check_layout("flash_fwd", q, k, v)
+    route = route or ("K4" if kv_valid is not None else "K2")
+    if route not in flash_fwd.launches:
+        raise ValueError(f"flash_fwd: route must be one of "
+                         f"{sorted(flash_fwd.launches)}, got {route}")
+    _check_layout("flash_fwd", q, k, v, (torch.bfloat16, torch.float32))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if d > 256 or d % 8:
@@ -313,8 +355,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if emit_lse else None)
+    symbol = "flash_fwd_f32" if q.dtype == torch.float32 else "flash_fwd_bf16"
     with torch.cuda.device(q.device):
-        _launch("flash_fwd.cu", "flash_fwd_bf16", _FWD_ARGTYPES,
+        _launch("flash_fwd.cu", symbol, _FWD_ARGTYPES,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
                 mask.data_ptr() if mask is not None else None,
@@ -325,11 +368,135 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 out.stride(0), out.stride(1), out.stride(2),
                 float(sm_scale * _LOG2E), int(causal),
                 int(static_max is not None), float(static_max or 0.0))
-    flash_fwd.launches["K4" if mask is not None else "K2"] += 1
+    flash_fwd.launches[route] += 1
     return (out, lse) if emit_lse else out
 
 
-flash_fwd.launches = {"K2": 0, "K4": 0}
+flash_fwd.launches = {"K2": 0, "K4": 0, "K5": 0}
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8 (and K9 / K10 by mapping): flash backward
+# ---------------------------------------------------------------------------
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                    *, sm_scale: float, causal: bool = False,
+                    kv_valid: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the flash backward, the function
+    ``flash_bwd`` computes.
+
+    In f32: s = (q·k)·sm_scale·log2e, −inf where the key is masked (above
+    the top-left causal diagonal or where ``kv_valid`` is False);
+    p = exp2(s − lse·log2e) with lse (B, H, Sq) clamped at −1e5, so a row
+    with no valid key gets p = 0; δ = rowsum(dO·o); dv = pᵀ dO;
+    ds = p (dO vᵀ − δ); dq = sm_scale·ds k; dk = sm_scale·dsᵀ q.  Outputs
+    in q's, k's and v's dtypes, (B, S, H, D)."""
+    sq, sk = q.shape[1], k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (sm_scale * _LOG2E)
+    valid = _valid_mask(sq, sk, causal, kv_valid, q.device)
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
+    p = torch.exp2(s - (lse.float().clamp_min(-1e5) * _LOG2E)[..., None])
+    delta = (dof * out.float()).sum(dim=-1).transpose(1, 2)   # (B, H, Sq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * sm_scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_route(h: int, d: int, causal: bool,
+               kv_valid: Optional[torch.Tensor], single_pass: bool) -> str:
+    """The TPU backward kernel a call stands for: the packed d=64 kernels
+    (K7, or K10 under ``single_pass=False``) for d=64, even heads,
+    non-causal and unmasked; the generic ones (K8, K9) otherwise."""
+    packed = d == 64 and h % 2 == 0 and not causal and kv_valid is None
+    if single_pass:
+        return "K7" if packed else "K8"
+    return "K10" if packed else "K9"
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 24
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+              sm_scale: float, causal: bool = False,
+              kv_valid: Optional[torch.Tensor] = None,
+              single_pass: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7 and K8: flash attention backward, dq, dk, dv from q, k, v, the
+    forward's output ``out``, its gradient ``dout`` and the natural-log
+    ``lse`` (B, H, Sq, f32) that the forward wrote.
+
+    On a CUDA tensor it launches the hand-written kernels of
+    ``csrc/flash_bwd.cu`` (bf16, d ≤ 128 and a multiple of 8; anything
+    else raises) and adds one to ``flash_bwd.launches[route]``: "K7" for
+    d=64, even heads, non-causal and unmasked, "K8" otherwise, and under
+    ``single_pass=False`` "K10" and "K9" for the same two cases, whose
+    two-kernel TPU baselines compute the same function and are mapped onto
+    the same kernels.  On a CPU tensor it runs ``flash_bwd_plain``.
+    Replaces ``_flash_bwd_packed2`` (K7, videotuna_tpu/kernels/attention.py
+    :1424, :1517; K10 :1260, :1343) and ``flash_attention_bwd`` (K8 :1148,
+    :1725; K9 :1107, :1197)."""
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, dout, lse, sm_scale=sm_scale,
+                               causal=causal, kv_valid=kv_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd: unsupported device {q.device}")
+    _check_layout("flash_bwd", q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d > 128:
+        raise NotImplementedError(
+            f"flash_bwd takes head_dim ≤ 128, got {d}: the TPU kernel K8 "
+            f"({_KERNELS['K8']}) runs d up to 256; the port's backward does "
+            "not yet (see ROADMAP.md)")
+    if d % 8:
+        raise ValueError(f"flash_bwd takes head_dim a multiple of 8, got {d}")
+    if -(-max(sq, sk) // 64) > 65535:
+        raise ValueError("S above 64·65535 exceeds the launch grid")
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError("out and dout must have q's shape and dtype")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {(b, h, sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    out = out if _aligned(out) else out.contiguous()
+    dout = dout if _aligned(dout) else dout.contiguous()
+    lse = lse.contiguous()
+    mask = None
+    if kv_valid is not None:
+        if kv_valid.shape != (b, sk) or kv_valid.device != q.device:
+            raise ValueError(f"kv_valid must be a (B, Sk) = {(b, sk)} mask "
+                             f"on {q.device}")
+        mask = kv_valid.bool().contiguous().view(torch.uint8)
+    route = _bwd_route(h, d, causal, kv_valid, single_pass)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = [x.stride(i) for x in (q, k, v, out, dout, dq, dk, dv)
+               for i in range(3)]
+    with torch.cuda.device(q.device):
+        _launch("flash_bwd.cu", "flash_bwd_bf16", _BWD_ARGTYPES,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                mask.data_ptr() if mask is not None else None,
+                b, h, sq, sk, d, *strides, float(sm_scale), int(causal))
+    flash_bwd.launches[route] += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
 
 
 def _not_ported(x: torch.Tensor, kernel: str) -> None:
@@ -355,7 +522,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``kv_valid`` → K4; ``pack2`` ("t", or auto for d=64, even heads,
     non-causal) → K1, and ``pack2=True`` → K6, mapped onto K1's kernel in
-    online mode; a fixed max at d ≤ 128 with ≥ 128 queries and keys → K3
+    online mode (f32 on the card takes ``flash_fwd``, K1's kernel being
+    bf16-only); a fixed max at d ≤ 128 with ≥ 128 queries and keys → K3
     (not ported); everything else → K2."""
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
@@ -375,6 +543,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("pack2 needs d=64, even heads, non-causal")
         if pack2 != "t" and static_max is not None:
             raise ValueError("static_max needs the packed-t path")
+        if q.dtype == torch.float32 and q.device.type == "cuda":
+            # K1's kernel takes bf16 only; f32 runs the same function on
+            # flash_fwd's f32 path
+            return flash_fwd(q, k, v, sm_scale=sm_scale,
+                             static_max=static_max)
         return flash_fwd_d64(q, k, v, sm_scale=sm_scale,
                              static_max=static_max,
                              route="K1" if pack2 == "t" else "K6")
@@ -387,6 +560,94 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _not_ported(q, "K3")
     return flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
                      static_max=static_max)
+
+
+# ---------------------------------------------------------------------------
+# Custom VJPs: the forward kernel with its LSE, the backward kernel
+# ---------------------------------------------------------------------------
+
+class _FlashAttentionDiff(torch.autograd.Function):
+    """``flash_attention_diff``'s forward and backward (JAX ``_fa_fwd`` /
+    ``_fa_bwd``, :1934-2008)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, static_max, fold_stats,
+                single_pass):
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        sm_scale = (1.0 / math.sqrt(d)) if scale is None else scale
+        if d == 64 and h % 2 == 0 and not causal and sq >= 128 \
+                and sk >= 128:
+            out, lse = flash_fwd_d64(q, k, v, sm_scale=sm_scale,
+                                     static_max=static_max, emit_lse=True)
+        else:
+            out, lse = flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
+                                 static_max=static_max, emit_lse=True,
+                                 route="K5")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.single_pass = single_pass
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        # static_max changes only how the forward accumulated; the LSE it
+        # wrote is the true log-sum-exp, so the backward is the same
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, dout, lse,
+                               sm_scale=ctx.sm_scale, causal=ctx.causal,
+                               single_pass=ctx.single_pass)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = False, scale: Optional[float] = None,
+                         static_max: Optional[float] = None,
+                         fold_stats: bool = True,
+                         single_pass: bool = True) -> torch.Tensor:
+    """Differentiable flash attention, q, k, v (B, S, H, D): the JAX
+    package's ``flash_attention_diff`` (:1918).  Forward: K1 with its LSE
+    for d=64, even heads, non-causal and ≥ 128 queries and keys, else
+    ``flash_fwd`` with its LSE, counted as K5.  Each saves q, k, v, the
+    output and the natural-log LSE (B, H, Sq, f32); the backward is
+    ``flash_bwd`` (K7 / K8, or K10 / K9 with ``single_pass=False``).
+    ``fold_stats`` selects a TPU packing variant of the d=64 backward; it is
+    accepted and has no effect here."""
+    return _FlashAttentionDiff.apply(q, k, v, causal, scale, static_max,
+                                     fold_stats, single_pass)
+
+
+class _FlashDiffMasked(torch.autograd.Function):
+    """``_flash_diff_masked``'s forward and backward (JAX
+    ``_fa_masked_fwd`` / ``_fa_masked_bwd``, :2011-2074)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, scale, static_max):
+        d = q.shape[-1]
+        sm_scale = (1.0 / math.sqrt(d)) if scale is None else scale
+        out, lse = flash_fwd(q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
+                             static_max=static_max, emit_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, kv_valid)
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_valid = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, dout, lse,
+                               sm_scale=ctx.sm_scale, kv_valid=kv_valid)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_diff_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_valid: torch.Tensor, scale: Optional[float] = None,
+                       static_max: Optional[float] = None) -> torch.Tensor:
+    """Differentiable ``kv_valid``-masked flash attention (non-causal).
+    The JAX package zeroes the masked k and v rows before its kernel and
+    lets the caller's mask multiply zero their gradients; the port's
+    forward (K4, with its LSE) masks with −inf, so the backward (K8 with the
+    key mask) gives exactly 0 for masked keys' dk and dv by itself."""
+    return _FlashDiffMasked.apply(q, k, v, kv_valid, scale, static_max)
 
 
 _ATTN_OPTS = threading.local()
@@ -421,7 +682,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch.  ``kv_valid``: optional (B, Sk) bool key-validity mask.
     ``bounded_logits``: the call site's declaration that q and k are
     normalised, which lets the scoped ``attention_options(static_max=…)``
-    apply."""
+    apply.  When autograd records (grad enabled and q, k or v requiring
+    grad) the flash routes run ``flash_attention_diff`` /
+    ``_flash_diff_masked``, whose backward is a kernel too; otherwise they
+    run the forward kernels alone."""
     orig_shape = q.shape
     if q.ndim > 4:
         if kv_valid is not None:
@@ -448,18 +712,28 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     opts = getattr(_ATTN_OPTS, "cfg", None) or {}
     static_max = (opts.get("static_max")
                   if (bounded_logits and not causal) else None)
+    # under autograd the flash routes take the custom VJPs
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
     if kv_valid is not None:
         kv_valid = kv_valid.bool()
         if use_flash and not causal:
-            out = flash_attention(q, k, v, scale=scale, kv_valid=kv_valid,
-                                  static_max=static_max)
+            if grad:
+                out = _flash_diff_masked(q, k, v, kv_valid, scale,
+                                         static_max)
+            else:
+                out = flash_attention(q, k, v, scale=scale,
+                                      kv_valid=kv_valid,
+                                      static_max=static_max)
             return out.reshape(orig_shape)
         kb = torch.where(kv_valid, 0.0, _NEG_INF)[:, None, None, :]
         bias = kb if bias is None else bias + kb
         out = reference_attention(q, k, v, bias=bias, causal=causal,
                                   scale=scale)
         return out.reshape(orig_shape)
-    if use_flash:
+    if use_flash and grad:
+        out = flash_attention_diff(q, k, v, causal, scale, static_max)
+    elif use_flash:
         out = flash_attention(q, k, v, causal=causal, scale=scale,
                               static_max=static_max)
     else:

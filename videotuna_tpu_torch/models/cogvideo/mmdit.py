@@ -17,13 +17,15 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videotuna_tpu_torch.core.config import resolve_dtype
 from videotuna_tpu_torch.core.registry import register
 from videotuna_tpu_torch.kernels.attention import dot_product_attention
 from videotuna_tpu_torch.models.layers import (LayerNorm, TimestepEmbedder,
-                                               apply_rope, rope_3d,
-                                               split_rope_dims, unpatchify_3d)
+                                               apply_rope, dense_general,
+                                               rope_3d, split_rope_dims,
+                                               unpatchify_3d)
 
 
 class CogVideoXBlock(nn.Module):
@@ -38,9 +40,9 @@ class CogVideoXBlock(nn.Module):
         self.norm2_mod = nn.Linear(time_embed_dim, 6 * dim, dtype=dtype)
         self.norm1 = LayerNorm(dim, affine=False, dtype=dtype)
         self.norm2 = LayerNorm(dim, affine=False, dtype=dtype)
-        self.q = nn.Linear(dim, dim, dtype=dtype)
-        self.k = nn.Linear(dim, dim, dtype=dtype)
-        self.v = nn.Linear(dim, dim, dtype=dtype)
+        self.q = dense_general(dim, heads, dim // heads, dtype=dtype)
+        self.k = dense_general(dim, heads, dim // heads, dtype=dtype)
+        self.v = dense_general(dim, heads, dim // heads, dtype=dtype)
         # diffusers CogVideoX: qk_norm="layer_norm" over head_dim
         self.q_norm = LayerNorm(dim // heads, dtype=dtype)
         self.k_norm = LayerNorm(dim // heads, dtype=dtype)
@@ -102,10 +104,12 @@ class CogVideoXTransformer(nn.Module):
 
     ``video_tokens`` sizes the learned ``pos_embed`` (``use_rope=False``):
     the JAX module sizes it from the input it is initialised with, which is
-    the flows' (1, 2, 8, 8) example latent, 32 tokens.  ``scan_blocks`` and
-    ``remat`` change only how the JAX package lays out and recomputes its
-    blocks; they are accepted so the configs load unchanged, and
-    ``tools/from_jax.py`` reads both parameter layouts."""
+    the flows' (1, 2, 8, 8) example latent, 32 tokens.  ``scan_blocks``
+    names the JAX parameter layout (the blocks stacked under ``blocks``, or
+    ``block_{i}``), which ``tools/from_jax.py`` and the LoRA tree follow.
+    ``remat`` recomputes each block's forward in the backward
+    (``torch.utils.checkpoint``, the JAX package's ``nn.remat``) whenever
+    autograd records."""
 
     def __init__(self, in_channels: int = 16, out_channels: int = 16,
                  dim: int = 1920, num_layers: int = 30, heads: int = 30,
@@ -124,6 +128,8 @@ class CogVideoXTransformer(nn.Module):
         self.patch_size = tuple(patch_size)
         self.use_rope = use_rope
         self.dtype = dtype
+        self.scan_blocks = scan_blocks
+        self.remat = remat
         self.t_embedder = TimestepEmbedder(time_embed_dim, dtype=dtype)
         self.patch_embed = nn.Conv3d(in_channels, dim, self.patch_size,
                                      stride=self.patch_size, dtype=dtype)
@@ -167,8 +173,13 @@ class CogVideoXTransformer(nn.Module):
                              tok[:, lt:] + self.pos_embed.to(self.dtype)],
                             dim=1)
 
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            tok = block(tok, temb, lt, rope_cos, rope_sin)
+            if remat:
+                tok = checkpoint(block, tok, temb, lt, rope_cos, rope_sin,
+                                 use_reentrant=False)
+            else:
+                tok = block(tok, temb, lt, rope_cos, rope_sin)
 
         tok = self.norm_final(tok)
         shift, scale = self.adaln_out(F.silu(temb)).chunk(2, dim=-1)

@@ -47,6 +47,16 @@ class TimestepEmbedder(nn.Module):
         return self.fc2(F.silu(self.fc1(x)))
 
 
+def dense_general(din: int, heads: int, head_dim: int, bias: bool = True,
+                  dtype: torch.dtype = torch.float32) -> nn.Linear:
+    """The port of flax ``DenseGeneral((heads, head_dim))``: an
+    ``nn.Linear`` onto heads·head_dim features that records the flax
+    kernel's output shape in ``flax_features``, for the LoRA tree."""
+    lin = nn.Linear(din, heads * head_dim, bias=bias, dtype=dtype)
+    lin.flax_features = (heads, head_dim)
+    return lin
+
+
 class RMSNorm(nn.Module):
     """RMSNorm computed in f32, output in the input's dtype."""
 
@@ -131,9 +141,9 @@ class Attention(nn.Module):
         self.head_dim = head_dim or dim // heads
         self.qk_norm = qk_norm
         inner = heads * self.head_dim
-        self.q = nn.Linear(dim, inner, bias=qkv_bias, dtype=dtype)
-        self.k = nn.Linear(dim, inner, bias=qkv_bias, dtype=dtype)
-        self.v = nn.Linear(dim, inner, bias=qkv_bias, dtype=dtype)
+        self.q = dense_general(dim, heads, self.head_dim, qkv_bias, dtype)
+        self.k = dense_general(dim, heads, self.head_dim, qkv_bias, dtype)
+        self.v = dense_general(dim, heads, self.head_dim, qkv_bias, dtype)
         if qk_norm:
             self.q_norm = RMSNorm(self.head_dim, dtype=dtype)
             self.k_norm = RMSNorm(self.head_dim, dtype=dtype)

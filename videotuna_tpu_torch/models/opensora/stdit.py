@@ -11,10 +11,11 @@ spatial / temporal factorisation is a reshape.
 
 The variant flags of the JAX module are all here: ``qk_norm``,
 ``temporal_rope``, ``temporal_mod``, ``paired_blocks``, ``dynamic_pos_embed``
-and the ``x_mask`` frame mask.  ``scan_blocks`` and ``remat`` change how the
-JAX package lays out and recomputes its blocks: the configs load with them
-and ``tools/from_jax.py`` reads both parameter layouts.  The temporal
-pos-embed goes to block 0 only (under scan it is the ``tpe_gate``, so both
+and the ``x_mask`` frame mask.  ``scan_blocks`` names the JAX parameter
+layout, which ``tools/from_jax.py`` and the LoRA tree follow; ``remat``
+recomputes each block (or pair) in the backward with
+``torch.utils.checkpoint``, as ``nn.remat`` does, whenever autograd
+records.  The temporal pos-embed goes to block 0 only (under scan it is the ``tpe_gate``, so both
 layouts are one function), except in the scanned paired layout, where the
 JAX module hands it to every pair and so does the port.  The staged forward
 (``stage`` other than "all"), the fps conditioning of Open-Sora 1.2 and
@@ -28,6 +29,7 @@ from typing import Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videotuna_tpu_torch.core.config import resolve_dtype
 from videotuna_tpu_torch.core.registry import register
@@ -265,6 +267,7 @@ class STDiT(nn.Module):
         self.temporal_mod = temporal_mod
         self.paired_blocks = paired_blocks
         self.scan_blocks = scan_blocks
+        self.remat = remat
         self.dynamic_pos_embed = dynamic_pos_embed
         self.input_sq_size = input_sq_size
 
@@ -351,16 +354,23 @@ class STDiT(nn.Module):
 
         y = self.y_proj2(gelu_tanh(self.y_proj1(y.to(self.dtype))))
 
+        remat = self.remat and torch.is_grad_enabled()
+
+        def run(cell, *args, **kwargs):
+            if remat:
+                return checkpoint(cell, *args, use_reentrant=False, **kwargs)
+            return cell(*args, **kwargs)
+
         if self.paired_blocks:
             for i, pair in enumerate(self.pairs):
-                tok = pair(tok, y, t6, y_mask=mask,
-                           tpe=tpe if i == 0 or self.scan_blocks else None,
-                           t6_zero=t6_zero, x_mask=x_mask)
+                tok = run(pair, tok, y, t6, y_mask=mask,
+                          tpe=tpe if i == 0 or self.scan_blocks else None,
+                          t6_zero=t6_zero, x_mask=x_mask)
         else:
             for i, block in enumerate(self.blocks):
-                tok = block(tok, y, t6, y_mask=mask,
-                            tpe=tpe if i == 0 else None, t3=t3,
-                            t6_zero=t6_zero, t3_zero=t3_zero, x_mask=x_mask)
+                tok = run(block, tok, y, t6, y_mask=mask,
+                          tpe=tpe if i == 0 else None, t3=t3,
+                          t6_zero=t6_zero, t3_zero=t3_zero, x_mask=x_mask)
 
         # T2I final layer; with x_mask the masked frames get the timestep-0
         # modulation on top of the t-modulated tokens, as the reference does

@@ -17,7 +17,7 @@ from torch import nn
 from videotuna_tpu_torch.core.config import resolve_dtype
 from videotuna_tpu_torch.core.registry import register
 from videotuna_tpu_torch.kernels.attention import dot_product_attention
-from videotuna_tpu_torch.models.layers import RMSNorm
+from videotuna_tpu_torch.models.layers import RMSNorm, dense_general
 
 
 def t5_relative_bucket(relative_position: torch.Tensor,
@@ -44,9 +44,9 @@ class T5SelfAttention(nn.Module):
         self.heads = heads
         self.head_dim = head_dim
         inner = heads * head_dim
-        self.q = nn.Linear(dim, inner, bias=False, dtype=dtype)
-        self.k = nn.Linear(dim, inner, bias=False, dtype=dtype)
-        self.v = nn.Linear(dim, inner, bias=False, dtype=dtype)
+        self.q = dense_general(dim, heads, head_dim, False, dtype)
+        self.k = dense_general(dim, heads, head_dim, False, dtype)
+        self.v = dense_general(dim, heads, head_dim, False, dtype)
         self.o = nn.Linear(inner, dim, bias=False, dtype=dtype)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,

@@ -5,13 +5,14 @@ A trained T-step chain is respaced to S steps (``space_timesteps``); the
 model emits 2·C channels, eps and a variance fraction v, and the posterior
 log-variance is interpolated between log β̃_t and log β_t.  Sampling is the
 ancestral loop over the spaced chain, with the noise drawn from an explicit
-generator or given as ``noises``.  The hybrid loss's vb term waits for the
-training slice.
+generator or given as ``noises``.  ``vb_loss_term`` is the hybrid loss's
+vb term, which trains the variance half.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -71,9 +72,21 @@ def p_mean_variance(sched: DDPMSchedule, model_out: torch.Tensor,
     return mean, log_var
 
 
-def vb_loss_term(*args, **kwargs):
-    raise NotImplementedError(
-        "the IDDPM hybrid loss's vb term waits for the training slice")
+def vb_loss_term(sched: DDPMSchedule, model_out: torch.Tensor,
+                 x_start: torch.Tensor, x_t: torch.Tensor,
+                 t: torch.Tensor) -> torch.Tensor:
+    """KL(q(x_{t−1} | x_t, x_0) ‖ p(x_{t−1} | x_t)) in bits, per sample: the
+    vb term of IDDPM's hybrid loss.  The eps half is detached, so only the
+    learned variance trains through it."""
+    c = x_start.shape[-1]
+    frozen = torch.cat([model_out[..., :c].detach(), model_out[..., c:]],
+                       dim=-1)
+    mean, log_var = p_mean_variance(sched, frozen, x_t, t)
+    true_mean, _, true_log_var = sched.q_posterior(x_start, x_t, t)
+    kl = 0.5 * (-1.0 + log_var - true_log_var
+                + torch.exp(true_log_var - log_var)
+                + (true_mean - mean) ** 2 * torch.exp(-log_var))
+    return kl.mean(dim=tuple(range(1, x_start.ndim))) / math.log(2.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,8 +156,9 @@ class SpacedSchedule:
             x = mean + torch.exp(0.5 * log_var) * noise.to(mean.dtype)
         return x
 
-    def vb_loss_term(self, *args, **kwargs):
-        return vb_loss_term(*args, **kwargs)
+    def vb_loss_term(self, model_out, x_start, x_t, t):
+        """Hybrid-loss vb term against the respaced chain."""
+        return vb_loss_term(self.base, model_out, x_start, x_t, t)
 
 
 @register("videotuna_tpu_torch.schedulers.SpacedSchedule",

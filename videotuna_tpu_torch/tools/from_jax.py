@@ -17,6 +17,12 @@ changes is the layout of each leaf:
 
 The copy is strict: a flax leaf with no counterpart, a shape mismatch, or a
 module parameter left unassigned raises.
+
+``load_jax_lora`` carries a LoRA delta tree of the JAX package's
+``training/lora.py`` across: the port's tree has the same layout (plain
+``a`` (din, r) / ``b`` (r, *out), and scan-stacked ``a`` (depth, din, r) /
+``b`` (depth, r, *out)), so each leaf is copied as it is, after checking that
+its path names a kernel of the module and its shapes fit that kernel.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ _STACKS = {"block": "blocks", "pair": "pairs"}
 
 def _copy(param: torch.Tensor, arr: np.ndarray, where: str,
           done: Set[int]) -> None:
-    value = torch.as_tensor(np.asarray(arr))
+    value = torch.as_tensor(np.array(arr))
     if tuple(value.shape) != tuple(param.shape):
         raise ValueError(f"{where}: JAX shape {tuple(value.shape)} does not "
                          f"map onto {tuple(param.shape)}")
@@ -123,3 +129,43 @@ def load_flow_params(flow, params: Mapping[str, Any]) -> None:
     """Copy a JAX flow's ``params`` ({component: tree}) into a port flow."""
     for comp, module in flow.components().items():
         load_jax_params(module, params[comp], comp)
+
+
+def load_jax_lora(module: nn.Module, tree: Mapping[str, Any],
+                  device=None) -> Dict[str, Any]:
+    """The JAX LoRA delta tree ``tree`` (nested dicts of numpy ``a``/``b``)
+    as the port's tree for ``module``: f32 leaves that require grad, on
+    ``device`` (default: the module's).  Strict on paths and shapes."""
+    from videotuna_tpu_torch.training.lora import kernels
+
+    shapes = {path: shape for path, shape, _, _ in kernels(module)}
+    out: Dict[str, Any] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping) and "a" in node and "b" in node \
+                and not isinstance(node["a"], Mapping):
+            if path not in shapes:
+                raise KeyError(f"LoRA entry {'/'.join(path)} has no kernel "
+                               f"in {type(module).__name__}")
+            shape = shapes[path]
+            a, b = np.asarray(node["a"]), np.asarray(node["b"])
+            lead = a.ndim - 2
+            r = a.shape[-1]
+            if a.shape != shape[:lead] + (shape[lead], r) \
+                    or b.shape != shape[:lead] + (r,) + shape[lead + 1:]:
+                raise ValueError(f"{'/'.join(path)}: a {a.shape}, b "
+                                 f"{b.shape} do not fit the kernel {shape}")
+            dev = device or next(module.parameters()).device
+            leaf = out
+            for p in path[:-1]:
+                leaf = leaf.setdefault(p, {})
+            leaf[path[-1]] = {
+                k: torch.tensor(x, dtype=torch.float32,
+                                device=dev).requires_grad_()
+                for k, x in (("a", a), ("b", b))}
+            return
+        for k, v in node.items():
+            walk(v, path + (str(k),))
+
+    walk(tree, ())
+    return out
