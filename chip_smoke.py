@@ -90,13 +90,41 @@ without a result line:
 15. train-reference — one training step of each flow at narrow width on the
                 card and on the CPU with the same weights, batch, t, noise
                 and LoRA tree: loss and trainable gradients must agree.
-16. kernels   — status of every TPU kernel of the JAX package.
+16. K3        — the fixed-max route at d ≤ 128 (``flash_attention`` with
+                static_max, launching flash_fwd counted as K3) against its
+                plain version at the HunyuanVideo 13B joint-attention shape
+                (B=1, S=119,056 = 118,800 video + 256 text tokens, a 16-key
+                tail, H=24, d=128; the plain version 128 query rows at a
+                time) and at B=2, S=4096; timed at the full shape beside
+                its bound, the plain version and SDPA.
+17. e2e-hunyuan — ``run_inference`` on
+                configs/007_hunyuanvideo/hunyuanvideo_t2v.yaml at full width
+                and depth (dim 3072, 20 double and 40 single blocks, 24
+                heads of d=128, bf16; LLaMA 4096×32 and CLIP-L in f32;
+                HunyuanVAE), random weights from the seed, one prompt at
+                129×720×1280.  Cut: 2 of the 50 Euler steps, and the VAE
+                decodes the first 2 latent frames (5 pixel frames): the f32
+                decode of all 33 does not fit.  Asserts K3 = 60 per step,
+                K2 = 32 (the f32 LLaMA encode) and no other launch, finite
+                latents and pixels, a (5, 720, 1280, 3) video and
+                metric.json; logs seconds per step, the text encode, the
+                decode and the peak memory.
+18. reference-hunyuan — that flow at narrow width (dim 256, 2 heads of
+                d=128, 1 double and 2 single blocks, a 2-layer LLaMA of
+                d=128 over 160 tokens, the VAE at (32, 32, 64, 64)) on the
+                card and on the CPU, same weights, prompt and x_T, TF32
+                off: one denoiser call, the latents after 2 steps and the
+                decode must agree, with K3 and K2 launched on the card.
+19. profile-hunyuan — one full-width DiT call (the work of one step)
+                timed with CUDA events and traced with torch.profiler:
+                device time of K3, the GEMMs and the rest, the busy share.
+20. kernels   — status of every TPU kernel of the JAX package.
 
-They run in the order 1–5, 11, 12, 6–10, 13–16.  Every launch count
-(K1, K2, K4–K10) is set to 0 just before each main-path run (the two
+They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–20.  Every launch
+count (K1–K10) is set to 0 just before each main-path run (the three
 sampling runs and the two training runs) and read just after; the
 kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those four runs.  The last line is
+launches summed over those five runs.  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -156,6 +184,16 @@ F32_TOL = 1e-4
 # in other orders; loss relative, gradients of max|g|
 TRAIN_LOSS_TOL = 2e-2
 TRAIN_GRAD_TOL = 3e-2
+
+CONFIG_HY = os.path.join(ROOT, "configs", "007_hunyuanvideo",
+                         "hunyuanvideo_t2v.yaml")
+# 129×720×1280 → 33×45×80 video tokens after the (1, 2, 2) patch, + 256 text
+SHAPE_HY = dict(b=1, s=33 * 45 * 80 + 256, h=24)
+HY_STEPS = 2                 # of the config's 50: every step costs the same
+HY_DECODE_LATENT_FRAMES = 2  # 5 pixel frames: the f32 decode of 33 won't fit
+HY_DEPTH = 20 + 40           # double + single blocks, one K3 launch each
+HY_LLAMA_LAYERS = 32         # one f32 K2 (causal, 256 tokens) each
+HY_REF_STEPS = 2             # narrow HunyuanVideo card-vs-CPU trajectory
 
 
 def log(phase: str, **fields) -> None:
@@ -455,7 +493,7 @@ def check_k4(A) -> dict:
 def zero_counts(A) -> None:
     """Set every kernel's launch count to 0 just before a main-path run."""
     A.flash_fwd_d64.launches = {"K1": 0, "K6": 0}
-    A.flash_fwd.launches = {"K2": 0, "K4": 0, "K5": 0}
+    A.flash_fwd.launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
     A.flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
 
 
@@ -716,7 +754,17 @@ def profile_opensora_call() -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             model(x, t, y, mask)
             torch.cuda.synchronize()
-    groups = {"flash_fwd (K2+K4)": 0.0, "gemm": 0.0, "other": 0.0}
+    del model
+    return _log_profile("profile-opensora", "one STDiT-XL/2 call, CFG batch 2",
+                        prof, call_ms, "flash_fwd (K2+K4)")
+
+
+def _log_profile(phase: str, what: str, prof, call_ms: float,
+                 flash: str) -> dict:
+    """Device time of a traced call by kernel group (the flash kernel,
+    GEMMs, everything else), its busy share of ``call_ms`` and the 8
+    longest kernels."""
+    groups = {flash: 0.0, "gemm": 0.0, "other": 0.0}
     kernels = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
@@ -724,23 +772,21 @@ def profile_opensora_call() -> dict:
             continue
         kernels[e.key] = us / 1e3
         name = e.key.lower()
-        group = ("flash_fwd (K2+K4)" if "flash_fwd_kernel" in name else
+        group = (flash if "flash_fwd_kernel" in name else
                  "gemm" if any(g in name for g in ("gemm", "nvjet", "xmma",
                                                    "cutlass", "cublas"))
                  else "other")
         groups[group] += us / 1e3
     device_ms = sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log("profile-opensora", what="one STDiT-XL/2 call, CFG batch 2",
-        call_ms=f"{call_ms:.3f}",
+    log(phase, what=what, call_ms=f"{call_ms:.3f}",
         device_ms=f"{device_ms:.3f}" if device_ms else "not measured",
         busy_share=(f"{device_ms / call_ms:.3f}" if device_ms
                     else "not measured"),
         **{k.replace(" ", "_"): f"{v:.3f}" for k, v in groups.items()})
     for name, ms in top:
-        log("profile-opensora", kernel=name[:90].replace(" ", ""),
-            ms=f"{ms:.3f}", share=f"{ms / call_ms:.3f}")
-    del model
+        log(phase, kernel=name[:90].replace(" ", ""), ms=f"{ms:.3f}",
+            share=f"{ms / call_ms:.3f}")
     return groups
 
 
@@ -1388,6 +1434,238 @@ def check_train_reference(A) -> None:
         _free()
 
 
+# ---------------------------------------------------------------- phases 16-18
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm per head in f32, as the HunyuanVideo DiT's q_norm / k_norm
+    (unit scale): bounded logits, |s·log2e| ≤ √128·log2e ≈ 16.3."""
+    return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6)
+
+
+def _plain_k3_chunked(A, q, k, v, rows):
+    """flash_fwd_plain under the fixed max over all query rows, a block of
+    rows at a time (the full score tensor would take 1.4 TB)."""
+    return torch.cat([A.flash_fwd_plain(q[:, i:i + rows], k, v,
+                                        sm_scale=q.shape[-1] ** -0.5,
+                                        static_max=0.0)
+                      for i in range(0, q.shape[1], rows)], dim=1)
+
+
+def check_k3(A) -> dict:
+    """K3, the fixed-max route at d ≤ 128, through ``flash_attention``
+    (which launches flash_fwd counted as K3): against the plain version at
+    the HunyuanVideo 13B joint-attention shape (B=1, S=119,056 with a
+    16-key tail, H=24, d=128), the plain version 128 query rows at a time,
+    and at B=2, S=4096; timed at the full shape beside its bound, the plain
+    version and SDPA."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, s, h = SHAPE_HY["b"], SHAPE_HY["s"], SHAPE_HY["h"]
+    d = 128
+    # the full shape last: its tensors and plain time serve the timing
+    for label, (bb, ss, rows) in {"B2 S4096": (2, 4096, 1024),
+                                  "hunyuan 13B joint": (b, s, 128)}.items():
+        q, k = (_rms(torch.randn((bb, ss, h, d), generator=gen,
+                                 device="cuda")).bfloat16()
+                for _ in range(2))
+        v = torch.randn((bb, ss, h, d), generator=gen,
+                        device="cuda").bfloat16()
+        before = A.flash_fwd.launches["K3"]
+        out = A.flash_attention(q, k, v, static_max=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = _plain_k3_chunked(A, q, k, v, rows)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        ok = (err <= FWD_TOL * scale
+              and A.flash_fwd.launches["K3"] == before + 1)
+        log("K3", case=label, shape=f"B{bb}xS{ss}xH{h}xd{d}",
+            static_max=0.0, key_tail=ss % 64, max_abs_err=f"{err:.3e}",
+            tol=f"{FWD_TOL * scale:.3e}", plain_ms=f"{plain_ms:.1f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version "
+                                 f"({label})")
+        del out, ref
+    flops = 4.0 * b * h * s * s * d
+    bound_ms, bound_by = _bound(flops, 4 * q.numel() * q.element_size())
+    ms = cuda_time_ms(lambda: A.flash_attention(q, k, v, static_max=0.0),
+                      reps=3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=3)
+    log("K3", case="hunyuan 13B joint timing", ms=f"{ms:.3f}",
+        bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        tflops=f"{flops / ms / 1e9:.1f}", plain_ms=f"{plain_ms:.1f}",
+        library=f"scaled_dot_product_attention[{backend}]",
+        library_ms=f"{library_ms:.3f}")
+    del q, k, v, qt, kt, vt
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def run_e2e_hunyuan(A) -> dict:
+    """``run_inference`` on configs/007_hunyuanvideo/hunyuanvideo_t2v.yaml
+    at full width and depth (dim 3072, 20 double and 40 single blocks, 24
+    heads of d=128, bf16; LLaMA 4096×32 and CLIP-L in f32; HunyuanVAE),
+    random weights from the seed, one prompt at 129×720×1280 (118,800 video
+    tokens + 256 text).  Cut: 2 of the 50 steps, and the VAE decodes the
+    first 2 latent frames (5 pixel frames)."""
+    from videotuna_tpu_torch.cli.inference import run_inference
+    savedir = os.path.join(OUT_DIR, "e2e_hunyuan")
+    _free()
+    resident = torch.cuda.memory_allocated()   # left by earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(A)
+    t0 = time.perf_counter()
+    result = run_inference([
+        "--config", CONFIG_HY, "--device", "cuda", "--quiet",
+        "--savedir", savedir,
+        "--prompt", "a panda playing guitar by a lake at sunset",
+        f"flow.params.scheduler_config.params.num_steps={HY_STEPS}",
+        f"inference.decode_latent_frames={HY_DECODE_LATENT_FRAMES}",
+    ])
+    wall = time.perf_counter() - t0
+    launches = read_counts(A)
+    m = result["metrics"]
+    peak = torch.cuda.max_memory_allocated()
+    frames = 1 + 4 * (HY_DECODE_LATENT_FRAMES - 1)
+    video = _read_video(result["videos"][0])
+    log("e2e-hunyuan", config="hunyuanvideo_t2v", frames_sampled=129,
+        height=720, width=1280, tokens=SHAPE_HY["s"],
+        steps=m["denoise_steps"],
+        sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", decoded_frames=frames,
+        run_sec=f"{wall:.1f}", resident_before_gb=f"{resident / 1e9:.2f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}",
+        launches=launches, nonfinite_latents=m["nonfinite_latents"],
+        nonfinite_pixels=m["nonfinite_pixels"],
+        video_shape="x".join(map(str, video.shape)))
+    expected = dict({k: 0 for k in launches}, K3=HY_DEPTH * HY_STEPS,
+                    K2=HY_LLAMA_LAYERS)
+    if m["denoise_steps"] != HY_STEPS or launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}: "
+                             f"K3 = {HY_DEPTH} blocks × {HY_STEPS} steps, "
+                             f"K2 = {HY_LLAMA_LAYERS} LLaMA layers, no other")
+    if m["nonfinite_latents"] or m["nonfinite_pixels"]:
+        raise AssertionError("non-finite latents or pixels")
+    if tuple(video.shape) != (frames, 720, 1280, 3):
+        raise AssertionError(f"video shape {video.shape}")
+    if not os.path.isfile(os.path.join(savedir, "metric.json")):
+        raise AssertionError("metric.json missing")
+    del result
+    _free()
+    return launches
+
+
+def profile_hunyuan_call() -> dict:
+    """One full-width HunyuanVideo DiT call at 129×720×1280 (B=1: 118,800
+    video tokens and a 256-token prompt with 13 valid, pooled text and
+    embedded guidance) under the flow's fixed max, the work of one sampling
+    step: timed with CUDA events around the traced call, device time by
+    kernel group and the busy share from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.models.layers import init_weights_
+    import videotuna_tpu_torch.kernels.attention as A
+    _free()
+    cfg = load_configs([CONFIG_HY])["flow"]["params"]["denoiser_config"]
+    with torch.device("meta"):
+        model = instantiate(cfg)
+    model = model.to_empty(device="cuda").eval()
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn((1, 33, 90, 160, 16), generator=gen, device="cuda")
+    y = torch.randn((1, 256, 4096), generator=gen, device="cuda")
+    pooled = torch.randn((1, 768), generator=gen, device="cuda")
+    mask = torch.zeros((1, 256), dtype=torch.bool, device="cuda")
+    mask[0, :13] = True
+    t = torch.tensor([500.0], device="cuda")
+    g = torch.tensor([6000.0], device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode(), A.attention_options(static_max=0.0), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        start.record()
+        model(x, t, y, pooled, mask, g)
+        end.record()
+        torch.cuda.synchronize()
+    del model
+    _free()
+    return _log_profile("profile-hunyuan",
+                        "one HunyuanVideo 13B DiT call, 119,056 tokens",
+                        prof, start.elapsed_time(end), "flash_fwd (K3)")
+
+
+def check_small_reference_hunyuan() -> None:
+    """The narrow HunyuanVideo flow (dim 256, 2 heads of d=128, 1 double
+    and 2 single blocks, a 2-layer LLaMA of d=128 over 160 tokens, the VAE
+    at (32, 32, 64, 64)) on the card and on the CPU with the same weights,
+    prompt and x_T, TF32 off: 3×16×16 latents give 192 + 160 joint tokens,
+    so K3 and the f32 K2 are on the card's path.  One denoiser call, the
+    latents after 2 steps and the decode of the same latents must agree."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    import videotuna_tpu_torch.kernels.attention as A
+    den = "flow.params.denoiser_config.params"
+    llama = "flow.params.cond_stage_config.params"
+    clip = "flow.params.cond_stage_2_config.params"
+    vae = "flow.params.first_stage_config.params"
+    cfg = load_configs([CONFIG_HY], [
+        f"{den}.dim=256", f"{den}.heads=2", f"{den}.double_blocks=1",
+        f"{den}.single_blocks=2", f"{den}.text_dim=256",
+        f"{llama}.dim=256", f"{llama}.heads=2", f"{llama}.num_layers=2",
+        f"{clip}.dim=64", f"{clip}.heads=2",
+        f"{clip}.num_layers=2", f"{den}.pooled_dim=64",
+        f"{vae}.block_out_channels=[32, 32, 64, 64]",
+        f"{vae}.norm_num_groups=8", "flow.params.model_max_length=160",
+        f"flow.params.scheduler_config.params.num_steps={HY_REF_STEPS}",
+    ])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = instantiate(cfg["flow"], device="cpu")
+    gpu = instantiate(cfg["flow"], device="cuda")
+    cpu.init_params(seed=1)
+    for name, module in cpu.components().items():
+        gpu.components()[name].load_state_dict(module.state_dict())
+    shape = cpu.latent_shape(1, 9, 128, 128)      # 3×16×16 latents
+    x_T = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    t = cpu.scheduler.timesteps[1].reshape(1)
+    outs, z_cpu = [], None
+    for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        zero_counts(A)
+        cond = flow.encode_text(["a panda playing guitar by a lake"])
+        with torch.inference_mode(), flow._attn_scope():
+            call = flow.denoise_apply(x_T.to(dev), t.to(dev), cond)
+        z = flow.sample(cond, None, shape, None, 1.0, x_T=x_T.to(dev))
+        launches = {k: v for k, v in read_counts(A).items() if v}
+        z_cpu = z if z_cpu is None else z_cpu
+        video = flow.decode_latents(z_cpu.to(dev))
+        outs.append([x.float().cpu() for x in (call, z, video)])
+    expected = {"K3": 3 * (1 + HY_REF_STEPS), "K2": 2}
+    if launches != expected:
+        raise AssertionError(f"narrow HunyuanVideo flow on the card "
+                             f"launched {launches}, expected {expected}")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs = [rel(a, b) for a, b in zip(outs[1], outs[0])]
+    tols = (REF_TOL_CALL, REF_TOL_TRAJ, REF_TOL_DECODE)
+    ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
+    log("reference-hunyuan", what="narrow hunyuanvideo_t2v flow, cuda vs cpu",
+        steps=HY_REF_STEPS, card_launches=launches,
+        denoiser_call_rel_err=f"{errs[0]:.3e}", call_tol=REF_TOL_CALL,
+        latent_rel_err=f"{errs[1]:.3e}", latent_tol=REF_TOL_TRAJ,
+        decode_rel_err=f"{errs[2]:.3e}", decode_tol=REF_TOL_DECODE, ok=ok)
+    if not ok:
+        raise AssertionError("GPU HunyuanVideo flow disagrees with the CPU "
+                             "flow")
+    del cpu, gpu
+    _free()
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1422,6 +1700,7 @@ def main() -> None:
     k6 = k1.pop("k6")
     k2 = check_k2(A)
     k4 = check_k4(A)
+    k3 = check_k3(A)
     bwd = check_bwd(A)
     check_f32_forward(A)
     runs = [run_e2e(A)]
@@ -1433,18 +1712,21 @@ def main() -> None:
     stdit = run_train_stdit(A)
     runs += [cog["launches"], stdit["launches"]]
     check_train_reference(A)
-    # each kernel's launches over the four main-path runs
+    runs.append(run_e2e_hunyuan(A))
+    check_small_reference_hunyuan()
+    profile_hunyuan_call()
+    # each kernel's launches over the five main-path runs
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
-    statuses = {f"K{i}": "to port" for i in range(1, 11)}
-    statuses.update({
+    statuses = {
         "K1": "ported, checked", "K2": "ported, checked",
+        "K3": "ported (mapped onto flash_fwd, fixed max), checked",
         "K4": "ported, checked",
         "K5": "ported (mapped onto flash_fwd with the LSE), checked",
         "K6": "ported (mapped onto K1's kernel), checked",
         "K7": "ported, checked", "K8": "ported, checked",
         "K9": "ported (mapped onto flash_bwd), checked",
-        "K10": "ported (mapped onto flash_bwd), checked"})
+        "K10": "ported (mapped onto flash_bwd), checked"}
     log("kernels", **statuses)
     d64 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_d64.cu"
     fwd = "videotuna_tpu_torch/kernels/csrc/flash_fwd.cu"
@@ -1462,6 +1744,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("flash_fwd_d64 (K1)", d64, 268, "K1", k1),
         entry("flash_fwd (K2)", fwd, 78, "K2", k2),
+        entry("flash_fwd static_max, d <= 128 (K3)", fwd, 581, "K3", k3),
         entry("flash_fwd kv_valid (K4)", fwd, 970, "K4", k4),
         entry("flash_fwd emit_lse, training forward (K5)", fwd, 867, "K5",
               bwd["K5"]),

@@ -127,16 +127,15 @@ def test_dispatch_matches_jax(case):
     ("K4", 64, False, False, True),
 ])
 def test_unported_kernels_raise_off_cpu(kernel, d, causal, bounded, masked):
-    """Off the CPU (meta here) no route runs the math path quietly: K2 and
-    K4 reach ``flash_fwd``, which launches its kernel on a CUDA tensor only
-    and raises on any other device; K3, not ported, raises naming it."""
+    """Off the CPU (meta here) no route runs the math path quietly: K2, K3
+    and K4 reach ``flash_fwd``, which launches its kernel on a CUDA tensor
+    only and raises on any other device."""
     q = torch.empty((1, 256, 2, d), device="meta")
     kv_valid = torch.ones((1, 256), dtype=torch.bool, device="meta") \
         if masked else None
-    err, match = ((NotImplementedError, kernel) if kernel == "K3"
-                  else (ValueError, "flash_fwd: unsupported device meta"))
     with P.attention_options(static_max=0.0):
-        with pytest.raises(err, match=match):
+        with pytest.raises(ValueError,
+                           match="flash_fwd: unsupported device meta"):
             P.dot_product_attention(q, q, q, causal=causal,
                                     bounded_logits=bounded,
                                     kv_valid=kv_valid)

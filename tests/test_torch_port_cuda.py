@@ -137,6 +137,47 @@ def test_k4_kernel_matches_plain(pattern):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [72, 128])
+def test_k3_route_matches_plain(d):
+    """The fixed-max route at d ≤ 128 (HunyuanVideo's joint attention):
+    ``flash_attention`` launches ``flash_fwd`` counted as K3; 200 queries
+    over 300 keys leave a ragged key tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(2, 200, 300, 2, d, seed=d, normed=True)
+    before = dict(P.flash_fwd.launches)
+    out = P.flash_attention(q, k, v, static_max=0.0)
+    ref = P.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5, static_max=0.0)
+    torch.cuda.synchronize()
+    assert P.flash_fwd.launches == dict(before, K3=before["K3"] + 1)
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_k3_reads_the_single_stream_v_in_place():
+    """The single-stream block hands v to the kernel as a strided view of
+    its fused linear1 output (row stride 3·dim + 4·dim, start at 2·dim):
+    the layout check takes it without a copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dim, heads = 256, 2
+    h = torch.randn((1, 300, 7 * dim), device="cuda").bfloat16()
+    q, k, v = (torch.nn.functional.layer_norm(
+        h[..., i * dim:(i + 1) * dim].unflatten(-1, (heads, -1)).float(),
+        (dim // heads,)).bfloat16() if i < 2 else
+        h[..., i * dim:(i + 1) * dim].unflatten(-1, (heads, -1))
+        for i in range(3))
+    assert P._aligned(v) and not v.is_contiguous()
+    out = P.flash_attention(q, k, v, static_max=0.0)
+    ref = P.flash_fwd_plain(q, k, v.contiguous(), sm_scale=128 ** -0.5,
+                            static_max=0.0)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.cuda
 def test_vae2d_attention_takes_k2_in_bf16():
     """The 2D VAE's attention at d=64 over 16×16 tokens in bf16: K2 on the
     card against the same block on the CPU (K2's plain version)."""

@@ -29,6 +29,7 @@ from videotuna_tpu_torch.tools.from_jax import load_flow_params
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "configs", "000_tiny", "tiny_cogvideox.yaml")
 TINY_T2V = os.path.join(ROOT, "configs", "000_tiny", "tiny_t2v.yaml")
+TINY_HUNYUAN = os.path.join(ROOT, "configs", "000_tiny", "tiny_hunyuan.yaml")
 OPENSORA_V10 = os.path.join(ROOT, "configs", "003_opensora",
                             "opensorav10_256x256.yaml")
 TRAJ_TOL = 1e-4
@@ -157,11 +158,12 @@ def test_unported_inference_options_raise(argv, what, tmp_path):
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """The port imports neither jax, flax nor the JAX package: both tiny
-    flows (CogVideoX and Open-Sora) sample and train (two steps, one of
-    them with LoRA) with them blocked, and every module of the port
-    imports."""
+    """The port imports neither jax, flax nor the JAX package: the tiny
+    CogVideoX and Open-Sora flows sample and train (two steps, one of them
+    with LoRA) and the tiny HunyuanVideo flow samples with them blocked, and
+    every module of the port imports."""
     runs = [(TINY, tmp_path / "cogvideox"), (TINY_T2V, tmp_path / "t2v")]
+    hunyuan = tmp_path / "hunyuan"
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'videotuna_tpu'):\n"
@@ -179,6 +181,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
                   f"'--max_steps', '2'{extra}])\n"
                   for (cfg, out), extra in zip(runs, [", 'train.lora.rank=2'",
                                                       ""]))
+        + f"run_inference(['--config', {TINY_HUNYUAN!r}, '--device', 'cpu', "
+          f"'--quiet', '--savedir', {str(hunyuan)!r}])\n"
         + "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'videotuna_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
@@ -189,6 +193,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     for _, out in runs:
         assert os.path.isfile(out / "metric.json")
         assert os.path.isfile(f"{out}_train/step_2/state.pt")
+    assert os.path.isfile(hunyuan / "metric.json")
 
 
 _CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "004_cogvideox",

@@ -303,7 +303,7 @@ def test_opensora_flow_branches():
     fm = dict(cfg, params=dict(cfg["params"], scheduler_config={
         "target": "videotuna_tpu.schedulers.FlowMatchSchedule",
         "params": {"num_steps": 4}}))
-    with pytest.raises(NotImplementedError, match="HunyuanVideo slice"):
+    with pytest.raises(NotImplementedError, match="Open-Sora 1.2"):
         pregistry.instantiate(fm, device="cpu")
     spaced = dict(cfg, params=dict(cfg["params"], scheduler_config={
         "target": "videotuna_tpu.schedulers.SpacedSchedule",

@@ -308,6 +308,39 @@ def test_run_train_checkpoints_and_resumes(path, tmp_path):
                  _state(whole / "step_8" / "state.pt"))
 
 
+def test_fit_restores_the_signal_handler(tmp_path):
+    """``fit`` checkpoints on SIGUSR1 while it runs, then puts the previous
+    handler back, so nothing global keeps the trainer and its flow's
+    weights alive after it returns."""
+    import gc
+    import signal
+    import weakref
+    from videotuna_tpu_torch.cli.train import build_trainer
+
+    def mine(signum, frame):
+        pass
+
+    prev = signal.signal(signal.SIGUSR1, mine)
+    try:
+        trainer, loader, _ = build_trainer(
+            ["--config", TINY, "--device", "cpu", "--quiet", "--workdir",
+             str(tmp_path / "run"), "train.max_steps=1",
+             "train.log_every=1"])
+        seen = []
+        trainer.callbacks.append(
+            lambda step, m, state: seen.append(
+                signal.getsignal(signal.SIGUSR1) is mine))
+        trainer.fit(loader)
+        assert seen == [False]
+        assert signal.getsignal(signal.SIGUSR1) is mine
+        ref = weakref.ref(trainer)
+        del trainer, loader
+        gc.collect()
+        assert ref() is None
+    finally:
+        signal.signal(signal.SIGUSR1, prev)
+
+
 def test_run_inference_merges_a_trained_lora(tmp_path):
     """A LoRA run writes lora.pt beside its state; ``--lora`` merges it
     into the inference weights."""

@@ -30,6 +30,8 @@ _MODULES = (
     "videotuna_tpu_torch.models.text_encoders",
     "videotuna_tpu_torch.models.cogvideo.mmdit",
     "videotuna_tpu_torch.models.opensora.stdit",
+    "videotuna_tpu_torch.models.hunyuan.dit",
+    "videotuna_tpu_torch.models.hunyuan.vae",
     "videotuna_tpu_torch.schedulers",
     "videotuna_tpu_torch.flows",
     "videotuna_tpu_torch.data.datasets",

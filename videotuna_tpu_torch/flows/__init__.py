@@ -4,7 +4,8 @@ scheduler)."""
 from videotuna_tpu_torch.flows.generation import (GenerationFlow,
                                                   load_prompts, savename)
 from videotuna_tpu_torch.flows.cogvideo import CogVideoXFlow
+from videotuna_tpu_torch.flows.hunyuan import HunyuanVideoFlow
 from videotuna_tpu_torch.flows.opensora import OpenSoraFlow
 
-__all__ = ["GenerationFlow", "CogVideoXFlow", "OpenSoraFlow", "load_prompts",
-           "savename"]
+__all__ = ["GenerationFlow", "CogVideoXFlow", "HunyuanVideoFlow",
+           "OpenSoraFlow", "load_prompts", "savename"]

@@ -2,7 +2,7 @@
 of ``videotuna_tpu/flows/generation.py``.  A flow is four components —
 
     first_stage   VAE (decode latents to pixels)
-    cond_stage    text encoder
+    cond_stage    text encoder [+ optional cond_stage_2]
     denoiser      DiT
     scheduler     diffusion schedule
 
@@ -36,7 +36,7 @@ from videotuna_tpu_torch.schedulers.common import randn
 
 Cond = Dict[str, torch.Tensor]
 
-COMPONENT_NAMES = ("denoiser", "first_stage", "cond_stage")
+COMPONENT_NAMES = ("denoiser", "first_stage", "cond_stage", "cond_stage_2")
 
 
 def _build_module(config: Dict[str, Any], device: torch.device) -> nn.Module:
@@ -68,10 +68,6 @@ class GenerationFlow:
                  param_dtype: Any = "float32",
                  attn_static_max: Optional[float] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if cond_stage_2_config:
-            raise NotImplementedError(
-                "a second conditioning stage (Hunyuan, StepVideo) is not "
-                "ported yet")
         self.device = resolve_device(device)
         self.denoiser = _build_module(denoiser_config, self.device)
         self.scheduler = instantiate(scheduler_config).to(self.device)
@@ -79,6 +75,8 @@ class GenerationFlow:
                             if first_stage_config else None)
         self.cond_stage = (_build_module(cond_stage_config, self.device)
                            if cond_stage_config else None)
+        self.cond_stage_2 = (_build_module(cond_stage_2_config, self.device)
+                             if cond_stage_2_config else None)
         self.scale_factor = scale_factor
         self.trainable_components = tuple(trainable_components)
         self.tokenizer = tokenizer
@@ -234,7 +232,7 @@ class GenerationFlow:
 
         results = []
         per_prompt: Dict[str, float] = {}
-        sample_sec = decode_sec = 0.0
+        encode_sec = sample_sec = decode_sec = 0.0
         nonfinite_latents = nonfinite_pixels = 0
         t_start = time.perf_counter()
         # negative prompt encoded once and tiled per chunk
@@ -244,6 +242,8 @@ class GenerationFlow:
             chunk = prompts[i:i + bs]
             t_p = time.perf_counter()
             cond = self.encode_text(chunk)
+            self._sync()
+            encode_sec += time.perf_counter() - t_p
             uncond = None
             if uncond1 is not None:
                 uncond = {k: v.repeat_interleave(len(chunk), dim=0)
@@ -274,6 +274,7 @@ class GenerationFlow:
         metrics = {"time_sec": round(time.perf_counter() - t_start, 3),
                    "num_videos": len(results),
                    "per_prompt_sec": per_prompt,
+                   "encode_sec": encode_sec,
                    "sample_sec": sample_sec,
                    "decode_sec": decode_sec,
                    "denoise_steps": self.scheduler.num_steps,

@@ -1,0 +1,144 @@
+"""HunyuanVideoFlow (torch): HunyuanVideo text-to-video sampling, the
+counterpart of ``videotuna_tpu/flows/hunyuan.py``: LLaMA states and the CLIP
+state at the last valid token → ``HYVideoDiT`` with embedded guidance on the
+shifted flow-matching Euler schedule → the causal VAE.
+
+The DiT's joint attention runs under the fixed softmax max 0 (its q and k are
+RMSNormed at d=128, so every scaled log2-score lies within ±√128·log2e ≈ 16.3,
+inside exp2's window (−126, 127)).  Training and image-to-video wait for
+later slices (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from videotuna_tpu_torch.core.registry import register
+from videotuna_tpu_torch.flows.generation import Cond, GenerationFlow
+from videotuna_tpu_torch.models.text_encoders import tokenize
+from videotuna_tpu_torch.schedulers import FlowMatchSchedule, cfg_denoise
+
+
+def riflex_temporal_scale(dim_t: int, num_latent_frames: int, k: int = 4,
+                          L_test: Optional[int] = None, theta: float = 256.0,
+                          device: Optional[torch.device] = None
+                          ) -> Optional[torch.Tensor]:
+    """RIFLEx: per-frequency multipliers (dim_t/2,) of the temporal RoPE
+    axis that cap the k-th frequency so that one period covers ``L_test``
+    latent frames, or None up to 48 latent frames (192 pixel frames, the
+    training horizon)."""
+    if L_test is None or L_test <= 48:
+        return None
+    inv = 1.0 / (theta ** (torch.arange(0, dim_t, 2, dtype=torch.float32,
+                                        device=device) / dim_t))
+    scale = torch.ones_like(inv)
+    scale[k - 1] = torch.clamp((2.0 * math.pi / L_test) / inv[k - 1],
+                               max=1.0)
+    return scale
+
+
+@register("videotuna_tpu_torch.flows.HunyuanVideoFlow",
+          aliases=["videotuna.flow.hunyuanvideo.HunyuanVideoFlow",
+                   "videotuna.models.hunyuan.hyvideo_t2v.hunyuanvideo."
+                   "HunyuanVideoWorkFlow"])
+class HunyuanVideoFlow(GenerationFlow):
+    latent_channels = 16
+    vae_spatial_ratio = 8
+    vae_temporal_ratio = 4
+
+    def __init__(self, *args, num_inference_steps: int = 50,
+                 flow_shift: float = 7.0,
+                 embedded_cfg_scale: Optional[float] = 6.0,
+                 i2v_mode: bool = False, riflex_k: int = 4, **kwargs):
+        if i2v_mode:
+            raise NotImplementedError(
+                "HunyuanVideo image-to-video (i2v_mode) waits for the i2v "
+                "queue of ROADMAP.md")
+        kwargs.setdefault("model_max_length", 256)
+        kwargs.setdefault("attn_static_max", 0.0)
+        kwargs.setdefault("scale_factor", 0.476986)
+        super().__init__(*args, **kwargs)
+        self.embedded_cfg_scale = embedded_cfg_scale
+        self.riflex_k = riflex_k
+        if not isinstance(self.scheduler, FlowMatchSchedule):
+            self.scheduler = FlowMatchSchedule.create(
+                num_inference_steps, flow_shift).to(self.device)
+
+    # --------------------------------------------------------------- encoders
+    @torch.no_grad()
+    def encode_text(self, texts: Sequence[str]) -> Cond:
+        """{"y": LLaMA states, "mask"} and, with the CLIP stage, "pooled":
+        CLIP's state at each prompt's last valid token."""
+        ids, mask = tokenize(texts, pretrained=self.tokenizer,
+                             max_length=self.model_max_length)
+        mask = torch.as_tensor(mask, device=self.device)
+        cond = {"y": self.cond_stage(torch.as_tensor(ids, device=self.device),
+                                     mask),
+                "mask": mask}
+        if self.cond_stage_2 is not None:
+            ids2, mask2 = tokenize(texts, pretrained=self.tokenizer,
+                                   max_length=self.cond_stage_2.max_len)
+            seq2 = self.cond_stage_2(torch.as_tensor(ids2,
+                                                     device=self.device))
+            last = torch.as_tensor(mask2.sum(axis=1) - 1, device=self.device)
+            cond["pooled"] = seq2[torch.arange(seq2.shape[0],
+                                               device=self.device), last]
+        return cond
+
+    def encode_text_i2v(self, *args, **kwargs):
+        raise NotImplementedError(
+            "HunyuanVideo image-to-video prompt encoding (LLaVA template) "
+            "waits for the i2v queue of ROADMAP.md")
+
+    def prepare_image_cond(self, *args, **kwargs):
+        raise NotImplementedError(
+            "HunyuanVideo image-to-video conditioning waits for the i2v "
+            "queue of ROADMAP.md")
+
+    def denoise_apply(self, x: torch.Tensor, t: torch.Tensor, cond: Cond,
+                      temporal_rope_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        guidance = None
+        if self.embedded_cfg_scale is not None:
+            guidance = torch.full((x.shape[0],),
+                                  self.embedded_cfg_scale * 1000.0,
+                                  device=x.device)
+        return self.denoiser(x, t, cond["y"], cond.get("pooled"),
+                             cond.get("mask"), guidance, temporal_rope_scale)
+
+    # --------------------------------------------------------------- training
+    def training_loss(self, *args, **kwargs):
+        raise NotImplementedError(
+            "HunyuanVideo training (flow-matching loss, LoRA) waits for the "
+            "Hunyuan training queue of ROADMAP.md")
+
+    # -------------------------------------------------------------- sampling
+    def temporal_rope_scale(self, num_latent_frames: int
+                            ) -> Optional[torch.Tensor]:
+        """RIFLEx's scale for a video of ``num_latent_frames``, sized by the
+        DiT's own temporal rope width (the JAX flow derives another width at
+        head_dim 128; see ROADMAP.md queue 3)."""
+        return riflex_temporal_scale(
+            self.denoiser.rope_dims()[0], num_latent_frames, self.riflex_k,
+            L_test=num_latent_frames if num_latent_frames > 48 else None,
+            theta=self.denoiser.rope_theta, device=self.device)
+
+    @torch.inference_mode()
+    def sample(self, cond: Cond, uncond: Optional[Cond], shape,
+               generator: Optional[torch.Generator], cfg_scale: float = 1.0,
+               x_T: Optional[torch.Tensor] = None,
+               noises: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Euler flow matching, one forward per step (HunyuanVideo is
+        guidance-distilled); true CFG only with ``uncond`` and
+        ``cfg_scale`` ≠ 1.  Above 48 latent frames the temporal RoPE gets
+        RIFLEx's scale."""
+        scale = self.temporal_rope_scale(shape[1])
+
+        def model_fn(x, t, c):
+            return self.denoise_apply(x, t, c, temporal_rope_scale=scale)
+
+        denoise = cfg_denoise(model_fn, cond, uncond, cfg_scale)
+        return self._run_sampler(denoise, shape, generator, x_T, noises)

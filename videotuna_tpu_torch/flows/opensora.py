@@ -33,8 +33,9 @@ class OpenSoraFlow(GenerationFlow):
                                                        else {})
         if str(sched_cfg.get("target", "")).endswith("FlowMatchSchedule"):
             raise NotImplementedError(
-                "Open-Sora 1.2 rectified-flow sampling waits for the "
-                "HunyuanVideo slice, which ports schedulers/flow_match.py")
+                "Open-Sora 1.2 rectified-flow sampling and training (the "
+                "flow-match branch and STDiT's fps conditioning) are not "
+                "ported yet (ROADMAP.md queue 1, item 10)")
         super().__init__(*args, **kwargs)
         self.num_frames = num_frames
         self.height = height

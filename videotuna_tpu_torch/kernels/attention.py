@@ -20,9 +20,8 @@ math path.  The kernels it can reach, and where each is in the port:
 - K7 (d=64 single-pass backward) and K8 (generic and masked single-pass
   backward), and their two-kernel baselines K10 and K9: ``flash_bwd``, one
   CUDA source;
-- K3 (d ≤ 128 non-causal fixed max): not ported yet.  On a CUDA tensor it
-  raises ``NotImplementedError`` naming K3; on a CPU tensor it runs K2's
-  plain version, which computes the same function.
+- K3 (d ≤ 128 non-causal fixed max, the qk-normed denoisers' sampling
+  forward): mapped onto ``flash_fwd`` with ``static_max``, counted as K3.
 
 Under autograd (``torch.is_grad_enabled()`` and q, k or v requiring grad)
 ``dot_product_attention`` takes the custom VJPs: the forward kernel with
@@ -52,8 +51,8 @@ _KERNELS = {
           "csrc/flash_fwd_d64.cu",
     "K2": "generic online-softmax flash forward (flash_attention): "
           "csrc/flash_fwd.cu",
-    "K3": "d=128 non-causal fixed-max flash forward (_flash_t128): "
-          "not ported",
+    "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
+          "mapped onto csrc/flash_fwd.cu (flash_fwd with static_max)",
     "K4": "kv_valid-masked flash forward (_flash_dynpad): csrc/flash_fwd.cu",
     "K5": "generic flash forward with the LSE (_flash_forward_lse): "
           "mapped onto csrc/flash_fwd.cu (flash_fwd with emit_lse)",
@@ -308,7 +307,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               static_max: Optional[float] = None,
               emit_lse: bool = False, route: Optional[str] = None
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """K2, K4 and K5: flash attention forward for any head_dim ≤ 256.
+    """K2, K3, K4 and K5: flash attention forward for any head_dim ≤ 256.
 
     q (B, Sq, H, d), k and v (B, Sk, H, d) → o (B, Sq, H, d) in q's dtype,
     and with ``emit_lse`` the natural-log LSE, f32 (B, H, Sq).  Options:
@@ -318,11 +317,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On a CUDA tensor it launches the hand-written kernel
     ``csrc/flash_fwd.cu`` (bf16 or f32, d a multiple of 8; anything else
     raises) and adds one to ``flash_fwd.launches[route]``: by default "K4"
-    when a mask is given, else "K2"; the training forward passes "K5".  On
-    a CPU tensor it runs ``flash_fwd_plain``.  Replaces the TPU kernels
+    when a mask is given, else "K2"; ``flash_attention`` passes "K3" for
+    its fixed-max route at d ≤ 128, the training forward "K5".  On a CPU
+    tensor it runs ``flash_fwd_plain``.  Replaces the TPU kernels
     ``_flash_kernel`` / ``flash_attention`` (K2,
     videotuna_tpu/kernels/attention.py:78, :812), ``_flash_kernel_dynpad``
     / ``_flash_dynpad`` (K4, :970, :1059) and, by mapping,
+    ``_flash_kernel_t128`` / ``_flash_t128`` (K3, :581, :648) and
     ``_flash_fwd_lse_kernel`` / ``_flash_forward_lse`` (K5, :867, :933)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, sm_scale=sm_scale, causal=causal,
@@ -372,7 +373,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if emit_lse else out
 
 
-flash_fwd.launches = {"K2": 0, "K4": 0, "K5": 0}
+flash_fwd.launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -499,14 +500,6 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
 
 
-def _not_ported(x: torch.Tensor, kernel: str) -> None:
-    """Raise on a CUDA tensor for a TPU kernel the port does not have yet."""
-    if x.device.type != "cpu":
-        raise NotImplementedError(
-            f"TPU kernel {kernel} ({_KERNELS[kernel]}) is not ported to CUDA "
-            "yet (see ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # Route choice, scoped options and the public entry
 # ---------------------------------------------------------------------------
@@ -523,8 +516,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_valid`` → K4; ``pack2`` ("t", or auto for d=64, even heads,
     non-causal) → K1, and ``pack2=True`` → K6, mapped onto K1's kernel in
     online mode (f32 on the card takes ``flash_fwd``, K1's kernel being
-    bf16-only); a fixed max at d ≤ 128 with ≥ 128 queries and keys → K3
-    (not ported); everything else → K2."""
+    bf16-only); a fixed max at d ≤ 128 with ≥ 128 queries and keys → K3,
+    mapped onto ``flash_fwd`` with ``static_max``; everything else → K2."""
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     if kh != h:   # GQA/MQA: broadcast KV heads
@@ -551,15 +544,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_fwd_d64(q, k, v, sm_scale=sm_scale,
                              static_max=static_max,
                              route="K1" if pack2 == "t" else "K6")
+    route = None
     if static_max is not None:
         if causal:
             raise ValueError("static_max: non-causal only")
-        # head_dim is zero-padded to 128 lanes there, so every d ≤ 128 with
-        # a fixed max takes the d=128 kernel
+        # the TPU pads head_dim to 128 lanes there, so every d ≤ 128 with a
+        # fixed max takes the d=128 kernel
         if d <= 128 and sq >= 128 and sk >= 128:
-            _not_ported(q, "K3")
+            route = "K3"
     return flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
-                     static_max=static_max)
+                     static_max=static_max, route=route)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,12 @@
 //       generic online-softmax forward (causal, ragged keys, fixed max);
 //   K4  `_flash_kernel_dynpad` launched by `_flash_dynpad` (:970, :1059),
 //       the `kv_valid`-masked forward with its optional LSE;
-// and, by mapping, the training forward
+// and, by mapping,
+//   K3  `_flash_kernel_t128` launched by `_flash_t128` (:581, :648), the
+//       fixed-max forward of every d <= 128 (zero-padded to 128 lanes
+//       there), which is this kernel with use_static=1;
 //   K5  `_flash_fwd_lse_kernel` launched by `_flash_forward_lse` (:867,
-//       :933), which is K2 writing the natural-log LSE.
+//       :933), the training forward, which is K2 writing the LSE.
 // It computes the same function, not the same blocks.  What differs on
 // purpose:
 //   - Ragged and masked keys.  K2 zero-pads keys and removes their share of
@@ -49,8 +52,11 @@
 // and o each cross device memory once: no padded copy is written, the scores
 // never leave registers, and K/V tiles are staged with cp.async so that the
 // next tile's load overlaps this tile's products.  With only 2-4 key tiles a
-// row, the pipeline is shallow; TMA, wgmma and warp specialisation are left
-// for a later version.
+// row, the pipeline is shallow.  At HunyuanVideo's joint attention (K3: B=1,
+// S=119,056, H=24, d=128) the call is bound by operations instead
+// (1.74e14 FLOP, 176 ms at 989 TF/s; its 2.9 GB take 0.9 ms), and there the
+// mma.sync products and 64-key tiles set the pace; TMA, wgmma and warp
+// specialisation are left for a later version.
 //
 // Layout.  One block per (query tile, b*h), b*h on gridDim.x; each warp owns
 // 16 query rows.  D <= 128: 128-row query tiles (8 warps), 64-key tiles, the

@@ -1,6 +1,7 @@
 """Shared building blocks (torch): the subset of the JAX package's
-``models/layers.py`` that the CogVideoX MMDiT and the Open-Sora STDiT use,
-plus the norms and the random initialiser every module of the port shares.
+``models/layers.py`` that the CogVideoX MMDiT, the Open-Sora STDiT, the
+HunyuanVideo DiT and the LLaMA text encoder use, plus the norms and the
+random initialiser every module of the port shares.
 
 Parameter names follow the flax modules (``fc1``, ``q_norm``, …) so that
 ``tools/from_jax.py`` maps a flax tree onto these modules by name.
@@ -214,6 +215,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     o1 = x1 * c - x2 * s
     o2 = x1 * s + x2 * c
     return torch.stack([o1, o2], dim=-1).reshape(x.shape)
+
+
+def apply_rope_half(x: torch.Tensor, cos: torch.Tensor,
+                    sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., N, H, D); cos/sin: (N, D/2).  Rotate-half convention (the
+    HF LLaMA one): channel i pairs with i + D/2."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    c = cos[:, None, :]
+    s = sin[:, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# HunyuanVideo's rope_dim_list at head_dim 128 (t, h, w), interleaved pairs
+HUNYUAN_ROPE_DIMS: Tuple[int, int, int] = (16, 56, 56)
 
 
 def split_rope_dims(head_dim: int) -> Tuple[int, int, int]:

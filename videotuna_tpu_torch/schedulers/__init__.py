@@ -1,6 +1,6 @@
 """Schedulers of the port: the DDPM/LDM buffers, DDIM with CFG wrappers, the
-CogVideoX SDE-DPM++(2M) and trailing DDIM samplers, and IDDPM spaced
-sampling with learned variance."""
+CogVideoX SDE-DPM++(2M) and trailing DDIM samplers, IDDPM spaced sampling
+with learned variance, and the flow-matching Euler sampler."""
 
 from videotuna_tpu_torch.schedulers.common import (extract_into,
                                                    make_beta_schedule,
@@ -12,12 +12,18 @@ from videotuna_tpu_torch.schedulers.cogvideox_dpm import (
     CogVideoXDPMSchedule, build_cogvideox_ddim)
 from videotuna_tpu_torch.schedulers.ddim import (DDIMSchedule, cfg_denoise,
                                                  dynamic_cfg_denoise)
+from videotuna_tpu_torch.schedulers.flow_match import (FlowMatchSchedule,
+                                                       flow_interpolate,
+                                                       flow_target,
+                                                       sample_sigmas,
+                                                       shift_sigmas)
 from videotuna_tpu_torch.schedulers.iddpm import (SpacedSchedule,
                                                   space_timesteps)
 
 __all__ = [
     "DDPMSchedule", "DDIMSchedule", "CogVideoXDPMSchedule", "SpacedSchedule",
-    "space_timesteps",
+    "FlowMatchSchedule", "space_timesteps", "flow_interpolate", "flow_target",
+    "sample_sigmas", "shift_sigmas",
     "build_cogvideox_ddim", "cfg_denoise", "dynamic_cfg_denoise",
     "extract_into", "make_beta_schedule", "make_ddim_timesteps",
     "rescale_noise_cfg", "rescale_zero_terminal_snr",

@@ -11,9 +11,11 @@ changes is the layout of each leaf:
 - ``Conv`` kernel (…spatial, I, O) → (O, I, …spatial);
 - LayerNorm / GroupNorm / RMSNorm ``scale`` → ``weight``;
 - ``Embed.embedding`` → ``Embedding.weight``;
-- ``block_{i}`` → ``blocks[i]`` and ``pair_{i}`` → ``pairs[i]`` (STDiT's
-  paired layout); the ``scan_blocks`` layouts (every leaf stacked on axis 0
-  under ``blocks`` or ``pairs``) are unstacked.
+- ``block_{i}`` → ``blocks[i]``, ``pair_{i}`` → ``pairs[i]`` (STDiT's
+  paired layout), ``double_{i}`` → ``double_blocks[i]`` and ``single_{i}``
+  → ``single_blocks[i]`` (the HunyuanVideo DiT); the ``scan_blocks``
+  layouts (every leaf stacked on axis 0 under ``blocks``, ``pairs``,
+  ``double_blocks`` or ``single_blocks``) are unstacked.
 
 The copy is strict: a flax leaf with no counterpart, a shape mismatch, or a
 module parameter left unassigned raises.
@@ -37,8 +39,9 @@ from torch import nn
 from videotuna_tpu_torch.models.layers import LayerNorm, RMSNorm
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, LayerNorm, RMSNorm)
-_BLOCK = re.compile(r"^(block|pair)_(\d+)$")
-_STACKS = {"block": "blocks", "pair": "pairs"}
+_BLOCK = re.compile(r"^(block|pair|double|single)_(\d+)$")
+_STACKS = {"block": "blocks", "pair": "pairs", "double": "double_blocks",
+           "single": "single_blocks"}
 
 
 def _copy(param: torch.Tensor, arr: np.ndarray, where: str,

@@ -417,14 +417,24 @@ class Trainer:
                 loss_ctx=self.loss_scope)
         return self._step_fn
 
-    def install_signal_checkpoint(self) -> None:
-        """SIGUSR1 → checkpoint at the next step boundary."""
+    @contextlib.contextmanager
+    def signal_checkpoint(self):
+        """SIGUSR1 → checkpoint at the next step boundary, inside the
+        block.  The previous handler comes back after it: a handler left
+        installed would keep this trainer, and its flow's weights on the
+        device, alive after ``fit`` returns."""
         def handler(signum, frame):
             self._want_ckpt = True
         try:
-            signal.signal(signal.SIGUSR1, handler)
-        except ValueError:
-            pass  # not the main thread
+            prev = signal.signal(signal.SIGUSR1, handler)
+        except ValueError:   # not the main thread
+            yield
+            return
+        try:
+            yield
+        finally:
+            signal.signal(signal.SIGUSR1,
+                          signal.SIG_DFL if prev is None else prev)
 
     def fit(self, loader, state: Optional[TrainState] = None,
             max_steps: Optional[int] = None, val_loader=None,
@@ -432,44 +442,44 @@ class Trainer:
         state = state if state is not None else self.init_state()
         state = self.maybe_resume(state)
         step_fn = self.compiled_step()
-        self.install_signal_checkpoint()
-        max_steps = max_steps or self.cfg.max_steps
-        done = state.step
-        if done and hasattr(loader, "resume_at"):
-            loader.resume_at(done)
-        t_last = time.perf_counter()
-        while done < max_steps:
-            epoch_start = done
-            for batch in loader:
-                batch = self.prepare_batch(batch)
-                state, metrics = step_fn(state, batch,
-                                         self.keys.fixed("train_step", done))
-                done += 1
-                if done % self.cfg.log_every == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    m["step"] = done
-                    m["steps_per_sec"] = self.cfg.log_every / (
-                        time.perf_counter() - t_last)
-                    t_last = time.perf_counter()
-                    self.metrics_history.append(m)
-                    for cb in self.callbacks:
-                        cb(done, m, state)
-                if self._want_ckpt or done % self.cfg.ckpt_every == 0:
-                    self.save(state, done)
-                    self._want_ckpt = False
-                if val_loader is not None and val_every \
-                        and done % val_every == 0:
-                    vm = self.validate(state, val_loader)
-                    vm["step"] = done
-                    self.metrics_history.append(vm)
-                if done >= max_steps:
-                    break
-            if done == epoch_start:
-                raise RuntimeError(
-                    f"data loader yielded no batches at step {done}; pass a "
-                    "re-iterable dataset/loader (not an exhausted generator) "
-                    f"to reach max_steps={max_steps}")
-        self.save(state, done)
+        with self.signal_checkpoint():
+            max_steps = max_steps or self.cfg.max_steps
+            done = state.step
+            if done and hasattr(loader, "resume_at"):
+                loader.resume_at(done)
+            t_last = time.perf_counter()
+            while done < max_steps:
+                epoch_start = done
+                for batch in loader:
+                    batch = self.prepare_batch(batch)
+                    state, metrics = step_fn(
+                        state, batch, self.keys.fixed("train_step", done))
+                    done += 1
+                    if done % self.cfg.log_every == 0:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        m["step"] = done
+                        m["steps_per_sec"] = self.cfg.log_every / (
+                            time.perf_counter() - t_last)
+                        t_last = time.perf_counter()
+                        self.metrics_history.append(m)
+                        for cb in self.callbacks:
+                            cb(done, m, state)
+                    if self._want_ckpt or done % self.cfg.ckpt_every == 0:
+                        self.save(state, done)
+                        self._want_ckpt = False
+                    if val_loader is not None and val_every \
+                            and done % val_every == 0:
+                        vm = self.validate(state, val_loader)
+                        vm["step"] = done
+                        self.metrics_history.append(vm)
+                    if done >= max_steps:
+                        break
+                if done == epoch_start:
+                    raise RuntimeError(
+                        f"data loader yielded no batches at step {done}; "
+                        "pass a re-iterable dataset/loader (not an exhausted "
+                        f"generator) to reach max_steps={max_steps}")
+            self.save(state, done)
         return state
 
     @torch.no_grad()
