@@ -267,11 +267,14 @@ def _jax_bwd(q, k, v, g, causal):
     return (np.asarray(out), lse) + tuple(np.asarray(x) for x in grads)
 
 
-@pytest.mark.parametrize("d,causal", [(64, False), (72, False), (64, True)],
-                         ids=["k7_d64", "k8_d72", "k8_d64_causal"])
+@pytest.mark.parametrize("d,causal", [(64, False), (72, False), (64, True),
+                                     (256, False), (160, False)],
+                         ids=["k7_d64", "k8_d72", "k8_d64_causal", "k8_d256",
+                              "k8_d160"])
 def test_bwd_plain_matches_pallas(d, causal):
     """``flash_bwd_plain`` against the Pallas fused backward (K7 for d=64
-    non-causal, K8 otherwise) on the same q, k, v, o, dO and LSE."""
+    non-causal, K8 otherwise, which pads d to a multiple of 128 and runs
+    every d ≤ 256) on the same q, k, v, o, dO and LSE."""
     q, k, v = _qkv(9, 1, 256, 2, d)
     g = np.random.default_rng(10).standard_normal(q.shape, dtype=np.float32)
     out, lse, *ref = _jax_bwd(q, k, v, g, causal)
@@ -355,3 +358,64 @@ def test_bwd_routes_and_launch_counts_on_cpu():
     P.flash_attention_diff(q, k, v, single_pass=False).sum().backward()
     assert (P.flash_bwd.launches, P.flash_fwd.launches,
             P.flash_fwd_d64.launches) == before
+
+
+# ---------------------------------------------------------------- designs
+@pytest.mark.parametrize("route,dtype,d,causal,masked,lse,design", [
+    ("K3", torch.bfloat16, 128, False, False, False, "sm90"),
+    ("K3", torch.bfloat16, 64, False, False, False, "sm90"),
+    ("K3", torch.bfloat16, 72, False, False, False, "mma"),
+    ("K3", torch.bfloat16, 32, False, False, False, "mma"),
+    ("K3", torch.float32, 128, False, False, False, "mma"),
+    ("K3", torch.bfloat16, 128, True, False, False, "mma"),
+    ("K3", torch.bfloat16, 128, False, True, False, "mma"),
+    ("K3", torch.bfloat16, 128, False, False, True, "mma"),
+    ("K2", torch.bfloat16, 128, False, False, False, "mma"),
+    ("K4", torch.bfloat16, 128, False, True, False, "mma"),
+    ("K5", torch.bfloat16, 128, False, False, True, "mma"),
+])
+def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
+                                                       causal, masked, lse,
+                                                       design):
+    """The Hopper forward (flash_fwd_sm90.cu) serves exactly the fixed-max
+    route K3 in bf16 at d = 64 or 128, non-causal, unmasked, without the
+    LSE; every other call keeps flash_fwd.cu."""
+    kv_valid = torch.ones((1, 8), dtype=torch.bool) if masked else None
+    assert P._fwd_design(route, dtype, d, causal, kv_valid, lse) == design
+
+
+@pytest.mark.parametrize("route,dtype,d,design", [
+    ("K7", torch.bfloat16, 64, "sm90"),
+    ("K7", torch.float32, 64, "mma"),
+    ("K8", torch.bfloat16, 64, "mma"),
+    ("K8", torch.bfloat16, 72, "mma"),
+    ("K9", torch.bfloat16, 72, "mma"),
+    ("K10", torch.bfloat16, 64, "mma"),
+])
+def test_bwd_design_is_a_function_of_route(route, dtype, d, design):
+    """The single-pass Hopper backward (flash_bwd_sm90.cu) serves exactly the
+    K7 route in bf16; K8, K9 and K10 keep flash_bwd.cu."""
+    assert P._bwd_design(route, dtype, d) == design
+
+
+def test_sm90_counters_untouched_on_cpu():
+    """On CPU tensors the K3 and K7 routes run their plain versions: no
+    launch counted, per route or per design, and no alignment copy."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(16, 1, 128, 3, 128))
+    g = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (1, 128, 2, 64), dtype=np.float32)).bfloat16()
+    before = (dict(P.flash_fwd.launches), dict(P.flash_fwd.launches_sm90),
+              P.flash_fwd.tma_copies, dict(P.flash_bwd.launches),
+              dict(P.flash_bwd.launches_sm90))
+    out = P.flash_attention(q, k, v.transpose(1, 2).contiguous()
+                            .transpose(1, 2), static_max=0.0)
+    ref = P.flash_fwd_plain(q, k, v, sm_scale=128 ** -0.5, static_max=0.0)
+    assert torch.equal(out, ref)
+    q2, k2, v2 = (x.requires_grad_() for x in
+                  (torch.from_numpy(a) for a in _qkv(18, 1, 128, 2, 64)))
+    P.flash_attention_diff(q2, k2, v2).backward(g.float())
+    assert (P.flash_fwd.launches, P.flash_fwd.launches_sm90,
+            P.flash_fwd.tma_copies, P.flash_bwd.launches,
+            P.flash_bwd.launches_sm90) == before
+

@@ -158,7 +158,7 @@ def test_k3_route_matches_plain(d):
 def test_k3_reads_the_single_stream_v_in_place():
     """The single-stream block hands v to the kernel as a strided view of
     its fused linear1 output (row stride 3·dim + 4·dim, start at 2·dim):
-    the layout check takes it without a copy."""
+    the sm90 forward's TMA reads it in place, without a copy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dim, heads = 256, 2
@@ -169,10 +169,63 @@ def test_k3_reads_the_single_stream_v_in_place():
         h[..., i * dim:(i + 1) * dim].unflatten(-1, (heads, -1))
         for i in range(3))
     assert P._aligned(v) and not v.is_contiguous()
+    copies = P.flash_fwd.tma_copies
+    before = P.flash_fwd.launches_sm90["K3"]
     out = P.flash_attention(q, k, v, static_max=0.0)
     ref = P.flash_fwd_plain(q, k, v.contiguous(), sm_scale=128 ** -0.5,
                             static_max=0.0)
     torch.cuda.synchronize()
+    assert P.flash_fwd.tma_copies == copies
+    assert P.flash_fwd.launches_sm90["K3"] == before + 1
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+
+
+# (sq, sk): a full key tile, one key past it, ragged, a long tail; queries
+# other than keys
+_SM90_FWD_LENGTHS = [(128, 128), (129, 129), (300, 300), (4112, 4112),
+                     (4096, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b,h", [(1, 24), (2, 3)])
+@pytest.mark.parametrize("sq,sk", _SM90_FWD_LENGTHS)
+def test_sm90_forward_matches_plain(d, b, h, sq, sk):
+    """The Hopper forward (flash_fwd_sm90.cu) under the fixed max against
+    ``flash_fwd_plain``, counted per route and per design.  Called on the
+    K3 route directly: ``flash_attention`` sends d=64 with even heads to
+    K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(b, sq, sk, h, d, seed=sq + sk + d, normed=True)
+    before = (dict(P.flash_fwd.launches), dict(P.flash_fwd.launches_sm90))
+    out = P.flash_fwd(q, k, v, sm_scale=d ** -0.5, static_max=0.0,
+                      route="K3")
+    ref = P.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5, static_max=0.0)
+    torch.cuda.synchronize()
+    assert P.flash_fwd.launches == dict(before[0], K3=before[0]["K3"] + 1)
+    assert P.flash_fwd.launches_sm90 == dict(before[1],
+                                             K3=before[1]["K3"] + 1)
+    # bf16 output rounding; p is bf16 on both sides: 2e-2 of max|o|
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_sm90_forward_copies_what_tma_cannot_read():
+    """A v whose row stride is not a multiple of 16 bytes is copied, and the
+    copy is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, _ = _qkv_d(1, 200, 200, 2, 128, seed=5, normed=True)
+    v = torch.randn((1, 200, 2, 132), device="cuda").bfloat16()[..., :128]
+    assert not P._aligned(v)
+    copies = P.flash_fwd.tma_copies
+    out = P.flash_attention(q, k, v, static_max=0.0)
+    ref = P.flash_fwd_plain(q, k, v, sm_scale=128 ** -0.5, static_max=0.0)
+    torch.cuda.synchronize()
+    assert P.flash_fwd.tma_copies == copies + 1
     assert (out.float() - ref.float()).abs().max() \
         <= 2e-2 * ref.float().abs().max()
 
@@ -248,6 +301,10 @@ _BWD_CUDA = [
     (2, 512, 120, 2, 72, False, True, True, "K8"),
     (1, 256, 256, 2, 64, False, False, False, "K10"),
     (2, 256, 256, 2, 72, False, False, False, "K9"),
+    (2, 300, 300, 3, 256, True, False, True, "K8"),
+    (2, 300, 300, 3, 256, False, True, True, "K8"),
+    (2, 300, 300, 3, 160, True, False, True, "K8"),
+    (2, 300, 300, 3, 160, False, True, True, "K8"),
 ]
 
 
@@ -318,3 +375,32 @@ def test_grads_reach_q_k_v_on_cuda(d, masked):
         assert x.grad is not None
         assert (x.grad.float() - r.grad).abs().max() \
             <= 2e-2 * r.grad.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_max", [0.0, None], ids=["fixed", "online"])
+@pytest.mark.parametrize("s,h", [(128, 2), (200, 2), (4112, 30), (200, 30)])
+def test_sm90_backward_matches_plain(static_max, s, h):
+    """The single-pass Hopper backward (flash_bwd_sm90.cu, route K7) on the
+    LSE of K1 under both softmax modes, against ``flash_bwd_plain``,
+    counted per route and per design."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(1, s, s, h, seed=s + h)
+    g = torch.randn((1, s, h, 64), generator=torch.Generator().manual_seed(s)
+                    ).cuda().bfloat16()
+    out, lse = P.flash_fwd_d64(q, k, v, sm_scale=0.125,
+                               static_max=static_max, emit_lse=True)
+    before = (dict(P.flash_bwd.launches), dict(P.flash_bwd.launches_sm90))
+    got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=0.125)
+    ref = P.flash_bwd_plain(q, k, v, out, g, lse, sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert P.flash_bwd.launches == dict(before[0], K7=before[0]["K7"] + 1)
+    assert P.flash_bwd.launches_sm90 == dict(before[1],
+                                             K7=before[1]["K7"] + 1)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.bfloat16
+        assert torch.isfinite(x.float()).all()
+        # p and ds are bf16 operands, gradients bf16: 2e-2 of max|grad|
+        assert (x.float() - r.float()).abs().max() \
+            <= 2e-2 * r.float().abs().max()

@@ -3,8 +3,9 @@
 Each kernel is one source under ``csrc/`` with a plain C interface.  It is
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed in
 ``.gitignore``) and loaded with ``ctypes``; the library's name carries a hash
-of the source and the flags, so an edited source is rebuilt.  Nothing is
-compiled or loaded when a module is imported.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt.  Nothing is compiled or loaded when a module is
+imported.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("flash_fwd_d64.cu", "flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd_d64.cu", "flash_fwd.cu", "flash_bwd.cu",
+           "flash_fwd_sm90.cu", "flash_bwd_sm90.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -42,8 +44,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``source``'s library lands: named by a hash of source + flags."""
+    """Where ``source``'s library lands: named by a hash of the source, the
+    shared headers and the flags."""
     text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

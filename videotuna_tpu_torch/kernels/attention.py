@@ -17,11 +17,19 @@ math path.  The kernels it can reach, and where each is in the port:
   ``flash_fwd``, one CUDA kernel, which also takes f32 q, k, v;
 - K5 (the training forward with the LSE): mapped onto ``flash_fwd`` with
   ``emit_lse``;
-- K7 (d=64 single-pass backward) and K8 (generic and masked single-pass
-  backward), and their two-kernel baselines K10 and K9: ``flash_bwd``, one
-  CUDA source;
+- K7 (d=64 single-pass backward): ``flash_bwd``, launching the Hopper
+  kernel ``csrc/flash_bwd_sm90.cu`` (single pass, TMA, wgmma);
+- K8 (generic and masked single-pass backward, d ≤ 256), and the two-kernel
+  baselines K10 and K9: ``flash_bwd``, launching ``csrc/flash_bwd.cu``;
 - K3 (d ≤ 128 non-causal fixed max, the qk-normed denoisers' sampling
-  forward): mapped onto ``flash_fwd`` with ``static_max``, counted as K3.
+  forward): ``flash_fwd`` with ``static_max``, counted as K3; at d = 64 and
+  128 in bf16 it launches the Hopper kernel ``csrc/flash_fwd_sm90.cu``
+  (TMA, wgmma, warp-specialised), at other widths ``flash_fwd.cu``.
+
+Which kernel a route launches is a function of the route, the dtype, the
+head width and the options (``_fwd_design``, ``_bwd_design``), decided
+before the launch; ``flash_fwd.launches_sm90`` and
+``flash_bwd.launches_sm90`` count the Hopper kernels' launches.
 
 Under autograd (``torch.is_grad_enabled()`` and q, k or v requiring grad)
 ``dot_product_attention`` takes the custom VJPs: the forward kernel with
@@ -52,14 +60,15 @@ _KERNELS = {
     "K2": "generic online-softmax flash forward (flash_attention): "
           "csrc/flash_fwd.cu",
     "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
-          "mapped onto csrc/flash_fwd.cu (flash_fwd with static_max)",
+          "csrc/flash_fwd_sm90.cu at d=64 and 128 in bf16, else "
+          "csrc/flash_fwd.cu (flash_fwd with static_max)",
     "K4": "kv_valid-masked flash forward (_flash_dynpad): csrc/flash_fwd.cu",
     "K5": "generic flash forward with the LSE (_flash_forward_lse): "
           "mapped onto csrc/flash_fwd.cu (flash_fwd with emit_lse)",
     "K6": "d=64 natural-layout packed forward (_flash_packed2): "
           "mapped onto csrc/flash_fwd_d64.cu",
     "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
-          "csrc/flash_bwd.cu",
+          "csrc/flash_bwd_sm90.cu",
     "K8": "single-pass generic and kv_valid-masked flash backward "
           "(flash_attention_bwd): csrc/flash_bwd.cu",
     "K9": "two-kernel generic flash backward (flash_attention_bwd, "
@@ -314,12 +323,16 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``causal`` (top-left aligned), ``kv_valid`` (B, Sk) bool key mask of any
     pattern, ``static_max`` (fixed softmax max, log2 domain).
 
-    On a CUDA tensor it launches the hand-written kernel
-    ``csrc/flash_fwd.cu`` (bf16 or f32, d a multiple of 8; anything else
-    raises) and adds one to ``flash_fwd.launches[route]``: by default "K4"
-    when a mask is given, else "K2"; ``flash_attention`` passes "K3" for
-    its fixed-max route at d ≤ 128, the training forward "K5".  On a CPU
-    tensor it runs ``flash_fwd_plain``.  Replaces the TPU kernels
+    On a CUDA tensor it launches a hand-written kernel and adds one to
+    ``flash_fwd.launches[route]``: by default "K4" when a mask is given,
+    else "K2"; ``flash_attention`` passes "K3" for its fixed-max route at
+    d ≤ 128, the training forward "K5".  Route K3 in bf16 at d = 64 or 128
+    (non-causal, unmasked, no LSE) launches ``csrc/flash_fwd_sm90.cu`` and
+    adds one to ``flash_fwd.launches_sm90["K3"]``; q, k or v that TMA cannot
+    read in place is copied first and counted in ``flash_fwd.tma_copies``.
+    Everything else launches ``csrc/flash_fwd.cu`` (bf16 or f32, d a
+    multiple of 8; anything else raises).  On a CPU tensor it runs
+    ``flash_fwd_plain``.  Replaces the TPU kernels
     ``_flash_kernel`` / ``flash_attention`` (K2,
     videotuna_tpu/kernels/attention.py:78, :812), ``_flash_kernel_dynpad``
     / ``_flash_dynpad`` (K4, :970, :1059) and, by mapping,
@@ -335,6 +348,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if route not in flash_fwd.launches:
         raise ValueError(f"flash_fwd: route must be one of "
                          f"{sorted(flash_fwd.launches)}, got {route}")
+    if _fwd_design(route, q.dtype, q.shape[-1], causal, kv_valid,
+                   emit_lse) == "sm90":
+        if static_max is None:
+            raise ValueError("route K3 is the fixed-max route: give "
+                             "static_max")
+        out = _flash_fwd_sm90(q, k, v, sm_scale, static_max)
+        flash_fwd.launches[route] += 1
+        flash_fwd.launches_sm90[route] += 1
+        return out
     _check_layout("flash_fwd", q, k, v, (torch.bfloat16, torch.float32))
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -374,6 +396,63 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_fwd.launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
+# the launches of the Hopper design (flash_fwd_sm90.cu), per route; they are
+# counted in ``launches`` too
+flash_fwd.launches_sm90 = {"K3": 0}
+# q, k or v copied because TMA could not read it in place
+flash_fwd.tma_copies = 0
+
+
+def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
+                kv_valid: Optional[torch.Tensor], emit_lse: bool) -> str:
+    """Which forward kernel a CUDA call launches, from its route and options
+    alone: "sm90" (``csrc/flash_fwd_sm90.cu``: TMA, wgmma, warp-specialised)
+    for the fixed-max route K3 in bf16 at d = 64 or 128, non-causal,
+    unmasked, without the LSE; "mma" (``csrc/flash_fwd.cu``) for everything
+    else."""
+    if (route == "K3" and dtype == torch.bfloat16 and d in (64, 128)
+            and not causal and kv_valid is None and not emit_lse):
+        return "sm90"
+    return "mma"
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can read it in place (16-byte aligned start,
+    contiguous head_dim, strides multiples of 16 bytes), else a contiguous
+    copy, counted in ``flash_fwd.tma_copies``."""
+    if _aligned(t):
+        return t
+    flash_fwd.tma_copies += 1
+    return t.contiguous()
+
+
+_FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                      + [ctypes.c_longlong] * 12
+                      + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+
+
+def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: float, static_max: float) -> torch.Tensor:
+    """Launch ``csrc/flash_fwd_sm90.cu``: the fixed-max forward, bf16,
+    d = 64 or 128, non-causal, unmasked."""
+    q, k, v = (_tma_ready(x) for x in (q, k, v))
+    _check_layout("flash_fwd", q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if b * h > 65535:
+        raise ValueError("B·H above 65535 exceeds the launch grid")
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("flash_fwd_sm90.cu", "flash_fwd_sm90_bf16",
+                _FWD_SM90_ARGTYPES,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, h, sq, sk, d,
+                q.stride(0), q.stride(1), q.stride(2),
+                k.stride(0), k.stride(1), k.stride(2),
+                v.stride(0), v.stride(1), v.stride(2),
+                out.stride(0), out.stride(1), out.stride(2),
+                float(sm_scale * _LOG2E), float(static_max))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -437,13 +516,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's output ``out``, its gradient ``dout`` and the natural-log
     ``lse`` (B, H, Sq, f32) that the forward wrote.
 
-    On a CUDA tensor it launches the hand-written kernels of
-    ``csrc/flash_bwd.cu`` (bf16, d ≤ 128 and a multiple of 8; anything
-    else raises) and adds one to ``flash_bwd.launches[route]``: "K7" for
-    d=64, even heads, non-causal and unmasked, "K8" otherwise, and under
-    ``single_pass=False`` "K10" and "K9" for the same two cases, whose
-    two-kernel TPU baselines compute the same function and are mapped onto
-    the same kernels.  On a CPU tensor it runs ``flash_bwd_plain``.
+    On a CUDA tensor it launches hand-written kernels (bf16, d ≤ 256 and a
+    multiple of 8; anything else raises) and adds one to
+    ``flash_bwd.launches[route]``: "K7" for d=64, even heads, non-causal
+    and unmasked, "K8" otherwise, and under ``single_pass=False`` "K10" and
+    "K9" for the same two cases, whose two-kernel TPU baselines compute the
+    same function.  K7 runs the single-pass ``csrc/flash_bwd_sm90.cu`` (and
+    adds one to ``flash_bwd.launches_sm90["K7"]``); K8, K9 and K10 run
+    ``csrc/flash_bwd.cu``.  On a CPU tensor it runs ``flash_bwd_plain``.
     Replaces ``_flash_bwd_packed2`` (K7, videotuna_tpu/kernels/attention.py
     :1424, :1517; K10 :1260, :1343) and ``flash_attention_bwd`` (K8 :1148,
     :1725; K9 :1107, :1197)."""
@@ -455,13 +535,9 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_layout("flash_bwd", q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d > 128:
-        raise NotImplementedError(
-            f"flash_bwd takes head_dim ≤ 128, got {d}: the TPU kernel K8 "
-            f"({_KERNELS['K8']}) runs d up to 256; the port's backward does "
-            "not yet (see ROADMAP.md)")
-    if d % 8:
-        raise ValueError(f"flash_bwd takes head_dim a multiple of 8, got {d}")
+    if d > 256 or d % 8:
+        raise ValueError(f"flash_bwd takes head_dim ≤ 256 and a multiple of "
+                         f"8, got {d}")
     if -(-max(sq, sk) // 64) > 65535:
         raise ValueError("S above 64·65535 exceeds the launch grid")
     if out.shape != q.shape or dout.shape != q.shape \
@@ -483,6 +559,11 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if _bwd_design(route, q.dtype, d) == "sm90":
+        _flash_bwd_sm90(q, k, v, out, dout, lse, dq, dk, dv, sm_scale)
+        flash_bwd.launches[route] += 1
+        flash_bwd.launches_sm90[route] += 1
+        return dq, dk, dv
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = [x.stride(i) for x in (q, k, v, out, dout, dq, dk, dv)
                for i in range(3)]
@@ -498,6 +579,48 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
+# the launches of the Hopper design (flash_bwd_sm90.cu), per route; they are
+# counted in ``launches`` too
+flash_bwd.launches_sm90 = {"K7": 0}
+
+
+def _bwd_design(route: str, dtype: torch.dtype, d: int) -> str:
+    """Which backward kernel a CUDA call launches, from its route alone:
+    "sm90" (``csrc/flash_bwd_sm90.cu``: single pass, TMA, wgmma) for the
+    d=64 route K7 in bf16; "mma" (``csrc/flash_bwd.cu``) for K8, K9, K10."""
+    return "sm90" if route == "K7" and dtype == torch.bfloat16 and d == 64 \
+        else "mma"
+
+
+_BWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                      + [ctypes.c_longlong] * 24
+                      + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _flash_bwd_sm90(q, k, v, out, dout, lse, dq, dk, dv,
+                    sm_scale: float) -> None:
+    """Launch ``csrc/flash_bwd_sm90.cu`` (K7: d=64, non-causal, unmasked)
+    into dq, dk, dv, with its f32 scratch: lse2 and delta rows padded to 64
+    queries, and the zeroed dq accumulator (B·H, Sq_pad, 64)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if b * h > 65535:
+        raise ValueError("B·H above 65535 exceeds the launch grid")
+    sq_pad = -(-sq // 64) * 64
+    lse2 = torch.empty((b * h, sq_pad), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse2)
+    dq_acc = torch.zeros((b * h, sq_pad, d), dtype=torch.float32,
+                         device=q.device)
+    strides = [x.stride(i) for x in (q, k, v, out, dout, dq, dk, dv)
+               for i in range(3)]
+    with torch.cuda.device(q.device):
+        _launch("flash_bwd_sm90.cu", "flash_bwd_sm90_bf16",
+                _BWD_SM90_ARGTYPES,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+                delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, *strides,
+                float(sm_scale))
 
 
 # ---------------------------------------------------------------------------

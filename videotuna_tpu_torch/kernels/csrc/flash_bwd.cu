@@ -1,20 +1,20 @@
 // Flash-attention backward, bf16, on Hopper (sm_90a): dq, dk and dv from
 // q, k, v, the forward's output o, its gradient dO and the natural-log LSE,
-// for head widths up to 128, with the forward's options: causal (top-left)
+// for head widths up to 256, with the forward's options: causal (top-left)
 // and a per-key validity mask.
 //
-// Replaces the TPU backward kernels of the JAX package (videotuna_tpu/
-// kernels/attention.py):
-//   K7  `_flash_bwd_packed2_fused_kernel` in `_flash_bwd_packed2`
-//       (:1424, :1517), the single-pass d=64 backward (CogVideoX training);
+// Replaces the TPU backward kernel of the JAX package (videotuna_tpu/
+// kernels/attention.py)
 //   K8  `_flash_bwd_fused_kernel` in `flash_attention_bwd` (:1148, :1725),
 //       the single-pass generic backward, also behind `_fa_masked_bwd`
 //       (:2065), the kv_valid backward;
-// and, by mapping, their two-kernel `single_pass=False` baselines
+// and, by mapping, the two-kernel `single_pass=False` baselines
 //   K9  `_flash_bwd_dkv_kernel` + `_flash_bwd_dq_kernel` (:1107, :1197);
 //   K10 `_flash_bwd_packed2_dkv_kernel` + `_flash_bwd_packed2_dq_kernel`
-//       (:1260, :1343).
-// All four compute one function; this source computes it once.
+//       (:1260, :1343), the baseline of the d=64 backward K7
+//       (`_flash_bwd_packed2_fused_kernel`, :1424), which runs on its own
+//       single-pass kernel, flash_bwd_sm90.cu.
+// All of them compute one function; this source computes it once.
 //
 // Function.  With s = (q.k) * sm_scale, masked to -inf above the causal
 // diagonal, past Sk and where kv_valid[b, key] == 0:
@@ -58,13 +58,18 @@
 // device memory once per kernel (q, k, v, dO twice in all), tiles are staged
 // with cp.async into two shared-memory buffers so that the next tile's load
 // overlaps this tile's products, and no padded copy is ever written.
-// wgmma, TMA and a warp-specialised pipeline are left for a later version.
+// The d=64 route K7 has its own single-pass wgmma kernel
+// (flash_bwd_sm90.cu); this source serves K8, K9 and K10.
 //
 // Layout.  Both kernels: 4 warps, each owning 16 rows of the block's
 // 64-row tile (keys in dkv_kernel, queries in dq_kernel); the loop runs over
-// tiles of 64 rows at D <= 80 and 32 rows at D = 128, so that two 16 x D f32
+// tiles of 64 rows at D <= 80 and 32 rows at D >= 128, so that two 16 x D f32
 // accumulators and the score tiles fit in registers.  D is the padded width
-// (32, 64, 80 or 128; d = 72 -> 80), zero-filled in shared memory only.
+// (32, 64, 80, 128 or 256; d = 72 -> 80, d = 160 -> 256), zero-filled in
+// shared memory only.  At D = 256 two 16 x 256 accumulators would not fit:
+// each gradient's columns are split between two blocks (blockIdx.z), each
+// owning 128 of them and recomputing s and dp from the full-width tiles in
+// shared memory (135.7 KB of it).
 // Shared-memory rows are padded by 8 elements so ldmatrix hits distinct
 // banks.  p and ds are rounded to bf16 as A operands of the products, as the
 // forward rounds p; delta, lse and every accumulator are f32.
@@ -111,6 +116,9 @@ struct Cfg {
   static constexpr int THREADS = BLOCK_M / 16 * 32;
   static constexpr int LDS = D + 8;  // padded shared-memory row, in elements
   static constexpr bool ROW_IN_REGS = D <= 64;  // owned operands in registers
+  // columns of the gradient a block owns: all of them up to 128; at D = 256
+  // two blocks split them (blockIdx.z), each recomputing s and dp
+  static constexpr int DC = D <= 128 ? D : 128;
   // two owned tiles, two stages of two loop tiles, two stages of row stats
   static constexpr int SMEM = (2 * BLOCK_M + 4 * BLOCK_N) * LDS * 2 +
                               4 * BLOCK_N * 4;
@@ -219,12 +227,13 @@ __device__ __forceinline__ void mma_abt(float (*c)[4],
   }
 }
 
-// The PV-shaped product of one warp: acc (16 x D) += P (16 x N, C-fragment
-// layout in `p`, rounded to bf16 here) times B (N x D) rows in smem `b` —
-// the forward's O = P V.
-template <int D, int N>
+// The PV-shaped product of one warp: acc (16 x DC) += P (16 x N, C-fragment
+// layout in `p`, rounded to bf16 here) times columns c0 .. c0 + DC of B
+// (N x D) rows in smem `b` — the forward's O = P V.
+template <int D, int DC, int N>
 __device__ __forceinline__ void mma_pb(float (*acc)[4], const float (*p)[4],
-                                       const __nv_bfloat16* b, int lane) {
+                                       const __nv_bfloat16* b, int c0,
+                                       int lane) {
   constexpr int LDS = D + 8;
   #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
@@ -234,10 +243,10 @@ __device__ __forceinline__ void mma_pb(float (*acc)[4], const float (*p)[4],
     pf[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
     pf[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
     #pragma unroll
-    for (int db = 0; db < D / 8; db += 2) {
+    for (int db = 0; db < DC / 8; db += 2) {
       uint32_t bf[4];
       const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int col = db * 8 + (lane >> 4) * 8;
+      const int col = c0 + db * 8 + (lane >> 4) * 8;
       ldmatrix_x4_trans(bf, b + row * LDS + col);
       mma_bf16(acc[db], pf, bf[0], bf[1]);
       mma_bf16(acc[db + 1], pf, bf[2], bf[3]);
@@ -245,13 +254,14 @@ __device__ __forceinline__ void mma_pb(float (*acc)[4], const float (*p)[4],
   }
 }
 
-// Store the first d columns of a warp's 16 x D accumulator, times `scale`,
-// to rows row0 and row0 + 8 (rows at or past `n` are dropped).
-template <int D>
+// Store a warp's 16 x DC accumulator, times `scale`, to columns c0 .. c0 +
+// DC of rows row0 and row0 + 8 (rows at or past `n` and columns at or past
+// d are dropped).
+template <int DC>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
                                            long long row_stride,
                                            const float (*acc)[4], int row0,
-                                           int n, int d, int tig,
+                                           int n, int d, int c0, int tig,
                                            float scale) {
   #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -259,8 +269,8 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base,
     if (row >= n) continue;
     __nv_bfloat16* out = base + row * row_stride;
     #pragma unroll
-    for (int db = 0; db < D / 8; ++db) {
-      const int col = db * 8 + tig * 2;
+    for (int db = 0; db < DC / 8; ++db) {
+      const int col = c0 + db * 8 + tig * 2;
       if (col < d) {
         *reinterpret_cast<__nv_bfloat162*>(out + col) =
             __floats2bfloat162_rn(acc[db][2 * r] * scale,
@@ -312,7 +322,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) dkv_kernel(const Params p) {
   constexpr int LDS = C::LDS;
   constexpr int KS = D / 16;
   constexpr int NB = BN / 8;
-  constexpr int DB = D / 8;
+  constexpr int DC = C::DC;
+  constexpr int DB = DC / 8;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -326,6 +337,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) dkv_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int n0 = blockIdx.y * BM;
+  const int c0 = blockIdx.z * DC;  // the columns of dk, dv this block owns
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -424,7 +436,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) dkv_kernel(const Params p) {
     }
 
     // dV += P^T dO
-    mma_pb<D, BN>(dv, st, do_s, lane);
+    mma_pb<D, DC, BN>(dv, st, do_s, c0, lane);
 
     // dP^T = V dO^T
     float dpt[NB][4];
@@ -442,17 +454,17 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) dkv_kernel(const Params p) {
         dpt[nb][j] = st[nb][j] * (dpt[nb][j] - dl_s[nb * 8 + tig * 2 + (j & 1)]);
 
     // dK += dS^T Q
-    mma_pb<D, BN>(dk, dpt, q_s, lane);
+    mma_pb<D, DC, BN>(dk, dpt, q_s, c0, lane);
 
     cp_async_wait_all();
     __syncthreads();  // the next stage landed; every warp is done with this
   }
 
   const int rows = p.Sk;
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_ss, dk, key0, rows,
-                p.d, tig, p.sm_scale);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_ss, dv, key0, rows,
-                p.d, tig, 1.f);
+  store_rows<DC>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_ss, dk, key0, rows,
+                 p.d, c0, tig, p.sm_scale);
+  store_rows<DC>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_ss, dv, key0, rows,
+                 p.d, c0, tig, 1.f);
 }
 
 // dq for one (b*h, 64-query tile): loop over the key tiles.
@@ -465,7 +477,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) dq_kernel(const Params p) {
   constexpr int LDS = C::LDS;
   constexpr int KS = D / 16;
   constexpr int NB = BN / 8;
-  constexpr int DB = D / 8;
+  constexpr int DC = C::DC;
+  constexpr int DB = DC / 8;
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -477,6 +490,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) dq_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int m0 = blockIdx.y * BM;
+  const int c0 = blockIdx.z * DC;  // the columns of dq this block owns
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -586,14 +600,14 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS) dq_kernel(const Params p) {
         dp[nb][j] = sc[nb][j] * (dp[nb][j] - dl[j >> 1]);
 
     // dQ += dS K
-    mma_pb<D, BN>(dq, dp, k_s, lane);
+    mma_pb<D, DC, BN>(dq, dp, k_s, c0, lane);
 
     cp_async_wait_all();
     __syncthreads();
   }
 
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_ss, dq, row0, p.Sq,
-                p.d, tig, p.sm_scale);
+  store_rows<DC>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_ss, dq, row0, p.Sq,
+                 p.d, c0, tig, p.sm_scale);
 }
 
 template <int D>
@@ -605,11 +619,13 @@ int launch_width(const Params& p, cudaStream_t stream) {
   err = cudaFuncSetAttribute(
       dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_kv(p.B * p.H, (p.Sk + C::BLOCK_M - 1) / C::BLOCK_M);
+  const dim3 grid_kv(p.B * p.H, (p.Sk + C::BLOCK_M - 1) / C::BLOCK_M,
+                     D / C::DC);
   dkv_kernel<D><<<grid_kv, C::THREADS, C::SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q(p.B * p.H, (p.Sq + C::BLOCK_M - 1) / C::BLOCK_M);
+  const dim3 grid_q(p.B * p.H, (p.Sq + C::BLOCK_M - 1) / C::BLOCK_M,
+                    D / C::DC);
   dq_kernel<D><<<grid_q, C::THREADS, C::SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -675,7 +691,7 @@ extern "C" int flash_bwd_bf16(
   p.scale_log2 = sm_scale * LOG2E;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d % 8 != 0 || d > 128 || B <= 0 || H <= 0 || Sq <= 0 ||
+  if (d <= 0 || d % 8 != 0 || d > 256 || B <= 0 || H <= 0 || Sq <= 0 ||
       Sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
 
@@ -690,5 +706,6 @@ extern "C" int flash_bwd_bf16(
   if (d <= 32) return launch_width<32>(p, s);
   if (d <= 64) return launch_width<64>(p, s);
   if (d <= 80) return launch_width<80>(p, s);
-  return launch_width<128>(p, s);
+  if (d <= 128) return launch_width<128>(p, s);
+  return launch_width<256>(p, s);
 }
