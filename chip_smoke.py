@@ -17,11 +17,14 @@ without a result line:
                 (SDPA, a yardstick only: the port never calls it), and, at
                 K1's shape beside K1, the generic kernel (flash_fwd) and the
                 Hopper forward at d=64 (flash_fwd_sm90, K3's kernel).
-4. K2         — the generic flash kernel (flash_fwd.cu) against its plain
-                version: the STDiT-XL/2 spatial shape (B=32, S=256, H=16,
-                d=72, online), d=64 causal 333×333, d=72 1×64, d=128
-                300×4322 and d=256 200×200 with a fixed max on LayerNormed
-                q, k; every case with the LSE.  Timed at the STDiT shape.
+4. K2         — the generic flash route against its plain version: the
+                STDiT-XL/2 spatial shape (B=32, S=256, H=16, d=72, online)
+                and d=72 1×64 on the Hopper kernel (flash_fwd_sm90.cu,
+                persistent), d=64 causal 333×333, d=128 300×4322 and d=256
+                200×200 with a fixed max on LayerNormed q, k on
+                flash_fwd.cu; every case with the LSE.  Timed at the STDiT
+                shape beside the old design (flash_fwd.cu) on the same
+                tensors and SDPA, by CUDA events and by device time.
 5. K4         — the same kernel with a key mask at the STDiT-XL/2
                 cross-attention shape (B=2, 4096 queries, 120 keys, H=16,
                 d=72): row 0 keeps 13 keys (a prefix, then every 9th key),
@@ -47,7 +50,8 @@ without a result line:
                 d=72, bf16; T5-XXL; the 2D VAE at ch 128), random weights
                 from the seed, one prompt, 16×256×256, CFG 7, all 50 DDIM
                 steps, the whole 16-frame decode.  Asserts 28×50 K2 and K4
-                launches and no K1 launch, finite latents and pixels, a
+                launches, every K2 on flash_fwd_sm90 with no alignment copy,
+                and no K1 launch, finite latents and pixels, a
                 (16, 256, 256, 3) video and metric.json.
 9. reference-opensora — that flow at narrow width (hidden 144, 2 heads of
                 d=72, depth 2, a narrow T5, the VAE at ch 32) on the card and
@@ -72,8 +76,9 @@ without a result line:
                 300×4322, d=32 causal at a ragged edge, d=256 and d=160
                 (B=2, S=300, H=3) causal and masked; K9 and K10 through
                 single_pass=False; the custom VJPs' gradients against
-                autograd of the plain math.  K5 (flash_fwd with the LSE) at
-                the spatial shape.  Times beside the bound, the plain
+                autograd of the plain math.  K5 (flash_fwd with the LSE, on
+                flash_fwd_sm90.cu) at the spatial shape, beside the old
+                design and SDPA as K2.  Times beside the bound, the plain
                 version and SDPA's backward (fwd+bwd minus fwd, backend
                 named; a yardstick the port never calls).
 12. f32       — flash_fwd with f32 inputs against the f32 plain version at
@@ -91,7 +96,8 @@ without a result line:
                 that restores step 3.
 14. train-stdit — the same on configs/003_opensora/opensorav10_256x256.yaml
                 (STDiT-XL/2 full fine-tune, EMA 0.9999, 16×256×256):
-                K5 = K4 = 28 and K8 = 56 per step, and the EMA moved.
+                K5 = K4 = 28 and K8 = 56 per step, every K5 on
+                flash_fwd_sm90, and the EMA moved.
 15. train-reference — one training step of each flow at narrow width on the
                 card and on the CPU with the same weights, batch, t, noise
                 and LoRA tree: loss and trainable gradients must agree.
@@ -126,14 +132,20 @@ without a result line:
 19. profile-hunyuan — one full-width DiT call (the work of one step)
                 timed with CUDA events and traced with torch.profiler:
                 device time of K3, the GEMMs and the rest, the busy share.
-20. kernels   — status of every TPU kernel of the JAX package.
+20. device    — device time per call (50 calls captured in a CUDA graph,
+                the replay timed) of K2 and K5 on flash_fwd_sm90, of the
+                old flash_fwd.cu and of SDPA at STDiT's shapes: at
+                0.02–0.09 ms a kernel the host's launch (host_ms in the
+                compare= lines) can set a loop's CUDA-event time.
+21. kernels   — status of every TPU kernel of the JAX package.
 
-They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–20.  Every launch
+They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–21.  Every launch
 count (K1–K10) is set to 0 just before each main-path run (the three
 sampling runs and the two training runs) and read just after; the
 kernels' JSON record, on the line before the last, gives each kernel's
 launches summed over those five runs (K3 and K7 also give the old
-design's ms on the same tensors).  The last line is
+design's ms on the same tensors; K2 and K5 also the device times).  The
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -244,6 +256,98 @@ def sdpa_ms(args, kw, reps: int):
     log("sdpa", **{k: f"{v:.4f}" for k, v in times.items()})
     best = min((k for k in times if k != "default"), key=times.get)
     return times[best], best
+
+
+def sdpa_device_ms(args, kw, reps: int):
+    """The least device time per call (``device_ms``) of
+    scaled_dot_product_attention's backends that take the inputs (a
+    yardstick only), and that backend."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                times[backend.name] = device_ms(lambda: sdpa(*args, **kw),
+                                                reps)
+        except RuntimeError:   # this backend does not take the inputs
+            continue
+    best = min(times, key=times.get)
+    return times[best], best
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host time per call of ``fn`` (the wrapper's checks, allocations and
+    launch), the device's work left to finish after the clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def compare_designs(A, label: str, q, k, v, emit_lse: bool,
+                    rec: dict) -> None:
+    """The Hopper design (flash_fwd_sm90.cu, the K2 or K5 route) beside the
+    old mma.sync design (flash_fwd.cu) on the same STDiT tensors, and SDPA,
+    by CUDA events around 50 calls, with each wrapper's host time per call;
+    adds the old design's ms to ``rec``.  The device times come in the
+    last phase (``device_times``)."""
+    route = "K5" if emit_lse else "K2"
+    sm = q.shape[-1] ** -0.5
+    new = lambda: A.flash_fwd(q, k, v, sm_scale=sm, emit_lse=emit_lse,
+                              route=route)
+    old = lambda: A._flash_fwd_mma(q, k, v, sm, False, None, None, emit_lse)
+    o_new, o_old = new(), old()
+    if emit_lse:
+        o_new, o_old = o_new[0], o_old[0]
+    torch.cuda.synchronize()
+    diff = (o_new.float() - o_old.float()).abs().max().item()
+    rec["old_design_ms"] = cuda_time_ms(old, reps=50)
+    log(route, case=label, compare="flash_fwd_sm90 (Hopper, persistent) vs "
+        "flash_fwd.cu (mma.sync) vs sdpa, CUDA events", ms=f"{rec['ms']:.4f}",
+        old_design_ms=f"{rec['old_design_ms']:.4f}",
+        library_ms=f"{rec['library_ms']:.4f}",
+        bound_ms=f"{rec['bound_ms']:.4f}",
+        host_ms=f"{host_ms(new, 200):.4f}",
+        old_design_host_ms=f"{host_ms(old, 200):.4f}",
+        max_abs_diff_old_vs_new=f"{diff:.3e}")
+
+
+def device_times(A, k2: dict, k5: dict) -> None:
+    """Last phase: device time per call (``device_ms``: 50 calls in one
+    CUDA graph, its replay timed) of K2 and K5 (flash_fwd_sm90), of the old
+    design (flash_fwd.cu) and of SDPA's fastest backend on STDiT's tensors
+    (B=32 and B=16, S=256, H=16, d=72), into ``k2`` and ``k5``."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for route, rec, b in (("K2", k2, 32), ("K5", k5, 16)):
+        q, k, v = (_rand((b, 256, 16, 72), gen) for _ in range(3))
+        lse = route == "K5"
+        sm = 72 ** -0.5
+        rec["device_ms"] = device_ms(lambda: A.flash_fwd(
+            q, k, v, sm_scale=sm, emit_lse=lse, route=route), reps=50)
+        rec["old_design_device_ms"] = device_ms(lambda: A._flash_fwd_mma(
+            q, k, v, sm, False, None, None, lse), reps=50)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        rec["library_device_ms"], backend = sdpa_device_ms((qt, kt, vt), {},
+                                                           reps=50)
+        log(route, case=f"stdit-xl2 spatial B{b}" + (", emit_lse" * lse),
+            compare="flash_fwd_sm90 (Hopper, persistent) vs flash_fwd.cu "
+            "(mma.sync) vs sdpa, device time per call (CUDA-graph replay)",
+            device_ms=f"{rec['device_ms']:.4f}",
+            old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
+            library_device_ms=f"{rec['library_device_ms']:.4f}",
+            library=f"scaled_dot_product_attention[{backend}]",
+            bound_ms=f"{rec['bound_ms']:.4f}")
+        del q, k, v, qt, kt, vt
 
 
 # ---------------------------------------------------------------- phase 3
@@ -407,9 +511,15 @@ def _rand(shape, gen, normed=False):
 
 
 def _check_fwd(A, label, q, k, v, **kw) -> float:
-    """flash_fwd against flash_fwd_plain with the LSE; returns max|err|."""
+    """flash_fwd against flash_fwd_plain with the LSE; returns max|err|.
+    The call is counted on its route, and on the Hopper design exactly
+    when ``_fwd_design`` names it."""
     route = "K4" if kw.get("kv_valid") is not None else "K2"
     before = A.flash_fwd.launches[route]
+    sm90 = A.flash_fwd.launches_sm90["K2"]
+    design = A._fwd_design(route, q.dtype, q.shape[-1],
+                           kw.get("causal", False), kw.get("kv_valid"), True,
+                           kw.get("static_max"))
     out, lse = A.flash_fwd(q, k, v, emit_lse=True, **kw)
     ref, ref_lse = A.flash_fwd_plain(q, k, v, emit_lse=True, **kw)
     torch.cuda.synchronize()
@@ -420,9 +530,11 @@ def _check_fwd(A, label, q, k, v, **kw) -> float:
     lse_err = ((lse - ref_lse)[finite].abs().max().item()
                if finite.any() else 0.0)
     ok = (err <= FWD_TOL * scale and lse_err <= LSE_TOL and inf_ok
-          and A.flash_fwd.launches[route] == before + 1)
+          and A.flash_fwd.launches[route] == before + 1
+          and A.flash_fwd.launches_sm90["K2"] == sm90 + (design == "sm90"))
     b, sq, h, d = q.shape
     log(route, case=label, shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}",
+        kernel="flash_fwd_sm90" if design == "sm90" else "flash_fwd",
         causal=kw.get("causal", False), static_max=kw.get("static_max"),
         max_abs_err=f"{err:.3e}", tol=f"{FWD_TOL * scale:.3e}",
         lse_err=f"{lse_err:.3e}", lse_tol=LSE_TOL, ok=ok)
@@ -470,11 +582,13 @@ def check_k2(A) -> dict:
                                 flops=4.0 * b * h * s * s * d,
                                 io_bytes=4 * q.numel() * q.element_size(),
                                 sm_scale=d ** -0.5)
-    log("K2", case="stdit-xl2 spatial timing", ms=f"{rec['ms']:.4f}",
+    log("K2", case="stdit-xl2 spatial timing", kernel="flash_fwd_sm90",
+        ms=f"{rec['ms']:.4f}",
         bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"],
         plain_ms=f"{rec['plain_ms']:.3f}",
         library=f"scaled_dot_product_attention[{backend}]",
         library_ms=f"{rec['library_ms']:.4f}")
+    compare_designs(A, "stdit-xl2 spatial", q, k, v, False, rec)
     return dict(max_abs_err=err, **rec)
 
 
@@ -523,7 +637,7 @@ def zero_counts(A) -> None:
     A.flash_fwd_d64.launches = {"K1": 0, "K6": 0}
     A.flash_fwd.launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
     A.flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
-    A.flash_fwd.launches_sm90 = {"K3": 0}
+    A.flash_fwd.launches_sm90 = {"K2": 0, "K3": 0, "K5": 0}
     A.flash_bwd.launches_sm90 = {"K7": 0}
     A.flash_fwd.tma_copies = 0
 
@@ -535,9 +649,12 @@ def read_counts(A) -> dict:
 
 
 def read_sm90_counts(A) -> dict:
-    """The Hopper designs' launches (flash_fwd_sm90 for K3, flash_bwd_sm90
-    for K7) and the forward's alignment copies, read with ``read_counts``."""
-    return {"K3": A.flash_fwd.launches_sm90["K3"],
+    """The Hopper designs' launches (flash_fwd_sm90 for K2, K3 and K5,
+    flash_bwd_sm90 for K7) and the forward's alignment copies, read with
+    ``read_counts``."""
+    return {"K2": A.flash_fwd.launches_sm90["K2"],
+            "K3": A.flash_fwd.launches_sm90["K3"],
+            "K5": A.flash_fwd.launches_sm90["K5"],
             "K7": A.flash_bwd.launches_sm90["K7"],
             "tma_copies": A.flash_fwd.tma_copies}
 
@@ -671,6 +788,7 @@ def run_e2e_opensora(A) -> dict:
         f"flow.params.ddim_steps={OS_STEPS}",
     ])
     launches = read_counts(A)
+    sm90 = read_sm90_counts(A)
     m = result["metrics"]
     peak = torch.cuda.max_memory_allocated()
     video = _read_video(result["videos"][0])
@@ -680,6 +798,7 @@ def run_e2e_opensora(A) -> dict:
         sample_sec=f"{m['sample_sec']:.3f}",
         decode_sec=f"{m['decode_sec']:.3f}",
         peak_mem_gb=f"{peak / 1e9:.2f}", launches=launches,
+        sm90_launches=sm90,
         nonfinite_latents=m["nonfinite_latents"],
         nonfinite_pixels=m["nonfinite_pixels"],
         video_shape="x".join(map(str, video.shape)))
@@ -689,6 +808,11 @@ def run_e2e_opensora(A) -> dict:
         raise AssertionError(f"launches {launches}, expected K2 = K4 = "
                              f"{expected} ({OS_DEPTH} layers × {OS_STEPS} "
                              "steps) and no K1")
+    if sm90["K2"] != expected or sm90["tma_copies"]:
+        raise AssertionError(f"{sm90}: every K2 launch must run "
+                             f"flash_fwd_sm90 ({expected}: {OS_DEPTH} a "
+                             "step, none on flash_fwd.cu), with no alignment "
+                             "copy")
     if m["nonfinite_latents"] or m["nonfinite_pixels"]:
         raise AssertionError("non-finite latents or pixels")
     if tuple(video.shape) != (16, 256, 256, 3):
@@ -1022,7 +1146,7 @@ def check_bwd(A) -> dict:
             plain_ms=f"{plain_ms:.3f}", library=f"sdpa backward[{backend}]",
             library_ms=f"{library_ms:.4f}")
     # K5: the training forward (flash_fwd with the LSE) at the same shape
-    before = A.flash_fwd.launches["K5"]
+    before = (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"])
     o5, lse5 = A.flash_fwd(q, k, v, sm_scale=d ** -0.5, emit_lse=True,
                            route="K5")
     r5, rl5 = A.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5, emit_lse=True)
@@ -1031,7 +1155,8 @@ def check_bwd(A) -> dict:
     lse_err5 = (lse5 - rl5).abs().max().item()
     ok = (err5 <= FWD_TOL * r5.float().abs().max().item()
           and lse_err5 <= LSE_TOL
-          and A.flash_fwd.launches["K5"] == before + 1)
+          and (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"])
+          == (before[0] + 1, before[1] + 1))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     bound_ms, bound_by = _bound(
         4.0 * b * h * s * s * d,
@@ -1045,7 +1170,8 @@ def check_bwd(A) -> dict:
             q, k, v, sm_scale=d ** -0.5, emit_lse=True), reps=5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     rec["K5"] = dict(max_abs_err=err5, **k5)
-    log("K5", case="stdit-xl2 spatial, emit_lse", max_abs_err=f"{err5:.3e}",
+    log("K5", case="stdit-xl2 spatial, emit_lse", kernel="flash_fwd_sm90",
+        max_abs_err=f"{err5:.3e}",
         lse_err=f"{lse_err5:.3e}", ms=f"{k5['ms']:.4f}",
         bound_ms=f"{k5['bound_ms']:.4f}", bound_by=k5["bound_by"],
         plain_ms=f"{k5['plain_ms']:.3f}",
@@ -1053,7 +1179,10 @@ def check_bwd(A) -> dict:
         library_ms=f"{k5['library_ms']:.4f}", ok=ok)
     if not ok:
         raise AssertionError("K5 (flash_fwd with the LSE) disagrees with "
-                             "its plain version")
+                             "its plain version, or did not launch "
+                             "flash_fwd_sm90")
+    compare_designs(A, "stdit-xl2 spatial, emit_lse", q, k, v, True,
+                    rec["K5"])
     del q, k, v, g, out, lse, ref, qt, kt, vt
 
     # K8 with the key mask: STDiT-XL/2 cross-attention, 4096 queries over
@@ -1376,7 +1505,12 @@ def run_train_stdit(A) -> dict:
     # cross-attention K4 forward + K8 backward with the key mask
     per_step = {"K5": OS_DEPTH, "K4": OS_DEPTH, "K8": 2 * OS_DEPTH,
                 "K7": 0, "K1": 0}
-    return _train_run(A, "train-stdit", argv, per_step, lora=False)
+    out = _train_run(A, "train-stdit", argv, per_step, lora=False)
+    if out["sm90"]["K5"] != OS_DEPTH * TRAIN_STEPS or out["sm90"]["tma_copies"]:
+        raise AssertionError(f"train-stdit: {out['sm90']}: every K5 launch "
+                             f"must run flash_fwd_sm90 ({OS_DEPTH} a step, "
+                             "none on flash_fwd.cu), with no alignment copy")
+    return out
 
 
 # ---------------------------------------------------------------- phase 15
@@ -1802,6 +1936,10 @@ def main() -> None:
         log("build", source=src, ptxas=" | ".join(regs))
     log("build", seconds=f"{time.perf_counter() - t0:.1f}",
         built=len(report))
+    serialised = [src for src, info in report.items() if "C751" in info["ptxas"]]
+    if serialised:
+        raise AssertionError(f"ptxas serialised the wgmma of {serialised} "
+                             "(C751x): see the build lines")
 
     k1 = check_k1(A)
     k6 = k1.pop("k6")
@@ -1822,15 +1960,19 @@ def main() -> None:
     runs.append(run_e2e_hunyuan(A))
     check_small_reference_hunyuan()
     profile_hunyuan_call()
+    device_times(A, k2, bwd["K5"])
     # each kernel's launches over the five main-path runs
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     statuses = {
-        "K1": "ported, checked", "K2": "ported, checked",
+        "K1": "ported, checked",
+        "K2": "redesigned for Hopper (PR 6; flash_fwd_sm90 persistent, "
+              "d=72/80 bf16), checked",
         "K3": "ported (flash_fwd_sm90: TMA, wgmma, warp-specialised), "
               "checked",
         "K4": "ported, checked",
-        "K5": "ported (mapped onto flash_fwd with the LSE), checked",
+        "K5": "redesigned for Hopper (PR 6; flash_fwd_sm90 persistent with "
+              "the LSE, d=72/80 bf16), checked",
         "K6": "ported (mapped onto K1's kernel), checked",
         "K7": "ported (flash_bwd_sm90: single pass, wgmma), checked",
         "K8": "ported, checked",
@@ -1846,10 +1988,13 @@ def main() -> None:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
+    extra_keys = ("old_design_ms", "device_ms", "old_design_device_ms",
+                  "library_device_ms")
+
     def entry(name, source, replaces, kernel, rec):
         # a redesigned kernel adds the old design's ms on the same tensors
-        old = ({"old_design_ms": rec["old_design_ms"]}
-               if "old_design_ms" in rec else {})
+        # (K2, K5: and the device times of both designs and the library)
+        old = {k: rec[k] for k in extra_keys if k in rec}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": f"{tpu}:{replaces}",
                 "launches": launches[kernel],
@@ -1857,12 +2002,13 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry("flash_fwd_d64 (K1)", d64, 268, "K1", k1),
-        entry("flash_fwd (K2)", fwd, 78, "K2", k2),
+        entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
+              "K2", k2),
         entry("flash_fwd_sm90 static_max, d = 64 or 128 (K3)", fwd90, 581,
               "K3", k3),
         entry("flash_fwd kv_valid (K4)", fwd, 970, "K4", k4),
-        entry("flash_fwd emit_lse, training forward (K5)", fwd, 867, "K5",
-              bwd["K5"]),
+        entry("flash_fwd_sm90 persistent with the LSE, training forward "
+              "(K5)", fwd90, 867, "K5", bwd["K5"]),
         entry("flash_fwd_d64 online, pack2=True (K6)", d64, 163, "K6", k6),
         entry("flash_bwd_sm90 d=64 single pass (K7)", bwd90, 1424, "K7",
               bwd["K7"]),

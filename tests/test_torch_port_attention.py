@@ -238,6 +238,41 @@ def test_k4_plain_lse_matches_pallas():
     _close(lse, ref_lse)
 
 
+# ---------------------------------------------------------------- K5
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 300)])
+def test_k5_plain_lse_matches_pallas(sq, sk, static_max):
+    """K5, the training forward with its LSE, at STDiT's d=72: the port's
+    plain version against the Pallas ``_flash_forward_lse`` (interpret
+    mode) on q, k, v padded to 128 columns and packed to (B·H, S_pad, 128)
+    as ``_fa_fwd`` does; the fixed max on LayerNormed q, k."""
+    b, h, d = 1, 2, 72
+    q, k, v = _qkv(20, b, sq, h, d, sk=sk)
+    if static_max is not None:
+        q, k = _layernorm(q), _layernorm(k)
+    d_pad = A._round_to(d, 128)
+    block_q = min(A.DEFAULT_BLOCK_Q, A._round_to(sq, 128))
+    block_k = min(A.DEFAULT_BLOCK_K, A._round_to(sk, 128))
+    sq_pad, sk_pad = A._round_to(sq, block_q), A._round_to(sk, block_k)
+    pad = ((0, 0), (0, 0), (0, 0), (0, d_pad - d))
+    qt, kt, vt = (A._pack_heads(jnp.pad(jnp.asarray(x), pad), b, s, h, d_pad)
+                  for x, s in ((q, sq), (k, sk), (v, sk)))
+    qt = jnp.pad(qt, ((0, 0), (0, sq_pad - sq), (0, 0)))
+    kt, vt = (jnp.pad(x, ((0, 0), (0, sk_pad - sk), (0, 0)))
+              for x in (kt, vt))
+    out_t, ref_lse = A._flash_forward_lse(
+        qt, kt, vt, sm_scale=d ** -0.5, causal=False, sq=sq, sk=sk,
+        block_q=block_q, block_k=block_k, interpret=True,
+        static_max=static_max)
+    ref = A._unpack_heads(out_t[:, :sq], b, sq, h, d_pad)[..., :d]
+    ref_lse = np.asarray(ref_lse).reshape(b, h, -1)[..., :sq]
+    out, lse = P.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), sm_scale=d ** -0.5,
+                           static_max=static_max, emit_lse=True, route="K5")
+    _close(out, ref)
+    _close(lse, ref_lse)
+
+
 def test_k6_maps_onto_k1_online():
     """``pack2=True`` (K6, the natural-layout packed baseline) computes K1's
     online-softmax function: the Pallas K6 against the port's route."""
@@ -361,27 +396,51 @@ def test_bwd_routes_and_launch_counts_on_cpu():
 
 
 # ---------------------------------------------------------------- designs
-@pytest.mark.parametrize("route,dtype,d,causal,masked,lse,design", [
-    ("K3", torch.bfloat16, 128, False, False, False, "sm90"),
-    ("K3", torch.bfloat16, 64, False, False, False, "sm90"),
-    ("K3", torch.bfloat16, 72, False, False, False, "mma"),
-    ("K3", torch.bfloat16, 32, False, False, False, "mma"),
-    ("K3", torch.float32, 128, False, False, False, "mma"),
-    ("K3", torch.bfloat16, 128, True, False, False, "mma"),
-    ("K3", torch.bfloat16, 128, False, True, False, "mma"),
-    ("K3", torch.bfloat16, 128, False, False, True, "mma"),
-    ("K2", torch.bfloat16, 128, False, False, False, "mma"),
-    ("K4", torch.bfloat16, 128, False, True, False, "mma"),
-    ("K5", torch.bfloat16, 128, False, False, True, "mma"),
+_BF, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("route,dtype,d,causal,masked,lse,fixed,design", [
+    ("K3", _BF, 128, False, False, False, True, "sm90"),
+    ("K3", _BF, 64, False, False, False, True, "sm90"),
+    ("K3", _BF, 72, False, False, False, True, "sm90"),
+    ("K3", _BF, 32, False, False, False, True, "mma"),
+    ("K3", _F32, 128, False, False, False, True, "mma"),
+    ("K3", _BF, 128, True, False, False, True, "mma"),
+    ("K3", _BF, 128, False, True, False, True, "mma"),
+    ("K3", _BF, 128, False, False, True, True, "mma"),
+    ("K2", _BF, 128, False, False, False, False, "mma"),
+    ("K4", _BF, 128, False, True, False, False, "mma"),
+    ("K5", _BF, 128, False, False, True, False, "mma"),
+    # K2 and K5 at d = 72 and 80 in bf16: the persistent Hopper kernel in
+    # either softmax mode, with or without the LSE
+    ("K2", _BF, 72, False, False, False, False, "sm90"),
+    ("K2", _BF, 72, False, False, False, True, "sm90"),
+    ("K2", _BF, 72, False, False, True, False, "sm90"),
+    ("K2", _BF, 80, False, False, False, False, "sm90"),
+    ("K2", _BF, 80, False, False, True, True, "sm90"),
+    ("K5", _BF, 72, False, False, True, False, "sm90"),
+    ("K5", _BF, 72, False, False, True, True, "sm90"),
+    ("K5", _BF, 72, False, False, False, False, "sm90"),
+    ("K5", _BF, 80, False, False, True, False, "sm90"),
+    ("K5", _BF, 80, False, False, True, True, "sm90"),
+    # everything else keeps flash_fwd.cu
+    ("K2", _F32, 72, False, False, False, False, "mma"),
+    ("K2", _BF, 72, True, False, False, False, "mma"),
+    ("K4", _BF, 72, False, True, False, False, "mma"),
+    ("K5", _BF, 72, True, False, True, False, "mma"),
+    ("K2", _BF, 96, False, False, False, False, "mma"),
+    ("K2", _BF, 256, False, False, False, False, "mma"),
 ])
 def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
-                                                       design):
-    """The Hopper forward (flash_fwd_sm90.cu) serves exactly the fixed-max
-    route K3 in bf16 at d = 64 or 128, non-causal, unmasked, without the
-    LSE; every other call keeps flash_fwd.cu."""
+                                                       fixed, design):
+    """The Hopper forward (flash_fwd_sm90.cu) serves the fixed-max route K3
+    in bf16 at d = 64 or 128 without the LSE, and K2, K3 and K5 in bf16 at
+    d = 72 or 80 in either softmax mode, with or without the LSE, all
+    non-causal and unmasked; every other call keeps flash_fwd.cu."""
     kv_valid = torch.ones((1, 8), dtype=torch.bool) if masked else None
-    assert P._fwd_design(route, dtype, d, causal, kv_valid, lse) == design
+    assert P._fwd_design(route, dtype, d, causal, kv_valid, lse,
+                         0.0 if fixed else None) == design
 
 
 @pytest.mark.parametrize("route,dtype,d,design", [
@@ -399,8 +458,8 @@ def test_bwd_design_is_a_function_of_route(route, dtype, d, design):
 
 
 def test_sm90_counters_untouched_on_cpu():
-    """On CPU tensors the K3 and K7 routes run their plain versions: no
-    launch counted, per route or per design, and no alignment copy."""
+    """On CPU tensors the K2, K3, K5 and K7 routes run their plain versions:
+    no launch counted, per route or per design, and no alignment copy."""
     q, k, v = (torch.from_numpy(x).bfloat16()
                for x in _qkv(16, 1, 128, 3, 128))
     g = torch.from_numpy(np.random.default_rng(17).standard_normal(
@@ -412,6 +471,18 @@ def test_sm90_counters_untouched_on_cpu():
                             .transpose(1, 2), static_max=0.0)
     ref = P.flash_fwd_plain(q, k, v, sm_scale=128 ** -0.5, static_max=0.0)
     assert torch.equal(out, ref)
+    # K2 and K5 at STDiT's d=72, strided v included
+    q7, k7, v7 = (torch.from_numpy(x).bfloat16()
+                  for x in _qkv(19, 1, 256, 2, 72))
+    v7 = v7.transpose(1, 2).contiguous().transpose(1, 2)
+    out = P.flash_fwd(q7, k7, v7, sm_scale=72 ** -0.5, route="K2")
+    assert torch.equal(out, P.flash_fwd_plain(q7, k7, v7,
+                                              sm_scale=72 ** -0.5))
+    out, lse = P.flash_fwd(q7, k7, v7, sm_scale=72 ** -0.5, emit_lse=True,
+                           route="K5")
+    ref, ref_lse = P.flash_fwd_plain(q7, k7, v7, sm_scale=72 ** -0.5,
+                                     emit_lse=True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
     q2, k2, v2 = (x.requires_grad_() for x in
                   (torch.from_numpy(a) for a in _qkv(18, 1, 128, 2, 64)))
     P.flash_attention_diff(q2, k2, v2).backward(g.float())

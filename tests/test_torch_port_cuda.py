@@ -230,6 +230,93 @@ def test_sm90_forward_copies_what_tma_cannot_read():
         <= 2e-2 * ref.float().abs().max()
 
 
+# (sq, sk): STDiT's 256 tokens (K and V stay for both query tiles), a
+# ragged tile, one query, a third key tile, a long key row streamed
+_SM90_ROW_LENGTHS = [(256, 256), (200, 200), (1, 64), (130, 300),
+                     (300, 4322)]
+
+
+def _check_sm90_rows(q, k, v, static_max, emit_lse, copies=0):
+    """flash_fwd on the K5 route (with the LSE) or the K2 route against
+    ``flash_fwd_plain``, launched on flash_fwd_sm90 and counted per route
+    and per design, with ``copies`` alignment copies."""
+    route = "K5" if emit_lse else "K2"
+    d = q.shape[-1]
+    before = (dict(P.flash_fwd.launches), dict(P.flash_fwd.launches_sm90),
+              P.flash_fwd.tma_copies)
+    res = P.flash_fwd(q, k, v, sm_scale=d ** -0.5, static_max=static_max,
+                      emit_lse=emit_lse, route=route)
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5,
+                                     static_max=static_max, emit_lse=True)
+    torch.cuda.synchronize()
+    out = res[0] if emit_lse else res
+    assert P.flash_fwd.launches == dict(before[0],
+                                        **{route: before[0][route] + 1})
+    assert P.flash_fwd.launches_sm90 == dict(before[1],
+                                             **{route: before[1][route] + 1})
+    assert P.flash_fwd.tma_copies == before[2] + copies
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    # bf16 output rounding; p is bf16 on both sides: 2e-2 of max|o|
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+    if emit_lse:
+        assert res[1].shape == ref_lse.shape
+        assert (res[1] - ref_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["k2", "k5_lse"])
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("d", [72, 80])
+@pytest.mark.parametrize("sq,sk", _SM90_ROW_LENGTHS)
+def test_sm90_rows_forward_matches_plain(sq, sk, d, static_max, emit_lse):
+    """The persistent Hopper forward at d = 72 and 80 (flash_fwd_sm90.cu),
+    online or under the fixed max (LayerNormed q, k), with and without the
+    LSE, against ``flash_fwd_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(2, sq, sk, 3, d, seed=sq + sk + d,
+                     normed=static_max is not None)
+    _check_sm90_rows(q, k, v, static_max, emit_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["k2", "k5_lse"])
+@pytest.mark.parametrize("b,h,sq", [(32, 16, 256), (16, 16, 256),
+                                    (4, 128, 300)])
+def test_sm90_rows_forward_at_many_heads(b, h, sq, emit_lse):
+    """B·H up to 512 heads: STDiT-XL/2's sampling (K2, B=32) and training
+    (K5, B=16) shapes, and 512 heads of 3 query tiles over 2 key tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(b, sq, 256, h, 72, seed=b + h)
+    _check_sm90_rows(q, k, v, None, emit_lse)
+
+
+@pytest.mark.cuda
+def test_sm90_rows_forward_reads_a_fused_qkv_in_place():
+    """q, k, v sliced out of one fused (B, S, 3, H, 72) tensor: TMA reads
+    the strided views in place, without a copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    qkv = torch.randn((2, 256, 3, 4, 72), device="cuda").bfloat16()
+    q, k, v = qkv.unbind(dim=2)
+    assert all(P._aligned(x) and not x.is_contiguous() for x in (q, k, v))
+    _check_sm90_rows(q, k, v, None, True)
+
+
+@pytest.mark.cuda
+def test_sm90_rows_forward_copies_what_tma_cannot_read():
+    """A v whose head stride (76 elements, 152 bytes) is not a multiple of
+    16 bytes is copied, and the copy is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, _ = _qkv_d(1, 200, 200, 2, 72, seed=9)
+    v = torch.randn((1, 200, 2, 76), device="cuda").bfloat16()[..., :72]
+    assert not P._aligned(v)
+    _check_sm90_rows(q, k, v, None, False, copies=1)
+
+
 @pytest.mark.cuda
 def test_vae2d_attention_takes_k2_in_bf16():
     """The 2D VAE's attention at d=64 over 16×16 tokens in bf16: K2 on the
@@ -361,11 +448,14 @@ def test_grads_reach_q_k_v_on_cuda(d, masked):
         kv_valid[0, 30:] = False
     q, k, v = (x.cuda().requires_grad_() for x in base)
     before = sum(P.flash_bwd.launches.values())
+    k5 = P.flash_fwd.launches_sm90["K5"]
     out = P.dot_product_attention(
         q, k, v, kv_valid=None if kv_valid is None else kv_valid.cuda())
     out.backward(g.cuda().bfloat16())
     torch.cuda.synchronize()
     assert sum(P.flash_bwd.launches.values()) == before + 1
+    # d=72 unmasked: the K5 forward on flash_fwd_sm90, its LSE read by K8
+    assert P.flash_fwd.launches_sm90["K5"] == k5 + (d == 72 and not masked)
     qr, kr, vr = (x.float().cuda().requires_grad_() for x in base)
     bias = None if kv_valid is None else \
         torch.where(kv_valid.cuda(), 0.0, -1e30)[:, None, None, :]

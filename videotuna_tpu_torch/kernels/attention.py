@@ -14,17 +14,21 @@ math path.  The kernels it can reach, and where each is in the port:
 - K6 (``pack2=True``, K1's online softmax in another layout): mapped onto
   K1's kernel;
 - K2 (generic: any d ≤ 256, causal, fixed max) and K4 (``kv_valid``-masked):
-  ``flash_fwd``, one CUDA kernel, which also takes f32 q, k, v;
-- K5 (the training forward with the LSE): mapped onto ``flash_fwd`` with
-  ``emit_lse``;
+  ``flash_fwd``, one CUDA kernel (``csrc/flash_fwd.cu``), which also takes
+  f32 q, k, v; in bf16 at d = 72 and 80, non-causal and unmasked, K2
+  launches the Hopper kernel ``csrc/flash_fwd_sm90.cu`` (persistent, TMA,
+  wgmma, online softmax);
+- K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
+  on the same two kernels as K2;
 - K7 (d=64 single-pass backward): ``flash_bwd``, launching the Hopper
   kernel ``csrc/flash_bwd_sm90.cu`` (single pass, TMA, wgmma);
 - K8 (generic and masked single-pass backward, d ≤ 256), and the two-kernel
   baselines K10 and K9: ``flash_bwd``, launching ``csrc/flash_bwd.cu``;
 - K3 (d ≤ 128 non-causal fixed max, the qk-normed denoisers' sampling
-  forward): ``flash_fwd`` with ``static_max``, counted as K3; at d = 64 and
-  128 in bf16 it launches the Hopper kernel ``csrc/flash_fwd_sm90.cu``
-  (TMA, wgmma, warp-specialised), at other widths ``flash_fwd.cu``.
+  forward): ``flash_fwd`` with ``static_max``, counted as K3; at d = 64,
+  72, 80 and 128 in bf16 it launches the Hopper kernel
+  ``csrc/flash_fwd_sm90.cu`` (TMA, wgmma, warp-specialised), at other
+  widths ``flash_fwd.cu``.
 
 Which kernel a route launches is a function of the route, the dtype, the
 head width and the options (``_fwd_design``, ``_bwd_design``), decided
@@ -58,13 +62,15 @@ _KERNELS = {
     "K1": "d=64 non-causal flash forward (_flash_packed2t): "
           "csrc/flash_fwd_d64.cu",
     "K2": "generic online-softmax flash forward (flash_attention): "
-          "csrc/flash_fwd.cu",
+          "csrc/flash_fwd_sm90.cu at d=72 and 80 in bf16 (non-causal), "
+          "else csrc/flash_fwd.cu",
     "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
-          "csrc/flash_fwd_sm90.cu at d=64 and 128 in bf16, else "
+          "csrc/flash_fwd_sm90.cu at d=64, 72, 80 and 128 in bf16, else "
           "csrc/flash_fwd.cu (flash_fwd with static_max)",
     "K4": "kv_valid-masked flash forward (_flash_dynpad): csrc/flash_fwd.cu",
     "K5": "generic flash forward with the LSE (_flash_forward_lse): "
-          "mapped onto csrc/flash_fwd.cu (flash_fwd with emit_lse)",
+          "flash_fwd with emit_lse, csrc/flash_fwd_sm90.cu at d=72 and 80 "
+          "in bf16 (non-causal), else csrc/flash_fwd.cu",
     "K6": "d=64 natural-layout packed forward (_flash_packed2): "
           "mapped onto csrc/flash_fwd_d64.cu",
     "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
@@ -108,10 +114,11 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_layout(name: str, q, k, v,
-                  dtypes: Tuple[torch.dtype, ...] = (torch.bfloat16,)
-                  ) -> None:
+                  dtypes: Tuple[torch.dtype, ...] = (torch.bfloat16,),
+                  check_aligned: bool = True) -> None:
     """What every flash kernel takes: (B,Sq,H,d) q and (B,Sk,H,d) k, v of
-    one of ``dtypes`` on one device, read in place with 16-byte copies."""
+    one of ``dtypes`` on one device, read in place with 16-byte copies
+    (``check_aligned=False`` where the caller has made them so)."""
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in dtypes):
@@ -129,7 +136,7 @@ def _check_layout(name: str, q, k, v,
     if sq < 1 or k.shape[1] < 1:
         raise ValueError("empty sequence")
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        if not _aligned(t):
+        if check_aligned and not _aligned(t):
             raise ValueError(
                 f"{arg} must have a contiguous head_dim, strides that are "
                 "multiples of 16 bytes and a 16-byte aligned start")
@@ -146,9 +153,10 @@ def _launch(source: str, symbol: str, argtypes, *args) -> None:
     """Call the C entry ``symbol`` of ``source`` on the current stream; it
     returns the launch's CUDA error, which raises here."""
     from videotuna_tpu_torch.kernels import load
-    fn = getattr(load(source), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = getattr(load(source), symbol)   # ctypes keeps one object a symbol
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
@@ -326,18 +334,19 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On a CUDA tensor it launches a hand-written kernel and adds one to
     ``flash_fwd.launches[route]``: by default "K4" when a mask is given,
     else "K2"; ``flash_attention`` passes "K3" for its fixed-max route at
-    d ≤ 128, the training forward "K5".  Route K3 in bf16 at d = 64 or 128
-    (non-causal, unmasked, no LSE) launches ``csrc/flash_fwd_sm90.cu`` and
-    adds one to ``flash_fwd.launches_sm90["K3"]``; q, k or v that TMA cannot
-    read in place is copied first and counted in ``flash_fwd.tma_copies``.
-    Everything else launches ``csrc/flash_fwd.cu`` (bf16 or f32, d a
-    multiple of 8; anything else raises).  On a CPU tensor it runs
-    ``flash_fwd_plain``.  Replaces the TPU kernels
-    ``_flash_kernel`` / ``flash_attention`` (K2,
+    d ≤ 128, the training forward "K5".  The calls ``_fwd_design`` names
+    "sm90" (bf16, non-causal, unmasked: K2, K3 and K5 at d = 72 or 80, and
+    K3 at d = 64 or 128 without the LSE) launch ``csrc/flash_fwd_sm90.cu``
+    and add one to ``flash_fwd.launches_sm90[route]``; q, k or v that TMA
+    cannot read in place is copied first and counted in
+    ``flash_fwd.tma_copies``.  Everything else launches
+    ``csrc/flash_fwd.cu`` (bf16 or f32, d a multiple of 8; anything else
+    raises).  On a CPU tensor it runs ``flash_fwd_plain``.  Replaces the
+    TPU kernels ``_flash_kernel`` / ``flash_attention`` (K2,
     videotuna_tpu/kernels/attention.py:78, :812), ``_flash_kernel_dynpad``
-    / ``_flash_dynpad`` (K4, :970, :1059) and, by mapping,
-    ``_flash_kernel_t128`` / ``_flash_t128`` (K3, :581, :648) and
-    ``_flash_fwd_lse_kernel`` / ``_flash_forward_lse`` (K5, :867, :933)."""
+    / ``_flash_dynpad`` (K4, :970, :1059), ``_flash_kernel_t128`` /
+    ``_flash_t128`` (K3, :581, :648) and ``_flash_fwd_lse_kernel`` /
+    ``_flash_forward_lse`` (K5, :867, :933)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, sm_scale=sm_scale, causal=causal,
                                kv_valid=kv_valid, static_max=static_max,
@@ -348,15 +357,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if route not in flash_fwd.launches:
         raise ValueError(f"flash_fwd: route must be one of "
                          f"{sorted(flash_fwd.launches)}, got {route}")
-    if _fwd_design(route, q.dtype, q.shape[-1], causal, kv_valid,
-                   emit_lse) == "sm90":
-        if static_max is None:
-            raise ValueError("route K3 is the fixed-max route: give "
-                             "static_max")
-        out = _flash_fwd_sm90(q, k, v, sm_scale, static_max)
-        flash_fwd.launches[route] += 1
+    if route == "K3" and static_max is None:
+        raise ValueError("route K3 is the fixed-max route: give static_max")
+    if _fwd_design(route, q.dtype, q.shape[-1], causal, kv_valid, emit_lse,
+                   static_max) == "sm90":
+        res = _flash_fwd_sm90(q, k, v, sm_scale, static_max, emit_lse)
         flash_fwd.launches_sm90[route] += 1
-        return out
+    else:
+        res = _flash_fwd_mma(q, k, v, sm_scale, causal, kv_valid, static_max,
+                             emit_lse)
+    flash_fwd.launches[route] += 1
+    return res
+
+
+def _flash_fwd_mma(q, k, v, sm_scale: float, causal: bool,
+                   kv_valid: Optional[torch.Tensor],
+                   static_max: Optional[float], emit_lse: bool
+                   ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Launch ``csrc/flash_fwd.cu`` (mma.sync, any d ≤ 256 a multiple of 8,
+    bf16 or f32, causal and key mask); counts nothing."""
     _check_layout("flash_fwd", q, k, v, (torch.bfloat16, torch.float32))
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -391,27 +410,33 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 out.stride(0), out.stride(1), out.stride(2),
                 float(sm_scale * _LOG2E), int(causal),
                 int(static_max is not None), float(static_max or 0.0))
-    flash_fwd.launches[route] += 1
     return (out, lse) if emit_lse else out
 
 
 flash_fwd.launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
 # the launches of the Hopper design (flash_fwd_sm90.cu), per route; they are
 # counted in ``launches`` too
-flash_fwd.launches_sm90 = {"K3": 0}
+flash_fwd.launches_sm90 = {"K2": 0, "K3": 0, "K5": 0}
 # q, k or v copied because TMA could not read it in place
 flash_fwd.tma_copies = 0
 
 
 def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
-                kv_valid: Optional[torch.Tensor], emit_lse: bool) -> str:
-    """Which forward kernel a CUDA call launches, from its route and options
-    alone: "sm90" (``csrc/flash_fwd_sm90.cu``: TMA, wgmma, warp-specialised)
-    for the fixed-max route K3 in bf16 at d = 64 or 128, non-causal,
-    unmasked, without the LSE; "mma" (``csrc/flash_fwd.cu``) for everything
+                kv_valid: Optional[torch.Tensor], emit_lse: bool,
+                static_max: Optional[float]) -> str:
+    """Which forward kernel a CUDA call launches, from its route, dtype,
+    width and options alone: "sm90" (``csrc/flash_fwd_sm90.cu``: TMA,
+    wgmma, warp-specialised) for bf16, non-causal and unmasked calls of
+    K2, K3 and K5 at d = 72 or 80 (the persistent kernel: online or fixed
+    max, with or without the LSE) and of the fixed-max route K3 at d = 64
+    or 128 without the LSE; "mma" (``csrc/flash_fwd.cu``) for everything
     else."""
-    if (route == "K3" and dtype == torch.bfloat16 and d in (64, 128)
-            and not causal and kv_valid is None and not emit_lse):
+    if dtype != torch.bfloat16 or causal or kv_valid is not None:
+        return "mma"
+    if d in (72, 80) and route in ("K2", "K3", "K5"):
+        return "sm90"
+    if (d in (64, 128) and route == "K3" and static_max is not None
+            and not emit_lse):
         return "sm90"
     return "mma"
 
@@ -426,33 +451,41 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-_FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_longlong] * 12
-                      + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                      + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                         ctypes.c_void_p])
 
 
 def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    sm_scale: float, static_max: float) -> torch.Tensor:
-    """Launch ``csrc/flash_fwd_sm90.cu``: the fixed-max forward, bf16,
-    d = 64 or 128, non-causal, unmasked."""
+                    sm_scale: float, static_max: Optional[float],
+                    emit_lse: bool
+                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal, unmasked: the
+    fixed-max kernel at d = 64 or 128, the persistent kernel (online or
+    fixed max, with or without the LSE) at d = 72 or 80."""
     q, k, v = (_tma_ready(x) for x in (q, k, v))
-    _check_layout("flash_fwd", q, k, v)
+    _check_layout("flash_fwd", q, k, v, check_aligned=False)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if b * h > 65535:
+    if d in (64, 128) and b * h > 65535:
         raise ValueError("B·H above 65535 exceeds the launch grid")
+    if static_max is None and not sm_scale > 0:
+        raise ValueError(f"the online softmax takes sm_scale > 0, got "
+                         f"{sm_scale}")
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if emit_lse else None)
     with torch.cuda.device(q.device):
         _launch("flash_fwd_sm90.cu", "flash_fwd_sm90_bf16",
                 _FWD_SM90_ARGTYPES,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, h, sq, sk, d,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                out.stride(0), out.stride(1), out.stride(2),
-                float(sm_scale * _LOG2E), float(static_max))
-    return out
+                lse.data_ptr() if lse is not None else None,
+                b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *out.stride()[:3],
+                float(sm_scale * _LOG2E), int(static_max is None),
+                float(static_max or 0.0))
+    return (out, lse) if emit_lse else out
 
 
 # ---------------------------------------------------------------------------

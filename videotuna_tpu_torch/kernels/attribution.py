@@ -1,7 +1,7 @@
 """Where a Hopper kernel's time goes: the kernel timed beside copies of its
 source with one part of its work taken out, on the same tensors.
 
-    python -m videotuna_tpu_torch.kernels.attribution     # on the card
+    python -m videotuna_tpu_torch.kernels.attribution [K3] [K5] [K7]
 
 Variants (their outputs are wrong by design; only their times count):
 
@@ -13,10 +13,26 @@ Variants (their outputs are wrong by design; only their times count):
 - K7, ``csrc/flash_bwd_sm90.cu`` at CogVideoX-2B's training shape (B=1,
   S=17,776, H=30, d=64): ``no_exp2`` likewise, and ``no_dq_adds`` drops the
   atomic adds of dq into its f32 scratch.
+- K5 and K2, the persistent kernel of ``csrc/flash_fwd_sm90.cu`` at
+  STDiT-XL/2's training forward (K5: B=16, S=256, H=16, d=72, online
+  softmax with the LSE) and sampling (K2: B=32, without the LSE), each
+  variant timed on both by device time (``device_ms``, a CUDA-graph
+  replay): at 0.02-0.04 ms a call the host's launch sets a loop's
+  CUDA-event time.  ``no_exp2``; ``no_rescale`` drops
+  the O accumulator's rescale by the running max; ``no_lse_store`` the LSE
+  store; ``no_reuse`` makes a unit of each query tile (K and V loaded for
+  both query tiles of a head); ``no_prefetch`` shrinks the rings to one Q
+  stage and one unit of K/V, so that nothing of the next unit loads while
+  the current one computes; ``no_tail`` drops the products of columns
+  64-79 (the 32-byte-swizzled box: one depth step of QK^T, the N = 16 PV
+  products), its loads kept; ``no_math`` leaves out every product and
+  the softmax, so that what is left is the loads, the barriers, the
+  consumers' turns and the stores.
 
 Each variant is built from an edited copy under ``kernels/_build/
 attribution/`` and loaded in place of the kernel's library for its timing.
-Prints the card's name and power limit, then one line per variant.
+Prints the card's name and power limit, then one line per variant; the
+arguments pick kernels (all three by default).
 """
 
 from __future__ import annotations
@@ -42,6 +58,28 @@ VARIANTS = {
     ("K7", "flash_bwd_sm90.cu", "base"): [],
     ("K7", "flash_bwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
     ("K7", "flash_bwd_sm90.cu", "no_dq_adds"): [(_ADD, _NO_ADD)],
+    ("K5", "flash_fwd_sm90.cu", "base"): [],
+    ("K5", "flash_fwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
+    ("K5", "flash_fwd_sm90.cu", "no_rescale"): [
+        ("o[i] *= alpha[(i >> 1) & 1];", "{}")],
+    ("K5", "flash_fwd_sm90.cu", "no_lse_store"): [
+        ("if (tig == 0)\n              p.lse[",
+         "if (tig == 0 && row < 0)\n              p.lse[")],
+    ("K5", "flash_fwd_sm90.cu", "no_reuse"): [
+        ("p.unit_m = n_tiles <= P_KV_STAGES / 2 ? 2 : 1;", "p.unit_m = 1;")],
+    ("K5", "flash_fwd_sm90.cu", "no_prefetch"): [
+        ("P_Q_STAGES = 3;", "P_Q_STAGES = 1;"),
+        ("P_KV_STAGES = 4;", "P_KV_STAGES = 2;"),
+        ("n_tiles <= P_KV_STAGES / 2 ? 2 : 1;", "n_tiles <= 2 ? 2 : 1;")],
+    ("K5", "flash_fwd_sm90.cu", "no_math"): [
+        (head, head + "\n      return;") for head in (
+            "auto pv = [&](int s) {", "auto qk = [&](int qs, int s) {",
+            "auto softmax = [&](int t) {")],
+    ("K5", "flash_fwd_sm90.cu", "no_tail"): [
+        ("if constexpr (C::TAIL)\n          wgmma_rs_n16",
+         "if constexpr (false)\n          wgmma_rs_n16"),
+        ("if constexpr (C::TAIL)\n        wgmma_ss_n128",
+         "if constexpr (false)\n        wgmma_ss_n128")],
 }
 
 
@@ -56,6 +94,26 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, whose replay is timed with CUDA events, so the host's time to
+    launch each call is left out (warmed up first on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = _time_ms(graph.replay, 5) / reps
+    del graph
+    return ms
 
 
 def _inputs(b: int, s: int, h: int, d: int, gen: torch.Generator):
@@ -90,7 +148,10 @@ def _with_variant(source: str, name: str, edits, fn):
             kernels._LIBS[source] = saved[2]
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import sys
+    picked = set((sys.argv[1:] if argv is None else argv)
+                 or ("K3", "K5", "K7"))
     if not torch.cuda.is_available():
         raise SystemExit("attribution: no CUDA device")
     print(subprocess.run(
@@ -98,26 +159,40 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q3, k3, v3 = _inputs(1, 33 * 45 * 80 + 256, 24, 128, gen)
-    q7, k7, v7 = _inputs(1, 17776, 30, 64, gen)
-    g7 = torch.randn(q7.shape, generator=gen, device="cuda").bfloat16()
-    o7, lse7 = A.flash_fwd(q7, k7, v7, sm_scale=0.125, static_max=0.0,
-                           emit_lse=True)
-    calls = {
-        "K3": (lambda: A.flash_fwd(q3, k3, v3, sm_scale=128 ** -0.5,
-                                   static_max=0.0, route="K3"), 3),
-        "K7": (lambda: A.flash_bwd(q7, k7, v7, o7, g7, lse7,
-                                   sm_scale=0.125), 5),
-    }
+    # kernel -> the calls each of its variants is timed on:
+    # (label, call, timer, repetitions)
+    calls = {}
+    if "K3" in picked:
+        q3, k3, v3 = _inputs(1, 33 * 45 * 80 + 256, 24, 128, gen)
+        calls["K3"] = [("K3", lambda: A.flash_fwd(
+            q3, k3, v3, sm_scale=128 ** -0.5, static_max=0.0, route="K3"),
+            _time_ms, 3)]
+    if "K5" in picked:
+        q5, k5, v5 = (torch.randn((32, 256, 16, 72), generator=gen,
+                                  device="cuda").bfloat16()
+                      for _ in range(3))
+        calls["K5"] = [
+            ("K5", lambda: A.flash_fwd(q5[:16], k5[:16], v5[:16],
+                                       sm_scale=72 ** -0.5, emit_lse=True,
+                                       route="K5"), device_ms, 50),
+            ("K2", lambda: A.flash_fwd(q5, k5, v5, sm_scale=72 ** -0.5,
+                                       route="K2"), device_ms, 50)]
+    if "K7" in picked:
+        q7, k7, v7 = _inputs(1, 17776, 30, 64, gen)
+        g7 = torch.randn(q7.shape, generator=gen, device="cuda").bfloat16()
+        o7, lse7 = A.flash_fwd(q7, k7, v7, sm_scale=0.125, static_max=0.0,
+                               emit_lse=True)
+        calls["K7"] = [("K7", lambda: A.flash_bwd(
+            q7, k7, v7, o7, g7, lse7, sm_scale=0.125), _time_ms, 5)]
     base = {}
     for (kernel, source, name), edits in VARIANTS.items():
-        fn, reps = calls[kernel]
-        ms = _with_variant(source, f"{kernel}_{name}", edits,
-                           lambda: _time_ms(fn, reps))
-        base.setdefault(kernel, ms)
-        print(f"[attribution] kernel={kernel} source={source} "
-              f"variant={name} ms={ms:.3f} "
-              f"saved_ms={base[kernel] - ms:.3f}", flush=True)
+        for label, fn, timer, reps in calls.get(kernel, ()):
+            ms = _with_variant(source, f"{kernel}_{name}", edits,
+                               lambda: timer(fn, reps))
+            base.setdefault(label, ms)
+            print(f"[attribution] kernel={label} source={source} "
+                  f"variant={name} ms={ms:.4f} "
+                  f"saved_ms={base[label] - ms:.4f}", flush=True)
 
 
 if __name__ == "__main__":

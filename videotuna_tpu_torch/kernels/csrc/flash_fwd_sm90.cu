@@ -1,7 +1,14 @@
-// Fixed-max flash-attention forward for Hopper (sm_90a), bf16, head width
-// 64 or 128, non-causal, no key mask: TMA loads, wgmma products, a producer
-// warpgroup and two consumer warpgroups that take turns on the tensor cores.
+// Flash-attention forward for Hopper (sm_90a), bf16, non-causal, no key
+// mask: TMA loads, wgmma products, a producer warpgroup and two consumer
+// warpgroups that take turns on the tensor cores.  Two kernels share that
+// design: `flash_fwd_sm90_kernel<D>` (fixed max, D = 64 or 128, one block
+// per query tile; K3, described first) and `flash_fwd_sm90_persistent`
+// (d = 72 or 80, online or fixed max, optional LSE, a persistent grid for
+// short rows; K2 and K5, described below).  K3's kernel is left as it was
+// measured (238 ms at HunyuanVideo's shape): the persistent walk and the
+// online softmax would only add instructions to its long-row loop.
 //
+// ------------------------------------------------------------------- K3
 // Replaces the TPU kernel K3 of the JAX package, `_flash_kernel_t128`
 // launched by `_flash_t128` (videotuna_tpu/kernels/attention.py:581, :648),
 // the d <= 128 fixed-max forward of the qk-normed denoisers (HunyuanVideo's
@@ -48,6 +55,58 @@
 // Shared memory at d=128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.  The
 // epilogue stores o / l as bf16 pairs straight from the accumulator, rows
 // past Sq dropped (0.73 GB at the HunyuanVideo shape, well under 1 ms).
+//
+// -------------------------------------------------------------- K2, K5
+// `flash_fwd_sm90_persistent<80, ONLINE, LSE>` replaces the TPU kernels K2,
+// `_flash_kernel` launched by `flash_attention` (videotuna_tpu/kernels/
+// attention.py:78, :812), and K5, `_flash_fwd_lse_kernel` launched by
+// `_flash_forward_lse` (:867, :943), at head widths 72 and 80: Open-Sora
+// STDiT-XL/2's spatial self-attention (256 tokens, 16 heads of d = 72) in
+// sampling (K2) and in the training forward (K5).  It computes the function
+// of `flash_fwd` (flash_fwd.cu) without mask or causal, the same scores and
+// softmax as above.
+//
+// Options (compile time).  ONLINE: a running row max m; a key tile's max is
+// reduced over the 4 threads that share an accumulator row (two shuffles,
+// as the row sum), p = exp2(s - m), and l and the O accumulator are
+// rescaled by exp2(m_old - m) once a key tile, O after the tile's PV
+// product has completed (needs sm_scale > 0).  Without it, the fixed max M
+// as in K3.  LSE: lse = (m + log2 l) * ln 2, f32 (B, H, Sq), the layout the
+// backward (flash_bwd.cu) reads, written by the thread of each row with
+// tig = 0; rows past Sq are dropped.
+//
+// Width 72 on TMA and wgmma.  A 128-byte-swizzle box holds 64 bf16 columns,
+// so a tile is two boxes: columns 0-63 with the 128-byte swizzle and 64-79
+// with the 32-byte swizzle (sm90.cuh).  The tensor map's inner extent is d,
+// so at d = 72 TMA writes zeros into columns 72-79, which add nothing to
+// QK^T.  QK^T takes four depth steps from the first box and one from the
+// second; PV takes N = 64 from the first box and N = 16 from the second
+// into a second accumulator (8 registers).  Columns past d are not stored.
+//
+// Short rows.  At S = 256 a 128-query block meets two 128-key tiles, so in
+// a block per query tile nothing would overlap its Q and first K/V loads,
+// and both query tiles of a head would fetch its K and V.  The grid is
+// persistent instead: one block per SM walks the work units blockIdx.x,
+// + gridDim.x, ...  When the keys fit in two tiles (Sk <= 256) a unit is
+// one (b, h) with two adjacent query tiles: its K and V are loaded once and
+// stay in the ring for both, which halves the K/V traffic into shared
+// memory.  Longer key rows make a unit of each query tile and stream their
+// K/V tiles through the ring.  The producer runs ahead across units: Q has
+// 3 stages and the K/V ring 4 (two units' worth at S = 256), so the next
+// unit's Q, K and V land while the consumers finish the current one, and
+// the consumers' turns on the tensor cores go on from unit to unit.
+// Shared memory: Q 3 x 20 KB + 4 x (K 20 KB + V 20 KB) = 220 KB.
+//
+// What bounds it.  At STDiT's sampling shape (B = 32, S = 256, H = 16,
+// d = 72) q, k, v and o are 75.5 MB: 22.5 us at 3.35 TB/s, above the 9.7
+// GFLOP's 9.8 us at 989 TF/s (10.7 GFLOP at the padded width).  So bytes,
+// and the latency of each unit's loads, bound it; the K/V reuse and the
+// prefetch across units answer that.  The 3.4e7 exp2 take about 9 us of
+// the special function units, hidden while one consumer's exp2 overlaps
+// the other's products.  On an H100 (700 W) at STDiT's shapes the kernel
+// with its products and softmax taken out keeps 80-90% of its time
+// (kernels/attribution.py): the loads, barriers and stores of two to four
+// units a block set it, not the math.
 
 #include <math.h>
 
@@ -290,6 +349,345 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------------------------ persistent
+constexpr int P_Q_STAGES = 3;   // Q tiles in flight
+constexpr int P_KV_STAGES = 4;  // K/V ring: two units of two key tiles
+
+template <int D>
+struct PCfg {
+  static_assert(D == 64 || D == 80, "padded head width 64 or 80");
+  static constexpr bool TAIL = D == 80;          // the 16-column box
+  static constexpr int BOX_Q = BLOCK_M * 128;    // 64-column box of Q
+  static constexpr int BOX_KV = BLOCK_N * 128;   // 64-column box of K or V
+  static constexpr int Q_BYTES = BOX_Q + (TAIL ? BLOCK_M * 32 : 0);
+  static constexpr int KV_BYTES = BOX_KV + (TAIL ? BLOCK_N * 32 : 0);
+  static constexpr int TILES =
+      P_Q_STAGES * Q_BYTES + 2 * P_KV_STAGES * KV_BYTES;
+  // tiles, then the mbarriers, plus slack to align the base to 1024 bytes
+  static constexpr int SMEM = TILES + 256 + 1024;
+};
+
+struct PParams {
+  __nv_bfloat16* o;
+  float* lse;        // (B, H, Sq) f32, or null without the LSE
+  int H, Sq, Sk, d;
+  int m_tiles;       // query tiles of a head
+  int unit_m;        // query tiles of a unit: 2 while K and V stay, else 1
+  int n_units;
+  long long o_sb, o_ss, o_sh;
+  float scale_log2;  // sm_scale * log2(e)
+  float static_max;  // M, log2 domain (fixed max only)
+};
+
+template <int D, bool ONLINE, bool LSE>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_sm90_persistent(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tq2,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tk2,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tv2,
+                              const PParams p) {
+  using C = PCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + P_Q_STAGES * C::Q_BYTES;   // P_KV_STAGES tiles
+  const uint32_t sV = sK + P_KV_STAGES * C::KV_BYTES;  // P_KV_STAGES tiles
+  const uint32_t bars = sV + P_KV_STAGES * C::KV_BYTES;
+  auto q_full = [&](int s) { return bars + 16 * s; };
+  auto q_empty = [&](int s) { return bars + 8 + 16 * s; };
+  const uint32_t kv_bars = bars + 16 * P_Q_STAGES;
+  auto k_full = [&](int s) { return kv_bars + 32 * s; };
+  auto k_empty = [&](int s) { return kv_bars + 8 + 32 * s; };
+  auto v_full = [&](int s) { return kv_bars + 16 + 32 * s; };
+  auto v_empty = [&](int s) { return kv_bars + 24 + 32 * s; };
+
+  const int n_tiles = (p.Sk + BLOCK_N - 1) / BLOCK_N;
+  const int chunks = (p.m_tiles + p.unit_m - 1) / p.unit_m;  // units a head
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P_Q_STAGES; ++s) {
+      mbar_init(q_full(s), 1);
+      mbar_init(q_empty(s), 8);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < P_KV_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);
+      mbar_init(v_empty(s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int qi = 0, kvi = 0;  // Q tiles and K/V tiles loaded so far
+      for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+        const int bh = u / chunks;
+        const int mt0 = (u - bh * chunks) * p.unit_m;
+        const int mts = min(p.unit_m, p.m_tiles - mt0);
+        const int b = bh / p.H;
+        const int h = bh - b * p.H;
+        // the unit's first Q tile, its K and V tiles, then its other Q tile
+        for (int j = 0; j < mts; ++j) {
+          const int s = qi % P_Q_STAGES;
+          mbar_wait(q_empty(s), ((qi / P_Q_STAGES) & 1) ^ 1);
+          ++qi;
+          const uint32_t dst = sQ + s * C::Q_BYTES;
+          const int m0 = (mt0 + j) * BLOCK_M;
+          mbar_expect_tx(q_full(s), C::Q_BYTES);
+          tma_load_4d(dst, &tq, q_full(s), 0, h, m0, b);
+          if constexpr (C::TAIL)
+            tma_load_4d(dst + C::BOX_Q, &tq2, q_full(s), 64, h, m0, b);
+          for (int t = 0; j == 0 && t < n_tiles; ++t, ++kvi) {
+            const int ks = kvi % P_KV_STAGES;
+            const uint32_t ph = ((kvi / P_KV_STAGES) & 1) ^ 1;
+            const uint32_t dk = sK + ks * C::KV_BYTES;
+            const uint32_t dv = sV + ks * C::KV_BYTES;
+            mbar_wait(k_empty(ks), ph);
+            mbar_expect_tx(k_full(ks), C::KV_BYTES);
+            tma_load_4d(dk, &tk, k_full(ks), 0, h, t * BLOCK_N, b);
+            if constexpr (C::TAIL)
+              tma_load_4d(dk + C::BOX_KV, &tk2, k_full(ks), 64, h,
+                          t * BLOCK_N, b);
+            mbar_wait(v_empty(ks), ph);
+            mbar_expect_tx(v_full(ks), C::KV_BYTES);
+            tma_load_4d(dv, &tv, v_full(ks), 0, h, t * BLOCK_N, b);
+            if constexpr (C::TAIL)
+              tma_load_4d(dv + C::BOX_KV, &tv2, v_full(ks), 64, h,
+                          t * BLOCK_N, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    reg_alloc<232>();
+    const int c = wg - 1;               // which 64 query rows
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int my_turn = c == 0 ? BAR_TURN0 : BAR_TURN1;
+    const int their_turn = c == 0 ? BAR_TURN1 : BAR_TURN0;
+
+    float o[D / 2];  // columns 0-63 (N = 64), then 64-79 (N = 16)
+    #pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float sacc[64];
+    uint32_t pf[8][4];  // P as A fragments, 8 steps of 16 keys
+    float row_l[2], row_m[2], alpha[2];
+
+    // O += P V(t) with V of stage s
+    auto pv = [&](int s) {
+      const uint32_t va = sV + s * C::KV_BYTES;
+      const uint64_t dv = opaque(desc(va, C::BOX_KV, 1024));
+      const uint64_t dv2 =
+          C::TAIL ? opaque(desc_sw32(va + C::BOX_KV, BLOCK_N * 32, 256)) : 0;
+      #pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_rs_n64<1>(o, pf[kk], desc_add(dv, kk * 2048));
+        if constexpr (C::TAIL)
+          wgmma_rs_n16<1>(o + 32, pf[kk], desc_add(dv2, kk * 512));
+      }
+    };
+    // S = Q K(t)^T, Q of stage qs, K of stage s
+    auto qk = [&](int qs, int s) {
+      const uint32_t qa = sQ + qs * C::Q_BYTES + c * 64 * 128;
+      const uint32_t ka = sK + s * C::KV_BYTES;
+      const uint64_t dq = opaque(desc(qa, 16, 1024));
+      const uint64_t dk = opaque(desc(ka, 16, 1024));
+      #pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss_n128<0, 0>(sacc, desc_add(dq, ks * 32),
+                            desc_add(dk, ks * 32), ks > 0);
+      if constexpr (C::TAIL)
+        wgmma_ss_n128<0, 0>(
+            sacc,
+            opaque(desc_sw32(sQ + qs * C::Q_BYTES + C::BOX_Q + c * 64 * 32,
+                             16, 256)),
+            opaque(desc_sw32(ka + C::BOX_KV, 16, 256)), 1);
+    };
+    // P = exp2(s * scale - m) of tile t in place and its row sums, m the
+    // running max (ONLINE, alpha = the factor of the earlier tiles) or M;
+    // keys past Sk (last tile only) give 0
+    auto softmax = [&](int t) {
+      const int valid = p.Sk - t * BLOCK_N;
+      if constexpr (ONLINE) {
+        if (valid < BLOCK_N) {
+          #pragma unroll
+          for (int nb = 0; nb < 16; ++nb)
+            #pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (nb * 8 + tig * 2 + (i & 1) >= valid)
+                sacc[nb * 4 + i] = -INFINITY;
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+        #pragma unroll
+        for (int i = 0; i < 64; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+        #pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
+          const float m_new = fmaxf(row_m[r], mx[r] * p.scale_log2);
+          alpha[r] = fast_exp2(row_m[r] - m_new);
+          row_m[r] = m_new;
+          row_l[r] *= alpha[r];
+        }
+        #pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float e = fast_exp2(
+              fmaf(sacc[i], p.scale_log2, -row_m[(i >> 1) & 1]));
+          sacc[i] = e;
+          row_l[(i >> 1) & 1] += e;
+        }
+      } else if (valid < BLOCK_N) {
+        #pragma unroll
+        for (int nb = 0; nb < 16; ++nb)
+          #pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = nb * 8 + tig * 2 + (i & 1);
+            const float e = col < valid
+                                ? fast_exp2(fmaf(sacc[nb * 4 + i],
+                                                 p.scale_log2, -p.static_max))
+                                : 0.f;
+            sacc[nb * 4 + i] = e;
+            row_l[i >> 1] += e;
+          }
+      } else {
+        #pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float e =
+              fast_exp2(fmaf(sacc[i], p.scale_log2, -p.static_max));
+          sacc[i] = e;
+          row_l[(i >> 1) & 1] += e;
+        }
+      }
+    };
+    auto pack = [&]() {
+      #pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pf[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+        pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    // o / l of the query tile at row m0, columns below d, and the LSE; then
+    // a zero accumulator for the next tile
+    auto store = [&](int b, int h, int m0) {
+      #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = row_l[r];
+        l += __shfl_xor_sync(0xffffffff, l, 1);
+        l += __shfl_xor_sync(0xffffffff, l, 2);
+        const float inv = l > 0.f ? 1.f / l : 0.f;
+        const int row = m0 + c * 64 + warp * 16 + g + r * 8;
+        if (row < p.Sq) {
+          __nv_bfloat16* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+          #pragma unroll
+          for (int db = 0; db < D / 8; ++db)
+            if (db * 8 < p.d)
+              *reinterpret_cast<__nv_bfloat162*>(orow + db * 8 + tig * 2) =
+                  __floats2bfloat162_rn(o[db * 4 + 2 * r] * inv,
+                                        o[db * 4 + 2 * r + 1] * inv);
+          if constexpr (LSE) {
+            if (tig == 0)
+              p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
+                  ((ONLINE ? row_m[r] : p.static_max) + log2f(l)) *
+                  0.69314718055994531f;
+          }
+        }
+      }
+      #pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    };
+
+    if (c == 1) named_arrive(BAR_TURN0, 256);  // warpgroup 1 goes first
+    int qi = 0, kvi = 0;  // Q tiles and K/V tiles consumed so far
+    for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+      const int bh = u / chunks;
+      const int mt0 = (u - bh * chunks) * p.unit_m;
+      const int mts = min(p.unit_m, p.m_tiles - mt0);
+      const int b = bh / p.H;
+      const int h = bh - b * p.H;
+      auto st = [&](int t) { return (kvi + t) % P_KV_STAGES; };
+      auto ph = [&](int t) {
+        return static_cast<uint32_t>(((kvi + t) / P_KV_STAGES) & 1);
+      };
+      for (int j = 0; j < mts; ++j) {
+        // K and V go back to the producer after the unit's last query tile
+        const bool last = j == mts - 1;
+        const int qs = qi % P_Q_STAGES;
+        const uint32_t qph = (qi / P_Q_STAGES) & 1;
+        ++qi;
+        row_l[0] = row_l[1] = 0.f;
+        row_m[0] = row_m[1] = -INFINITY;
+        mbar_wait(q_full(qs), qph);
+        mbar_wait(k_full(st(0)), ph(0));
+        named_sync(my_turn, 256);
+        wgmma_fence();
+        qk(qs, st(0));
+        wgmma_commit();
+        named_arrive(their_turn, 256);
+        wgmma_wait<0>();
+        if (last) release(k_empty(st(0)));
+        softmax(0);
+        pack();
+        for (int t = 0; t + 1 < n_tiles; ++t) {
+          // one turn: S(t+1), then PV(t); tile t+1's exp2 runs while PV(t)
+          // is still on the tensor cores
+          const int s = st(t);
+          const int s1 = st(t + 1);
+          mbar_wait(k_full(s1), ph(t + 1));
+          mbar_wait(v_full(s), ph(t));
+          named_sync(my_turn, 256);
+          wgmma_fence();
+          qk(qs, s1);
+          wgmma_commit();
+          pv(s);
+          wgmma_commit();
+          named_arrive(their_turn, 256);
+          wgmma_wait<1>();
+          if (last) release(k_empty(s1));
+          softmax(t + 1);
+          wgmma_wait<0>();
+          if (last) release(v_empty(s));
+          if constexpr (ONLINE) {
+            #pragma unroll
+            for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+          }
+          pack();
+        }
+        // the last tile's PV product
+        const int sl = st(n_tiles - 1);
+        mbar_wait(v_full(sl), ph(n_tiles - 1));
+        named_sync(my_turn, 256);
+        wgmma_fence();
+        pv(sl);
+        wgmma_commit();
+        named_arrive(their_turn, 256);
+        wgmma_wait<0>();
+        if (last) release(v_empty(sl));
+        release(q_empty(qs));
+        store(b, h, (mt0 + j) * BLOCK_M);
+      }
+      kvi += n_tiles;
+    }
+    // warpgroup 1's last hand-over is to warpgroup 0: take it
+    if (c == 0) named_sync(BAR_TURN0, 256);
+  }
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const Params& p,
            int B, long long q_sb, long long q_ss, long long q_sh,
@@ -314,18 +712,107 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// q, k, v (B, S, H, d) at d = 72 or 80 through the persistent kernel of
+// padded width D = 80
+template <bool ONLINE, bool LSE>
+int launch_persistent(const void* q, const void* k, const void* v,
+                      PParams p, int B, long long q_sb, long long q_ss,
+                      long long q_sh, long long k_sb, long long k_ss,
+                      long long k_sh, long long v_sb, long long v_ss,
+                      long long v_sh, cudaStream_t stream) {
+  constexpr int D = 80;
+  // per tensor: the 64-column box and the 16-column box
+  CUtensorMap m[6];
+  const void* base[3] = {q, k, v};
+  const int len[3] = {p.Sq, p.Sk, p.Sk};
+  const int rows[3] = {BLOCK_M, BLOCK_N, BLOCK_N};
+  const long long st[3][3] = {{q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
+                              {v_sb, v_ss, v_sh}};
+  for (int x = 0; x < 3; ++x)
+    for (int box = 0; box < 2; ++box) {
+      const int err = sm90_host::make_map(
+          &m[2 * x + box], base[x], B, len[x], p.H, p.d, st[x][0], st[x][1],
+          st[x][2], rows[x], box == 0 ? 64 : 16);
+      if (err != 0) return err;
+    }
+  p.m_tiles = (p.Sq + BLOCK_M - 1) / BLOCK_M;
+  const int n_tiles = (p.Sk + BLOCK_N - 1) / BLOCK_N;
+  p.unit_m = n_tiles <= P_KV_STAGES / 2 ? 2 : 1;
+  const long long units = static_cast<long long>(B) * p.H *
+                          ((p.m_tiles + p.unit_m - 1) / p.unit_m);
+  if (units > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_units = static_cast<int>(units);
+  auto kernel = flash_fwd_sm90_persistent<D, ONLINE, LSE>;
+  // per device, at the kernel's first launch there: its shared-memory limit
+  // and the SM count (the grid); the launches after it skip both calls
+  static int sms_of[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= 64) e = cudaErrorInvalidDevice;
+  if (e == cudaSuccess && sms_of[dev] == 0) {
+    int sms = 0;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             PCfg<D>::SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) sms_of[dev] = sms;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int sms = sms_of[dev];
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  kernel<<<grid, THREADS, PCfg<D>::SMEM, stream>>>(m[0], m[1], m[2], m[3],
+                                                   m[4], m[5], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
-// for a head width other than 64 or 128, for B*H above 65535, or for a
-// tensor TMA cannot read in place.
+// for what neither kernel takes: a head width other than 64, 72, 80 or 128;
+// at 64 and 128 the online softmax, the LSE or B*H above 65535; or a tensor
+// TMA cannot read in place.  `lse` is null without the LSE; `online` 0
+// takes the fixed max `static_max`.
 extern "C" int flash_fwd_sm90_bf16(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Sq, int Sk, int d, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-    long long o_sh, float scale_log2, float static_max, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || (long long)B * H > 65535)
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int Sq, int Sk, int d, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, float scale_log2, int online,
+    float static_max, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 72 || d == 80) {
+    PParams p;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.lse = static_cast<float*>(lse);
+    p.H = H;
+    p.Sq = Sq;
+    p.Sk = Sk;
+    p.d = d;
+    p.o_sb = o_sb;
+    p.o_ss = o_ss;
+    p.o_sh = o_sh;
+    p.scale_log2 = scale_log2;
+    p.static_max = static_max;
+    if (online && lse)
+      return launch_persistent<true, true>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                           k_sb, k_ss, k_sh, v_sb, v_ss,
+                                           v_sh, s);
+    if (online)
+      return launch_persistent<true, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                            k_sb, k_ss, k_sh, v_sb, v_ss,
+                                            v_sh, s);
+    if (lse)
+      return launch_persistent<false, true>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                            k_sb, k_ss, k_sh, v_sb, v_ss,
+                                            v_sh, s);
+    return launch_persistent<false, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                           k_sb, k_ss, k_sh, v_sb, v_ss,
+                                           v_sh, s);
+  }
+  if (online || lse || (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -337,7 +824,6 @@ extern "C" int flash_fwd_sm90_bf16(
   p.o_sh = o_sh;
   p.scale_log2 = scale_log2;
   p.static_max = static_max;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128)
     return launch<128>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                        v_sb, v_ss, v_sh, s);

@@ -16,6 +16,11 @@
 //            runs along the row, 64 elements a box, boxes LBO bytes apart;
 //            8-row groups of the depth 1024 bytes apart (SBO); depth step
 //            k of 16 rows starts 2048*k bytes into the box.
+// A head width of 80 (d = 72 or 80) adds a box of 16 columns (32 bytes a
+// row) with the 32-byte swizzle: chunk c of row r lands at c ^ ((r / 4) % 2),
+// 8-row groups 256 bytes apart (SBO), read K-major as one depth step or
+// MN-major at N = 16 (depth step k of 16 rows 512*k bytes into the box).
+// Columns past d are zeros (TMA fills what lies outside the tensor).
 
 #pragma once
 
@@ -129,6 +134,14 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// Shared-memory matrix descriptor, 32-byte swizzle.
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 3ull << 62;
 }
 
 // A value the compiler must treat as computed here: keeps it from hoisting a
@@ -274,6 +287,22 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "n"(TB));
 }
 
+// D (64 x 16, f32) += A (64 x 16, bf16 registers in the accumulator's row
+// layout) * B (16 x 16, shared memory); TB: 0 = K-major, 1 = MN-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
 }  // namespace sm90
 
 // ---------------------------------------------------------------- host
@@ -302,22 +331,25 @@ inline EncodeTiled encode_tiled() {
 }
 
 // 4-D map over a bf16 (B, S, H, d) tensor read in place through its element
-// strides: dims (d, H, S, B), innermost first; a box is 64 head columns of
-// `rows` rows of one (b, h), 128-byte swizzled.  Returns 0, or a CUDA error.
+// strides: dims (d, H, S, B), innermost first; a box is `cols` head columns
+// (64, 128-byte swizzled, or 16, 32-byte swizzled) of `rows` rows of one
+// (b, h).  Returns 0, or a CUDA error.
 inline int make_map(CUtensorMap* map, const void* base, int B, int S, int H,
                     int d, long long sb, long long ss, long long sh,
-                    int rows) {
+                    int rows, int cols = 64) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(base), dims, strides, box, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_32B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
