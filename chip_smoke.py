@@ -8,15 +8,16 @@ without a result line:
 1. device     — the card's name and power limit (nvidia-smi).
 2. build      — compiles every CUDA kernel of the port from kernels/csrc,
                 one nvcc per source, all started together.
-3. K1, K6     — the d=64 flash kernel against its plain PyTorch version on
-                the card, at the CogVideoX-5B shape (B=2 with CFG, S=17776,
-                H=48, bf16) in both softmax modes with the LSE, and at ragged
-                shapes; K6 (``pack2=True``) through K1's kernel in online
-                mode at one ragged shape, counted as K6.  Times the kernel,
-                its plain version and torch's scaled_dot_product_attention
-                (SDPA, a yardstick only: the port never calls it), and, at
-                K1's shape beside K1, the generic kernel (flash_fwd) and the
-                Hopper forward at d=64 (flash_fwd_sm90, K3's kernel).
+3. K1, K6     — the d=64 route of flash_fwd (the persistent kernel of
+                flash_fwd_sm90.cu at D=64) against its plain PyTorch
+                version on the card, at the CogVideoX-5B shape (B=2 with
+                CFG, S=17776, H=48, bf16) in both softmax modes with the
+                LSE, and at ragged shapes; K6 (``pack2=True``) on the same
+                kernel in online mode at one ragged shape, counted as K6.
+                Times the kernel, its plain version and torch's
+                scaled_dot_product_attention (SDPA, a yardstick only: the
+                port never calls it), and, at K1's shape beside K1, the
+                mma.sync kernel (flash_fwd.cu, the A/B baseline).
 4. K2         — the generic flash route against its plain version: the
                 STDiT-XL/2 spatial shape (B=32, S=256, H=16, d=72, online)
                 and d=72 1×64 on the Hopper kernel (flash_fwd_sm90.cu,
@@ -25,11 +26,14 @@ without a result line:
                 flash_fwd.cu; every case with the LSE.  Timed at the STDiT
                 shape beside the old design (flash_fwd.cu) on the same
                 tensors and SDPA, by CUDA events and by device time.
-5. K4         — the same kernel with a key mask at the STDiT-XL/2
+5. K4         — the key-masked route (flash_fwd_sm90.cu's persistent
+                kernel with the packed mask) at the STDiT-XL/2
                 cross-attention shape (B=2, 4096 queries, 120 keys, H=16,
                 d=72): row 0 keeps 13 keys (a prefix, then every 9th key),
-                row 1 all 120, with the LSE; a row with no valid key must
-                give zeros.  Timed on the prefix mask; SDPA with the boolean
+                row 1 all 120, with the LSE, online and (strided) under the
+                fixed max; a row with no valid key must give zeros and an
+                LSE of -inf in both modes.  Timed on the prefix mask beside
+                the old design (flash_fwd.cu) and SDPA with the boolean
                 mask as the yardstick.
 6. e2e        — ``run_inference`` on configs/004_cogvideox/cogvideo5b.yaml at
                 full width (dim 3072, 42 layers, T5-XXL, CogVideoX VAE) with
@@ -39,7 +43,8 @@ without a result line:
                 latent frames (13 video frames) because the full-length f32
                 decode does not fit beside the weights.  Asserts 42×3 = 126
                 K1 launches, finite latents and pixels, the video's shape and
-                metric.json.
+                metric.json, and every K1 on flash_fwd_sm90 with no
+                alignment copy.
 7. reference  — the same flow at narrow width (2 layers, 2 heads of d=64)
                 on the card and on the CPU with the same weights and noise:
                 one denoiser call, the latents, and the VAE's decode of
@@ -50,8 +55,8 @@ without a result line:
                 d=72, bf16; T5-XXL; the 2D VAE at ch 128), random weights
                 from the seed, one prompt, 16×256×256, CFG 7, all 50 DDIM
                 steps, the whole 16-frame decode.  Asserts 28×50 K2 and K4
-                launches, every K2 on flash_fwd_sm90 with no alignment copy,
-                and no K1 launch, finite latents and pixels, a
+                launches, every K2 and K4 on flash_fwd_sm90 with no
+                alignment copy, and no K1 launch, finite latents and pixels, a
                 (16, 256, 256, 3) video and metric.json.
 9. reference-opensora — that flow at narrow width (hidden 144, 2 heads of
                 d=72, depth 2, a narrow T5, the VAE at ch 32) on the card and
@@ -67,7 +72,9 @@ without a result line:
 11. bwd       — the flash backward against its plain version: K7
                 (flash_bwd_sm90.cu) at the CogVideoX-2B training shape
                 (B=1, S=17776, H=30, d=64) on the LSE of K1 under the fixed
-                max and online, the plain version 256 query rows at a time,
+                max and online (K1 itself timed there with the LSE, beside
+                flash_fwd.cu and SDPA), the plain version 256 query rows at
+                a time,
                 timed beside K10, the old two-pass flash_bwd.cu on the same
                 tensors; K8 (flash_bwd.cu) at the STDiT-XL/2
                 spatial shape (B=16, S=256, H=16, d=72) and cross shape
@@ -90,13 +97,14 @@ without a result line:
                 steps on dummy video at 49×480×720 (17,776 tokens), cut to
                 13 frames only when the f32 VAE encode of 49 does not fit
                 (the cut and the peak memory at the encode are printed).
-                Asserts K1 = 60 and K7 = 30 per step, every K7 launch on
-                flash_bwd_sm90, finite losses and
+                Asserts K1 = 60 and K7 = 30 per step, every K1 launch on
+                flash_fwd_sm90 and every K7 on flash_bwd_sm90, finite
+                losses and
                 gradient norms, the step-3 checkpoint and a --resume run
                 that restores step 3.
 14. train-stdit — the same on configs/003_opensora/opensorav10_256x256.yaml
                 (STDiT-XL/2 full fine-tune, EMA 0.9999, 16×256×256):
-                K5 = K4 = 28 and K8 = 56 per step, every K5 on
+                K5 = K4 = 28 and K8 = 56 per step, every K5 and K4 on
                 flash_fwd_sm90, and the EMA moved.
 15. train-reference — one training step of each flow at narrow width on the
                 card and on the CPU with the same weights, batch, t, noise
@@ -133,18 +141,22 @@ without a result line:
                 timed with CUDA events and traced with torch.profiler:
                 device time of K3, the GEMMs and the rest, the busy share.
 20. device    — device time per call (50 calls captured in a CUDA graph,
-                the replay timed) of K2 and K5 on flash_fwd_sm90, of the
-                old flash_fwd.cu and of SDPA at STDiT's shapes: at
-                0.02–0.09 ms a kernel the host's launch (host_ms in the
-                compare= lines) can set a loop's CUDA-event time.
+                the replay timed) of K2, K5 and K4 (without and with the
+                LSE) on flash_fwd_sm90, of the old flash_fwd.cu and of
+                SDPA at STDiT's shapes: at 0.01–0.09 ms a kernel the host's
+                launch (host_ms in the compare= lines) can set a loop's
+                CUDA-event time.
 21. kernels   — status of every TPU kernel of the JAX package.
 
 They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–21.  Every launch
 count (K1–K10) is set to 0 just before each main-path run (the three
 sampling runs and the two training runs) and read just after; the
 kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those five runs (K3 and K7 also give the old
-design's ms on the same tensors; K2 and K5 also the device times).  The
+launches summed over those five runs (K1, K3, K4, K6 and K7 also give
+the old design's ms on the same tensors, flash_fwd.cu for K1 and K6; K2,
+K4 and K5 also the device times; K1 its time at the training shape with
+the LSE).  K1's and K6's bound_ms is the largest of three floors: the
+bytes, the products and the exp2 (the special-function units).  The
 last line is
 {"ok": true, "device": {...}}.
 """
@@ -223,6 +235,10 @@ def log(phase: str, **fields) -> None:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
+    """CUDA-event time per call of ``fn`` over ``reps`` calls, after one
+    call that warms it up (a kernel's first launch loads its code)."""
+    fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -294,17 +310,19 @@ def host_ms(fn, reps: int) -> float:
 
 
 def compare_designs(A, label: str, q, k, v, emit_lse: bool,
-                    rec: dict) -> None:
-    """The Hopper design (flash_fwd_sm90.cu, the K2 or K5 route) beside the
-    old mma.sync design (flash_fwd.cu) on the same STDiT tensors, and SDPA,
-    by CUDA events around 50 calls, with each wrapper's host time per call;
-    adds the old design's ms to ``rec``.  The device times come in the
-    last phase (``device_times``)."""
-    route = "K5" if emit_lse else "K2"
+                    rec: dict, kv_valid=None) -> None:
+    """The Hopper design (flash_fwd_sm90.cu, the K2 or K5 route, or K4 with
+    the key mask ``kv_valid``) beside the old mma.sync design (flash_fwd.cu)
+    on the same STDiT tensors, and SDPA, by CUDA events around 50 calls,
+    with each wrapper's host time per call; adds the old design's ms to
+    ``rec``.  The device times come in the last phase
+    (``device_times``)."""
+    route = "K4" if kv_valid is not None else "K5" if emit_lse else "K2"
     sm = q.shape[-1] ** -0.5
-    new = lambda: A.flash_fwd(q, k, v, sm_scale=sm, emit_lse=emit_lse,
-                              route=route)
-    old = lambda: A._flash_fwd_mma(q, k, v, sm, False, None, None, emit_lse)
+    new = lambda: A.flash_fwd(q, k, v, sm_scale=sm, kv_valid=kv_valid,
+                              emit_lse=emit_lse, route=route)
+    old = lambda: A._flash_fwd_mma(q, k, v, sm, False, kv_valid, None,
+                                   emit_lse)
     o_new, o_old = new(), old()
     if emit_lse:
         o_new, o_old = o_new[0], o_old[0]
@@ -321,11 +339,14 @@ def compare_designs(A, label: str, q, k, v, emit_lse: bool,
         max_abs_diff_old_vs_new=f"{diff:.3e}")
 
 
-def device_times(A, k2: dict, k5: dict) -> None:
+def device_times(A, k2: dict, k5: dict, k4: dict) -> None:
     """Last phase: device time per call (``device_ms``: 50 calls in one
     CUDA graph, its replay timed) of K2 and K5 (flash_fwd_sm90), of the old
     design (flash_fwd.cu) and of SDPA's fastest backend on STDiT's tensors
-    (B=32 and B=16, S=256, H=16, d=72), into ``k2`` and ``k5``."""
+    (B=32 and B=16, S=256, H=16, d=72), into ``k2`` and ``k5``; and of K4
+    at STDiT's cross-attention (B=2, 4096 queries over 120 keys, the prefix
+    mask), without and with the LSE, beside the old design and SDPA with
+    the boolean mask, into ``k4``."""
     from videotuna_tpu_torch.kernels.attribution import device_ms
     gen = torch.Generator(device="cuda").manual_seed(10)
     for route, rec, b in (("K2", k2, 32), ("K5", k5, 16)):
@@ -348,6 +369,33 @@ def device_times(A, k2: dict, k5: dict) -> None:
             library=f"scaled_dot_product_attention[{backend}]",
             bound_ms=f"{rec['bound_ms']:.4f}")
         del q, k, v, qt, kt, vt
+    q = _rand((2, 4096, 16, 72), gen)
+    k, v = (_rand((2, 120, 16, 72), gen) for _ in range(2))
+    m = torch.ones((2, 120), dtype=torch.bool, device="cuda")
+    m[0, 13:] = False
+    sm = 72 ** -0.5
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib, backend = sdpa_device_ms((qt, kt, vt),
+                                  {"attn_mask": m[:, None, None, :]}, reps=50)
+    for lse in (False, True):
+        new = device_ms(lambda: A.flash_fwd(q, k, v, sm_scale=sm, kv_valid=m,
+                                            emit_lse=lse), reps=50)
+        old = device_ms(lambda: A._flash_fwd_mma(q, k, v, sm, False, m, None,
+                                                 lse), reps=50)
+        if not lse:
+            k4.update(device_ms=new, old_design_device_ms=old,
+                      library_device_ms=lib)
+        else:
+            k4.update(lse_device_ms=new, lse_old_design_device_ms=old)
+        log("K4", case="stdit-xl2 cross, prefix mask" + (", emit_lse" * lse),
+            compare="flash_fwd_sm90 (Hopper, persistent, key mask) vs "
+            "flash_fwd.cu (mma.sync) vs sdpa(attn_mask), device time per "
+            "call (CUDA-graph replay)", device_ms=f"{new:.4f}",
+            old_design_device_ms=f"{old:.4f}",
+            library_device_ms=f"{lib:.4f}",
+            library=f"scaled_dot_product_attention[{backend}](attn_mask)",
+            bound_ms=f"{k4['bound_ms']:.4f}")
+    del q, k, v, qt, kt, vt
 
 
 # ---------------------------------------------------------------- phase 3
@@ -365,27 +413,35 @@ def _plain_chunked(A, q, k, v, static_max, rows=256):
     (the full score matrix would not fit)."""
     outs, lses = [], []
     for i in range(0, q.shape[1], rows):
-        o, lse = A.flash_fwd_d64_plain(q[:, i:i + rows], k, v,
-                                       sm_scale=0.125, static_max=static_max,
-                                       emit_lse=True)
+        o, lse = A.flash_fwd_plain(q[:, i:i + rows], k, v, sm_scale=0.125,
+                                   static_max=static_max, emit_lse=True)
         outs.append(o)
         lses.append(lse)
     return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
 
 
+def _k1(A, q, k, v, static_max, emit_lse=False, route="K1"):
+    return A.flash_fwd(q, k, v, sm_scale=0.125, static_max=static_max,
+                       emit_lse=emit_lse, route=route)
+
+
 def check_k1(A) -> dict:
+    """K1 (and K6) through ``flash_fwd`` on the persistent Hopper kernel
+    (flash_fwd_sm90.cu, D=64) against the plain version at the
+    CogVideoX-5B shape in both softmax modes with the LSE and at ragged
+    shapes; timed beside flash_fwd.cu (the mma.sync A/B baseline) and
+    SDPA on the same tensors."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, s, h = SHAPE_5B["b"], SHAPE_5B["s"], SHAPE_5B["h"]
     q, k, v = _qkv(b, s, s, h, gen)
     flops = 4.0 * b * h * s * s * 64
     io_bytes = 4 * q.numel() * q.element_size()
-    bound_ms = max(flops / PEAK_BF16_FLOPS, io_bytes / PEAK_BYTES) * 1e3
-    bound_by = ("operations" if flops / PEAK_BF16_FLOPS
-                >= io_bytes / PEAK_BYTES else "bytes")
+    exp2_ms = _exp2_floor_ms(b * h * s * s)
+    bound_ms, bound_by = _bound(flops, io_bytes, exp2_ms)
     record = {}
     for static_max in (0.0, None):
-        out, lse = A.flash_fwd_d64(q, k, v, sm_scale=0.125,
-                                   static_max=static_max, emit_lse=True)
+        before = (A.flash_fwd.launches_sm90["K1"], A.flash_fwd.tma_copies)
+        out, lse = _k1(A, q, k, v, static_max, emit_lse=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ref, ref_lse = _plain_chunked(A, q, k, v, static_max)
@@ -394,53 +450,41 @@ def check_k1(A) -> dict:
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         scale = ref.float().abs().max().item()
-        ok = err <= K1_TOL * scale and lse_err <= LSE_TOL
-        ms = cuda_time_ms(lambda: A.flash_fwd_d64(
-            q, k, v, sm_scale=0.125, static_max=static_max), reps=5)
+        ok = (err <= K1_TOL * scale and lse_err <= LSE_TOL
+              and (A.flash_fwd.launches_sm90["K1"], A.flash_fwd.tma_copies)
+              == (before[0] + 1, before[1]))
+        ms = cuda_time_ms(lambda: _k1(A, q, k, v, static_max), reps=5)
         log("K1", mode="static_max=0" if static_max == 0.0 else "online",
-            shape=f"B{b}xS{s}xH{h}xd64", max_abs_err=f"{err:.3e}",
-            tol=f"{K1_TOL * scale:.3e}", lse_err=f"{lse_err:.3e}",
-            lse_tol=LSE_TOL, ms=f"{ms:.3f}", bound_ms=f"{bound_ms:.3f}",
-            bound_by=bound_by, plain_ms=f"{plain_ms:.1f}",
+            shape=f"B{b}xS{s}xH{h}xd64", kernel="flash_fwd_sm90 persistent",
+            max_abs_err=f"{err:.3e}", tol=f"{K1_TOL * scale:.3e}",
+            lse_err=f"{lse_err:.3e}", lse_tol=LSE_TOL, ms=f"{ms:.3f}",
+            bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+            exp2_floor_ms=f"{exp2_ms:.3f}", plain_ms=f"{plain_ms:.1f}",
             tflops=f"{flops / ms / 1e9:.1f}", ok=ok)
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version "
-                                 f"(static_max={static_max})")
+                                 f"(static_max={static_max}), or did not "
+                                 "launch flash_fwd_sm90 in place")
         if static_max == 0.0:   # the main path's mode
             record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
-            # the generic kernel (K2's) on the same inputs: whether one d=64
-            # kernel could serve both routes
-            fwd = A.flash_fwd(q, k, v, sm_scale=0.125, static_max=0.0)
-            fwd_err = (fwd.float() - ref.float()).abs().max().item()
-            fwd_ms = cuda_time_ms(lambda: A.flash_fwd(
-                q, k, v, sm_scale=0.125, static_max=0.0), reps=5)
-            log("K1", compare="flash_fwd (K2's kernel) at K1's shape",
-                mode="static_max=0", max_abs_err=f"{fwd_err:.3e}",
-                tol=f"{K1_TOL * scale:.3e}", ms=f"{fwd_ms:.3f}",
-                k1_ms=f"{ms:.3f}", ok=fwd_err <= K1_TOL * scale)
-            if fwd_err > K1_TOL * scale:
-                raise AssertionError("flash_fwd disagrees with K1's plain "
+            # flash_fwd.cu (the mma.sync design, K1's A/B baseline) on the
+            # same tensors
+            old = A._flash_fwd_mma(q, k, v, 0.125, False, None, 0.0, False)
+            torch.cuda.synchronize()
+            old_err = (old.float() - ref.float()).abs().max().item()
+            del old
+            old_ms = cuda_time_ms(lambda: A._flash_fwd_mma(
+                q, k, v, 0.125, False, None, 0.0, False), reps=5)
+            record.update(old_design_ms=old_ms)
+            log("K1", compare="flash_fwd.cu (mma.sync, the A/B baseline) at "
+                "K1's shape", mode="static_max=0",
+                max_abs_err=f"{old_err:.3e}", tol=f"{K1_TOL * scale:.3e}",
+                ms=f"{old_ms:.3f}", k1_ms=f"{ms:.3f}",
+                ok=old_err <= K1_TOL * scale)
+            if old_err > K1_TOL * scale:
+                raise AssertionError("flash_fwd.cu disagrees with K1's plain "
                                      "version at K1's shape")
-            # the Hopper forward at d=64 (K3's kernel, flash_fwd_sm90) on the
-            # same inputs: whether K1 could merge into it
-            before = A.flash_fwd.launches_sm90["K3"]
-            fwd = A.flash_fwd(q, k, v, sm_scale=0.125, static_max=0.0,
-                              route="K3")
-            sm90_err = (fwd.float() - ref.float()).abs().max().item()
-            sm90_ms = cuda_time_ms(lambda: A.flash_fwd(
-                q, k, v, sm_scale=0.125, static_max=0.0, route="K3"), reps=5)
-            ok = (sm90_err <= K1_TOL * scale
-                  and A.flash_fwd.launches_sm90["K3"] == before + 6)
-            log("K1", compare="flash_fwd_sm90 (K3's kernel, d=64) at K1's "
-                "shape", mode="static_max=0", max_abs_err=f"{sm90_err:.3e}",
-                tol=f"{K1_TOL * scale:.3e}", ms=f"{sm90_ms:.3f}",
-                k1_ms=f"{ms:.3f}", flash_fwd_ms=f"{fwd_ms:.3f}", ok=ok)
-            if not ok:
-                raise AssertionError("flash_fwd_sm90 at d=64 disagrees with "
-                                     "K1's plain version at K1's shape")
-            record["sm90_d64_ms"] = sm90_ms
-            del fwd
         del out, lse, ref, ref_lse
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     record["library_ms"], backend = sdpa_ms((qt, kt, vt), {}, reps=5)
@@ -448,12 +492,11 @@ def check_k1(A) -> dict:
         library_ms=f"{record['library_ms']:.3f}")
     del q, k, v, qt, kt, vt
 
-    for sq, sk in ((200, 200), (300, 4322), (1, 64)):
+    for sq, sk in ((200, 200), (300, 4322), (1, 64), (130, 300)):
         q, k, v = _qkv(2, sq, sk, 4, gen)
         for static_max in (0.0, None):
-            out, lse = A.flash_fwd_d64(q, k, v, sm_scale=0.125,
-                                       static_max=static_max, emit_lse=True)
-            ref, ref_lse = A.flash_fwd_d64_plain(
+            out, lse = _k1(A, q, k, v, static_max, emit_lse=True)
+            ref, ref_lse = A.flash_fwd_plain(
                 q, k, v, sm_scale=0.125, static_max=static_max, emit_lse=True)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -466,37 +509,44 @@ def check_k1(A) -> dict:
             if not ok:
                 raise AssertionError(f"K1 disagrees at Sq={sq}, Sk={sk}")
 
-    # K6: pack2=True runs K1's kernel in online mode
+    # K6: pack2=True runs K1's function in online mode, route K6
     q, k, v = _qkv(2, 300, 4322, 4, gen)
-    before = dict(A.flash_fwd_d64.launches)
+    before = (dict(A.flash_fwd.launches), dict(A.flash_fwd.launches_sm90))
     out = A.flash_attention(q, k, v, pack2=True)
-    ref = A.flash_fwd_d64_plain(q, k, v, sm_scale=0.125)
+    ref = A.flash_fwd_plain(q, k, v, sm_scale=0.125)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     ok = (err <= K1_TOL * scale
-          and A.flash_fwd_d64.launches == dict(before, K6=before["K6"] + 1))
-    log("K6", route="flash_attention(pack2=True) -> flash_fwd_d64 online, "
-        "counted as K6",
+          and A.flash_fwd.launches == dict(before[0], K6=before[0]["K6"] + 1)
+          and A.flash_fwd.launches_sm90 == dict(before[1],
+                                                K6=before[1]["K6"] + 1))
+    log("K6", route="flash_attention(pack2=True) -> flash_fwd route K6, "
+        "flash_fwd_sm90 persistent online",
         shape="B2xSq300xSk4322xH4xd64", max_abs_err=f"{err:.3e}",
         tol=f"{K1_TOL * scale:.3e}", ok=ok)
     if not ok:
         raise AssertionError("K6 (pack2=True) disagrees with K1's plain "
-                             "online version")
+                             "online version, or did not launch "
+                             "flash_fwd_sm90")
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     bound_ms, bound_by = _bound(4.0 * 2 * 4 * 300 * 4322 * 64,
                                 (2 * q.numel() + 2 * k.numel())
-                                * q.element_size())
+                                * q.element_size(),
+                                _exp2_floor_ms(2 * 4 * 300 * 4322))
     library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=20)
     record["k6"] = dict(
         max_abs_err=err,
         ms=cuda_time_ms(lambda: A.flash_attention(q, k, v, pack2=True),
                         reps=20),
-        plain_ms=cuda_time_ms(lambda: A.flash_fwd_d64_plain(
+        plain_ms=cuda_time_ms(lambda: A.flash_fwd_plain(
             q, k, v, sm_scale=0.125), reps=5),
+        old_design_ms=cuda_time_ms(lambda: A._flash_fwd_mma(
+            q, k, v, 0.125, False, None, None, False), reps=20),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     log("K6", ms=f"{record['k6']['ms']:.4f}", bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, plain_ms=f"{record['k6']['plain_ms']:.3f}",
+        old_design_ms=f"{record['k6']['old_design_ms']:.4f}",
         library=f"scaled_dot_product_attention[{backend}]",
         library_ms=f"{record['k6']['library_ms']:.4f}")
     return record
@@ -516,7 +566,7 @@ def _check_fwd(A, label, q, k, v, **kw) -> float:
     when ``_fwd_design`` names it."""
     route = "K4" if kw.get("kv_valid") is not None else "K2"
     before = A.flash_fwd.launches[route]
-    sm90 = A.flash_fwd.launches_sm90["K2"]
+    sm90 = A.flash_fwd.launches_sm90[route]
     design = A._fwd_design(route, q.dtype, q.shape[-1],
                            kw.get("causal", False), kw.get("kv_valid"), True,
                            kw.get("static_max"))
@@ -531,7 +581,7 @@ def _check_fwd(A, label, q, k, v, **kw) -> float:
                if finite.any() else 0.0)
     ok = (err <= FWD_TOL * scale and lse_err <= LSE_TOL and inf_ok
           and A.flash_fwd.launches[route] == before + 1
-          and A.flash_fwd.launches_sm90["K2"] == sm90 + (design == "sm90"))
+          and A.flash_fwd.launches_sm90[route] == sm90 + (design == "sm90"))
     b, sq, h, d = q.shape
     log(route, case=label, shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}",
         kernel="flash_fwd_sm90" if design == "sm90" else "flash_fwd",
@@ -544,10 +594,20 @@ def _check_fwd(A, label, q, k, v, **kw) -> float:
     return err
 
 
-def _bound(flops: float, io_bytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, io_bytes / PEAK_BYTES
+def _bound(flops: float, io_bytes: float, exp2_ms: float = 0.0):
+    """The least time of the work: the larger of its bytes at the memory
+    rate and its operations at their peak rates, the products' and, where
+    given, the exp2's on the special-function units (``exp2_ms``)."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, exp2_ms / 1e3)
+    t_bytes = io_bytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _exp2_floor_ms(scores: float) -> float:
+    """The special-function units' floor of ``scores`` exp2 (one a score):
+    16 a clock per SM on 132 SMs at the H100's 1.98 GHz boost clock."""
+    return scores / (16 * 132 * 1.98e9) * 1e3
 
 
 def _time_record(A, q, k, v, sdpa_args, sdpa_kw, flops, io_bytes, **kw):
@@ -609,10 +669,18 @@ def check_k4(A) -> dict:
     errs = {label: _check_fwd(A, f"stdit-xl2 cross {label}", q, k, v,
                               sm_scale=d ** -0.5, kv_valid=m)
             for label, m in masks.items()}
-    out = A.flash_fwd(q, k, v, sm_scale=d ** -0.5,
-                      kv_valid=masks["empty row"])
-    if out[0].abs().max().item() != 0.0:
-        raise AssertionError("K4: a row with no valid key must give zeros")
+    qn, kn = _rand((b, sq, h, d), gen, True), _rand((b, sk, h, d), gen, True)
+    _check_fwd(A, "stdit-xl2 cross strided, fixed max", qn, kn, v,
+               sm_scale=d ** -0.5, kv_valid=masks["strided"], static_max=0.0)
+    del qn, kn
+    for static_max in (None, 0.0):
+        out, lse = A.flash_fwd(q, k, v, sm_scale=d ** -0.5,
+                               kv_valid=masks["empty row"],
+                               static_max=static_max, emit_lse=True)
+        if out[0].abs().max().item() != 0.0 \
+                or not torch.isneginf(lse[0]).all().item():
+            raise AssertionError("K4: a row with no valid key must give "
+                                 "o = 0 and lse = -inf")
     m = masks["prefix"]
     n_valid = int(m.sum())
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -623,10 +691,13 @@ def check_k4(A) -> dict:
                                 io_bytes=io_bytes, sm_scale=d ** -0.5,
                                 kv_valid=m)
     log("K4", case="stdit-xl2 cross timing (prefix mask)",
+        kernel="flash_fwd_sm90 persistent, key mask",
         ms=f"{rec['ms']:.4f}", bound_ms=f"{rec['bound_ms']:.4f}",
         bound_by=rec["bound_by"], plain_ms=f"{rec['plain_ms']:.3f}",
         library=f"scaled_dot_product_attention[{backend}](attn_mask)",
         library_ms=f"{rec['library_ms']:.4f}", empty_row_zero=True)
+    compare_designs(A, "stdit-xl2 cross, prefix mask", q, k, v, False, rec,
+                    kv_valid=m)
     return dict(max_abs_err=errs["prefix"], **rec)
 
 
@@ -634,29 +705,25 @@ def check_k4(A) -> dict:
 def zero_counts(A) -> None:
     """Set every kernel's launch count to 0 just before a main-path run:
     per route, per Hopper design, and the forward's alignment copies."""
-    A.flash_fwd_d64.launches = {"K1": 0, "K6": 0}
-    A.flash_fwd.launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    A.flash_fwd.launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5",
+                                           "K6")}
     A.flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
-    A.flash_fwd.launches_sm90 = {"K2": 0, "K3": 0, "K5": 0}
+    A.flash_fwd.launches_sm90 = dict(A.flash_fwd.launches)
     A.flash_bwd.launches_sm90 = {"K7": 0}
     A.flash_fwd.tma_copies = 0
 
 
 def read_counts(A) -> dict:
     """Every kernel's launch count, read just after a main-path run."""
-    return dict(A.flash_fwd_d64.launches, **A.flash_fwd.launches,
-                **A.flash_bwd.launches)
+    return dict(A.flash_fwd.launches, **A.flash_bwd.launches)
 
 
 def read_sm90_counts(A) -> dict:
-    """The Hopper designs' launches (flash_fwd_sm90 for K2, K3 and K5,
-    flash_bwd_sm90 for K7) and the forward's alignment copies, read with
+    """The Hopper designs' launches (flash_fwd_sm90 for K1-K6, flash_bwd_sm90
+    for K7) and the forward's alignment copies, read with
     ``read_counts``."""
-    return {"K2": A.flash_fwd.launches_sm90["K2"],
-            "K3": A.flash_fwd.launches_sm90["K3"],
-            "K5": A.flash_fwd.launches_sm90["K5"],
-            "K7": A.flash_bwd.launches_sm90["K7"],
-            "tma_copies": A.flash_fwd.tma_copies}
+    return dict(A.flash_fwd.launches_sm90, K7=A.flash_bwd.launches_sm90["K7"],
+                tma_copies=A.flash_fwd.tma_copies)
 
 
 def _read_video(path: str):
@@ -689,6 +756,7 @@ def run_e2e(A) -> dict:
         f"inference.decode_latent_frames={DECODE_LATENT_FRAMES}",
     ])
     launches = read_counts(A)
+    sm90 = read_sm90_counts(A)
     m = result["metrics"]
     peak = torch.cuda.max_memory_allocated()
     expected = 42 * E2E_STEPS
@@ -698,12 +766,17 @@ def run_e2e(A) -> dict:
         steps=m["denoise_steps"], sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.3f}",
         decode_sec=f"{m['decode_sec']:.3f}", decoded_frames=frames,
         peak_mem_gb=f"{peak / 1e9:.2f}", launches=launches,
+        sm90_launches=sm90,
         nonfinite_latents=m["nonfinite_latents"],
         nonfinite_pixels=m["nonfinite_pixels"],
         video_shape="x".join(map(str, video.shape)))
     if launches["K1"] != expected:
         raise AssertionError(f"K1 launched {launches['K1']} times, expected "
                              f"{expected} (42 layers × {E2E_STEPS} steps)")
+    if sm90["K1"] != expected or sm90["tma_copies"]:
+        raise AssertionError(f"{sm90}: every K1 launch must run "
+                             f"flash_fwd_sm90 ({expected}), with no alignment "
+                             "copy")
     if m["nonfinite_latents"] or m["nonfinite_pixels"]:
         raise AssertionError("non-finite latents or pixels")
     if tuple(video.shape) != (frames, 480, 720, 3):
@@ -808,9 +881,10 @@ def run_e2e_opensora(A) -> dict:
         raise AssertionError(f"launches {launches}, expected K2 = K4 = "
                              f"{expected} ({OS_DEPTH} layers × {OS_STEPS} "
                              "steps) and no K1")
-    if sm90["K2"] != expected or sm90["tma_copies"]:
-        raise AssertionError(f"{sm90}: every K2 launch must run "
-                             f"flash_fwd_sm90 ({expected}: {OS_DEPTH} a "
+    if sm90["K2"] != expected or sm90["K4"] != expected \
+            or sm90["tma_copies"]:
+        raise AssertionError(f"{sm90}: every K2 and K4 launch must run "
+                             f"flash_fwd_sm90 ({expected} each: {OS_DEPTH} a "
                              "step, none on flash_fwd.cu), with no alignment "
                              "copy")
     if m["nonfinite_latents"] or m["nonfinite_pixels"]:
@@ -1067,17 +1141,37 @@ def check_bwd(A) -> dict:
     b, s, h = SHAPE_2B["b"], SHAPE_2B["s"], SHAPE_2B["h"]
     q, k, v = _qkv(b, s, s, h, gen)
     g = _rand((b, s, h, 64), gen)
-    out, lse = A.flash_fwd_d64(q, k, v, sm_scale=0.125, static_max=0.0,
-                               emit_lse=True)
+    out, lse = _k1(A, q, k, v, 0.0, emit_lse=True)
     torch.cuda.synchronize()
+    # K1 itself at the training shape, fixed max with the LSE: the
+    # persistent kernel beside flash_fwd.cu and SDPA on the same tensors
+    k1_ms = cuda_time_ms(lambda: _k1(A, q, k, v, 0.0, emit_lse=True), reps=5)
+    k1_old_ms = cuda_time_ms(lambda: A._flash_fwd_mma(
+        q, k, v, 0.125, False, None, 0.0, True), reps=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    k1_lib_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=5)
+    del qt, kt, vt
+    k1_exp2 = _exp2_floor_ms(b * h * s * s)
+    k1_bound, k1_by = _bound(4.0 * b * h * s * s * 64,
+                             4 * q.numel() * q.element_size() + b * h * s * 4,
+                             k1_exp2)
+    rec["K1_train"] = dict(ms=k1_ms, old_design_ms=k1_old_ms,
+                           library_ms=k1_lib_ms, bound_ms=k1_bound)
+    log("K1", case="cogvideox-2b training forward, static_max=0, emit_lse",
+        shape=f"B{b}xS{s}xH{h}xd64", kernel="flash_fwd_sm90 persistent",
+        ms=f"{k1_ms:.3f}", old_design_ms=f"{k1_old_ms:.3f}",
+        bound_ms=f"{k1_bound:.3f}", bound_by=k1_by,
+        exp2_floor_ms=f"{k1_exp2:.3f}",
+        ns_per_mscore=f"{k1_ms * 1e6 / (b * h * s * s / 1e6):.3f}",
+        library=f"scaled_dot_product_attention[{backend}]",
+        library_ms=f"{k1_lib_ms:.3f}")
     t0 = time.perf_counter()
     ref = _bwd_plain_chunked(A, q, k, v, out, g, lse, 0.125)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     for mode in ("static_max=0", "online"):
         if mode == "online":
-            out, lse = A.flash_fwd_d64(q, k, v, sm_scale=0.125,
-                                       emit_lse=True)
+            out, lse = _k1(A, q, k, v, None, emit_lse=True)
         for route, single_pass in (("K7", True), ("K10", False)):
             before = dict(A.flash_bwd.launches)
             sm90 = A.flash_bwd.launches_sm90["K7"]
@@ -1483,10 +1577,13 @@ def run_train_cog(A) -> dict:
     # forward K1 per layer, K1 again when remat recomputes it, K7 backward
     per_step = {"K1": 60, "K7": 30, "K2": 0, "K5": 0, "K8": 0}
     out = _train_run(A, "train-cog", argv, per_step, lora=True)
-    if out["sm90"]["K7"] != 30 * TRAIN_STEPS:
-        raise AssertionError(f"train-cog: {out['sm90']['K7']} K7 launches "
-                             f"of flash_bwd_sm90, expected "
-                             f"{30 * TRAIN_STEPS}: all of them")
+    if (out["sm90"]["K7"], out["sm90"]["K1"]) != (30 * TRAIN_STEPS,
+                                                  60 * TRAIN_STEPS) \
+            or out["sm90"]["tma_copies"]:
+        raise AssertionError(f"train-cog: {out['sm90']}: every K7 launch "
+                             f"must run flash_bwd_sm90 ({30 * TRAIN_STEPS}) "
+                             f"and every K1 launch flash_fwd_sm90 "
+                             f"({60 * TRAIN_STEPS}), with no alignment copy")
     return dict(out, frames=frames, cut=cut)
 
 
@@ -1506,10 +1603,13 @@ def run_train_stdit(A) -> dict:
     per_step = {"K5": OS_DEPTH, "K4": OS_DEPTH, "K8": 2 * OS_DEPTH,
                 "K7": 0, "K1": 0}
     out = _train_run(A, "train-stdit", argv, per_step, lora=False)
-    if out["sm90"]["K5"] != OS_DEPTH * TRAIN_STEPS or out["sm90"]["tma_copies"]:
-        raise AssertionError(f"train-stdit: {out['sm90']}: every K5 launch "
-                             f"must run flash_fwd_sm90 ({OS_DEPTH} a step, "
-                             "none on flash_fwd.cu), with no alignment copy")
+    if out["sm90"]["K5"] != OS_DEPTH * TRAIN_STEPS \
+            or out["sm90"]["K4"] != OS_DEPTH * TRAIN_STEPS \
+            or out["sm90"]["tma_copies"]:
+        raise AssertionError(f"train-stdit: {out['sm90']}: every K5 and K4 "
+                             f"launch must run flash_fwd_sm90 ({OS_DEPTH} "
+                             "a step each, none on flash_fwd.cu), with no "
+                             "alignment copy")
     return out
 
 
@@ -1947,6 +2047,7 @@ def main() -> None:
     k4 = check_k4(A)
     k3 = check_k3(A)
     bwd = check_bwd(A)
+    k1["train_lse_ms"] = bwd["K1_train"]["ms"]
     check_f32_forward(A)
     runs = [run_e2e(A)]
     check_small_reference()
@@ -1960,40 +2061,44 @@ def main() -> None:
     runs.append(run_e2e_hunyuan(A))
     check_small_reference_hunyuan()
     profile_hunyuan_call()
-    device_times(A, k2, bwd["K5"])
+    device_times(A, k2, bwd["K5"], k4)
     # each kernel's launches over the five main-path runs
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     statuses = {
-        "K1": "ported, checked",
-        "K2": "redesigned for Hopper (PR 6; flash_fwd_sm90 persistent, "
-              "d=72/80 bf16), checked",
-        "K3": "ported (flash_fwd_sm90: TMA, wgmma, warp-specialised), "
+        "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
+              "bf16, fixed max or online, optional LSE), checked",
+        "K2": "redesigned for Hopper (flash_fwd_sm90 persistent, d=72/80 "
+              "bf16), checked",
+        "K3": "redesigned for Hopper (flash_fwd_sm90: TMA, wgmma, "
+              "warp-specialised), checked",
+        "K4": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
+              "key mask, d=72/80 bf16), checked",
+        "K5": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
+              "LSE, d=72/80 bf16), checked",
+        "K6": "mapped onto K1's kernel (flash_fwd_sm90 persistent, online), "
               "checked",
-        "K4": "ported, checked",
-        "K5": "redesigned for Hopper (PR 6; flash_fwd_sm90 persistent with "
-              "the LSE, d=72/80 bf16), checked",
-        "K6": "ported (mapped onto K1's kernel), checked",
-        "K7": "ported (flash_bwd_sm90: single pass, wgmma), checked",
+        "K7": "redesigned for Hopper (flash_bwd_sm90: single pass, wgmma), "
+              "checked",
         "K8": "ported, checked",
         "K9": "ported (mapped onto flash_bwd), checked",
         "K10": "ported (mapped onto flash_bwd), checked"}
     log("kernels", **statuses)
-    d64 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_d64.cu"
-    fwd = "videotuna_tpu_torch/kernels/csrc/flash_fwd.cu"
-    bwd_src = "videotuna_tpu_torch/kernels/csrc/flash_bwd.cu"
     fwd90 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_sm90.cu"
+    bwd_src = "videotuna_tpu_torch/kernels/csrc/flash_bwd.cu"
     bwd90 = "videotuna_tpu_torch/kernels/csrc/flash_bwd_sm90.cu"
     tpu = "videotuna_tpu/kernels/attention.py"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
     extra_keys = ("old_design_ms", "device_ms", "old_design_device_ms",
-                  "library_device_ms")
+                  "library_device_ms", "lse_device_ms",
+                  "lse_old_design_device_ms", "train_lse_ms")
 
     def entry(name, source, replaces, kernel, rec):
         # a redesigned kernel adds the old design's ms on the same tensors
-        # (K2, K5: and the device times of both designs and the library)
+        # (K2, K4, K5: and the device times of both designs and the
+        # library; K1: its time at the training shape with the LSE)
         old = {k: rec[k] for k in extra_keys if k in rec}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": f"{tpu}:{replaces}",
@@ -2001,15 +2106,17 @@ def main() -> None:
                 **{k: rec[k] for k in keys}, **old}
 
     print(json.dumps({"kernels": [
-        entry("flash_fwd_d64 (K1)", d64, 268, "K1", k1),
+        entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1),
         entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
               "K2", k2),
-        entry("flash_fwd_sm90 static_max, d = 64 or 128 (K3)", fwd90, 581,
+        entry("flash_fwd_sm90 static_max, d = 128 (K3)", fwd90, 581,
               "K3", k3),
-        entry("flash_fwd kv_valid (K4)", fwd, 970, "K4", k4),
+        entry("flash_fwd_sm90 persistent, key mask (K4)", fwd90, 970, "K4",
+              k4),
         entry("flash_fwd_sm90 persistent with the LSE, training forward "
               "(K5)", fwd90, 867, "K5", bwd["K5"]),
-        entry("flash_fwd_d64 online, pack2=True (K6)", d64, 163, "K6", k6),
+        entry("flash_fwd_sm90 persistent online, pack2=True (K6)", fwd90,
+              163, "K6", k6),
         entry("flash_bwd_sm90 d=64 single pass (K7)", bwd90, 1424, "K7",
               bwd["K7"]),
         entry("flash_bwd generic and kv_valid (K8)", bwd_src, 1148, "K8",

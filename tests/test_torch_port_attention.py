@@ -1,5 +1,6 @@
-"""Port attention against the JAX package: the plain versions of K1, K2 and
-K4 against the Pallas kernels (interpret mode), their LSEs, and
+"""Port attention against the JAX package: the plain versions of K1, K2, K4
+and K5 against the Pallas kernels (interpret mode), their LSEs, the key
+mask's packing for the Hopper kernel, and
 ``dot_product_attention``'s dispatch on every route.  Inputs come from a
 seeded numpy generator and go to both packages; comparisons are in f32 with
 atol = 1e-5·max|ref| (the two sides sum in different orders)."""
@@ -40,9 +41,9 @@ def test_k1_plain_matches_pallas_packed_t(static_max, sq, sk):
     q, k, v = _qkv(0, 1, sq, 2, 64, sk=sk)
     ref = A.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                             interpret=True, pack2="t", static_max=static_max)
-    out = P.flash_fwd_d64(torch.from_numpy(q), torch.from_numpy(k),
-                          torch.from_numpy(v), sm_scale=64 ** -0.5,
-                          static_max=static_max)
+    out = P.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), sm_scale=64 ** -0.5,
+                      static_max=static_max, route="K1")
     _close(out, ref)
 
 
@@ -57,9 +58,9 @@ def test_k1_plain_lse_matches_pallas(static_max):
     # pair-major (B·H/2, 2, Sq_pad) → (B, H, Sq)
     ref_lse = np.asarray(ref_lse).reshape(b, h // 2, 2, -1) \
         .reshape(b, h, -1)[..., :sq]
-    out, lse = P.flash_fwd_d64(torch.from_numpy(q), torch.from_numpy(k),
-                               torch.from_numpy(v), sm_scale=0.125,
-                               static_max=static_max, emit_lse=True)
+    out, lse = P.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), sm_scale=0.125,
+                           static_max=static_max, emit_lse=True, route="K1")
     _close(out, ref_out)
     _close(lse, ref_lse)
 
@@ -143,9 +144,10 @@ def test_unported_kernels_raise_off_cpu(kernel, d, causal, bounded, masked):
 
 def test_k1_launch_counter_untouched_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, 1, 128, 2, 64))
-    before = dict(P.flash_fwd_d64.launches)
-    P.flash_fwd_d64(q, k, v, sm_scale=0.125, static_max=0.0)
-    assert P.flash_fwd_d64.launches == before
+    before = (dict(P.flash_fwd.launches), dict(P.flash_fwd.launches_sm90))
+    P.flash_fwd(q, k, v, sm_scale=0.125, static_max=0.0, route="K1")
+    P.flash_attention(q, k, v, pack2=True)
+    assert (P.flash_fwd.launches, P.flash_fwd.launches_sm90) == before
 
 
 def test_k2_k4_launch_counters_untouched_on_cpu():
@@ -236,6 +238,66 @@ def test_k4_plain_lse_matches_pallas():
                            emit_lse=True)
     _close(out, ref_out)
     _close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+def test_k4_plain_lse_matches_pallas_dynpad(static_max):
+    """K4 with its LSE against the Pallas ``_flash_dynpad`` (interpret mode)
+    as the JAX package calls it: masked k and v rows zeroed, d padded to
+    128, heads packed, and their share of l removed in closed form from the
+    per-(batch, head) count of zeroed keys; a strided mask, the fixed max
+    on LayerNormed q, k."""
+    b, sq, h, d, sk = 2, 256, 2, 72, 120
+    q, k, v = _qkv(21, b, sq, h, d, sk=sk)
+    if static_max is not None:
+        q, k = _layernorm(q), _layernorm(k)
+    kv_valid = _mask(b, sk, prefix=False)
+    vm = kv_valid[:, :, None, None].astype(np.float32)
+    d_pad = A._round_to(d, 128)
+    block_q = min(A.DEFAULT_BLOCK_Q, A._round_to(sq, 128))
+    block_k = min(A.DEFAULT_BLOCK_K, A._round_to(sk, 128))
+    sq_pad, sk_pad = A._round_to(sq, block_q), A._round_to(sk, block_k)
+    pad = ((0, 0), (0, 0), (0, 0), (0, d_pad - d))
+    qt, kt, vt = (A._pack_heads(jnp.pad(jnp.asarray(x), pad), b, s, h, d_pad)
+                  for x, s in ((q, sq), (k * vm, sk), (v * vm, sk)))
+    qt = jnp.pad(qt, ((0, 0), (0, sq_pad - sq), (0, 0)))
+    kt, vt = (jnp.pad(x, ((0, 0), (0, sk_pad - sk), (0, 0)))
+              for x in (kt, vt))
+    counts = sk_pad - kv_valid.sum(axis=1).astype(np.float32)
+    cnt = jnp.broadcast_to(jnp.repeat(jnp.asarray(counts), h)[:, None, None],
+                           (b * h, 8, 128)).astype(jnp.float32)
+    out_t, ref_lse = A._flash_dynpad(
+        qt, kt, vt, cnt, sm_scale=d ** -0.5, block_q=block_q,
+        block_k=block_k, emit_lse=True, interpret=True,
+        static_max=static_max)
+    ref = A._unpack_heads(out_t[:, :sq], b, sq, h, d_pad)[..., :d]
+    ref_lse = np.asarray(ref_lse).reshape(b, h, -1)[..., :sq]
+    out, lse = P.flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), sm_scale=d ** -0.5,
+                           kv_valid=torch.from_numpy(kv_valid),
+                           static_max=static_max, emit_lse=True)
+    _close(out, ref)
+    # every row keeps at least one valid key: the LSE is held on all of them
+    _close(lse, ref_lse)
+
+
+@pytest.mark.parametrize("sk", [1, 13, 120, 128, 300])
+def test_k4_mask_words_match_the_bool_mask(sk):
+    """The key mask as the persistent Hopper kernel reads it: four int32
+    words a 128-key tile, bit c of word w for key 32·w + c, zeros past
+    Sk; unpacked again, it is the bool mask."""
+    rng = np.random.default_rng(sk)
+    kv_valid = rng.random((3, sk)) < 0.6
+    kv_valid[1] = True        # every bit of a word set: bit 31 included
+    kv_valid[2, 0] = False
+    words = P._mask_words(torch.from_numpy(kv_valid))
+    n_words = 4 * -(-sk // 128)
+    assert words.dtype == torch.int32 and words.shape == (3, n_words)
+    bits = (words.numpy().view(np.uint32)[..., None]
+            >> np.arange(32, dtype=np.uint32)) & 1
+    bits = bits.reshape(3, 32 * n_words).astype(bool)
+    np.testing.assert_array_equal(bits[:, :sk], kv_valid)
+    assert not bits[:, sk:].any()
 
 
 # ---------------------------------------------------------------- K5
@@ -389,10 +451,10 @@ def test_bwd_routes_and_launch_counts_on_cpu():
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _qkv(15, 1, 128, 2, 64))
     before = (dict(P.flash_bwd.launches), dict(P.flash_fwd.launches),
-              dict(P.flash_fwd_d64.launches))
+              dict(P.flash_fwd.launches_sm90))
     P.flash_attention_diff(q, k, v, single_pass=False).sum().backward()
     assert (P.flash_bwd.launches, P.flash_fwd.launches,
-            P.flash_fwd_d64.launches) == before
+            P.flash_fwd.launches_sm90) == before
 
 
 # ---------------------------------------------------------------- designs
@@ -424,9 +486,30 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _BF, 80, False, False, True, False, "sm90"),
     ("K5", _BF, 80, False, False, True, True, "sm90"),
     # everything else keeps flash_fwd.cu
+    # K1 and K6 at d=64 in bf16: the persistent kernel in either softmax
+    # mode, with or without the LSE; f32 keeps flash_fwd.cu
+    ("K1", _BF, 64, False, False, False, True, "sm90"),
+    ("K1", _BF, 64, False, False, True, True, "sm90"),
+    ("K1", _BF, 64, False, False, False, False, "sm90"),
+    ("K1", _BF, 64, False, False, True, False, "sm90"),
+    ("K6", _BF, 64, False, False, False, False, "sm90"),
+    ("K6", _BF, 64, False, False, True, False, "sm90"),
+    ("K6", _BF, 64, False, False, False, True, "sm90"),
+    ("K6", _BF, 64, False, False, True, True, "sm90"),
+    ("K1", _F32, 64, False, False, False, True, "mma"),
+    ("K1", _F32, 64, False, False, True, False, "mma"),
+    ("K6", _F32, 64, False, False, False, False, "mma"),
+    # K4 at d = 72 and 80 in bf16: the persistent kernel with the key mask
+    ("K4", _BF, 72, False, True, False, False, "sm90"),
+    ("K4", _BF, 72, False, True, True, False, "sm90"),
+    ("K4", _BF, 80, False, True, True, True, "sm90"),
+    ("K4", _BF, 80, False, True, False, True, "sm90"),
+    # everything else keeps flash_fwd.cu
     ("K2", _F32, 72, False, False, False, False, "mma"),
     ("K2", _BF, 72, True, False, False, False, "mma"),
-    ("K4", _BF, 72, False, True, False, False, "mma"),
+    ("K4", _BF, 128, False, True, True, False, "mma"),
+    ("K4", _BF, 64, False, True, False, False, "mma"),
+    ("K4", _F32, 72, False, True, False, False, "mma"),
     ("K5", _BF, 72, True, False, True, False, "mma"),
     ("K2", _BF, 96, False, False, False, False, "mma"),
     ("K2", _BF, 256, False, False, False, False, "mma"),
@@ -435,9 +518,10 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
                                                        fixed, design):
     """The Hopper forward (flash_fwd_sm90.cu) serves the fixed-max route K3
-    in bf16 at d = 64 or 128 without the LSE, and K2, K3 and K5 in bf16 at
-    d = 72 or 80 in either softmax mode, with or without the LSE, all
-    non-causal and unmasked; every other call keeps flash_fwd.cu."""
+    in bf16 at d = 64 or 128 without the LSE, K1 and K6 in bf16 at d = 64,
+    and K2, K3, K5 and the masked K4 in bf16 at d = 72 or 80, in either
+    softmax mode, with or without the LSE, all non-causal; every other call
+    keeps flash_fwd.cu."""
     kv_valid = torch.ones((1, 8), dtype=torch.bool) if masked else None
     assert P._fwd_design(route, dtype, d, causal, kv_valid, lse,
                          0.0 if fixed else None) == design

@@ -24,53 +24,88 @@ def _qkv(b, sq, sk, h, seed):
     return (x.cuda().bfloat16() for x in (q, k, v))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("static_max", [None, 0.0])
-@pytest.mark.parametrize("sq,sk", [(200, 200), (300, 4322), (1, 64),
-                                   (4096, 4096)])
-def test_k1_kernel_matches_plain(static_max, sq, sk):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    q, k, v = _qkv(2, sq, sk, 4, seed=sq + sk)
-    before = P.flash_fwd_d64.launches["K1"]
-    out, lse = P.flash_fwd_d64(q, k, v, sm_scale=0.125,
-                               static_max=static_max, emit_lse=True)
-    ref, ref_lse = P.flash_fwd_d64_plain(q, k, v, sm_scale=0.125,
-                                         static_max=static_max,
-                                         emit_lse=True)
+def _check_k1(q, k, v, static_max, emit_lse, route="K1", copies=0):
+    """flash_fwd on route K1 (or K6) against ``flash_fwd_plain``: launched
+    on flash_fwd_sm90 and counted per route and per design, with
+    ``copies`` alignment copies."""
+    before = (dict(P.flash_fwd.launches), dict(P.flash_fwd.launches_sm90),
+              P.flash_fwd.tma_copies)
+    res = P.flash_fwd(q, k, v, sm_scale=0.125, static_max=static_max,
+                      emit_lse=emit_lse, route=route)
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, sm_scale=0.125,
+                                     static_max=static_max, emit_lse=True)
     torch.cuda.synchronize()
-    assert P.flash_fwd_d64.launches["K1"] == before + 1
+    out = res[0] if emit_lse else res
+    assert P.flash_fwd.launches == dict(before[0],
+                                        **{route: before[0][route] + 1})
+    assert P.flash_fwd.launches_sm90 == dict(before[1],
+                                             **{route: before[1][route] + 1})
+    assert P.flash_fwd.tma_copies == before[2] + copies
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
     # bf16 output rounding; p is bf16 on both sides: 2e-2 of max|o|
     assert (out.float() - ref.float()).abs().max() \
         <= 2e-2 * ref.float().abs().max()
-    assert (lse - ref_lse).abs().max() <= 1e-3
+    if emit_lse:
+        assert res[1].shape == ref_lse.shape
+        assert (res[1] - ref_lse).abs().max() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("static_max", [None, 0.0])
+@pytest.mark.parametrize("sq,sk", [(200, 200), (300, 4322), (1, 64),
+                                   (4096, 4096), (130, 300), (17, 4322),
+                                   (2000, 2000)])
+def test_k1_kernel_matches_plain(static_max, sq, sk, emit_lse):
+    """K1 on the persistent Hopper kernel (flash_fwd_sm90.cu) at d=64, in
+    both softmax modes, with and without the LSE, at ragged lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(2, sq, sk, 4, seed=sq + sk)
+    _check_k1(q, k, v, static_max, emit_lse)
 
 
 @pytest.mark.cuda
 def test_k1_kernel_reads_strided_inputs():
-    """q, k, v sliced out of one fused qkv tensor: read in place."""
+    """q, k, v sliced out of one fused qkv tensor: TMA reads them in place,
+    without a copy; K6 (the online route of pack2=True) likewise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     qkv = torch.randn((2, 256, 3, 4, 64), device="cuda").bfloat16()
     q, k, v = qkv.unbind(dim=2)
-    out = P.flash_fwd_d64(q, k, v, sm_scale=0.125)
-    ref = P.flash_fwd_d64_plain(q, k, v, sm_scale=0.125)
-    torch.cuda.synchronize()
-    assert (out.float() - ref.float()).abs().max() \
-        <= 2e-2 * ref.float().abs().max()
+    assert all(P._aligned(x) and not x.is_contiguous() for x in (q, k, v))
+    _check_k1(q, k, v, 0.0, True)
+    _check_k1(q, k, v, None, False, route="K6")
+
+
+@pytest.mark.cuda
+def test_k1_kernel_copies_what_tma_cannot_read():
+    """A v whose head stride (68 elements, 136 bytes) is not a multiple of
+    16 bytes is copied, and the copy is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, _ = _qkv(1, 200, 300, 2, seed=3)
+    v = torch.randn((1, 300, 2, 68), device="cuda").bfloat16()[..., :64]
+    assert not P._aligned(v)
+    _check_k1(q, k, v, None, True, copies=1)
 
 
 @pytest.mark.cuda
 def test_k1_kernel_rejects_what_it_does_not_take():
+    """Route K1 takes bf16 (its Hopper kernel) or f32 (flash_fwd.cu);
+    anything else, and mismatched shapes, raise before a launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     q = torch.randn((1, 128, 2, 64), device="cuda")
+    before = dict(P.flash_fwd.launches)
     with pytest.raises(TypeError, match="bf16"):
-        P.flash_fwd_d64(q, q, q, sm_scale=0.125)
+        P.flash_fwd(q.half(), q.half(), q.half(), sm_scale=0.125,
+                    route="K1")
     qb = q.bfloat16()
-    with pytest.raises(ValueError, match="contiguous head_dim"):
-        P.flash_fwd_d64(qb.transpose(1, 3).contiguous().transpose(1, 3),
-                        qb, qb, sm_scale=0.125)
+    with pytest.raises(ValueError, match="shapes"):
+        P.flash_fwd(qb, qb[:, :, :1], qb[:, :, :1], sm_scale=0.125,
+                    route="K1")
+    assert P.flash_fwd.launches == before
 
 
 # ---------------------------------------------------------------- K2 / K4
@@ -84,18 +119,28 @@ def _qkv_d(b, sq, sk, h, d, seed, normed=False):
     return [x.cuda().bfloat16() for x in (q, k, v)]
 
 
-def _check_fwd(q, k, v, route, **kw):
-    before = P.flash_fwd.launches[route]
-    out, lse = P.flash_fwd(q, k, v, emit_lse=True, **kw)
+def _check_fwd(q, k, v, route, emit_lse=True, **kw):
+    """flash_fwd against ``flash_fwd_plain``, counted on its route, and on
+    the Hopper design exactly when ``_fwd_design`` names it."""
+    design = P._fwd_design(route, q.dtype, q.shape[-1],
+                           kw.get("causal", False), kw.get("kv_valid"),
+                           emit_lse, kw.get("static_max"))
+    before = (P.flash_fwd.launches[route], P.flash_fwd.launches_sm90[route])
+    res = P.flash_fwd(q, k, v, emit_lse=emit_lse, **kw)
+    out, lse = res if emit_lse else (res, None)
     ref, ref_lse = P.flash_fwd_plain(q, k, v, emit_lse=True, **kw)
     torch.cuda.synchronize()
-    assert P.flash_fwd.launches[route] == before + 1
+    assert (P.flash_fwd.launches[route], P.flash_fwd.launches_sm90[route]) \
+        == (before[0] + 1, before[1] + (design == "sm90"))
     # bf16 output rounding; p is bf16 on both sides: 2e-2 of max|o|
     assert (out.float() - ref.float()).abs().max() \
         <= 2e-2 * ref.float().abs().max()
-    finite = torch.isfinite(ref_lse)
-    assert torch.equal(torch.isfinite(lse), finite)
-    assert (lse - ref_lse)[finite].abs().max() <= 1e-3
+    if emit_lse:
+        finite = torch.isfinite(ref_lse)
+        assert torch.equal(torch.isfinite(lse), finite)
+        if finite.any():   # every row of a B=1 empty-row case is -inf
+            assert (lse - ref_lse)[finite].abs().max() <= 1e-3
+    return out, lse
 
 
 # (b, sq, sk, h, d, causal, static_max)
@@ -134,6 +179,95 @@ def test_k4_kernel_matches_plain(pattern):
     elif pattern == "strided":
         kv_valid[0, ::9] = True
     _check_fwd(q, k, v, "K4", sm_scale=72 ** -0.5, kv_valid=kv_valid)
+
+
+def _kv_mask(b, sk, pattern):
+    """Batch row 0 keeps a prefix of 13 keys, every 9th key, every 7th key
+    from key 128 on (its first key tile all masked), all keys or none; the
+    other rows keep all.  Rows sk + 5 keys apart: the kernel's call reads
+    the mask in place through its batch stride."""
+    kv_valid = torch.ones((b, sk + 5), dtype=torch.bool,
+                          device="cuda")[:, :sk]
+    if pattern != "all_valid":
+        kv_valid[0] = False
+    if pattern == "prefix":
+        kv_valid[0, :13] = True
+    elif pattern == "strided":
+        kv_valid[0, ::9] = True
+    elif pattern == "late":
+        kv_valid[0, 128::7] = True
+    return kv_valid
+
+
+def _check_k4_sm90(b, sq, sk, h, d, pattern, static_max, emit_lse, seed):
+    """K4 on the persistent kernel with the key mask against
+    ``flash_fwd_plain``; a row with no valid key gives o = 0 and
+    lse = -inf in either softmax mode."""
+    q, k, v = _qkv_d(b, sq, sk, h, d, seed=seed,
+                     normed=static_max is not None)
+    kv_valid = _kv_mask(b, sk, pattern)
+    assert P._fwd_design("K4", q.dtype, d, False, kv_valid, emit_lse,
+                         static_max) == "sm90"
+    out, lse = _check_fwd(q, k, v, "K4", emit_lse=emit_lse,
+                          sm_scale=d ** -0.5, kv_valid=kv_valid,
+                          static_max=static_max)
+    if pattern == "empty_row":
+        assert out[0].abs().max() == 0
+        if emit_lse:
+            assert torch.isneginf(lse[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("sk", [13, 120, 128])
+@pytest.mark.parametrize("pattern", ["prefix", "strided", "all_valid",
+                                     "empty_row"])
+@pytest.mark.parametrize("d", [72, 80])
+def test_k4_sm90_matches_plain(d, pattern, sk, static_max, emit_lse):
+    """K4 on the persistent Hopper kernel with the key mask (bf16, d = 72
+    and 80), one key tile; at B=2, H=3 and 700 queries each unit holds one
+    query tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_k4_sm90(2, 700, sk, 3, d, pattern, static_max, emit_lse,
+                   seed=sk + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("sk", [129, 300, 4322])
+@pytest.mark.parametrize("pattern", ["late", "strided", "empty_row"])
+@pytest.mark.parametrize("d", [72, 80])
+def test_k4_sm90_streams_masked_key_tiles(d, pattern, sk, static_max,
+                                          emit_lse):
+    """K4 on the persistent kernel over more than one key tile: the mask
+    words reloaded for each tile, the zero bits past Sk in place of the
+    last tile's test, and (``late``) a row whose first key tile is all
+    masked, so that the online softmax starts from m = -inf and takes
+    its first valid keys in a later tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_k4_sm90(2, 300, sk, 3, d, pattern, static_max, emit_lse,
+                   seed=sk + d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("pattern", ["prefix", "empty_row"])
+@pytest.mark.parametrize("b", [1, 2])
+def test_k4_sm90_units_of_several_query_tiles(b, pattern, static_max,
+                                              emit_lse):
+    """STDiT-XL/2's cross-attention (4096 queries over 120 keys, H=16,
+    d=72) at its training batch (B=1: units of 4 query tiles on 132 SMs)
+    and its sampling batch (B=2: units of 8): the query tiles of a unit
+    after the first reuse its K and V."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    _check_k4_sm90(b, 4096, 120, 16, 72, pattern, static_max, emit_lse,
+                   seed=b)
 
 
 @pytest.mark.cuda
@@ -193,9 +327,9 @@ _SM90_FWD_LENGTHS = [(128, 128), (129, 129), (300, 300), (4112, 4112),
 @pytest.mark.parametrize("sq,sk", _SM90_FWD_LENGTHS)
 def test_sm90_forward_matches_plain(d, b, h, sq, sk):
     """The Hopper forward (flash_fwd_sm90.cu) under the fixed max against
-    ``flash_fwd_plain``, counted per route and per design.  Called on the
-    K3 route directly: ``flash_attention`` sends d=64 with even heads to
-    K1."""
+    ``flash_fwd_plain``, counted per route and per design: the persistent
+    kernel at d=64, K3's kernel at d=128.  Called on the K3 route directly:
+    ``flash_attention`` sends d=64 with even heads to K1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     q, k, v = _qkv_d(b, sq, sk, h, d, seed=sq + sk + d, normed=True)
@@ -433,8 +567,9 @@ def test_flash_bwd_kernel_matches_plain(b, sq, sk, h, d, causal, masked,
 @pytest.mark.parametrize("d,masked", [(64, False), (72, False), (72, True)])
 def test_grads_reach_q_k_v_on_cuda(d, masked):
     """A loss through ``dot_product_attention`` on CUDA tensors gives q, k
-    and v their gradients, computed by flash_bwd: the autograd of the plain
-    math on the same bf16 values, in f32, to 2e-2 of max|grad|."""
+    and v their gradients, computed by flash_bwd from the LSE of a forward
+    on flash_fwd_sm90: the autograd of the plain math on the same bf16
+    values, in f32, to 2e-2 of max|grad|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     gen = torch.Generator().manual_seed(d)
@@ -448,14 +583,16 @@ def test_grads_reach_q_k_v_on_cuda(d, masked):
         kv_valid[0, 30:] = False
     q, k, v = (x.cuda().requires_grad_() for x in base)
     before = sum(P.flash_bwd.launches.values())
-    k5 = P.flash_fwd.launches_sm90["K5"]
+    sm90 = dict(P.flash_fwd.launches_sm90)
     out = P.dot_product_attention(
         q, k, v, kv_valid=None if kv_valid is None else kv_valid.cuda())
     out.backward(g.cuda().bfloat16())
     torch.cuda.synchronize()
     assert sum(P.flash_bwd.launches.values()) == before + 1
-    # d=72 unmasked: the K5 forward on flash_fwd_sm90, its LSE read by K8
-    assert P.flash_fwd.launches_sm90["K5"] == k5 + (d == 72 and not masked)
+    # every forward with its LSE on flash_fwd_sm90: K1 at d=64 (its LSE
+    # read by K7), K5 at d=72 and the masked K4 (read by K8)
+    route = "K4" if masked else "K1" if d == 64 else "K5"
+    assert P.flash_fwd.launches_sm90 == dict(sm90, **{route: sm90[route] + 1})
     qr, kr, vr = (x.float().cuda().requires_grad_() for x in base)
     bias = None if kv_valid is None else \
         torch.where(kv_valid.cuda(), 0.0, -1e30)[:, None, None, :]
@@ -479,8 +616,8 @@ def test_sm90_backward_matches_plain(static_max, s, h):
     q, k, v = _qkv(1, s, s, h, seed=s + h)
     g = torch.randn((1, s, h, 64), generator=torch.Generator().manual_seed(s)
                     ).cuda().bfloat16()
-    out, lse = P.flash_fwd_d64(q, k, v, sm_scale=0.125,
-                               static_max=static_max, emit_lse=True)
+    out, lse = P.flash_fwd(q, k, v, sm_scale=0.125, static_max=static_max,
+                           emit_lse=True, route="K1")
     before = (dict(P.flash_bwd.launches), dict(P.flash_bwd.launches_sm90))
     got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=0.125)
     ref = P.flash_bwd_plain(q, k, v, out, g, lse, sm_scale=0.125)

@@ -10,14 +10,16 @@ The JAX package sends an attention call to a Pallas kernel when it has no
 additive bias, head_dim ≤ 256 and at least 128 query tokens; otherwise to the
 math path.  The kernels it can reach, and where each is in the port:
 
-- K1 (d=64, even heads, non-causal): ``flash_fwd_d64``, CUDA;
-- K6 (``pack2=True``, K1's online softmax in another layout): mapped onto
-  K1's kernel;
+- K1 (d=64, even heads, non-causal) and K6 (``pack2=True``, K1's online
+  softmax in another layout): ``flash_fwd`` on routes "K1" and "K6",
+  launching in bf16 the persistent Hopper kernel of
+  ``csrc/flash_fwd_sm90.cu`` (TMA, wgmma, online softmax or fixed max,
+  optional LSE), in f32 ``csrc/flash_fwd.cu``;
 - K2 (generic: any d ≤ 256, causal, fixed max) and K4 (``kv_valid``-masked):
   ``flash_fwd``, one CUDA kernel (``csrc/flash_fwd.cu``), which also takes
-  f32 q, k, v; in bf16 at d = 72 and 80, non-causal and unmasked, K2
-  launches the Hopper kernel ``csrc/flash_fwd_sm90.cu`` (persistent, TMA,
-  wgmma, online softmax);
+  f32 q, k, v; in bf16 at d = 72 and 80, non-causal, K2 and K4 launch the
+  persistent Hopper kernel of ``csrc/flash_fwd_sm90.cu`` (K4 with its key
+  mask packed into bit words as ``_mask_words`` does);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
   on the same two kernels as K2;
 - K7 (d=64 single-pass backward): ``flash_bwd``, launching the Hopper
@@ -26,9 +28,9 @@ math path.  The kernels it can reach, and where each is in the port:
   baselines K10 and K9: ``flash_bwd``, launching ``csrc/flash_bwd.cu``;
 - K3 (d ≤ 128 non-causal fixed max, the qk-normed denoisers' sampling
   forward): ``flash_fwd`` with ``static_max``, counted as K3; at d = 64,
-  72, 80 and 128 in bf16 it launches the Hopper kernel
-  ``csrc/flash_fwd_sm90.cu`` (TMA, wgmma, warp-specialised), at other
-  widths ``flash_fwd.cu``.
+  72, 80 and 128 in bf16 it launches ``csrc/flash_fwd_sm90.cu`` (TMA,
+  wgmma, warp-specialised: the persistent kernel at 64, 72 and 80, K3's
+  own kernel at 128), at other widths ``flash_fwd.cu``.
 
 Which kernel a route launches is a function of the route, the dtype, the
 head width and the options (``_fwd_design``, ``_bwd_design``), decided
@@ -60,19 +62,22 @@ _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # can reach, with what each computes and where the port has it.
 _KERNELS = {
     "K1": "d=64 non-causal flash forward (_flash_packed2t): "
-          "csrc/flash_fwd_d64.cu",
+          "flash_fwd route K1, csrc/flash_fwd_sm90.cu (persistent) in bf16, "
+          "else csrc/flash_fwd.cu",
     "K2": "generic online-softmax flash forward (flash_attention): "
           "csrc/flash_fwd_sm90.cu at d=72 and 80 in bf16 (non-causal), "
           "else csrc/flash_fwd.cu",
     "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
           "csrc/flash_fwd_sm90.cu at d=64, 72, 80 and 128 in bf16, else "
           "csrc/flash_fwd.cu (flash_fwd with static_max)",
-    "K4": "kv_valid-masked flash forward (_flash_dynpad): csrc/flash_fwd.cu",
+    "K4": "kv_valid-masked flash forward (_flash_dynpad): "
+          "csrc/flash_fwd_sm90.cu (persistent, key mask) at d=72 and 80 in "
+          "bf16, else csrc/flash_fwd.cu",
     "K5": "generic flash forward with the LSE (_flash_forward_lse): "
           "flash_fwd with emit_lse, csrc/flash_fwd_sm90.cu at d=72 and 80 "
           "in bf16 (non-causal), else csrc/flash_fwd.cu",
     "K6": "d=64 natural-layout packed forward (_flash_packed2): "
-          "mapped onto csrc/flash_fwd_d64.cu",
+          "flash_fwd route K6, K1's kernel in online mode",
     "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
           "csrc/flash_bwd_sm90.cu",
     "K8": "single-pass generic and kv_valid-masked flash backward "
@@ -163,97 +168,7 @@ def _launch(source: str, symbol: str, argtypes, *args) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1: d=64 non-causal flash forward
-# ---------------------------------------------------------------------------
-
-def flash_fwd_d64_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, sm_scale: float,
-                        static_max: Optional[float] = None,
-                        emit_lse: bool = False
-                        ) -> Union[torch.Tensor,
-                                   Tuple[torch.Tensor, torch.Tensor]]:
-    """Plain PyTorch version of K1, the function ``flash_fwd_d64`` computes.
-
-    s = (q·k)·sm_scale·log2e in f32; p = exp2(s − M) with M = ``static_max``
-    (fixed max) or the row max (online softmax); l = Σp; p is rounded to
-    ``v.dtype`` and o = (p @ v) / l accumulated in f32.  With ``emit_lse`` it
-    also returns lse = (M + log2 l) / log2e as f32 (B, H, Sq)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * (sm_scale * _LOG2E)
-    if static_max is None:
-        m = s.amax(dim=-1, keepdim=True)
-    else:
-        m = torch.full_like(s[..., :1], float(static_max))
-    p = torch.exp2(s - m)
-    l = p.sum(dim=-1).clamp_min(1e-30)
-    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
-    out = (acc / l[..., None]).to(q.dtype).permute(0, 2, 1, 3).contiguous()
-    if emit_lse:
-        return out, (m[..., 0] + torch.log2(l)) / _LOG2E
-    return out
-
-
-_D64_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 12
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_void_p])
-
-
-def flash_fwd_d64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  sm_scale: float, static_max: Optional[float] = None,
-                  emit_lse: bool = False, route: str = "K1"
-                  ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """K1: non-causal flash attention forward for head_dim 64.
-
-    q (B, Sq, H, 64), k and v (B, Sk, H, 64) → o (B, Sq, H, 64) in q's
-    dtype, and with ``emit_lse`` the natural-log LSE, f32 (B, H, Sq).
-
-    On a CUDA tensor it launches the hand-written kernel
-    ``csrc/flash_fwd_d64.cu`` (bf16 only; anything else raises) and adds one
-    to ``flash_fwd_d64.launches[route]``: "K1", or "K6" for the
-    ``pack2=True`` route of ``flash_attention``.  On a CPU tensor it runs
-    ``flash_fwd_d64_plain``.  Replaces the TPU kernel
-    ``_flash_kernel_packed2t`` / ``_flash_packed2t``
-    (videotuna_tpu/kernels/attention.py:268, :449), and closes K6
-    (``_flash_kernel_packed2``, :163), the same online-softmax function in
-    another layout."""
-    if q.device.type == "cpu":
-        return flash_fwd_d64_plain(q, k, v, sm_scale=sm_scale,
-                                   static_max=static_max, emit_lse=emit_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd_d64: unsupported device {q.device}")
-    if route not in flash_fwd_d64.launches:
-        raise ValueError(f"flash_fwd_d64: route must be K1 or K6, got {route}")
-    _check_layout("flash_fwd_d64", q, k, v)
-    b, sq, h, d = q.shape
-    if d != 64:
-        raise ValueError(f"flash_fwd_d64 takes head_dim 64, got {d}")
-    if b * h > 65535:
-        raise ValueError("B·H above 65535 exceeds the launch grid")
-    sk = k.shape[1]
-    out = torch.empty((b, sq, h, 64), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-           if emit_lse else None)
-    with torch.cuda.device(q.device):
-        _launch("flash_fwd_d64.cu", "flash_fwd_d64_bf16", _D64_ARGTYPES,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if lse is not None else None,
-                b, h, sq, sk,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                out.stride(0), out.stride(1), out.stride(2),
-                float(sm_scale * _LOG2E), int(static_max is not None),
-                float(static_max or 0.0))
-    flash_fwd_d64.launches[route] += 1
-    return (out, lse) if emit_lse else out
-
-
-flash_fwd_d64.launches = {"K1": 0, "K6": 0}
-
-
-# ---------------------------------------------------------------------------
-# K2 / K4: generic and kv_valid-masked flash forward
+# K1-K6: the flash forward (generic, d=64, fixed max, kv_valid-masked)
 # ---------------------------------------------------------------------------
 
 def _valid_mask(sq: int, sk: int, causal: bool,
@@ -277,7 +192,7 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     emit_lse: bool = False
                     ) -> Union[torch.Tensor,
                                Tuple[torch.Tensor, torch.Tensor]]:
-    """Plain PyTorch version of K2 and K4, the function ``flash_fwd``
+    """Plain PyTorch version of K1-K6, the function ``flash_fwd``
     computes.
 
     s = (q·k)·sm_scale·log2e in f32, −inf where the key is masked: above
@@ -324,7 +239,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               static_max: Optional[float] = None,
               emit_lse: bool = False, route: Optional[str] = None
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """K2, K3, K4 and K5: flash attention forward for any head_dim ≤ 256.
+    """K1-K6: flash attention forward for any head_dim ≤ 256.
 
     q (B, Sq, H, d), k and v (B, Sk, H, d) → o (B, Sq, H, d) in q's dtype,
     and with ``emit_lse`` the natural-log LSE, f32 (B, H, Sq).  Options:
@@ -333,20 +248,24 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On a CUDA tensor it launches a hand-written kernel and adds one to
     ``flash_fwd.launches[route]``: by default "K4" when a mask is given,
-    else "K2"; ``flash_attention`` passes "K3" for its fixed-max route at
-    d ≤ 128, the training forward "K5".  The calls ``_fwd_design`` names
-    "sm90" (bf16, non-causal, unmasked: K2, K3 and K5 at d = 72 or 80, and
-    K3 at d = 64 or 128 without the LSE) launch ``csrc/flash_fwd_sm90.cu``
-    and add one to ``flash_fwd.launches_sm90[route]``; q, k or v that TMA
-    cannot read in place is copied first and counted in
-    ``flash_fwd.tma_copies``.  Everything else launches
-    ``csrc/flash_fwd.cu`` (bf16 or f32, d a multiple of 8; anything else
-    raises).  On a CPU tensor it runs ``flash_fwd_plain``.  Replaces the
-    TPU kernels ``_flash_kernel`` / ``flash_attention`` (K2,
-    videotuna_tpu/kernels/attention.py:78, :812), ``_flash_kernel_dynpad``
-    / ``_flash_dynpad`` (K4, :970, :1059), ``_flash_kernel_t128`` /
-    ``_flash_t128`` (K3, :581, :648) and ``_flash_fwd_lse_kernel`` /
-    ``_flash_forward_lse`` (K5, :867, :933)."""
+    else "K2"; ``flash_attention`` passes "K1" (d=64, even heads) and "K6"
+    (``pack2=True``) and "K3" for its fixed-max route at d ≤ 128, the
+    training forward "K1" or "K5".  The calls ``_fwd_design`` names "sm90"
+    (bf16, non-causal: K1 and K6 at d = 64; K2, K3, K5 and the masked K4 at
+    d = 72 or 80; K3 at d = 64 or 128 without the LSE) launch
+    ``csrc/flash_fwd_sm90.cu`` and add one to
+    ``flash_fwd.launches_sm90[route]``; q, k or v that TMA cannot read in
+    place is copied first and counted in ``flash_fwd.tma_copies``.
+    Everything else launches ``csrc/flash_fwd.cu`` (bf16 or f32, d a
+    multiple of 8; anything else raises).  On a CPU tensor it runs
+    ``flash_fwd_plain``.  Replaces the TPU kernels
+    ``_flash_kernel_packed2t`` / ``_flash_packed2t`` (K1,
+    videotuna_tpu/kernels/attention.py:268, :449), ``_flash_kernel`` /
+    ``flash_attention`` (K2, :78, :812), ``_flash_kernel_t128`` /
+    ``_flash_t128`` (K3, :581, :648), ``_flash_kernel_dynpad`` /
+    ``_flash_dynpad`` (K4, :970, :1059), ``_flash_fwd_lse_kernel`` /
+    ``_flash_forward_lse`` (K5, :867, :933) and ``_flash_kernel_packed2`` /
+    ``_flash_packed2`` (K6, :163, :525)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, sm_scale=sm_scale, causal=causal,
                                kv_valid=kv_valid, static_max=static_max,
@@ -361,13 +280,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("route K3 is the fixed-max route: give static_max")
     if _fwd_design(route, q.dtype, q.shape[-1], causal, kv_valid, emit_lse,
                    static_max) == "sm90":
-        res = _flash_fwd_sm90(q, k, v, sm_scale, static_max, emit_lse)
+        res = _flash_fwd_sm90(q, k, v, sm_scale, static_max, emit_lse,
+                              kv_valid)
         flash_fwd.launches_sm90[route] += 1
     else:
         res = _flash_fwd_mma(q, k, v, sm_scale, causal, kv_valid, static_max,
                              emit_lse)
     flash_fwd.launches[route] += 1
     return res
+
+
+def _check_mask(kv_valid: torch.Tensor, b: int, sk: int,
+                device: torch.device) -> None:
+    """Raise unless ``kv_valid`` is a (B, Sk) bool or uint8 mask on
+    ``device``."""
+    if kv_valid.shape != (b, sk) or kv_valid.device != device \
+            or kv_valid.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"kv_valid must be a (B, Sk) = {(b, sk)} bool "
+                         f"mask on {device}, got {tuple(kv_valid.shape)} "
+                         f"{kv_valid.dtype} on {kv_valid.device}")
 
 
 def _flash_fwd_mma(q, k, v, sm_scale: float, causal: bool,
@@ -386,11 +317,7 @@ def _flash_fwd_mma(q, k, v, sm_scale: float, causal: bool,
         raise ValueError("Sq above 64·65535 exceeds the launch grid")
     mask = None
     if kv_valid is not None:
-        if kv_valid.shape != (b, sk) or kv_valid.device != q.device \
-                or kv_valid.dtype not in (torch.bool, torch.uint8):
-            raise ValueError(f"kv_valid must be a (B, Sk) = {(b, sk)} bool "
-                             f"mask on {q.device}, got {tuple(kv_valid.shape)} "
-                             f"{kv_valid.dtype} on {kv_valid.device}")
+        _check_mask(kv_valid, b, sk, q.device)
         mask = kv_valid.contiguous()
         if mask.dtype == torch.bool:
             mask = mask.view(torch.uint8)
@@ -413,10 +340,11 @@ def _flash_fwd_mma(q, k, v, sm_scale: float, causal: bool,
     return (out, lse) if emit_lse else out
 
 
-flash_fwd.launches = {"K2": 0, "K3": 0, "K4": 0, "K5": 0}
+flash_fwd.launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 # the launches of the Hopper design (flash_fwd_sm90.cu), per route; they are
 # counted in ``launches`` too
-flash_fwd.launches_sm90 = {"K2": 0, "K3": 0, "K5": 0}
+flash_fwd.launches_sm90 = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+                           "K6": 0}
 # q, k or v copied because TMA could not read it in place
 flash_fwd.tma_copies = 0
 
@@ -426,13 +354,18 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
                 static_max: Optional[float]) -> str:
     """Which forward kernel a CUDA call launches, from its route, dtype,
     width and options alone: "sm90" (``csrc/flash_fwd_sm90.cu``: TMA,
-    wgmma, warp-specialised) for bf16, non-causal and unmasked calls of
-    K2, K3 and K5 at d = 72 or 80 (the persistent kernel: online or fixed
-    max, with or without the LSE) and of the fixed-max route K3 at d = 64
-    or 128 without the LSE; "mma" (``csrc/flash_fwd.cu``) for everything
+    wgmma, warp-specialised) for bf16 non-causal calls of K1 and K6 at
+    d = 64, of K2, K3, K5 and the masked K4 at d = 72 or 80 (the persistent
+    kernel: online or fixed max, with or without the LSE), and of the
+    fixed-max route K3 without the LSE at d = 64 (the persistent kernel)
+    or 128 (K3's kernel); "mma" (``csrc/flash_fwd.cu``) for everything
     else."""
-    if dtype != torch.bfloat16 or causal or kv_valid is not None:
+    if dtype != torch.bfloat16 or causal:
         return "mma"
+    if kv_valid is not None:
+        return "sm90" if route == "K4" and d in (72, 80) else "mma"
+    if d == 64 and route in ("K1", "K6"):
+        return "sm90"
     if d in (72, 80) and route in ("K2", "K3", "K5"):
         return "sm90"
     if (d in (64, 128) and route == "K3" and static_max is not None
@@ -451,28 +384,55 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-_FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                      + [ctypes.c_longlong] * 12
+def _mask_words(kv_valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the key mask's packing, which the persistent
+    kernel's call does on the card (``pack_mask_kernel`` in
+    ``csrc/flash_fwd_sm90.cu``): (B, Sk) bool or uint8 → (B, 4·⌈Sk/128⌉)
+    int32, four words a 128-key tile; bit c of word w is key 32·w + c
+    (1 = valid), and the bits past Sk are 0."""
+    b, sk = kv_valid.shape
+    n = -(-sk // 128) * 128
+    bits = torch.nn.functional.pad((kv_valid != 0).to(torch.int32),
+                                   (0, n - sk))
+    # 2**c for c < 31 and -2**31 for bit 31: their int32 sum is the word
+    weights = torch.tensor([1 << c for c in range(31)] + [-(1 << 31)],
+                           dtype=torch.int32, device=kv_valid.device)
+    return (bits.view(b, n // 32, 32) * weights).sum(-1, dtype=torch.int32)
+
+
+_FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                                ctypes.c_void_p]
+                      + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                          ctypes.c_void_p])
 
 
 def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float, static_max: Optional[float],
-                    emit_lse: bool
+                    emit_lse: bool, kv_valid: Optional[torch.Tensor] = None
                     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal, unmasked: the
-    fixed-max kernel at d = 64 or 128, the persistent kernel (online or
-    fixed max, with or without the LSE) at d = 72 or 80."""
+    """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal: the persistent
+    kernel (online or fixed max, with or without the LSE) at d = 64, 72 or
+    80 (at 72 and 80 with the key mask ``kv_valid`` too); K3's fixed-max
+    kernel at d = 128."""
     q, k, v = (_tma_ready(x) for x in (q, k, v))
     _check_layout("flash_fwd", q, k, v, check_aligned=False)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d in (64, 128) and b * h > 65535:
-        raise ValueError("B·H above 65535 exceeds the launch grid")
-    if static_max is None and not sm_scale > 0:
-        raise ValueError(f"the online softmax takes sm_scale > 0, got "
-                         f"{sm_scale}")
+    if d == 128:
+        if b * h > 65535:
+            raise ValueError("B·H above 65535 exceeds the launch grid")
+    if (static_max is None or kv_valid is not None) and not sm_scale > 0:
+        raise ValueError(f"the online softmax and the key mask take "
+                         f"sm_scale > 0, got {sm_scale}")
+    mask = words = None
+    if kv_valid is not None:   # packed into ``words`` by the same call
+        _check_mask(kv_valid, b, sk, q.device)
+        mask = kv_valid if kv_valid.stride(1) == 1 else kv_valid.contiguous()
+        if mask.dtype == torch.bool:
+            mask = mask.view(torch.uint8)
+        words = torch.empty((b, 4 * -(-sk // 128)), dtype=torch.int32,
+                            device=q.device)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if emit_lse else None)
@@ -481,6 +441,9 @@ def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _FWD_SM90_ARGTYPES,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
+                mask.data_ptr() if mask is not None else None,
+                mask.stride(0) if mask is not None else 0,
+                words.data_ptr() if words is not None else None,
                 b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *out.stride()[:3],
                 float(sm_scale * _LOG2E), int(static_max is None),
@@ -670,10 +633,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route choice, without the TPU block sizes and interpret mode.
 
     ``kv_valid`` → K4; ``pack2`` ("t", or auto for d=64, even heads,
-    non-causal) → K1, and ``pack2=True`` → K6, mapped onto K1's kernel in
-    online mode (f32 on the card takes ``flash_fwd``, K1's kernel being
-    bf16-only); a fixed max at d ≤ 128 with ≥ 128 queries and keys → K3,
-    mapped onto ``flash_fwd`` with ``static_max``; everything else → K2."""
+    non-causal) → K1, and ``pack2=True`` → K6, K1's function in online
+    mode; a fixed max at d ≤ 128 with ≥ 128 queries and keys → K3;
+    everything else → K2.  Every route is a route of ``flash_fwd``."""
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     if kh != h:   # GQA/MQA: broadcast KV heads
@@ -692,14 +654,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("pack2 needs d=64, even heads, non-causal")
         if pack2 != "t" and static_max is not None:
             raise ValueError("static_max needs the packed-t path")
-        if q.dtype == torch.float32 and q.device.type == "cuda":
-            # K1's kernel takes bf16 only; f32 runs the same function on
-            # flash_fwd's f32 path
-            return flash_fwd(q, k, v, sm_scale=sm_scale,
-                             static_max=static_max)
-        return flash_fwd_d64(q, k, v, sm_scale=sm_scale,
-                             static_max=static_max,
-                             route="K1" if pack2 == "t" else "K6")
+        return flash_fwd(q, k, v, sm_scale=sm_scale, static_max=static_max,
+                         route="K1" if pack2 == "t" else "K6")
     route = None
     if static_max is not None:
         if causal:
@@ -726,14 +682,11 @@ class _FlashAttentionDiff(torch.autograd.Function):
         b, sq, h, d = q.shape
         sk = k.shape[1]
         sm_scale = (1.0 / math.sqrt(d)) if scale is None else scale
-        if d == 64 and h % 2 == 0 and not causal and sq >= 128 \
-                and sk >= 128:
-            out, lse = flash_fwd_d64(q, k, v, sm_scale=sm_scale,
-                                     static_max=static_max, emit_lse=True)
-        else:
-            out, lse = flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
-                                 static_max=static_max, emit_lse=True,
-                                 route="K5")
+        k1 = (d == 64 and h % 2 == 0 and not causal and sq >= 128
+              and sk >= 128)
+        out, lse = flash_fwd(q, k, v, sm_scale=sm_scale, causal=causal,
+                             static_max=static_max, emit_lse=True,
+                             route="K1" if k1 else "K5")
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale, ctx.causal = sm_scale, causal
         ctx.single_pass = single_pass
@@ -756,9 +709,9 @@ def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          fold_stats: bool = True,
                          single_pass: bool = True) -> torch.Tensor:
     """Differentiable flash attention, q, k, v (B, S, H, D): the JAX
-    package's ``flash_attention_diff`` (:1918).  Forward: K1 with its LSE
-    for d=64, even heads, non-causal and ≥ 128 queries and keys, else
-    ``flash_fwd`` with its LSE, counted as K5.  Each saves q, k, v, the
+    package's ``flash_attention_diff`` (:1918).  Forward: ``flash_fwd``
+    with its LSE, on route K1 for d=64, even heads, non-causal and ≥ 128
+    queries and keys, else on route K5.  Each saves q, k, v, the
     output and the natural-log LSE (B, H, Sq, f32); the backward is
     ``flash_bwd`` (K7 / K8, or K10 / K9 with ``single_pass=False``).
     ``fold_stats`` selects a TPU packing variant of the d=64 backward; it is

@@ -1,7 +1,7 @@
 """Where a Hopper kernel's time goes: the kernel timed beside copies of its
 source with one part of its work taken out, on the same tensors.
 
-    python -m videotuna_tpu_torch.kernels.attribution [K3] [K5] [K7]
+    python -m videotuna_tpu_torch.kernels.attribution [K1] [K3] [K4] [K5] [K7]
 
 Variants (their outputs are wrong by design; only their times count):
 
@@ -10,6 +10,25 @@ Variants (their outputs are wrong by design; only their times count):
   where the softmax takes its exp2.  If the kernel's exp2 overlap the
   products, the time barely moves; if they run one after the other, it
   falls by the special-function units' share (≈ 80 ms).
+- K1, the persistent kernel of ``csrc/flash_fwd_sm90.cu`` at D=64, at
+  CogVideoX-5B's sampling shape (B=2, S=17,776, H=48, fixed max; and
+  online, labelled K1_online): ``no_exp2``, as for K3.  At d=64 a score
+  costs 256 FLOP of products and one exp2, so the special-function units'
+  floor (≈ 7.3 ms) is as long as the products' (7.85 ms): what ``no_exp2``
+  saves is the share of the exp2 that the other consumer's products do
+  not hide.  ``k3_kernel`` sends the fixed max at d=64 to K3's kernel
+  (``flash_fwd_sm90_kernel<64>``, one block per query tile, no running
+  max), the other candidate for that route, which the persistent kernel
+  took; the online call keeps the persistent kernel there.
+  ``base_again`` times the kernel once more after it, so that a card
+  that slows as it warms shows.
+- K4, the persistent kernel with the key mask at STDiT-XL/2's
+  cross-attention (4096 queries over 120 keys, H=16, d=72, the prefix
+  mask): sampling (B=2, without the LSE) and, as K4_lse, training (B=1,
+  with the LSE), by device time.  ``no_mask`` keeps every key (the mask
+  test and its loads go); ``unit_max_1``, ``unit_max_2`` and
+  ``unit_max_4`` cap the query tiles of a unit that holds one key tile
+  (the kernel takes up to 8: 8 at B=2 and 4 at B=1 on 132 SMs).
 - K7, ``csrc/flash_bwd_sm90.cu`` at CogVideoX-2B's training shape (B=1,
   S=17,776, H=30, d=64): ``no_exp2`` likewise, and ``no_dq_adds`` drops the
   atomic adds of dq into its f32 scratch.
@@ -32,7 +51,7 @@ Variants (their outputs are wrong by design; only their times count):
 Each variant is built from an edited copy under ``kernels/_build/
 attribution/`` and loaded in place of the kernel's library for its timing.
 Prints the card's name and power limit, then one line per variant; the
-arguments pick kernels (all three by default).
+arguments pick kernels (all five by default).
 """
 
 from __future__ import annotations
@@ -51,8 +70,30 @@ _ADD = '''          atomicAdd(reinterpret_cast<float2*>(acc + row * D + col),
 _NO_ADD = ('          if (dqa[nb * 4 + 2 * r] == 12345.f) '
            'acc[row * D + col] = 0.f;')
 
+_K3_LAUNCH = '''  return launch<128>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                     v_sb, v_ss, v_sh, s);'''
+
 # (kernel, source, variant) -> [(text, replacement), ...]
 VARIANTS = {
+    ("K1", "flash_fwd_sm90.cu", "base"): [],
+    ("K1", "flash_fwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
+    ("K1", "flash_fwd_sm90.cu", "k3_kernel"): [
+        ("  if (wide || d == 64) {",
+         "  if (wide || (d == 64 && (online || lse))) {"),
+        ("  if (d != 128 || online", "  if ((d != 128 && d != 64) || online"),
+        (_K3_LAUNCH, "  if (d == 64)\n" + _K3_LAUNCH.replace("128", "64")
+         + "\n" + _K3_LAUNCH)],
+    ("K1", "flash_fwd_sm90.cu", "base_again"): [],
+    ("K4", "flash_fwd_sm90.cu", "base"): [],
+    ("K4", "flash_fwd_sm90.cu", "no_mask"): [
+        ("return ((mk[nb >> 2] >> ((nb & 3) * 8 + (i & 1))) & 1u) != 0u;",
+         "return true;")],
+    ("K4", "flash_fwd_sm90.cu", "unit_max_1"): [
+        ("P_UNIT_M_MAX = 8;", "P_UNIT_M_MAX = 1;")],
+    ("K4", "flash_fwd_sm90.cu", "unit_max_2"): [
+        ("P_UNIT_M_MAX = 8;", "P_UNIT_M_MAX = 2;")],
+    ("K4", "flash_fwd_sm90.cu", "unit_max_4"): [
+        ("P_UNIT_M_MAX = 8;", "P_UNIT_M_MAX = 4;")],
     ("K3", "flash_fwd_sm90.cu", "base"): [],
     ("K3", "flash_fwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
     ("K7", "flash_bwd_sm90.cu", "base"): [],
@@ -151,7 +192,7 @@ def _with_variant(source: str, name: str, edits, fn):
 def main(argv=None) -> None:
     import sys
     picked = set((sys.argv[1:] if argv is None else argv)
-                 or ("K3", "K5", "K7"))
+                 or ("K1", "K3", "K4", "K5", "K7"))
     if not torch.cuda.is_available():
         raise SystemExit("attribution: no CUDA device")
     print(subprocess.run(
@@ -162,6 +203,27 @@ def main(argv=None) -> None:
     # kernel -> the calls each of its variants is timed on:
     # (label, call, timer, repetitions)
     calls = {}
+    if "K1" in picked:
+        q1, k1, v1 = _inputs(2, 17776, 48, 64, gen)
+        calls["K1"] = [
+            ("K1", lambda: A.flash_fwd(q1, k1, v1, sm_scale=0.125,
+                                       static_max=0.0, route="K1"),
+             _time_ms, 5),
+            ("K1_online", lambda: A.flash_fwd(q1, k1, v1, sm_scale=0.125,
+                                              route="K1"), _time_ms, 5)]
+    if "K4" in picked:
+        q4 = torch.randn((2, 4096, 16, 72), generator=gen,
+                         device="cuda").bfloat16()
+        k4, v4 = (torch.randn((2, 120, 16, 72), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        m4 = torch.ones((2, 120), dtype=torch.bool, device="cuda")
+        m4[0, 13:] = False
+        calls["K4"] = [
+            ("K4", lambda: A.flash_fwd(q4, k4, v4, sm_scale=72 ** -0.5,
+                                       kv_valid=m4), device_ms, 50),
+            ("K4_lse", lambda: A.flash_fwd(
+                q4[:1], k4[:1], v4[:1], sm_scale=72 ** -0.5,
+                kv_valid=m4[:1], emit_lse=True), device_ms, 50)]
     if "K3" in picked:
         q3, k3, v3 = _inputs(1, 33 * 45 * 80 + 256, 24, 128, gen)
         calls["K3"] = [("K3", lambda: A.flash_fwd(

@@ -27,7 +27,7 @@
 //   dq = sm_scale * ds k,   dk = sm_scale * ds^T q
 // A masked key has p = 0 in every row, so its dk and dv are exactly 0, and
 // a query row with no valid key gets dq = 0.  The forward (flash_fwd.cu,
-// flash_fwd_d64.cu) masks with -inf and does not zero the masked k and v,
+// flash_fwd_sm90.cu) masks with -inf and does not zero the masked k and v,
 // so this is the gradient of the function it computed; a fixed-max forward
 // emits the true LSE, so its backward is the same.
 //

@@ -14,7 +14,11 @@
 //       fixed-max forward of every d <= 128 (zero-padded to 128 lanes
 //       there), which is this kernel with use_static=1;
 //   K5  `_flash_fwd_lse_kernel` launched by `_flash_forward_lse` (:867,
-//       :933), the training forward, which is K2 writing the LSE.
+//       :933), the training forward, which is K2 writing the LSE;
+//   K1, K6  the d=64 forwards (`_flash_packed2t`, `_flash_packed2`) in f32.
+// In bf16 the persistent kernel of flash_fwd_sm90.cu takes K1 and K6, and
+// K2, K4 and K5 at d = 72 and 80 (non-causal); this kernel stays their
+// A/B baseline there.
 // It computes the same function, not the same blocks.  What differs on
 // purpose:
 //   - Ragged and masked keys.  K2 zero-pads keys and removes their share of

@@ -1,12 +1,15 @@
-// Flash-attention forward for Hopper (sm_90a), bf16, non-causal, no key
-// mask: TMA loads, wgmma products, a producer warpgroup and two consumer
-// warpgroups that take turns on the tensor cores.  Two kernels share that
-// design: `flash_fwd_sm90_kernel<D>` (fixed max, D = 64 or 128, one block
-// per query tile; K3, described first) and `flash_fwd_sm90_persistent`
-// (d = 72 or 80, online or fixed max, optional LSE, a persistent grid for
-// short rows; K2 and K5, described below).  K3's kernel is left as it was
+// Flash-attention forward for Hopper (sm_90a), bf16, non-causal: TMA
+// loads, wgmma products, a producer warpgroup and two consumer warpgroups
+// that take turns on the tensor cores.  Two kernels share that design:
+// `flash_fwd_sm90_kernel<D>` (fixed max, built at D = 128, one block per
+// query tile; K3 at d = 128, described first) and
+// `flash_fwd_sm90_persistent` (d = 64, 72 or 80, online or fixed max,
+// optional LSE and key mask, a persistent grid; K1, K2, K4, K5 and K6, and
+// K3 at those widths, described below).  K3's kernel is left as it was
 // measured (238 ms at HunyuanVideo's shape): the persistent walk and the
-// online softmax would only add instructions to its long-row loop.
+// online softmax would only add instructions to its long-row loop.  At
+// d = 64 the persistent kernel took the fixed max from it
+// (kernels/attribution.py K1, variant k3_kernel, times the two).
 //
 // ------------------------------------------------------------------- K3
 // Replaces the TPU kernel K3 of the JAX package, `_flash_kernel_t128`
@@ -56,15 +59,24 @@
 // epilogue stores o / l as bf16 pairs straight from the accumulator, rows
 // past Sq dropped (0.73 GB at the HunyuanVideo shape, well under 1 ms).
 //
-// -------------------------------------------------------------- K2, K5
-// `flash_fwd_sm90_persistent<80, ONLINE, LSE>` replaces the TPU kernels K2,
-// `_flash_kernel` launched by `flash_attention` (videotuna_tpu/kernels/
-// attention.py:78, :812), and K5, `_flash_fwd_lse_kernel` launched by
-// `_flash_forward_lse` (:867, :943), at head widths 72 and 80: Open-Sora
-// STDiT-XL/2's spatial self-attention (256 tokens, 16 heads of d = 72) in
-// sampling (K2) and in the training forward (K5).  It computes the function
-// of `flash_fwd` (flash_fwd.cu) without mask or causal, the same scores and
-// softmax as above.
+// ------------------------------------------------------ K1, K2, K4-K6
+// `flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK>` replaces the TPU
+// kernels K1, `_flash_kernel_packed2t` launched by `_flash_packed2t`
+// (videotuna_tpu/kernels/attention.py:268, :449; d = 64, fixed max or
+// online, optional LSE) and K6, `_flash_kernel_packed2` launched by
+// `_flash_packed2` (:163, :525; the same online function in another
+// layout), at D = 64; and at head widths 72 and 80 (D = 80) K2,
+// `_flash_kernel` launched by `flash_attention` (:78, :812), K5,
+// `_flash_fwd_lse_kernel` launched by `_flash_forward_lse` (:867, :943),
+// and K4, `_flash_kernel_dynpad` launched by `_flash_dynpad` (:970, :1042;
+// the key mask), and the fixed-max route K3 at these widths.  Their callers: CogVideoX's joint attention (17,776
+// tokens, heads of d = 64) in sampling (K1, fixed max) and in the LoRA
+// training forward (K1 with the LSE); Open-Sora STDiT-XL/2's spatial
+// self-attention (256 tokens, 16 heads of d = 72) in sampling (K2) and in
+// the training forward (K5), and its cross-attention to the caption (4096
+// queries over 120 keys with a per-batch key mask, K4).  It computes the
+// function of `flash_fwd` (flash_fwd.cu) without causal, the same scores
+// and softmax as above.
 //
 // Options (compile time).  ONLINE: a running row max m; a key tile's max is
 // reduced over the 4 threads that share an accumulator row (two shuffles,
@@ -72,8 +84,19 @@
 // rescaled by exp2(m_old - m) once a key tile, O after the tile's PV
 // product has completed (needs sm_scale > 0).  Without it, the fixed max M
 // as in K3.  LSE: lse = (m + log2 l) * ln 2, f32 (B, H, Sq), the layout the
-// backward (flash_bwd.cu) reads, written by the thread of each row with
-// tig = 0; rows past Sq are dropped.
+// backward (flash_bwd.cu, flash_bwd_sm90.cu) reads, written by the thread
+// of each row with tig = 0; rows past Sq are dropped.  MASK (D = 80): a
+// (B, Sk) key mask, packed in the same call by `pack_mask_kernel` (a warp
+// a word, by ballot) into 32-bit words, four a key tile (bit c of word w is
+// key 32 w + c, 0 past Sk).  A consumer loads the
+// four words of a key tile as it starts the tile and gives each masked
+// column of the S accumulator -inf before the row max and the exp2 (so
+// p = 0 under either softmax; sm_scale > 0); the words' zeros past Sk take
+// the place of the last tile's test.  A row with no valid key keeps m = -inf: its exponents are taken
+// against 0 instead, as `flash_fwd_plain` counts such a row's max, so l = 0,
+// o = 0 and lse = -inf, with no NaN.  The TPU kernel zeroes the masked K
+// and V rows outside the kernel and removes their share of l in closed
+// form, an answer to the TPU's vector-unit cost that is not copied.
 //
 // Width 72 on TMA and wgmma.  A 128-byte-swizzle box holds 64 bf16 columns,
 // so a tile is two boxes: columns 0-63 with the 128-byte swizzle and 64-79
@@ -82,6 +105,8 @@
 // QK^T.  QK^T takes four depth steps from the first box and one from the
 // second; PV takes N = 64 from the first box and N = 16 from the second
 // into a second accumulator (8 registers).  Columns past d are not stored.
+// At D = 64 there is no second box: the tail's loads and products are
+// compiled out.
 //
 // Short rows.  At S = 256 a 128-query block meets two 128-key tiles, so in
 // a block per query tile nothing would overlap its Q and first K/V loads,
@@ -90,12 +115,18 @@
 // + gridDim.x, ...  When the keys fit in two tiles (Sk <= 256) a unit is
 // one (b, h) with two adjacent query tiles: its K and V are loaded once and
 // stay in the ring for both, which halves the K/V traffic into shared
-// memory.  Longer key rows make a unit of each query tile and stream their
-// K/V tiles through the ring.  The producer runs ahead across units: Q has
-// 3 stages and the K/V ring 4 (two units' worth at S = 256), so the next
-// unit's Q, K and V land while the consumers finish the current one, and
-// the consumers' turns on the tensor cores go on from unit to unit.
-// Shared memory: Q 3 x 20 KB + 4 x (K 20 KB + V 20 KB) = 220 KB.
+// memory.  When they fit one tile (K4's 120 caption keys) a unit takes up
+// to P_UNIT_M_MAX query tiles: the most that leaves the busiest SM no more
+// query tiles than a smaller unit would (8 at STDiT's sampling batch of 2,
+// 4 at its training batch of 1, on 132 SMs).  Longer key rows (K1's 17,776) make a unit
+// of each query tile and stream their K/V tiles through the ring, the
+// query tiles of one head adjacent in the walk so that the blocks that run
+// together share K and V in L2.  The producer runs ahead across units: Q
+// has 3 stages and the K/V ring 4 (two units' worth at S = 256), so the
+// next unit's Q, K and V land while the consumers finish the current one,
+// and the consumers' turns on the tensor cores go on from unit to unit.
+// Shared memory: Q 3 x 20 KB + 4 x (K 20 KB + V 20 KB) = 220 KB at D = 80,
+// Q 3 x 16 KB + 4 x (16 KB + 16 KB) = 176 KB at D = 64.
 //
 // What bounds it.  At STDiT's sampling shape (B = 32, S = 256, H = 16,
 // d = 72) q, k, v and o are 75.5 MB: 22.5 us at 3.35 TB/s, above the 9.7
@@ -106,7 +137,14 @@
 // the other's products.  On an H100 (700 W) at STDiT's shapes the kernel
 // with its products and softmax taken out keeps 80-90% of its time
 // (kernels/attribution.py): the loads, barriers and stores of two to four
-// units a block set it, not the math.
+// units a block set it, not the math.  K4 (B = 2, 4096 queries over 120
+// keys, H = 16, d = 72) is bound by its 37.7 MB of q and o likewise.  K1
+// at CogVideoX-5B's shape (B = 2, S = 17,776, H = 48) is bound twice over:
+// its 3.03e10 scores cost 7.85 ms of products at 989 TF/s and, at d = 64
+// (256 FLOP of products a score against one exp2), as long again of
+// exp2 on the special function units (16 a clock per SM).  The turns of
+// the two consumers hide one's exp2 under the other's products; what is
+// left of the sum is the measure of the overlap.
 
 #include <math.h>
 
@@ -352,6 +390,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 // ------------------------------------------------------------ persistent
 constexpr int P_Q_STAGES = 3;   // Q tiles in flight
 constexpr int P_KV_STAGES = 4;  // K/V ring: two units of two key tiles
+constexpr int P_UNIT_M_MAX = 8;  // query tiles of a unit of one key tile
 
 template <int D>
 struct PCfg {
@@ -370,16 +409,17 @@ struct PCfg {
 struct PParams {
   __nv_bfloat16* o;
   float* lse;        // (B, H, Sq) f32, or null without the LSE
+  const uint4* mask; // (B, key tiles) x 4 words of the key mask (MASK)
   int H, Sq, Sk, d;
   int m_tiles;       // query tiles of a head
-  int unit_m;        // query tiles of a unit: 2 while K and V stay, else 1
+  int unit_m;        // query tiles of a unit: 1, or more while K, V stay
   int n_units;
   long long o_sb, o_ss, o_sh;
   float scale_log2;  // sm_scale * log2(e)
   float static_max;  // M, log2 domain (fixed max only)
 };
 
-template <int D, bool ONLINE, bool LSE>
+template <int D, bool ONLINE, bool LSE, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_sm90_persistent(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tq2,
@@ -481,6 +521,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     float sacc[64];
     uint32_t pf[8][4];  // P as A fragments, 8 steps of 16 keys
     float row_l[2], row_m[2], alpha[2];
+    uint4 mw = make_uint4(0u, 0u, 0u, 0u);  // the key tile's mask words
+    // the mask words of key tile t of batch b (MASK)
+    auto mask_words = [&](int b, int t) {
+      if constexpr (MASK)
+        mw = __ldg(p.mask + static_cast<long long>(b) * n_tiles + t);
+    };
 
     // O += P V(t) with V of stage s
     auto pv = [&](int s) {
@@ -514,11 +560,31 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
     // P = exp2(s * scale - m) of tile t in place and its row sums, m the
     // running max (ONLINE, alpha = the factor of the earlier tiles) or M;
-    // keys past Sk (last tile only) give 0
+    // masked keys (MASK) and keys past Sk (the last tile) give 0
     auto softmax = [&](int t) {
       const int valid = p.Sk - t * BLOCK_N;
+      // MASK: the words shifted to this thread's columns; column
+      // nb * 8 + tig * 2 + (i & 1) is bit (nb & 3) * 8 + (i & 1) of mk[nb / 4]
+      uint32_t mk[4] = {0u, 0u, 0u, 0u};
+      if constexpr (MASK) {
+        mk[0] = mw.x >> (tig * 2);
+        mk[1] = mw.y >> (tig * 2);
+        mk[2] = mw.z >> (tig * 2);
+        mk[3] = mw.w >> (tig * 2);
+      }
+      auto keep = [&](int nb, int i) {
+        return ((mk[nb >> 2] >> ((nb & 3) * 8 + (i & 1))) & 1u) != 0u;
+      };
+      // masked keys score -inf: p = 0 under either softmax (sm_scale > 0)
+      if constexpr (MASK) {
+        #pragma unroll
+        for (int nb = 0; nb < 16; ++nb)
+          #pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (!keep(nb, i)) sacc[nb * 4 + i] = -INFINITY;
+      }
       if constexpr (ONLINE) {
-        if (valid < BLOCK_N) {
+        if (!MASK && valid < BLOCK_N) {
           #pragma unroll
           for (int nb = 0; nb < 16; ++nb)
             #pragma unroll
@@ -530,23 +596,26 @@ __global__ void __launch_bounds__(THREADS, 1)
         #pragma unroll
         for (int i = 0; i < 64; ++i)
           mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+        float m_exp[2];  // the max the exponents are taken against
         #pragma unroll
         for (int r = 0; r < 2; ++r) {
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
           mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
           const float m_new = fmaxf(row_m[r], mx[r] * p.scale_log2);
-          alpha[r] = fast_exp2(row_m[r] - m_new);
+          // a row with no valid key so far (MASK) counts its max as 0
+          m_exp[r] = MASK && m_new == -INFINITY ? 0.f : m_new;
+          alpha[r] = fast_exp2(row_m[r] - m_exp[r]);
           row_m[r] = m_new;
           row_l[r] *= alpha[r];
         }
         #pragma unroll
         for (int i = 0; i < 64; ++i) {
           const float e = fast_exp2(
-              fmaf(sacc[i], p.scale_log2, -row_m[(i >> 1) & 1]));
+              fmaf(sacc[i], p.scale_log2, -m_exp[(i >> 1) & 1]));
           sacc[i] = e;
           row_l[(i >> 1) & 1] += e;
         }
-      } else if (valid < BLOCK_N) {
+      } else if (!MASK && valid < BLOCK_N) {
         #pragma unroll
         for (int nb = 0; nb < 16; ++nb)
           #pragma unroll
@@ -632,6 +701,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         ++qi;
         row_l[0] = row_l[1] = 0.f;
         row_m[0] = row_m[1] = -INFINITY;
+        mask_words(b, 0);
         mbar_wait(q_full(qs), qph);
         mbar_wait(k_full(st(0)), ph(0));
         named_sync(my_turn, 256);
@@ -657,6 +727,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           pv(s);
           wgmma_commit();
           named_arrive(their_turn, 256);
+          mask_words(b, t + 1);
           wgmma_wait<1>();
           if (last) release(k_empty(s1));
           softmax(t + 1);
@@ -712,37 +783,34 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v (B, S, H, d) at d = 72 or 80 through the persistent kernel of
-// padded width D = 80
-template <bool ONLINE, bool LSE>
+// Strides (elements) of q, k and v: batch, sequence, head.
+struct Strides {
+  long long s[3][3];
+};
+
+// q, k, v (B, S, H, d) through the persistent kernel of padded width D: d
+// = 64 at D = 64, d = 72 or 80 at D = 80
+template <int D, bool ONLINE, bool LSE, bool MASK>
 int launch_persistent(const void* q, const void* k, const void* v,
-                      PParams p, int B, long long q_sb, long long q_ss,
-                      long long q_sh, long long k_sb, long long k_ss,
-                      long long k_sh, long long v_sb, long long v_ss,
-                      long long v_sh, cudaStream_t stream) {
-  constexpr int D = 80;
-  // per tensor: the 64-column box and the 16-column box
+                      PParams p, int B, const Strides& st,
+                      cudaStream_t stream) {
+  // per tensor: the 64-column box and, at D = 80, the 16-column box (at
+  // D = 64 the kernel reads no second map: the first stands in)
+  constexpr int BOXES = PCfg<D>::TAIL ? 2 : 1;
   CUtensorMap m[6];
   const void* base[3] = {q, k, v};
   const int len[3] = {p.Sq, p.Sk, p.Sk};
   const int rows[3] = {BLOCK_M, BLOCK_N, BLOCK_N};
-  const long long st[3][3] = {{q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
-                              {v_sb, v_ss, v_sh}};
-  for (int x = 0; x < 3; ++x)
-    for (int box = 0; box < 2; ++box) {
+  for (int x = 0; x < 3; ++x) {
+    for (int box = 0; box < BOXES; ++box) {
       const int err = sm90_host::make_map(
-          &m[2 * x + box], base[x], B, len[x], p.H, p.d, st[x][0], st[x][1],
-          st[x][2], rows[x], box == 0 ? 64 : 16);
+          &m[2 * x + box], base[x], B, len[x], p.H, p.d, st.s[x][0],
+          st.s[x][1], st.s[x][2], rows[x], box == 0 ? 64 : 16);
       if (err != 0) return err;
     }
-  p.m_tiles = (p.Sq + BLOCK_M - 1) / BLOCK_M;
-  const int n_tiles = (p.Sk + BLOCK_N - 1) / BLOCK_N;
-  p.unit_m = n_tiles <= P_KV_STAGES / 2 ? 2 : 1;
-  const long long units = static_cast<long long>(B) * p.H *
-                          ((p.m_tiles + p.unit_m - 1) / p.unit_m);
-  if (units > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  p.n_units = static_cast<int>(units);
-  auto kernel = flash_fwd_sm90_persistent<D, ONLINE, LSE>;
+    if (BOXES == 1) m[2 * x + 1] = m[2 * x];
+  }
+  auto kernel = flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK>;
   // per device, at the kernel's first launch there: its shared-memory limit
   // and the SM count (the grid); the launches after it skip both calls
   static int sms_of[64] = {};
@@ -760,33 +828,102 @@ int launch_persistent(const void* q, const void* k, const void* v,
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const int sms = sms_of[dev];
+  p.m_tiles = (p.Sq + BLOCK_M - 1) / BLOCK_M;
+  const int n_tiles = (p.Sk + BLOCK_N - 1) / BLOCK_N;
+  const long long heads = static_cast<long long>(B) * p.H;
+  auto units_of = [&](int unit_m) {
+    return heads * ((p.m_tiles + unit_m - 1) / unit_m);
+  };
+  p.unit_m = n_tiles <= P_KV_STAGES / 2 ? 2 : 1;
+  if (n_tiles == 1) {
+    // the largest unit whose busiest SM runs the fewest query tiles
+    long long best = -1;
+    for (int u = 1; u <= P_UNIT_M_MAX; u *= 2) {
+      const long long span = (units_of(u) + sms - 1) / sms * u;
+      if (best < 0 || span <= best) {
+        best = span;
+        p.unit_m = u;
+      }
+    }
+  }
+  const long long units = units_of(p.unit_m);
+  if (units > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  p.n_units = static_cast<int>(units);
   const int grid = static_cast<int>(units < sms ? units : sms);
   kernel<<<grid, THREADS, PCfg<D>::SMEM, stream>>>(m[0], m[1], m[2], m[3],
                                                    m[4], m[5], p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the persistent kernel's instantiation for the run-time options
+template <int D, bool MASK>
+int launch_persistent_modes(const void* q, const void* k, const void* v,
+                            const PParams& p, int B, const Strides& st,
+                            bool online, bool lse, cudaStream_t stream) {
+  if (online && lse)
+    return launch_persistent<D, true, true, MASK>(q, k, v, p, B, st, stream);
+  if (online)
+    return launch_persistent<D, true, false, MASK>(q, k, v, p, B, st,
+                                                   stream);
+  if (lse)
+    return launch_persistent<D, false, true, MASK>(q, k, v, p, B, st,
+                                                   stream);
+  return launch_persistent<D, false, false, MASK>(q, k, v, p, B, st, stream);
+}
+
+// The key mask (B, Sk) bytes (0 = masked), rows `sb` bytes apart, as the
+// persistent kernel reads it: one warp a 32-key word, lane c's key bit c,
+// 0 past Sk; (B, n_words) words, four a 128-key tile.
+__global__ void pack_mask_kernel(const unsigned char* mask, uint32_t* words,
+                                 int Sk, long long sb, int n_words) {
+  const int b = blockIdx.y;
+  const int key = blockIdx.x * 128 + threadIdx.x;
+  const bool valid = key < Sk && mask[b * sb + key] != 0;
+  const uint32_t w = __ballot_sync(0xffffffffu, valid);
+  if ((threadIdx.x & 31) == 0)
+    words[static_cast<long long>(b) * n_words + (key >> 5)] = w;
+}
+
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
-// for what neither kernel takes: a head width other than 64, 72, 80 or 128;
-// at 64 and 128 the online softmax, the LSE or B*H above 65535; or a tensor
-// TMA cannot read in place.  `lse` is null without the LSE; `online` 0
-// takes the fixed max `static_max`.
+// for what no kernel takes: a head width other than 64, 72, 80 or 128; a
+// key mask at a width other than 72 or 80; at 128 (K3's kernel) the online
+// softmax, the LSE or B*H above 65535; or a tensor TMA cannot read in
+// place.  d = 64, 72 and 80 take the persistent kernel.  `lse` is null
+// without the LSE; `online` 0 takes the fixed max `static_max`.  `mask` is
+// null, or the (B, Sk) key mask as bytes (0 = masked), rows `mask_sb` bytes
+// apart, which the call first packs into `words` ((B, ceil(Sk / 128) * 4)
+// 32-bit words, 16-byte aligned) for the persistent kernel.
 extern "C" int flash_fwd_sm90_bf16(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int H, int Sq, int Sk, int d, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, float scale_log2, int online,
-    float static_max, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* mask, long long mask_sb, void* words, int B, int H, int Sq,
+    int Sk, int d, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+    long long o_sh, float scale_log2, int online, float static_max,
+    void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 72 || d == 80) {
+  const Strides st = {{{q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
+                       {v_sb, v_ss, v_sh}}};
+  const bool wide = d == 72 || d == 80;
+  if (wide || d == 64) {
+    if (mask && !wide) return static_cast<int>(cudaErrorInvalidValue);
+    if (mask) {
+      if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+      const int n_tiles = (Sk + BLOCK_N - 1) / BLOCK_N;
+      pack_mask_kernel<<<dim3(n_tiles, B), BLOCK_N, 0, s>>>(
+          static_cast<const unsigned char*>(mask),
+          static_cast<uint32_t*>(words), Sk, mask_sb, 4 * n_tiles);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
     PParams p;
     p.o = static_cast<__nv_bfloat16*>(o);
     p.lse = static_cast<float*>(lse);
+    p.mask = static_cast<const uint4*>(mask ? words : nullptr);
     p.H = H;
     p.Sq = Sq;
     p.Sk = Sk;
@@ -796,23 +933,16 @@ extern "C" int flash_fwd_sm90_bf16(
     p.o_sh = o_sh;
     p.scale_log2 = scale_log2;
     p.static_max = static_max;
-    if (online && lse)
-      return launch_persistent<true, true>(q, k, v, p, B, q_sb, q_ss, q_sh,
-                                           k_sb, k_ss, k_sh, v_sb, v_ss,
-                                           v_sh, s);
-    if (online)
-      return launch_persistent<true, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
-                                            k_sb, k_ss, k_sh, v_sb, v_ss,
-                                            v_sh, s);
-    if (lse)
-      return launch_persistent<false, true>(q, k, v, p, B, q_sb, q_ss, q_sh,
-                                            k_sb, k_ss, k_sh, v_sb, v_ss,
-                                            v_sh, s);
-    return launch_persistent<false, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
-                                           k_sb, k_ss, k_sh, v_sb, v_ss,
-                                           v_sh, s);
+    if (!wide)
+      return launch_persistent_modes<64, false>(q, k, v, p, B, st, online,
+                                                lse != nullptr, s);
+    if (mask)
+      return launch_persistent_modes<80, true>(q, k, v, p, B, st, online,
+                                               lse != nullptr, s);
+    return launch_persistent_modes<80, false>(q, k, v, p, B, st, online,
+                                              lse != nullptr, s);
   }
-  if (online || lse || (long long)B * H > 65535)
+  if (d != 128 || online || lse || mask || (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -824,11 +954,6 @@ extern "C" int flash_fwd_sm90_bf16(
   p.o_sh = o_sh;
   p.scale_log2 = scale_log2;
   p.static_max = static_max;
-  if (d == 128)
-    return launch<128>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                       v_sb, v_ss, v_sh, s);
-  if (d == 64)
-    return launch<64>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                      v_sb, v_ss, v_sh, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<128>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                     v_sb, v_ss, v_sh, s);
 }
