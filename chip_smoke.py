@@ -17,7 +17,8 @@ without a result line:
                 Times the kernel, its plain version and torch's
                 scaled_dot_product_attention (SDPA, a yardstick only: the
                 port never calls it), and, at K1's shape beside K1, the
-                mma.sync kernel (flash_fwd.cu, the A/B baseline).
+                mma.sync kernel (flash_fwd.cu, the A/B baseline); K6 also
+                by device time and host time, beside SDPA's device time.
 4. K2         — the generic flash route against its plain version: the
                 STDiT-XL/2 spatial shape (B=32, S=256, H=16, d=72, online)
                 and d=72 1×64 on the Hopper kernel (flash_fwd_sm90.cu,
@@ -69,25 +70,30 @@ without a result line:
 10. profile-opensora — one full-size STDiT-XL/2 denoiser call (CFG batch
                 2) timed with CUDA events and traced with torch.profiler:
                 device time by kernel group and the busy share.
-11. bwd       — the flash backward against its plain version: K7
-                (flash_bwd_sm90.cu) at the CogVideoX-2B training shape
-                (B=1, S=17776, H=30, d=64) on the LSE of K1 under the fixed
-                max and online (K1 itself timed there with the LSE, beside
-                flash_fwd.cu and SDPA), the plain version 256 query rows at
-                a time,
-                timed beside K10, the old two-pass flash_bwd.cu on the same
-                tensors; K8 (flash_bwd.cu) at the STDiT-XL/2
-                spatial shape (B=16, S=256, H=16, d=72) and cross shape
-                (4096 queries over 120 keys with a ragged mask, and a batch
-                row with no valid key: zeros); d=64 causal 333×333, d=128
-                300×4322, d=32 causal at a ragged edge, d=256 and d=160
-                (B=2, S=300, H=3) causal and masked; K9 and K10 through
-                single_pass=False; the custom VJPs' gradients against
-                autograd of the plain math.  K5 (flash_fwd with the LSE, on
+11. bwd       — the flash backward against its plain version: K7 and
+                K10 (single_pass=False) on flash_bwd_sm90.cu at the
+                CogVideoX-2B training shape (B=1, S=17776, H=30, d=64) on
+                the LSE of K1 under the fixed max and online (K1 itself
+                timed there with the LSE, beside flash_fwd.cu and SDPA), the
+                plain version 256 query rows at a time, timed beside the old
+                two-pass flash_bwd.cu (``_flash_bwd_mma``) on the same
+                tensors, which K7 must beat; K8 and K9 on
+                flash_bwd_rows_sm90.cu at the STDiT-XL/2 spatial shape
+                (B=16, S=256, H=16, d=72) and K8 at the cross shape (4096
+                queries over 120 keys with a ragged mask, and a batch row
+                with no valid key: zeros); K8 on flash_bwd.cu at d=64
+                causal 333×333, d=128 300×4322, d=32 causal at a ragged
+                edge, d=256 and d=160 (B=2, S=300, H=3) causal and masked;
+                the custom VJPs' gradients against autograd of the plain
+                math.  K8 timed at both STDiT shapes (the cross case with
+                13 of 120 keys and its own bound) beside the old design,
+                by CUDA events, device time and host time, which it must
+                beat by device time.  K5 (flash_fwd with the LSE, on
                 flash_fwd_sm90.cu) at the spatial shape, beside the old
                 design and SDPA as K2.  Times beside the bound, the plain
                 version and SDPA's backward (fwd+bwd minus fwd, backend
-                named; a yardstick the port never calls).
+                named, by events and by device time; a yardstick the port
+                never calls).
 12. f32       — flash_fwd with f32 inputs against the f32 plain version at
                 the narrow VAE's mid-attention shape.
 13. train-cog — the training CLI's trainer on
@@ -105,7 +111,8 @@ without a result line:
 14. train-stdit — the same on configs/003_opensora/opensorav10_256x256.yaml
                 (STDiT-XL/2 full fine-tune, EMA 0.9999, 16×256×256):
                 K5 = K4 = 28 and K8 = 56 per step, every K5 and K4 on
-                flash_fwd_sm90, and the EMA moved.
+                flash_fwd_sm90 and every K8 on flash_bwd_rows_sm90, and the
+                EMA moved.
 15. train-reference — one training step of each flow at narrow width on the
                 card and on the CPU with the same weights, batch, t, noise
                 and LoRA tree: loss and trainable gradients must agree.
@@ -143,19 +150,21 @@ without a result line:
 20. device    — device time per call (50 calls captured in a CUDA graph,
                 the replay timed) of K2, K5 and K4 (without and with the
                 LSE) on flash_fwd_sm90, of the old flash_fwd.cu and of
-                SDPA at STDiT's shapes: at 0.01–0.09 ms a kernel the host's
-                launch (host_ms in the compare= lines) can set a loop's
-                CUDA-event time.
+                SDPA at STDiT's shapes, and of K8 on flash_bwd_rows_sm90
+                beside the old flash_bwd.cu at both training shapes: at
+                0.01–0.2 ms a kernel the host's launch (host_ms in the
+                compare= lines) can set a loop's CUDA-event time.
 21. kernels   — status of every TPU kernel of the JAX package.
 
 They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–21.  Every launch
 count (K1–K10) is set to 0 just before each main-path run (the three
 sampling runs and the two training runs) and read just after; the
 kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those five runs (K1, K3, K4, K6 and K7 also give
-the old design's ms on the same tensors, flash_fwd.cu for K1 and K6; K2,
-K4 and K5 also the device times; K1 its time at the training shape with
-the LSE).  K1's and K6's bound_ms is the largest of three floors: the
+launches summed over those five runs (K1, K3, K4, K6, K7, K8 and K10
+also give the old design's ms on the same tensors, flash_fwd.cu for K1
+and K6, flash_bwd.cu for K7, K8 and K10; K2, K4, K5 and K8 also the device
+times, K8 its host times and the cross-attention's figures as cross_*; K1
+its time at the training shape with the LSE).  K1's and K6's bound_ms is the largest of three floors: the
 bytes, the products and the exp2 (the special-function units).  The
 last line is
 {"ok": true, "device": {...}}.
@@ -339,14 +348,17 @@ def compare_designs(A, label: str, q, k, v, emit_lse: bool,
         max_abs_diff_old_vs_new=f"{diff:.3e}")
 
 
-def device_times(A, k2: dict, k5: dict, k4: dict) -> None:
+def device_times(A, k2: dict, k5: dict, k4: dict, k8: dict) -> None:
     """Last phase: device time per call (``device_ms``: 50 calls in one
     CUDA graph, its replay timed) of K2 and K5 (flash_fwd_sm90), of the old
     design (flash_fwd.cu) and of SDPA's fastest backend on STDiT's tensors
-    (B=32 and B=16, S=256, H=16, d=72), into ``k2`` and ``k5``; and of K4
+    (B=32 and B=16, S=256, H=16, d=72), into ``k2`` and ``k5``; of K4
     at STDiT's cross-attention (B=2, 4096 queries over 120 keys, the prefix
     mask), without and with the LSE, beside the old design and SDPA with
-    the boolean mask, into ``k4``."""
+    the boolean mask, into ``k4``; and of K8 (flash_bwd_rows_sm90) beside
+    the old design (flash_bwd.cu) at STDiT's training shapes, spatial (B=16)
+    and cross (B=1, 13 of 120 keys, the words packed once as the training
+    forward does), into ``k8`` (the cross figures as ``cross_*``)."""
     from videotuna_tpu_torch.kernels.attribution import device_ms
     gen = torch.Generator(device="cuda").manual_seed(10)
     for route, rec, b in (("K2", k2, 32), ("K5", k5, 16)):
@@ -396,6 +408,33 @@ def device_times(A, k2: dict, k5: dict, k4: dict) -> None:
             library=f"scaled_dot_product_attention[{backend}](attn_mask)",
             bound_ms=f"{k4['bound_ms']:.4f}")
     del q, k, v, qt, kt, vt
+    for prefix, (b, sq, sk) in (("", (16, 256, 256)),
+                                ("cross_", (1, 4096, 120))):
+        q, g = (_rand((b, sq, 16, 72), gen) for _ in range(2))
+        k, v = (_rand((b, sk, 16, 72), gen) for _ in range(2))
+        m = words = None
+        if prefix:
+            m = torch.zeros((b, sk), dtype=torch.bool, device="cuda")
+            m[:, :13] = True
+            words = A._pack_mask_words(m, b, sk)
+        out, lse = A.flash_fwd(q, k, v, sm_scale=sm, kv_valid=m,
+                               emit_lse=True)
+        new = device_ms(lambda: A.flash_bwd(
+            q, k, v, out, g, lse, sm_scale=sm, kv_valid=m, mask_words=words),
+            reps=50)
+        old = device_ms(lambda: A._flash_bwd_mma(q, k, v, out, g, lse, sm,
+                                                 False, m), reps=50)
+        k8.update({f"{prefix}device_ms": new,
+                   f"{prefix}old_design_device_ms": old})
+        log("K8", case="stdit-xl2 " + ("cross, 13 of 120 keys" if prefix
+                                       else "spatial B16"),
+            compare="flash_bwd_rows_sm90 (Hopper, single pass) vs "
+            "flash_bwd.cu (two-pass mma.sync), device time per call "
+            "(CUDA-graph replay)", device_ms=f"{new:.4f}",
+            old_design_device_ms=f"{old:.4f}",
+            library_device_ms=f"{k8[prefix + 'library_device_ms']:.4f}",
+            bound_ms=f"{k8[prefix + 'bound_ms']:.4f}")
+        del q, k, v, g, out, lse
 
 
 # ---------------------------------------------------------------- phase 3
@@ -534,7 +573,9 @@ def check_k1(A) -> dict:
                                 (2 * q.numel() + 2 * k.numel())
                                 * q.element_size(),
                                 _exp2_floor_ms(2 * 4 * 300 * 4322))
+    from videotuna_tpu_torch.kernels.attribution import device_ms
     library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=20)
+    lib_dev, dev_backend = sdpa_device_ms((qt, kt, vt), {}, reps=20)
     record["k6"] = dict(
         max_abs_err=err,
         ms=cuda_time_ms(lambda: A.flash_attention(q, k, v, pack2=True),
@@ -543,8 +584,18 @@ def check_k1(A) -> dict:
             q, k, v, sm_scale=0.125), reps=5),
         old_design_ms=cuda_time_ms(lambda: A._flash_fwd_mma(
             q, k, v, 0.125, False, None, None, False), reps=20),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    log("K6", ms=f"{record['k6']['ms']:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        device_ms=device_ms(lambda: A.flash_attention(q, k, v, pack2=True),
+                            reps=20),
+        host_ms=host_ms(lambda: A.flash_attention(q, k, v, pack2=True),
+                        200),
+        library_device_ms=lib_dev)
+    log("K6", ms=f"{record['k6']['ms']:.4f}",
+        device_ms=f"{record['k6']['device_ms']:.4f}",
+        host_ms=f"{record['k6']['host_ms']:.4f}",
+        library_device_ms=f"{lib_dev:.4f}",
+        library_device=f"scaled_dot_product_attention[{dev_backend}]",
+        bound_ms=f"{bound_ms:.4f}",
         bound_by=bound_by, plain_ms=f"{record['k6']['plain_ms']:.3f}",
         old_design_ms=f"{record['k6']['old_design_ms']:.4f}",
         library=f"scaled_dot_product_attention[{backend}]",
@@ -709,8 +760,9 @@ def zero_counts(A) -> None:
                                            "K6")}
     A.flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
     A.flash_fwd.launches_sm90 = dict(A.flash_fwd.launches)
-    A.flash_bwd.launches_sm90 = {"K7": 0}
+    A.flash_bwd.launches_sm90 = dict(A.flash_bwd.launches)
     A.flash_fwd.tma_copies = 0
+    A.flash_bwd.tma_copies = 0
 
 
 def read_counts(A) -> dict:
@@ -719,11 +771,13 @@ def read_counts(A) -> dict:
 
 
 def read_sm90_counts(A) -> dict:
-    """The Hopper designs' launches (flash_fwd_sm90 for K1-K6, flash_bwd_sm90
-    for K7) and the forward's alignment copies, read with
-    ``read_counts``."""
-    return dict(A.flash_fwd.launches_sm90, K7=A.flash_bwd.launches_sm90["K7"],
-                tma_copies=A.flash_fwd.tma_copies)
+    """The Hopper designs' launches (flash_fwd_sm90 for K1-K6,
+    flash_bwd_sm90 for K7 and K10, flash_bwd_rows_sm90 for K8 and K9) and
+    the alignment copies of the forward (``tma_copies``) and of the
+    backward (``bwd_tma_copies``), read with ``read_counts``."""
+    return dict(A.flash_fwd.launches_sm90, **A.flash_bwd.launches_sm90,
+                tma_copies=A.flash_fwd.tma_copies,
+                bwd_tma_copies=A.flash_bwd.tma_copies)
 
 
 def _read_video(path: str):
@@ -1095,6 +1149,80 @@ def sdpa_bwd_ms(q, k, v, g, reps: int, attn_mask=None):
     return times[best], best
 
 
+def sdpa_bwd_device_ms(q, k, v, g, reps: int, attn_mask=None):
+    """Device time of torch's scaled_dot_product_attention backward on the
+    same tensors, a yardstick only: forward plus backward minus forward,
+    each captured in a CUDA graph (``device_ms``), for the fastest backend
+    that takes the inputs, and that backend's name."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    kw = {} if attn_mask is None else {"attn_mask": attn_mask}
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                times[backend.name] = (
+                    device_ms(lambda: torch.autograd.grad(
+                        sdpa(qt, kt, vt, **kw), (qt, kt, vt), gt), reps)
+                    - device_ms(lambda: sdpa(qt, kt, vt, **kw), reps))
+        except RuntimeError:   # this backend does not take the inputs
+            continue
+    log("sdpa-bwd", timer="device (CUDA graph)",
+        **{k: f"{v:.4f}" for k, v in times.items()})
+    best = min(times, key=times.get)
+    return times[best], best
+
+
+def time_k8(A, label, q, k, v, out, g, lse, kv_valid, rec) -> None:
+    """K8 on the short-row Hopper kernel (flash_bwd_rows_sm90.cu) beside the
+    old two-pass design (flash_bwd.cu, ``_flash_bwd_mma``) on the same
+    tensors, by CUDA events around 50 calls and by device time (50 calls in
+    a CUDA graph), with each wrapper's host time per call, and SDPA's
+    backward by both timers; into ``rec``.  The masked call reads the mask
+    words a training forward packs (``_pack_mask_words``), as on the main
+    path."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    sm = q.shape[-1] ** -0.5
+    words = (A._pack_mask_words(kv_valid, q.shape[0], k.shape[1])
+             if kv_valid is not None else None)
+    new = lambda: A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm,
+                              kv_valid=kv_valid, mask_words=words)
+    old = lambda: A._flash_bwd_mma(q, k, v, out, g, lse, sm, False,
+                                   kv_valid)
+    mask = None if kv_valid is None else kv_valid[:, None, None, :]
+    rec.update(
+        ms=cuda_time_ms(new, reps=50), old_design_ms=cuda_time_ms(old, 50),
+        device_ms=device_ms(new, reps=50),
+        old_design_device_ms=device_ms(old, reps=50),
+        host_ms=host_ms(new, 200), old_design_host_ms=host_ms(old, 200))
+    rec["library_ms"], backend = sdpa_bwd_ms(q, k, v, g, reps=20,
+                                             attn_mask=mask)
+    rec["library_device_ms"], dev_backend = sdpa_bwd_device_ms(
+        q, k, v, g, reps=20, attn_mask=mask)
+    log("K8", case=label, compare="flash_bwd_rows_sm90 (Hopper, single "
+        "pass) vs flash_bwd.cu (two-pass mma.sync) vs sdpa backward",
+        ms=f"{rec['ms']:.4f}", device_ms=f"{rec['device_ms']:.4f}",
+        host_ms=f"{rec['host_ms']:.4f}",
+        old_design_ms=f"{rec['old_design_ms']:.4f}",
+        old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
+        old_design_host_ms=f"{rec['old_design_host_ms']:.4f}",
+        library=f"sdpa backward[{backend}], device [{dev_backend}]",
+        library_ms=f"{rec['library_ms']:.4f}",
+        library_device_ms=f"{rec['library_device_ms']:.4f}",
+        bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"],
+        faster=rec["device_ms"] < rec["old_design_device_ms"])
+    if not rec["device_ms"] < rec["old_design_device_ms"]:
+        raise AssertionError(f"K8 ({label}): flash_bwd_rows_sm90 is not "
+                             "faster than flash_bwd.cu by device time")
+
+
 def _check_bwd_case(A, label, route, q, k, v, g, single_pass=True,
                     chunked=False, **kw):
     """flash_bwd against flash_bwd_plain on the forward's own output and
@@ -1110,17 +1238,24 @@ def _check_bwd_case(A, label, route, q, k, v, g, single_pass=True,
                                 g.float(), lse, sm_scale=sm_scale, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    before = dict(A.flash_bwd.launches)
+    before = (dict(A.flash_bwd.launches), dict(A.flash_bwd.launches_sm90))
+    design = A._bwd_design(route, q.dtype, q.shape[-1],
+                           kw.get("causal", False),
+                           kw.get("kv_valid") is not None)
     got = A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm_scale,
                       single_pass=single_pass, **kw)
     torch.cuda.synchronize()
     err, ok, rows = _bwd_errs(got, ref)
-    ok = ok and A.flash_bwd.launches == dict(before,
-                                             **{route: before[route] + 1})
+    ok = ok and A.flash_bwd.launches == dict(
+        before[0], **{route: before[0][route] + 1}) \
+        and A.flash_bwd.launches_sm90 == dict(
+            before[1], **{route: before[1][route] + (design == "sm90")})
     b, sq, h, d = q.shape
+    kernel = {"mma": "flash_bwd", "sm90": "flash_bwd_sm90" if d == 64
+              else "flash_bwd_rows_sm90"}[design]
     log(route, case=label, shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}",
-        causal=kw.get("causal", False), single_pass=single_pass,
-        dq=rows[0], dk=rows[1], dv=rows[2], ok=ok)
+        kernel=kernel, causal=kw.get("causal", False),
+        single_pass=single_pass, dq=rows[0], dk=rows[1], dv=rows[2], ok=ok)
     if not ok:
         raise AssertionError(f"{route} disagrees with the plain backward "
                              f"({label})")
@@ -1173,46 +1308,59 @@ def check_bwd(A) -> dict:
         if mode == "online":
             out, lse = _k1(A, q, k, v, None, emit_lse=True)
         for route, single_pass in (("K7", True), ("K10", False)):
-            before = dict(A.flash_bwd.launches)
-            sm90 = A.flash_bwd.launches_sm90["K7"]
+            before = (dict(A.flash_bwd.launches),
+                      dict(A.flash_bwd.launches_sm90))
             got = A.flash_bwd(q, k, v, out, g, lse, sm_scale=0.125,
                               single_pass=single_pass)
             torch.cuda.synchronize()
             err, ok, rows = _bwd_errs(got, ref)
-            ok = ok and A.flash_bwd.launches == dict(
-                before, **{route: before[route] + 1}) \
-                and A.flash_bwd.launches_sm90["K7"] == sm90 + (route == "K7")
+            ok = ok and all(c == dict(b4, **{route: b4[route] + 1}) for c, b4
+                            in zip((A.flash_bwd.launches,
+                                    A.flash_bwd.launches_sm90), before))
             log(route, forward=f"K1 {mode}", shape=f"B{b}xS{s}xH{h}xd64",
-                kernel=("flash_bwd_sm90" if route == "K7" else "flash_bwd"),
-                dq=rows[0], dk=rows[1], dv=rows[2], ok=ok)
+                kernel="flash_bwd_sm90", dq=rows[0], dk=rows[1], dv=rows[2],
+                ok=ok)
             if not ok:
                 raise AssertionError(f"{route} disagrees with the plain "
-                                     f"backward at the 2B shape ({mode})")
+                                     f"backward at the 2B shape ({mode}), "
+                                     "or did not launch flash_bwd_sm90")
             rec.setdefault(route, {"max_abs_err": err})
+            del got
+        if mode == "static_max=0":
+            # the old two-pass design (flash_bwd.cu), K7's and K10's A/B
+            # baseline, on the same tensors
+            got = A._flash_bwd_mma(q, k, v, out, g, lse, 0.125)
+            torch.cuda.synchronize()
+            _, old_ok, rows = _bwd_errs(got, ref)
+            log("K7", compare="flash_bwd.cu (two-pass mma.sync, the A/B "
+                "baseline) at the 2B shape", dq=rows[0], dk=rows[1],
+                dv=rows[2], ok=old_ok)
+            if not old_ok:
+                raise AssertionError("flash_bwd.cu disagrees with the plain "
+                                     "backward at the 2B shape")
             del got
     flops = 10.0 * b * h * s * s * 64
     io = 8 * q.numel() * q.element_size() + lse.numel() * 4
     bound_ms, bound_by = _bound(flops, io)
     library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=3)
+    old_ms = cuda_time_ms(lambda: A._flash_bwd_mma(q, k, v, out, g, lse,
+                                                   0.125), reps=3)
     for route, single_pass in (("K7", True), ("K10", False)):
         ms = cuda_time_ms(lambda: A.flash_bwd(
             q, k, v, out, g, lse, sm_scale=0.125, single_pass=single_pass),
             reps=3)
         rec[route].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=library_ms)
-        log(route, case="cogvideox-2b timing",
-            kernel=("flash_bwd_sm90" if route == "K7" else "flash_bwd"),
+                          bound_by=bound_by, library_ms=library_ms,
+                          old_design_ms=old_ms)
+        log(route, case="cogvideox-2b timing", kernel="flash_bwd_sm90",
             ms=f"{ms:.3f}", bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
             plain_ms=f"{plain_ms:.1f}", tflops=f"{flops / ms / 1e9:.1f}",
             library=f"sdpa backward[{backend}]",
             library_ms=f"{library_ms:.3f}")
-    # K10 is the old two-pass design (flash_bwd.cu) on the same tensors
-    rec["K7"]["old_design_ms"] = rec["K10"]["ms"]
-    log("K7", compare="flash_bwd (the two-pass mma.sync design, K10's "
-        "kernel) on the same tensors", ms=f"{rec['K10']['ms']:.3f}",
-        sm90_ms=f"{rec['K7']['ms']:.3f}",
-        faster=rec["K7"]["ms"] < rec["K10"]["ms"])
-    if not rec["K7"]["ms"] < rec["K10"]["ms"]:
+    log("K7", compare="flash_bwd.cu (the two-pass mma.sync design) on the "
+        "same tensors", ms=f"{old_ms:.3f}", sm90_ms=f"{rec['K7']['ms']:.3f}",
+        faster=rec["K7"]["ms"] < old_ms)
+    if not rec["K7"]["ms"] < old_ms:
         raise AssertionError("flash_bwd_sm90 is not faster than flash_bwd "
                              "at the CogVideoX-2B shape")
     del q, k, v, g, out, lse, ref
@@ -1227,18 +1375,19 @@ def check_bwd(A) -> dict:
                            single_pass=False)[0]
     io = 8 * q.numel() * q.element_size() + lse.numel() * 4
     bound_ms, bound_by = _bound(10.0 * b * h * s * s * d, io)
-    library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=20)
-    for route, single_pass, e in (("K8", True, err), ("K9", False, err9)):
-        ms = cuda_time_ms(lambda: A.flash_bwd(
-            q, k, v, out, g, lse, sm_scale=d ** -0.5,
-            single_pass=single_pass), reps=50)
-        rec[route] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
-        log(route, case="stdit-xl2 spatial timing", ms=f"{ms:.4f}",
-            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            plain_ms=f"{plain_ms:.3f}", library=f"sdpa backward[{backend}]",
-            library_ms=f"{library_ms:.4f}")
+    rec["K8"] = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+    time_k8(A, "stdit-xl2 spatial", q, k, v, out, g, lse, None, rec["K8"])
+    ms9 = cuda_time_ms(lambda: A.flash_bwd(
+        q, k, v, out, g, lse, sm_scale=d ** -0.5, single_pass=False),
+        reps=50)
+    rec["K9"] = dict(max_abs_err=err9, ms=ms9, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=rec["K8"]["library_ms"],
+                     old_design_ms=rec["K8"]["old_design_ms"])
+    log("K9", case="stdit-xl2 spatial timing", kernel="flash_bwd_rows_sm90",
+        ms=f"{ms9:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.3f}")
     # K5: the training forward (flash_fwd with the LSE) at the same shape
     before = (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"])
     o5, lse5 = A.flash_fwd(q, k, v, sm_scale=d ** -0.5, emit_lse=True,
@@ -1300,19 +1449,13 @@ def check_bwd(A) -> dict:
         A, "stdit-xl2 cross, 13 of 120 keys", "K8", q1, k1, v1, g1,
         kv_valid=m1)
     io = (4 * q1.numel() + 4 * k1.numel()) * q1.element_size() \
-        + lse.numel() * 4 + m1.numel()
+        + lse.numel() * 4 + m1.numel() // 8
     bound_ms, bound_by = _bound(10.0 * h * sq * 13 * d, io)
-    ms = cuda_time_ms(lambda: A.flash_bwd(q1, k1, v1, out, g1, lse,
-                                          sm_scale=d ** -0.5, kv_valid=m1),
-                      reps=50)
-    library_ms, backend = sdpa_bwd_ms(q1, k1, v1, g1, reps=20,
-                                      attn_mask=m1[:, None, None, :])
-    log("K8", case="stdit-xl2 cross timing", ms=f"{ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-        plain_ms=f"{plain_ms:.3f}",
-        library=f"sdpa backward[{backend}](attn_mask)",
-        library_ms=f"{library_ms:.4f}", empty_row_zero=True)
-    rec["K8_cross"] = dict(ms=ms, bound_ms=bound_ms, library_ms=library_ms)
+    cross = dict(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by)
+    time_k8(A, "stdit-xl2 cross, 13 of 120 keys", q1, k1, v1, out, g1, lse,
+            m1, cross)
+    rec["K8"].update({f"cross_{key}": val for key, val in cross.items()})
     del q, k, v, g, q1, k1, v1, g1, out, lse
 
     # ragged, causal and narrow widths; d = 160 and 256 (columns split
@@ -1575,7 +1718,7 @@ def run_train_cog(A) -> dict:
     log("train-cog", config="cogvideo2b_lora", frames=frames, height=480,
         width=720, tokens=tokens, lora_rank=128, remat=True, cut=cut)
     # forward K1 per layer, K1 again when remat recomputes it, K7 backward
-    per_step = {"K1": 60, "K7": 30, "K2": 0, "K5": 0, "K8": 0}
+    per_step = {"K1": 60, "K7": 30, "K2": 0, "K5": 0, "K8": 0, "K10": 0}
     out = _train_run(A, "train-cog", argv, per_step, lora=True)
     if (out["sm90"]["K7"], out["sm90"]["K1"]) != (30 * TRAIN_STEPS,
                                                   60 * TRAIN_STEPS) \
@@ -1605,11 +1748,14 @@ def run_train_stdit(A) -> dict:
     out = _train_run(A, "train-stdit", argv, per_step, lora=False)
     if out["sm90"]["K5"] != OS_DEPTH * TRAIN_STEPS \
             or out["sm90"]["K4"] != OS_DEPTH * TRAIN_STEPS \
+            or out["sm90"]["K8"] != 2 * OS_DEPTH * TRAIN_STEPS \
             or out["sm90"]["tma_copies"]:
         raise AssertionError(f"train-stdit: {out['sm90']}: every K5 and K4 "
                              f"launch must run flash_fwd_sm90 ({OS_DEPTH} "
                              "a step each, none on flash_fwd.cu), with no "
-                             "alignment copy")
+                             "alignment copy, and every K8 launch "
+                             f"flash_bwd_rows_sm90 ({2 * OS_DEPTH} a step, "
+                             "none on flash_bwd.cu)")
     return out
 
 
@@ -2061,7 +2207,7 @@ def main() -> None:
     runs.append(run_e2e_hunyuan(A))
     check_small_reference_hunyuan()
     profile_hunyuan_call()
-    device_times(A, k2, bwd["K5"], k4)
+    device_times(A, k2, bwd["K5"], k4, bwd["K8"])
     # each kernel's launches over the five main-path runs
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
@@ -2080,12 +2226,14 @@ def main() -> None:
               "checked",
         "K7": "redesigned for Hopper (flash_bwd_sm90: single pass, wgmma), "
               "checked",
-        "K8": "ported, checked",
-        "K9": "ported (mapped onto flash_bwd), checked",
-        "K10": "ported (mapped onto flash_bwd), checked"}
+        "K8": "redesigned for Hopper (flash_bwd_rows_sm90: single pass, "
+              "persistent, d=72/80 bf16, key mask as bit words), checked",
+        "K9": "mapped onto K8's kernel (flash_bwd_rows_sm90 at d=72/80), "
+              "checked",
+        "K10": "mapped onto K7's kernel (flash_bwd_sm90), checked"}
     log("kernels", **statuses)
     fwd90 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_sm90.cu"
-    bwd_src = "videotuna_tpu_torch/kernels/csrc/flash_bwd.cu"
+    rows90 = "videotuna_tpu_torch/kernels/csrc/flash_bwd_rows_sm90.cu"
     bwd90 = "videotuna_tpu_torch/kernels/csrc/flash_bwd_sm90.cu"
     tpu = "videotuna_tpu/kernels/attention.py"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2093,7 +2241,13 @@ def main() -> None:
 
     extra_keys = ("old_design_ms", "device_ms", "old_design_device_ms",
                   "library_device_ms", "lse_device_ms",
-                  "lse_old_design_device_ms", "train_lse_ms")
+                  "lse_old_design_device_ms", "train_lse_ms", "host_ms",
+                  "old_design_host_ms") + tuple(
+        f"cross_{k}" for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "old_design_ms",
+                               "device_ms", "old_design_device_ms",
+                               "library_device_ms", "host_ms",
+                               "old_design_host_ms"))
 
     def entry(name, source, replaces, kernel, rec):
         # a redesigned kernel adds the old design's ms on the same tensors
@@ -2119,11 +2273,11 @@ def main() -> None:
               163, "K6", k6),
         entry("flash_bwd_sm90 d=64 single pass (K7)", bwd90, 1424, "K7",
               bwd["K7"]),
-        entry("flash_bwd generic and kv_valid (K8)", bwd_src, 1148, "K8",
-              bwd["K8"]),
-        entry("flash_bwd single_pass=False, generic (K9)", bwd_src, 1107,
-              "K9", bwd["K9"]),
-        entry("flash_bwd single_pass=False, d=64 (K10)", bwd_src, 1260,
+        entry("flash_bwd_rows_sm90 single pass, spatial and key-masked "
+              "cross (K8)", rows90, 1148, "K8", bwd["K8"]),
+        entry("flash_bwd_rows_sm90 single_pass=False, generic (K9)", rows90,
+              1107, "K9", bwd["K9"]),
+        entry("flash_bwd_sm90 single_pass=False, d=64 (K10)", bwd90, 1260,
               "K10", bwd["K10"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -365,9 +365,10 @@ def _jax_bwd(q, k, v, g, causal):
 
 
 @pytest.mark.parametrize("d,causal", [(64, False), (72, False), (64, True),
-                                     (256, False), (160, False)],
+                                     (256, False), (160, False),
+                                     (80, False)],
                          ids=["k7_d64", "k8_d72", "k8_d64_causal", "k8_d256",
-                              "k8_d160"])
+                              "k8_d160", "k8_d80"])
 def test_bwd_plain_matches_pallas(d, causal):
     """``flash_bwd_plain`` against the Pallas fused backward (K7 for d=64
     non-causal, K8 otherwise, which pads d to a multiple of 128 and runs
@@ -413,6 +414,47 @@ def test_masked_vjp_matches_jax():
         _close(x.grad, r)
     assert qt.grad[1].abs().max() == 0
     assert kt.grad[0, 13:].abs().max() == 0 == vt.grad[0, 13:].abs().max()
+
+
+@pytest.mark.parametrize("d", [72, 80])
+@pytest.mark.parametrize("pattern", ["strided", "prefix"])
+def test_masked_bwd_plain_matches_jax(d, pattern):
+    """``flash_bwd_plain`` with the key mask, on the output and LSE of the
+    port's masked forward, against the gradients of the JAX package's
+    masked route (``_flash_diff_masked`` in interpret mode, with its outer
+    k·mask multiply) at STDiT's cross-attention keys: 120 caption tokens,
+    batch row 0 keeping every 9th key or the first 13, row 1 none."""
+    b, sq, sk, h = 2, 128, 120, 2
+    q, k, v = _qkv(20 + d, b, sq, h, d, sk=sk)
+    g = np.random.default_rng(21).standard_normal(q.shape, dtype=np.float32)
+    kv_valid = np.zeros((b, sk), bool)
+    if pattern == "strided":
+        kv_valid[0, ::9] = True
+    else:
+        kv_valid[0, :13] = True
+
+    def loss(q, k, v):
+        return jnp.sum(A.dot_product_attention(
+            q, k, v, kv_valid=jnp.asarray(kv_valid)) * g)
+
+    old = A._FA_INTERPRET
+    A._FA_INTERPRET = True
+    try:
+        ref = jax.grad(loss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    finally:
+        A._FA_INTERPRET = old
+    qt, kt, vt, gt = (torch.from_numpy(x) for x in (q, k, v, g))
+    mask = torch.from_numpy(kv_valid)
+    out, lse = P.flash_fwd_plain(qt, kt, vt, sm_scale=d ** -0.5,
+                                 kv_valid=mask, emit_lse=True)
+    got = P.flash_bwd_plain(qt, kt, vt, out, gt, lse, sm_scale=d ** -0.5,
+                            kv_valid=mask)
+    for x, r in zip(got, ref):
+        _close(x, r)
+    assert got[0][1].abs().max() == 0
+    assert got[1][0, ~mask[0]].abs().max() == 0 \
+        == got[2][0, ~mask[0]].abs().max()
 
 
 @pytest.mark.parametrize("case", ["k1", "k5", "k5_causal", "masked"])
@@ -527,18 +569,87 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                          0.0 if fixed else None) == design
 
 
-@pytest.mark.parametrize("route,dtype,d,design", [
-    ("K7", torch.bfloat16, 64, "sm90"),
-    ("K7", torch.float32, 64, "mma"),
-    ("K8", torch.bfloat16, 64, "mma"),
-    ("K8", torch.bfloat16, 72, "mma"),
-    ("K9", torch.bfloat16, 72, "mma"),
-    ("K10", torch.bfloat16, 64, "mma"),
+@pytest.mark.parametrize("route,dtype,d,causal,masked,design", [
+    # K7 and its two-kernel baseline K10: the d=64 Hopper backward in bf16
+    ("K7", _BF, 64, False, False, "sm90"),
+    ("K10", _BF, 64, False, False, "sm90"),
+    ("K7", _F32, 64, False, False, "mma"),
+    ("K10", _F32, 64, False, False, "mma"),
+    # K8 and K9 at STDiT's widths in bf16, non-causal, with or without the
+    # key mask: the short-row Hopper backward
+    ("K8", _BF, 72, False, False, "sm90"),
+    ("K8", _BF, 72, False, True, "sm90"),
+    ("K8", _BF, 80, False, False, "sm90"),
+    ("K8", _BF, 80, False, True, "sm90"),
+    ("K9", _BF, 72, False, False, "sm90"),
+    ("K9", _BF, 72, False, True, "sm90"),
+    ("K9", _BF, 80, False, False, "sm90"),
+    ("K9", _BF, 80, False, True, "sm90"),
+    # everything else keeps flash_bwd.cu
+    ("K8", _BF, 72, True, False, "mma"),
+    ("K8", _BF, 80, True, False, "mma"),
+    ("K9", _BF, 72, True, False, "mma"),
+    ("K8", _F32, 72, False, False, "mma"),
+    ("K8", _F32, 80, False, True, "mma"),
+    ("K8", _BF, 64, False, False, "mma"),
+    ("K8", _BF, 64, True, False, "mma"),
+    ("K8", _BF, 64, False, True, "mma"),
+    ("K8", _BF, 128, False, False, "mma"),
+    ("K8", _BF, 128, False, True, "mma"),
+    ("K9", _BF, 128, False, False, "mma"),
+    ("K8", _BF, 256, False, False, "mma"),
+    ("K8", _BF, 256, False, True, "mma"),
+    ("K8", _BF, 160, True, False, "mma"),
+    ("K8", _BF, 32, True, False, "mma"),
 ])
-def test_bwd_design_is_a_function_of_route(route, dtype, d, design):
-    """The single-pass Hopper backward (flash_bwd_sm90.cu) serves exactly the
-    K7 route in bf16; K8, K9 and K10 keep flash_bwd.cu."""
-    assert P._bwd_design(route, dtype, d) == design
+def test_bwd_design_is_a_function_of_route(route, dtype, d, causal, masked,
+                                           design):
+    """The Hopper backwards serve bf16 non-causal calls only: K7 and K10
+    at d=64 (flash_bwd_sm90.cu), K8 and K9 at d = 72 and 80, masked or not
+    (flash_bwd_rows_sm90.cu); causal, f32 and every other width keep
+    flash_bwd.cu."""
+    assert P._bwd_design(route, dtype, d, causal, masked) == design
+
+
+@pytest.mark.parametrize("bh,sq,sk,plan", [
+    # STDiT-XL/2 training: spatial (B=16 × 16 heads, 256 × 256) keeps a
+    # head's 4 query tiles and dQ in shared memory; cross (16 heads, 4096
+    # queries over 120 keys) splits a head into 8 units of 8 query tiles
+    (256, 256, 256, (False, 4)),
+    (16, 4096, 120, (False, 8)),
+    # the cross shape at B=2: 4 units of 16 tiles fill the SMs as well as 8
+    # of 8, and the fewer units win the tie
+    (32, 4096, 120, (False, 16)),
+    # one key tile, few query tiles: one unit a query tile at most
+    (4, 512, 120, (False, 1)),
+    (6, 1, 13, (False, 1)),
+    (6, 300, 128, (False, 2)),
+    (6, 700, 13, (False, 2)),
+    # several key tiles: a unit a head while its queries fit 4 tiles ...
+    (6, 1, 300, (False, 1)),
+    (6, 256, 129, (False, 4)),
+    (2, 200, 4322, (False, 4)),
+    # ... else the atomic mode
+    (6, 257, 129, (True, 5)),
+    (2, 300, 4322, (True, 5)),
+    (4, 4096, 4096, (True, 64)),
+])
+def test_bwd_rows_plan(bh, sq, sk, plan):
+    """The short-row backward's plan on an H100's 132 SMs: (atomic,
+    query tiles a unit)."""
+    assert P._bwd_rows_plan(bh, sq, sk, 132) == plan
+
+
+@pytest.mark.parametrize("sk", [13, 120, 300])
+def test_pack_mask_words_on_cpu_is_the_plain_packing(sk):
+    """``_pack_mask_words`` on a CPU tensor is ``_mask_words``, and it
+    checks the mask's shape."""
+    rng = np.random.default_rng(sk)
+    kv_valid = torch.from_numpy(rng.random((2, sk)) < 0.3)
+    assert torch.equal(P._pack_mask_words(kv_valid, 2, sk),
+                       P._mask_words(kv_valid))
+    with pytest.raises(ValueError, match="kv_valid"):
+        P._pack_mask_words(kv_valid, 2, sk + 1)
 
 
 def test_sm90_counters_untouched_on_cpu():

@@ -631,3 +631,216 @@ def test_sm90_backward_matches_plain(static_max, s, h):
         # p and ds are bf16 operands, gradients bf16: 2e-2 of max|grad|
         assert (x.float() - r.float()).abs().max() \
             <= 2e-2 * r.float().abs().max()
+
+
+# ------------------------------------------------- short-row backward (K8)
+def _rows_mask(b, sk, pattern):
+    """None, or a (B, Sk) key mask whose batch row 0 keeps a prefix of 13
+    keys, every 9th key, every 7th key from key 128 on (its first key tile
+    all masked) or no key; the other rows keep all."""
+    if pattern == "none":
+        return None
+    kv_valid = torch.ones((b, sk), dtype=torch.bool, device="cuda")
+    kv_valid[0] = False
+    if pattern == "prefix":
+        kv_valid[0, :13] = True
+    elif pattern == "strided":
+        kv_valid[0, ::9] = True
+    elif pattern == "late":
+        kv_valid[0, 128::7] = True
+    return kv_valid
+
+
+def _check_rows(q, k, v, g, kv_valid, route="K8", copies=0):
+    """flash_bwd on the short-row Hopper kernel (flash_bwd_rows_sm90.cu)
+    against ``flash_bwd_plain`` on the forward's own output and LSE,
+    counted per route and per design, with ``copies`` alignment copies;
+    returns the gradients."""
+    d = q.shape[-1]
+    assert P._bwd_design(route, q.dtype, d, False,
+                         kv_valid is not None) == "sm90"
+    out, lse = P.flash_fwd(q, k, v, sm_scale=d ** -0.5, kv_valid=kv_valid,
+                           emit_lse=True)
+    before = (dict(P.flash_bwd.launches), dict(P.flash_bwd.launches_sm90),
+              P.flash_bwd.tma_copies)
+    got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=d ** -0.5,
+                      kv_valid=kv_valid, single_pass=route == "K8")
+    ref = P.flash_bwd_plain(q, k, v, out, g, lse, sm_scale=d ** -0.5,
+                            kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert P.flash_bwd.launches == dict(before[0],
+                                        **{route: before[0][route] + 1})
+    assert P.flash_bwd.launches_sm90 == dict(before[1],
+                                             **{route: before[1][route] + 1})
+    assert P.flash_bwd.tma_copies == before[2] + copies
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.bfloat16
+        assert torch.isfinite(x.float()).all()
+        # p and ds are bf16 operands, gradients bf16: 2e-2 of max|grad|
+        assert (x.float() - r.float()).abs().max() \
+            <= 2e-2 * r.float().abs().max()
+    if kv_valid is not None:
+        dq, dk, dv = got
+        masked = ~kv_valid
+        if masked.any():
+            assert dk[masked].abs().max() == 0 == dv[masked].abs().max()
+        if not kv_valid[0].any():   # no valid key: dq = 0
+            assert dq[0].abs().max() == 0
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 64, 255, 256, 4096])
+@pytest.mark.parametrize("sk", [13, 120, 128, 129, 256, 300])
+@pytest.mark.parametrize("pattern", ["none", "prefix", "strided",
+                                     "empty_row"])
+@pytest.mark.parametrize("d", [72, 80])
+def test_rows_backward_matches_plain(d, pattern, sk, sq):
+    """K8 on the short-row Hopper backward, bf16, d = 72 and 80, B=2, H=3:
+    one key tile (a head's queries split into units, whose dK and dV go
+    through f32 partials and ``dkv_reduce_kernel``), up to 4 query tiles
+    over several key tiles (dQ summed in shared memory) and the atomic mode
+    past that; masked keys get dk = dv = 0, a row with no valid key
+    dq = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(2, sq, sk, 3, d, seed=sq + sk + d)
+    g = _qkv_d(2, sq, 1, 3, d, seed=sq)[0]
+    _check_rows(q, k, v, g, _rows_mask(2, sk, pattern))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [129, 256, 300])
+@pytest.mark.parametrize("sq", [1, 256, 4096])
+@pytest.mark.parametrize("d", [72, 80])
+def test_rows_backward_first_key_tile_all_masked(d, sq, sk):
+    """Batch row 0 keeps only every 7th key from key 128 on: its first key
+    tile is all masked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(2, sq, sk, 3, d, seed=sq + sk)
+    g = _qkv_d(2, sq, 1, 3, d, seed=sq)[0]
+    _check_rows(q, k, v, g, _rows_mask(2, sk, "late"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["spatial", "cross"])
+@pytest.mark.parametrize("route", ["K8", "K9"])
+def test_rows_backward_at_stdit_shapes(masked, route):
+    """STDiT-XL/2's training backward at B=1 × 16 frames: the spatial shape
+    (B=16, S=256, H=16, d=72) and the cross shape (B=1, 4096 queries over
+    the 120 caption keys, 13 valid), on K8 and on its baseline K9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, sq, sk = (1, 4096, 120) if masked else (16, 256, 256)
+    q, k, v = _qkv_d(b, sq, sk, 16, 72, seed=b)
+    g = _qkv_d(b, sq, 1, 16, 72, seed=b + 1)[0]
+    kv_valid = None
+    if masked:
+        kv_valid = torch.zeros((1, sk), dtype=torch.bool, device="cuda")
+        kv_valid[0, :13] = True
+    _check_rows(q, k, v, g, kv_valid, route=route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,masked", [(256, 256, False),
+                                          (4096, 120, True),
+                                          (4096, 120, False),
+                                          (300, 4322, False)],
+                         ids=["spatial", "cross", "one_tile", "atomic"])
+def test_rows_backward_is_reproducible(sq, sk, masked):
+    """dk and dv bit-equal across two calls, and dq too except in the
+    atomic mode (its f32 adds run in another order each call); at the
+    cross shapes the split units' dK and dV partials are summed in unit
+    order by ``dkv_reduce_kernel``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(1, sq, sk, 16, 72, seed=sq)
+    g = _qkv_d(1, sq, 1, 16, 72, seed=sq + 1)[0]
+    kv_valid = None
+    if masked:
+        kv_valid = torch.zeros((1, sk), dtype=torch.bool, device="cuda")
+        kv_valid[0, ::9] = True
+    out, lse = P.flash_fwd(q, k, v, sm_scale=72 ** -0.5, kv_valid=kv_valid,
+                           emit_lse=True)
+
+    def run():
+        return P.flash_bwd(q, k, v, out, g, lse, sm_scale=72 ** -0.5,
+                           kv_valid=kv_valid)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    atomic = P._bwd_rows_plan(16, sq, sk, 132)[0]
+    for i in (range(1, 3) if atomic else range(3)):
+        assert torch.equal(first[i], second[i])
+
+
+@pytest.mark.cuda
+def test_rows_backward_reads_a_fused_qkv_in_place():
+    """q, k, v sliced out of one fused (B, S, 3, H, 72) tensor and a dO
+    sliced out of a wider one: TMA reads the strided views in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    qkv = torch.randn((2, 256, 3, 4, 72), device="cuda").bfloat16()
+    q, k, v = qkv.unbind(dim=2)
+    g = torch.randn((2, 256, 2, 4, 72), device="cuda").bfloat16()[:, :, 0]
+    assert all(P._aligned(x) and not x.is_contiguous() for x in (q, k, v, g))
+    _check_rows(q, k, v, g, None)
+
+
+@pytest.mark.cuda
+def test_rows_backward_copies_what_tma_cannot_read():
+    """A v whose head stride (76 elements, 152 bytes) is not a multiple of
+    16 bytes is copied, and the copy is counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, _ = _qkv_d(1, 200, 200, 2, 72, seed=9)
+    v = torch.randn((1, 200, 2, 76), device="cuda").bfloat16()[..., :72]
+    g = torch.randn((1, 200, 2, 72), device="cuda").bfloat16()
+    assert not P._aligned(v)
+    _check_rows(q, k, v, g, None, copies=1)
+
+
+@pytest.mark.cuda
+def test_rows_backward_reads_the_forwards_mask_words():
+    """The words a masked training forward packs give the backward the same
+    gradients as the mask it packs itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(2, 512, 120, 4, 72, seed=3)
+    g = torch.randn((2, 512, 4, 72), device="cuda").bfloat16()
+    kv_valid = _rows_mask(2, 120, "strided")
+    words = P._pack_mask_words(kv_valid, 2, 120)
+    assert torch.equal(words, P._mask_words(kv_valid))
+    out, lse = P.flash_fwd(q, k, v, sm_scale=72 ** -0.5, kv_valid=kv_valid,
+                           emit_lse=True, mask_words=words)
+    got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=72 ** -0.5,
+                      kv_valid=kv_valid, mask_words=words)
+    ref = P.flash_bwd(q, k, v, out, g, lse, sm_scale=72 ** -0.5,
+                      kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        assert torch.equal(x, r)
+
+
+@pytest.mark.cuda
+def test_k10_runs_k7s_kernel():
+    """K10 (single_pass=False at d=64) launches flash_bwd_sm90, K7's Hopper
+    kernel, and agrees with the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(1, 300, 300, 2, seed=5)
+    g = torch.randn((1, 300, 2, 64)).cuda().bfloat16()
+    out, lse = P.flash_fwd(q, k, v, sm_scale=0.125, emit_lse=True,
+                           route="K1")
+    before = (dict(P.flash_bwd.launches), dict(P.flash_bwd.launches_sm90))
+    got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=0.125,
+                      single_pass=False)
+    ref = P.flash_bwd_plain(q, k, v, out, g, lse, sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert P.flash_bwd.launches == dict(before[0], K10=before[0]["K10"] + 1)
+    assert P.flash_bwd.launches_sm90 == dict(before[1],
+                                             K10=before[1]["K10"] + 1)
+    for x, r in zip(got, ref):
+        assert (x.float() - r.float()).abs().max() \
+            <= 2e-2 * r.float().abs().max()

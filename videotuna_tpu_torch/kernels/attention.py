@@ -22,10 +22,14 @@ math path.  The kernels it can reach, and where each is in the port:
   mask packed into bit words as ``_mask_words`` does);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
   on the same two kernels as K2;
-- K7 (d=64 single-pass backward): ``flash_bwd``, launching the Hopper
-  kernel ``csrc/flash_bwd_sm90.cu`` (single pass, TMA, wgmma);
-- K8 (generic and masked single-pass backward, d ≤ 256), and the two-kernel
-  baselines K10 and K9: ``flash_bwd``, launching ``csrc/flash_bwd.cu``;
+- K7 (d=64 single-pass backward) and its two-kernel baseline K10:
+  ``flash_bwd``, launching in bf16 the Hopper kernel
+  ``csrc/flash_bwd_sm90.cu`` (single pass, TMA, wgmma);
+- K8 (generic and masked single-pass backward, d ≤ 256) and its two-kernel
+  baseline K9: ``flash_bwd``, launching in bf16 at d = 72 and 80,
+  non-causal, the short-row Hopper kernel ``csrc/flash_bwd_rows_sm90.cu``
+  (single pass, persistent, the key mask as bit words), else
+  ``csrc/flash_bwd.cu``;
 - K3 (d ≤ 128 non-causal fixed max, the qk-normed denoisers' sampling
   forward): ``flash_fwd`` with ``static_max``, counted as K3; at d = 64,
   72, 80 and 128 in bf16 it launches ``csrc/flash_fwd_sm90.cu`` (TMA,
@@ -48,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional, Tuple, Union
@@ -81,11 +86,13 @@ _KERNELS = {
     "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
           "csrc/flash_bwd_sm90.cu",
     "K8": "single-pass generic and kv_valid-masked flash backward "
-          "(flash_attention_bwd): csrc/flash_bwd.cu",
+          "(flash_attention_bwd): csrc/flash_bwd_rows_sm90.cu at d=72 and "
+          "80 in bf16 (non-causal), else csrc/flash_bwd.cu",
     "K9": "two-kernel generic flash backward (flash_attention_bwd, "
-          "single_pass=False): mapped onto csrc/flash_bwd.cu",
+          "single_pass=False): mapped onto K8's kernels",
     "K10": "two-kernel d=64 flash backward (_flash_bwd_packed2, "
-           "single_pass=False): mapped onto csrc/flash_bwd.cu",
+           "single_pass=False): mapped onto K7's kernel "
+           "(csrc/flash_bwd_sm90.cu) in bf16",
 }
 
 
@@ -123,7 +130,7 @@ def _check_layout(name: str, q, k, v,
                   check_aligned: bool = True) -> None:
     """What every flash kernel takes: (B,Sq,H,d) q and (B,Sk,H,d) k, v of
     one of ``dtypes`` on one device, read in place with 16-byte copies
-    (``check_aligned=False`` where the caller has made them so)."""
+    (``check_aligned=False`` where the caller copies what is not)."""
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in dtypes):
@@ -148,21 +155,30 @@ def _check_layout(name: str, q, k, v,
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """16-byte copies: rows contiguous, row starts 16-byte aligned."""
+    """16-byte copies of a (B, S, H, d) tensor: rows contiguous, row starts
+    16-byte aligned."""
     per16 = 16 // t.element_size()
-    return (t.stride(-1) == 1 and not any(s % per16 for s in t.stride()[:3])
-            and t.data_ptr() % 16 == 0)
+    sb, ss, sh, sd = t.stride()
+    return (sd == 1 and sb % per16 == 0 and ss % per16 == 0
+            and sh % per16 == 0 and t.data_ptr() % 16 == 0)
 
 
-def _launch(source: str, symbol: str, argtypes, *args) -> None:
-    """Call the C entry ``symbol`` of ``source`` on the current stream; it
-    returns the launch's CUDA error, which raises here."""
+def _launch(source: str, symbol: str, argtypes, device: torch.device,
+            *args) -> None:
+    """Call the C entry ``symbol`` of ``source`` on ``device``'s current
+    stream, with ``device`` made the current device for the call where it
+    is not; the entry returns the launch's CUDA error, which raises here."""
     from videotuna_tpu_torch.kernels import load
     fn = getattr(load(source), symbol)   # ctypes keeps one object a symbol
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed with CUDA error {rc}")
 
@@ -237,7 +253,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: float, causal: bool = False,
               kv_valid: Optional[torch.Tensor] = None,
               static_max: Optional[float] = None,
-              emit_lse: bool = False, route: Optional[str] = None
+              emit_lse: bool = False, route: Optional[str] = None,
+              mask_words: Optional[torch.Tensor] = None
               ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """K1-K6: flash attention forward for any head_dim ≤ 256.
 
@@ -255,9 +272,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     d = 72 or 80; K3 at d = 64 or 128 without the LSE) launch
     ``csrc/flash_fwd_sm90.cu`` and add one to
     ``flash_fwd.launches_sm90[route]``; q, k or v that TMA cannot read in
-    place is copied first and counted in ``flash_fwd.tma_copies``.
-    Everything else launches ``csrc/flash_fwd.cu`` (bf16 or f32, d a
-    multiple of 8; anything else raises).  On a CPU tensor it runs
+    place is copied first and counted in ``flash_fwd.tma_copies``; the
+    masked K4 there reads ``mask_words`` (``_mask_words_for`` of q and
+    ``kv_valid``, packed by the caller) when given, else packs the mask in
+    the same call.  Everything else launches ``csrc/flash_fwd.cu`` (bf16 or
+    f32, d a multiple of 8; anything else raises).  On a CPU tensor it runs
     ``flash_fwd_plain``.  Replaces the TPU kernels
     ``_flash_kernel_packed2t`` / ``_flash_packed2t`` (K1,
     videotuna_tpu/kernels/attention.py:268, :449), ``_flash_kernel`` /
@@ -281,7 +300,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _fwd_design(route, q.dtype, q.shape[-1], causal, kv_valid, emit_lse,
                    static_max) == "sm90":
         res = _flash_fwd_sm90(q, k, v, sm_scale, static_max, emit_lse,
-                              kv_valid)
+                              kv_valid, mask_words)
         flash_fwd.launches_sm90[route] += 1
     else:
         res = _flash_fwd_mma(q, k, v, sm_scale, causal, kv_valid, static_max,
@@ -325,18 +344,17 @@ def _flash_fwd_mma(q, k, v, sm_scale: float, causal: bool,
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if emit_lse else None)
     symbol = "flash_fwd_f32" if q.dtype == torch.float32 else "flash_fwd_bf16"
-    with torch.cuda.device(q.device):
-        _launch("flash_fwd.cu", symbol, _FWD_ARGTYPES,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if lse is not None else None,
-                mask.data_ptr() if mask is not None else None,
-                b, h, sq, sk, d,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                out.stride(0), out.stride(1), out.stride(2),
-                float(sm_scale * _LOG2E), int(causal),
-                int(static_max is not None), float(static_max or 0.0))
+    _launch("flash_fwd.cu", symbol, _FWD_ARGTYPES, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            mask.data_ptr() if mask is not None else None,
+            b, h, sq, sk, d,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            out.stride(0), out.stride(1), out.stride(2),
+            float(sm_scale * _LOG2E), int(causal),
+            int(static_max is not None), float(static_max or 0.0))
     return (out, lse) if emit_lse else out
 
 
@@ -374,13 +392,13 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     return "mma"
 
 
-def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+def _tma_ready(t: torch.Tensor, wrapper=None) -> torch.Tensor:
     """``t`` itself when TMA can read it in place (16-byte aligned start,
     contiguous head_dim, strides multiples of 16 bytes), else a contiguous
-    copy, counted in ``flash_fwd.tma_copies``."""
+    copy, counted in ``wrapper.tma_copies`` (``flash_fwd``'s by default)."""
     if _aligned(t):
         return t
-    flash_fwd.tma_copies += 1
+    (wrapper or flash_fwd).tma_copies += 1
     return t.contiguous()
 
 
@@ -400,6 +418,55 @@ def _mask_words(kv_valid: torch.Tensor) -> torch.Tensor:
     return (bits.view(b, n // 32, 32) * weights).sum(-1, dtype=torch.int32)
 
 
+_PACK_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _pack_mask_words(kv_valid: torch.Tensor, b: int,
+                     sk: int) -> torch.Tensor:
+    """The key mask's bit words in ``_mask_words``' layout, which the
+    persistent forward (K4) and the short-row backward (K8) read: on the
+    card packed by ``pack_mask_kernel`` (``csrc/flash_fwd_sm90.cu``, one
+    launch), on the CPU by ``_mask_words``.  A training forward packs them
+    once and hands them to its backward."""
+    _check_mask(kv_valid, b, sk, kv_valid.device)
+    if kv_valid.device.type == "cpu":
+        return _mask_words(kv_valid)
+    mask = kv_valid if kv_valid.stride(1) == 1 else kv_valid.contiguous()
+    if mask.dtype == torch.bool:
+        mask = mask.view(torch.uint8)
+    words = torch.empty((b, 4 * -(-sk // 128)), dtype=torch.int32,
+                        device=mask.device)
+    _launch("flash_fwd_sm90.cu", "pack_mask_words", _PACK_ARGTYPES,
+            mask.device, mask.data_ptr(), mask.stride(0), words.data_ptr(),
+            b, sk)
+    return words
+
+
+def _mask_words_for(q: torch.Tensor, kv_valid: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+    """The bit words of ``kv_valid`` where a masked call on ``q`` runs the
+    Hopper designs, which read them (K4's forward and K8's backward agree
+    on which calls those are: CUDA, bf16, d = 72 or 80), packed once by
+    ``_pack_mask_words`` for the caller to hand to both; else None."""
+    if kv_valid is None or q.device.type != "cuda" or _bwd_design(
+            "K8", q.dtype, q.shape[-1], False, True) != "sm90":
+        return None
+    return _pack_mask_words(kv_valid, q.shape[0], kv_valid.shape[1])
+
+
+def _check_words(words: torch.Tensor, b: int, sk: int,
+                 device: torch.device) -> None:
+    """Raise unless ``words`` is the (B, 4·⌈Sk/128⌉) int32 word tensor of a
+    (B, Sk) key mask, contiguous on ``device``."""
+    shape = (b, 4 * -(-sk // 128))
+    if words.shape != shape or words.dtype != torch.int32 \
+            or words.device != device or not words.is_contiguous():
+        raise ValueError(f"mask_words must be contiguous int32 {shape} on "
+                         f"{device}, got {words.dtype} "
+                         f"{tuple(words.shape)} on {words.device}")
+
+
 _FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong,
                                                 ctypes.c_void_p]
                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
@@ -409,14 +476,16 @@ _FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong,
 
 def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float, static_max: Optional[float],
-                    emit_lse: bool, kv_valid: Optional[torch.Tensor] = None
+                    emit_lse: bool, kv_valid: Optional[torch.Tensor] = None,
+                    words: Optional[torch.Tensor] = None
                     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal: the persistent
     kernel (online or fixed max, with or without the LSE) at d = 64, 72 or
-    80 (at 72 and 80 with the key mask ``kv_valid`` too); K3's fixed-max
-    kernel at d = 128."""
-    q, k, v = (_tma_ready(x) for x in (q, k, v))
+    80 (at 72 and 80 with the key mask ``kv_valid`` too: its ``words`` when
+    given, else packed by the same call); K3's fixed-max kernel at
+    d = 128."""
     _check_layout("flash_fwd", q, k, v, check_aligned=False)
+    q, k, v = (_tma_ready(x) for x in (q, k, v))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if d == 128:
@@ -425,29 +494,34 @@ def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (static_max is None or kv_valid is not None) and not sm_scale > 0:
         raise ValueError(f"the online softmax and the key mask take "
                          f"sm_scale > 0, got {sm_scale}")
-    mask = words = None
-    if kv_valid is not None:   # packed into ``words`` by the same call
+    mask = None
+    if kv_valid is not None:
         _check_mask(kv_valid, b, sk, q.device)
-        mask = kv_valid if kv_valid.stride(1) == 1 else kv_valid.contiguous()
-        if mask.dtype == torch.bool:
-            mask = mask.view(torch.uint8)
-        words = torch.empty((b, 4 * -(-sk // 128)), dtype=torch.int32,
-                            device=q.device)
+        if words is not None:
+            _check_words(words, b, sk, q.device)
+        else:   # packed into ``words`` by the same call
+            mask = (kv_valid if kv_valid.stride(1) == 1
+                    else kv_valid.contiguous())
+            if mask.dtype == torch.bool:
+                mask = mask.view(torch.uint8)
+            words = torch.empty((b, 4 * -(-sk // 128)), dtype=torch.int32,
+                                device=q.device)
+    else:
+        words = None
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if emit_lse else None)
-    with torch.cuda.device(q.device):
-        _launch("flash_fwd_sm90.cu", "flash_fwd_sm90_bf16",
-                _FWD_SM90_ARGTYPES,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if lse is not None else None,
-                mask.data_ptr() if mask is not None else None,
-                mask.stride(0) if mask is not None else 0,
-                words.data_ptr() if words is not None else None,
-                b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], *out.stride()[:3],
-                float(sm_scale * _LOG2E), int(static_max is None),
-                float(static_max or 0.0))
+    _launch("flash_fwd_sm90.cu", "flash_fwd_sm90_bf16",
+            _FWD_SM90_ARGTYPES, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            mask.data_ptr() if mask is not None else None,
+            mask.stride(0) if mask is not None else 0,
+            words.data_ptr() if words is not None else None,
+            b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3],
+            float(sm_scale * _LOG2E), int(static_max is None),
+            float(static_max or 0.0))
     return (out, lse) if emit_lse else out
 
 
@@ -497,18 +571,14 @@ def _bwd_route(h: int, d: int, causal: bool,
     return "K10" if packed else "K9"
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                 + [ctypes.c_longlong] * 24
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
               sm_scale: float, causal: bool = False,
               kv_valid: Optional[torch.Tensor] = None,
+              mask_words: Optional[torch.Tensor] = None,
               single_pass: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K7 and K8: flash attention backward, dq, dk, dv from q, k, v, the
+    """K7-K10: flash attention backward, dq, dk, dv from q, k, v, the
     forward's output ``out``, its gradient ``dout`` and the natural-log
     ``lse`` (B, H, Sq, f32) that the forward wrote.
 
@@ -517,17 +587,90 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_bwd.launches[route]``: "K7" for d=64, even heads, non-causal
     and unmasked, "K8" otherwise, and under ``single_pass=False`` "K10" and
     "K9" for the same two cases, whose two-kernel TPU baselines compute the
-    same function.  K7 runs the single-pass ``csrc/flash_bwd_sm90.cu`` (and
-    adds one to ``flash_bwd.launches_sm90["K7"]``); K8, K9 and K10 run
-    ``csrc/flash_bwd.cu``.  On a CPU tensor it runs ``flash_bwd_plain``.
-    Replaces ``_flash_bwd_packed2`` (K7, videotuna_tpu/kernels/attention.py
-    :1424, :1517; K10 :1260, :1343) and ``flash_attention_bwd`` (K8 :1148,
-    :1725; K9 :1107, :1197)."""
+    same function.  The calls ``_bwd_design`` names "sm90" add one to
+    ``flash_bwd.launches_sm90[route]``: K7 and K10 run the single-pass
+    ``csrc/flash_bwd_sm90.cu``; K8 and K9 in bf16 at d = 72 or 80,
+    non-causal, with or without ``kv_valid``, run the short-row
+    ``csrc/flash_bwd_rows_sm90.cu`` (tensors TMA cannot read in place
+    copied first, counted in ``flash_bwd.tma_copies``), which reads the key
+    mask as ``mask_words`` (``_pack_mask_words`` of ``kv_valid``, as the
+    masked training forward packed them) or packs it first.  Everything
+    else runs ``csrc/flash_bwd.cu``.  On a CPU tensor it runs
+    ``flash_bwd_plain``.  Replaces ``_flash_bwd_packed2`` (K7,
+    videotuna_tpu/kernels/attention.py :1424, :1517; K10 :1260, :1343) and
+    ``flash_attention_bwd`` (K8 :1148, :1725; K9 :1107, :1197)."""
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, dout, lse, sm_scale=sm_scale,
                                causal=causal, kv_valid=kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd: unsupported device {q.device}")
+    _check_layout("flash_bwd", q, k, v, check_aligned=False)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError("out and dout must have q's shape and dtype")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {(b, h, sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if kv_valid is not None:
+        _check_mask(kv_valid, b, sk, q.device)
+    elif mask_words is not None:
+        raise ValueError("mask_words without kv_valid")
+    route = _bwd_route(h, d, causal, kv_valid, single_pass)
+    lse = lse.contiguous()
+    if _bwd_design(route, q.dtype, d, causal, kv_valid is not None) \
+            == "mma":
+        res = _flash_bwd_mma(q, k, v, out, dout, lse, sm_scale, causal,
+                             kv_valid)
+    elif d == 64:
+        res = _flash_bwd_sm90(q, k, v, out, dout, lse, sm_scale)
+        flash_bwd.launches_sm90[route] += 1
+    else:
+        if kv_valid is not None and mask_words is None:
+            mask_words = _pack_mask_words(kv_valid, b, sk)
+        res = _flash_bwd_rows(q, k, v, out, dout, lse, sm_scale, mask_words)
+        flash_bwd.launches_sm90[route] += 1
+    flash_bwd.launches[route] += 1
+    return res
+
+
+flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
+# the launches of the Hopper designs (flash_bwd_sm90.cu for K7 and K10,
+# flash_bwd_rows_sm90.cu for K8 and K9), per route; counted in ``launches``
+# too
+flash_bwd.launches_sm90 = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
+# q, k, v, out or dout copied because TMA could not read it in place
+flash_bwd.tma_copies = 0
+
+
+def _bwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
+                masked: bool) -> str:
+    """Which backward kernel a CUDA call launches, from its route, dtype,
+    width and options alone: "sm90" for bf16 non-causal calls of K7 and
+    K10 (d=64, unmasked: ``csrc/flash_bwd_sm90.cu``) and of K8 and K9 at
+    d = 72 or 80, masked or not (``csrc/flash_bwd_rows_sm90.cu``); "mma"
+    (``csrc/flash_bwd.cu``) for everything else."""
+    if dtype != torch.bfloat16 or causal:
+        return "mma"
+    if route in ("K7", "K10"):
+        return "sm90" if d == 64 and not masked else "mma"
+    return "sm90" if d in (72, 80) else "mma"
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 24
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def _flash_bwd_mma(q, k, v, out, dout, lse, sm_scale: float,
+                   causal: bool = False,
+                   kv_valid: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_bwd.cu`` (mma.sync, two passes: any d ≤ 256 a
+    multiple of 8, causal and key mask) → dq, dk, dv; counts nothing.  The
+    design of every call ``_bwd_design`` names "mma", and the A/B baseline
+    of the Hopper designs."""
     _check_layout("flash_bwd", q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -536,56 +679,24 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"8, got {d}")
     if -(-max(sq, sk) // 64) > 65535:
         raise ValueError("S above 64·65535 exceeds the launch grid")
-    if out.shape != q.shape or dout.shape != q.shape \
-            or out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError("out and dout must have q's shape and dtype")
-    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be f32 {(b, h, sq)}, got "
-                         f"{lse.dtype} {tuple(lse.shape)}")
     out = out if _aligned(out) else out.contiguous()
     dout = dout if _aligned(dout) else dout.contiguous()
-    lse = lse.contiguous()
     mask = None
     if kv_valid is not None:
-        if kv_valid.shape != (b, sk) or kv_valid.device != q.device:
-            raise ValueError(f"kv_valid must be a (B, Sk) = {(b, sk)} mask "
-                             f"on {q.device}")
         mask = kv_valid.bool().contiguous().view(torch.uint8)
-    route = _bwd_route(h, d, causal, kv_valid, single_pass)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    if _bwd_design(route, q.dtype, d) == "sm90":
-        _flash_bwd_sm90(q, k, v, out, dout, lse, dq, dk, dv, sm_scale)
-        flash_bwd.launches[route] += 1
-        flash_bwd.launches_sm90[route] += 1
-        return dq, dk, dv
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = [x.stride(i) for x in (q, k, v, out, dout, dq, dk, dv)
                for i in range(3)]
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd.cu", "flash_bwd_bf16", _BWD_ARGTYPES,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                mask.data_ptr() if mask is not None else None,
-                b, h, sq, sk, d, *strides, float(sm_scale), int(causal))
-    flash_bwd.launches[route] += 1
+    _launch("flash_bwd.cu", "flash_bwd_bf16", _BWD_ARGTYPES, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            mask.data_ptr() if mask is not None else None,
+            b, h, sq, sk, d, *strides, float(sm_scale), int(causal))
     return dq, dk, dv
-
-
-flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
-# the launches of the Hopper design (flash_bwd_sm90.cu), per route; they are
-# counted in ``launches`` too
-flash_bwd.launches_sm90 = {"K7": 0}
-
-
-def _bwd_design(route: str, dtype: torch.dtype, d: int) -> str:
-    """Which backward kernel a CUDA call launches, from its route alone:
-    "sm90" (``csrc/flash_bwd_sm90.cu``: single pass, TMA, wgmma) for the
-    d=64 route K7 in bf16; "mma" (``csrc/flash_bwd.cu``) for K8, K9, K10."""
-    return "sm90" if route == "K7" and dtype == torch.bfloat16 and d == 64 \
-        else "mma"
 
 
 _BWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
@@ -593,15 +704,22 @@ _BWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                       + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _flash_bwd_sm90(q, k, v, out, dout, lse, dq, dk, dv,
-                    sm_scale: float) -> None:
-    """Launch ``csrc/flash_bwd_sm90.cu`` (K7: d=64, non-causal, unmasked)
-    into dq, dk, dv, with its f32 scratch: lse2 and delta rows padded to 64
-    queries, and the zeroed dq accumulator (B·H, Sq_pad, 64)."""
+def _flash_bwd_sm90(q, k, v, out, dout, lse, sm_scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_bwd_sm90.cu`` (K7 and K10: d=64, non-causal,
+    unmasked) → dq, dk, dv, with its f32 scratch: lse2 and delta rows
+    padded to 64 queries, and the zeroed dq accumulator (B·H, Sq_pad,
+    64)."""
+    _check_layout("flash_bwd", q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if b * h > 65535:
         raise ValueError("B·H above 65535 exceeds the launch grid")
+    out = out if _aligned(out) else out.contiguous()
+    dout = dout if _aligned(dout) else dout.contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     sq_pad = -(-sq // 64) * 64
     lse2 = torch.empty((b * h, sq_pad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse2)
@@ -609,14 +727,98 @@ def _flash_bwd_sm90(q, k, v, out, dout, lse, dq, dk, dv,
                          device=q.device)
     strides = [x.stride(i) for x in (q, k, v, out, dout, dq, dk, dv)
                for i in range(3)]
-    with torch.cuda.device(q.device):
-        _launch("flash_bwd_sm90.cu", "flash_bwd_sm90_bf16",
-                _BWD_SM90_ARGTYPES,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
-                delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, *strides,
-                float(sm_scale))
+    _launch("flash_bwd_sm90.cu", "flash_bwd_sm90_bf16",
+            _BWD_SM90_ARGTYPES, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, *strides,
+            float(sm_scale))
+    return dq, dk, dv
+
+
+# the short-row backward (csrc/flash_bwd_rows_sm90.cu): query tiles of 64,
+# key tiles of 128; a unit keeps dQ in shared memory over at most
+# _ROWS_HEAD_M_MAX query tiles, and a head's queries split into at most
+# _ROWS_CHUNKS_MAX units when its keys fit one tile
+_ROWS_HEAD_M_MAX = 4
+_ROWS_CHUNKS_MAX = 8
+_SMS = {}   # SM count per device index
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_rows_plan(bh: int, sq: int, sk: int, sms: int) -> Tuple[bool, int]:
+    """(atomic, unit_m) of a short-row backward of ``bh`` heads on ``sms``
+    SMs.  Keys in one 128-key tile: rows mode, a head's ⌈Sq/64⌉ query
+    tiles split into units of ``unit_m`` (1, 2, 4 or 8 units a head: the
+    split whose busiest SM walks the fewest query tiles, the fewest units
+    on a tie); several key tiles and at most ``_ROWS_HEAD_M_MAX`` query
+    tiles: rows mode, one unit a head; otherwise the atomic mode (a unit a
+    key tile, dq summed by atomics)."""
+    m_tiles = -(-sq // 64)
+    if -(-sk // 128) > 1:
+        return m_tiles > _ROWS_HEAD_M_MAX, m_tiles
+    best = None
+    chunks = 1
+    while chunks <= min(_ROWS_CHUNKS_MAX, m_tiles):
+        unit_m = -(-m_tiles // chunks)
+        span = -(-bh * -(-m_tiles // unit_m) // sms) * unit_m
+        if best is None or span < best[0]:
+            best = (span, unit_m)
+        chunks *= 2
+    return False, best[1]
+
+
+_BWD_ROWS_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                      + [ctypes.c_longlong] * 24
+                      + [ctypes.c_float] + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p])
+
+
+def _flash_bwd_rows(q, k, v, out, dout, lse, sm_scale: float,
+                    words: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_bwd_rows_sm90.cu`` (K8 and K9: bf16, d = 72 or
+    80, non-causal, the key mask as its ``words`` or none) → dq, dk, dv,
+    on the plan of ``_bwd_rows_plan``.  Scratch only for the atomic mode
+    (a zeroed f32 dq accumulator) and for a head split into several units
+    (their f32 dK, dV partials, which a second launch sums: 10 MB at STDiT's
+    cross shape); none at the spatial shape."""
+    q, k, v, out, dout = (_tma_ready(x, flash_bwd)
+                          for x in (q, k, v, out, dout))
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if words is not None:
+        _check_words(words, b, sk, q.device)
+    dev = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    atomic, unit_m = _bwd_rows_plan(b * h, sq, sk, _SMS[dev])
+    m_tiles = -(-sq // 64)
+    chunks = -(-m_tiles // unit_m)
+    scratch = None
+    if atomic:
+        scratch = torch.zeros((b * h, m_tiles * 64, 80),
+                              dtype=torch.float32, device=q.device)
+    elif chunks > 1:
+        scratch = torch.empty((b * h * chunks, 2 * 2 * 40 * 128),
+                              dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _launch("flash_bwd_rows_sm90.cu", "flash_bwd_rows_sm90_bf16",
+            _BWD_ROWS_ARGTYPES, q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            words.data_ptr() if words is not None else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+            *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            float(sm_scale), int(atomic), unit_m)
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -726,19 +928,23 @@ class _FlashDiffMasked(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, scale, static_max):
-        d = q.shape[-1]
-        sm_scale = (1.0 / math.sqrt(d)) if scale is None else scale
+        sm_scale = (1.0 / math.sqrt(q.shape[-1])) if scale is None else scale
+        # the mask's bit words, packed once: read by the forward (K4) and
+        # kept for the backward (K8)
+        words = _mask_words_for(q, kv_valid)
         out, lse = flash_fwd(q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
-                             static_max=static_max, emit_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse, kv_valid)
+                             static_max=static_max, emit_lse=True,
+                             mask_words=words)
+        ctx.save_for_backward(q, k, v, out, lse, kv_valid, words)
         ctx.sm_scale = sm_scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, kv_valid = ctx.saved_tensors
+        q, k, v, out, lse, kv_valid, words = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, out, dout, lse,
-                               sm_scale=ctx.sm_scale, kv_valid=kv_valid)
+                               sm_scale=ctx.sm_scale, kv_valid=kv_valid,
+                               mask_words=words)
         return dq, dk, dv, None, None, None
 
 

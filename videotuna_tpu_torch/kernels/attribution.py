@@ -1,7 +1,7 @@
 """Where a Hopper kernel's time goes: the kernel timed beside copies of its
 source with one part of its work taken out, on the same tensors.
 
-    python -m videotuna_tpu_torch.kernels.attribution [K1] [K3] [K4] [K5] [K7]
+    python -m videotuna_tpu_torch.kernels.attribution [K1] [K3] [K4] [K5] [K7] [K8] [host]
 
 Variants (their outputs are wrong by design; only their times count):
 
@@ -48,16 +48,33 @@ Variants (their outputs are wrong by design; only their times count):
   the softmax, so that what is left is the loads, the barriers, the
   consumers' turns and the stores.
 
+- K8, ``csrc/flash_bwd_rows_sm90.cu`` at STDiT-XL/2's training backward,
+  spatial (K8: B=16, S=256, H=16, d=72) and cross (K8_cross: B=1, 4096
+  queries over 120 keys, 13 valid, the mask words packed once as the
+  training forward does), by device time: ``no_exp2``; ``no_mask`` keeps
+  every key (the two mask bits a thread and their -inf bias go);
+  ``no_delta`` takes delta from a zero row (the in-kernel rowsum of dO·O
+  and the O tile's load go); ``no_tail`` drops the products
+  of columns 64-79 (the 16-column boxes: the fifth depth step of S^T and
+  dP^T, the N = 16 parts of dV and dK, the N = 8 part of dQ), their loads
+  kept; ``no_dq`` drops the dQ product; ``no_math`` every product and the
+  exp2, so that what is left is the loads, delta, the barriers and the
+  stores.
+
 Each variant is built from an edited copy under ``kernels/_build/
 attribution/`` and loaded in place of the kernel's library for its timing.
 Prints the card's name and power limit, then one line per variant; the
-arguments pick kernels (all five by default).
+arguments pick kernels (all six by default).  ``host`` instead takes the
+K8 wrapper's host time apart at both STDiT shapes, beside the old design's
+(``host_breakdown``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -72,6 +89,18 @@ _NO_ADD = ('          if (dqa[nb * 4 + 2 * r] == 12345.f) '
 
 _K3_LAUNCH = '''  return launch<128>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                      v_sb, v_ss, v_sh, s);'''
+
+# the products of flash_bwd_rows_sm90.cu: columns 64-79 (the 16-column
+# boxes), dQ, and the rest
+_K8_TAIL = [(head, "if (false) " + head) for head in (
+    "wgmma_ss_n64<0, 0>(st, desc_sw32(", "wgmma_ss_n64<0, 0>(dpt, desc_sw32(",
+    "wgmma_rs_n16<1>(dv + 32,", "wgmma_rs_n16<1>(dk + 32,",
+    "wgmma_ss_n8<1, 1>(")]
+_K8_DQ = [("wgmma_ss_n32<1, 1>(dqa,", "if (false) wgmma_ss_n32<1, 1>(dqa,"),
+          ("wgmma_ss_n8<1, 1>(", "if (false) wgmma_ss_n8<1, 1>(")]
+_K8_REST = [(head, "if (false) " + head) for head in (
+    "wgmma_ss_n64<0, 0>(st, desc(", "wgmma_ss_n64<0, 0>(dpt, desc(",
+    "wgmma_rs_n64<1>(dv, pa[kk],", "wgmma_rs_n64<1>(dk, dsa[kk],")]
 
 # (kernel, source, variant) -> [(text, replacement), ...]
 VARIANTS = {
@@ -116,6 +145,19 @@ VARIANTS = {
         (head, head + "\n      return;") for head in (
             "auto pv = [&](int s) {", "auto qk = [&](int qs, int s) {",
             "auto softmax = [&](int t) {")],
+    ("K8", "flash_bwd_rows_sm90.cu", "base"): [],
+    ("K8", "flash_bwd_rows_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
+    ("K8", "flash_bwd_rows_sm90.cu", "no_mask"): [
+        ("kb[r] = ok ? 0.f : -INFINITY;", "kb[r] = 0.f;")],
+    ("K8", "flash_bwd_rows_sm90.cu", "no_delta"): [
+        ("for (int ch = 0; ch < 10; ++ch) {", "for (int ch = 0; ch < 0; ++ch) {"),
+        ("const bool need_o = t == x.t0;", "const bool need_o = false;"),
+        ("mbar_wait(o_full, oi & 1);", "")],
+    ("K8", "flash_bwd_rows_sm90.cu", "no_tail"): _K8_TAIL,
+    ("K8", "flash_bwd_rows_sm90.cu", "no_dq"): _K8_DQ,
+    ("K8", "flash_bwd_rows_sm90.cu", "no_math"): (
+        _K8_TAIL[:4] + _K8_DQ + _K8_REST + [("fast_exp2(", "(")]),
+    ("K8", "flash_bwd_rows_sm90.cu", "base_again"): [],
     ("K5", "flash_fwd_sm90.cu", "no_tail"): [
         ("if constexpr (C::TAIL)\n          wgmma_rs_n16",
          "if constexpr (false)\n          wgmma_rs_n16"),
@@ -167,7 +209,8 @@ def _inputs(b: int, s: int, h: int, d: int, gen: torch.Generator):
 
 
 def _with_variant(source: str, name: str, edits, fn):
-    """Run ``fn`` with ``source``'s library built from an edited copy."""
+    """Run ``fn`` with ``source``'s library built from a copy edited by
+    ``edits``, (text, replacement) pairs."""
     text = (kernels.CSRC / source).read_text()
     for old, new in edits:
         if old not in text:
@@ -189,10 +232,117 @@ def _with_variant(source: str, name: str, edits, fn):
             kernels._LIBS[source] = saved[2]
 
 
+def _host_ms(fn, reps: int) -> float:
+    """Host time per call of ``fn``, the device's work left to finish after
+    the clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _k8_inputs(gen: torch.Generator):
+    """{label: (q, k, v, o, dO, lse, kv_valid, words)} at STDiT-XL/2's
+    training backward, spatial (K8: B=16, S=256) and cross (K8_cross: B=1,
+    4096 queries over 120 keys, 13 valid, the words packed once as the
+    training forward does); H=16, d=72."""
+    out = {}
+    for label, (b, sq, sk) in (("K8", (16, 256, 256)),
+                               ("K8_cross", (1, 4096, 120))):
+        q, k, v, g = (torch.randn((b, s, 16, 72), generator=gen,
+                                  device="cuda").bfloat16()
+                      for s in (sq, sk, sk, sq))
+        m = words = None
+        if label == "K8_cross":
+            m = torch.zeros((b, sk), dtype=torch.bool, device="cuda")
+            m[:, :13] = True
+            words = A._pack_mask_words(m, b, sk)
+        o, lse = A.flash_fwd(q, k, v, sm_scale=72 ** -0.5, kv_valid=m,
+                             emit_lse=True)
+        out[label] = (q, k, v, o, g, lse, m, words)
+    return out
+
+
+def _median_host_ms(fn, loops: int = 25, calls: int = 20) -> float:
+    """Median over ``loops`` loops of the host time per call of ``fn``, each
+    loop ``calls`` calls (too few to fill the launch queue), the device's
+    work finished between loops."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(loops):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+        torch.cuda.synchronize()
+    return sorted(times)[loops // 2]
+
+
+def host_breakdown(gen: torch.Generator) -> None:
+    """Where the K8 wrapper's host time goes, at both STDiT shapes, for the
+    Hopper design (``flash_bwd``) and the old one (``_flash_bwd_mma``),
+    each a median of short loops (``_median_host_ms``): ``host_ms`` a
+    call; ``python_ms`` with the C call left out (checks, allocations);
+    ``ctypes_ms`` the C entry called with the same arguments but B=0,
+    which it refuses at once (the arguments' conversion and the call);
+    ``c_ms`` = host − python − ctypes (the current stream, tensor maps,
+    launches).  Beside them ``loop_ms``, the host time a call over 2000
+    calls, which waits on a full launch queue where the device is the
+    slower, and ``event_ms``, CUDA events around 2000 calls.  Then the
+    parts every wrapper pays: ``torch.cuda.current_stream()``, entering
+    ``torch.cuda.device`` and one 9.4 MB ``torch.empty``."""
+    sm = 72 ** -0.5
+    for label, t in _k8_inputs(gen).items():
+        for design, fn in (
+                ("sm90", lambda t=t: A.flash_bwd(
+                    *t[:6], sm_scale=sm, kv_valid=t[6], mask_words=t[7])),
+                ("mma", lambda t=t: A._flash_bwd_mma(
+                    *t[:6], sm, False, t[6]))):
+            host = _median_host_ms(fn)
+            loop = _host_ms(fn, 2000)
+            event = _time_ms(fn, 2000)
+            calls = []
+            launch = A._launch
+            A._launch = lambda *a: calls.append(a)
+            try:
+                python = _median_host_ms(fn)
+            finally:
+                A._launch = launch
+            source, symbol, argtypes, *args = calls[-1]
+            args = [a for a in args if not isinstance(a, torch.device)]
+            c_fn = getattr(kernels.load(source), symbol)
+            c_fn.argtypes, c_fn.restype = argtypes, ctypes.c_int
+            args[11] = 0   # B
+            handle = torch.cuda.current_stream().cuda_stream
+            conv = _median_host_ms(lambda: c_fn(*args, handle))
+            print(f"[host] kernel={label} design={design} "
+                  f"host_ms={host:.4f} python_ms={python:.4f} "
+                  f"ctypes_ms={conv:.4f} c_ms={host - python - conv:.4f} "
+                  f"loop_ms={loop:.4f} event_ms={event:.4f}", flush=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+    for name, fn in (
+            ("current_stream",
+             lambda: torch.cuda.current_stream().cuda_stream),
+            ("device_context", device_context),
+            ("empty", lambda: torch.empty((16, 256, 16, 72),
+                                          dtype=torch.bfloat16, device=dev))):
+        print(f"[host] part={name} ms={_median_host_ms(fn):.4f}",
+              flush=True)
+
+
 def main(argv=None) -> None:
     import sys
     picked = set((sys.argv[1:] if argv is None else argv)
-                 or ("K1", "K3", "K4", "K5", "K7"))
+                 or ("K1", "K3", "K4", "K5", "K7", "K8"))
     if not torch.cuda.is_available():
         raise SystemExit("attribution: no CUDA device")
     print(subprocess.run(
@@ -200,6 +350,8 @@ def main(argv=None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "host" in picked:
+        host_breakdown(gen)
     # kernel -> the calls each of its variants is timed on:
     # (label, call, timer, repetitions)
     calls = {}
@@ -246,6 +398,11 @@ def main(argv=None) -> None:
                                emit_lse=True)
         calls["K7"] = [("K7", lambda: A.flash_bwd(
             q7, k7, v7, o7, g7, lse7, sm_scale=0.125), _time_ms, 5)]
+    if "K8" in picked:
+        calls["K8"] = [
+            (label, (lambda t=t: A.flash_bwd(
+                *t[:6], sm_scale=72 ** -0.5, kv_valid=t[6], mask_words=t[7])),
+             device_ms, 50) for label, t in _k8_inputs(gen).items()]
     base = {}
     for (kernel, source, name), edits in VARIANTS.items():
         for label, fn, timer, reps in calls.get(kernel, ()):

@@ -8,13 +8,11 @@
 //   K8  `_flash_bwd_fused_kernel` in `flash_attention_bwd` (:1148, :1725),
 //       the single-pass generic backward, also behind `_fa_masked_bwd`
 //       (:2065), the kv_valid backward;
-// and, by mapping, the two-kernel `single_pass=False` baselines
-//   K9  `_flash_bwd_dkv_kernel` + `_flash_bwd_dq_kernel` (:1107, :1197);
-//   K10 `_flash_bwd_packed2_dkv_kernel` + `_flash_bwd_packed2_dq_kernel`
-//       (:1260, :1343), the baseline of the d=64 backward K7
-//       (`_flash_bwd_packed2_fused_kernel`, :1424), which runs on its own
-//       single-pass kernel, flash_bwd_sm90.cu.
-// All of them compute one function; this source computes it once.
+// and, by mapping, the two-kernel `single_pass=False` baseline
+//   K9  `_flash_bwd_dkv_kernel` + `_flash_bwd_dq_kernel` (:1107, :1197).
+// The d=64 backward K7 (`_flash_bwd_packed2_fused_kernel`, :1424) and its
+// baseline K10 (:1260, :1343) run flash_bwd_sm90.cu.  All of them compute
+// one function; this source computes it once.
 //
 // Function.  With s = (q.k) * sm_scale, masked to -inf above the causal
 // diagonal, past Sk and where kv_valid[b, key] == 0:
@@ -58,8 +56,10 @@
 // device memory once per kernel (q, k, v, dO twice in all), tiles are staged
 // with cp.async into two shared-memory buffers so that the next tile's load
 // overlaps this tile's products, and no padded copy is ever written.
-// The d=64 route K7 has its own single-pass wgmma kernel
-// (flash_bwd_sm90.cu); this source serves K8, K9 and K10.
+// In bf16 the d=64 routes K7 and K10 have their own single-pass wgmma
+// kernel (flash_bwd_sm90.cu), and K8 and K9 at d = 72 and 80, non-causal,
+// theirs (flash_bwd_rows_sm90.cu); this source serves K8 and K9 at every
+// other width and causal, and is the A/B baseline of both.
 //
 // Layout.  Both kernels: 4 warps, each owning 16 rows of the block's
 // 64-row tile (keys in dkv_kernel, queries in dq_kernel); the loop runs over

@@ -5,12 +5,14 @@
 // Replaces the TPU kernel K7 of the JAX package,
 // `_flash_bwd_packed2_fused_kernel` in `_flash_bwd_packed2`
 // (videotuna_tpu/kernels/attention.py:1424, :1517), the single-pass d=64
-// backward of CogVideoX training.  Like it, s, p and ds are computed once
-// for all three gradients (5 products, where flash_bwd.cu's dq pass
-// recomputes s and p: 7), and dq leaves each key tile as a partial sum that
-// is added up outside the tile: here by f32 atomic adds into a scratch that
-// stays in L2, where the TPU kernel writes per-key-tile partials that XLA
-// sums.
+// backward of CogVideoX training, and by mapping its two-kernel baseline
+// K10 (`_flash_bwd_packed2_dkv_kernel` + `_flash_bwd_packed2_dq_kernel`,
+// :1260, :1343), which computes the same function.  Like K7, s, p and ds
+// are computed once for all three gradients (5 products, where
+// flash_bwd.cu's dq pass recomputes s and p: 7), and dq leaves each key
+// tile as a partial sum that is added up outside the tile: here by f32
+// atomic adds into a scratch that stays in L2, where the TPU kernel writes
+// per-key-tile partials that XLA sums.
 //
 // Function (that of flash_bwd.cu).  With s = (q.k) * sm_scale:
 //   p  = exp(s - lse)      (lse clamped at -1e5, as the JAX kernels do)

@@ -84,11 +84,13 @@
 // rescaled by exp2(m_old - m) once a key tile, O after the tile's PV
 // product has completed (needs sm_scale > 0).  Without it, the fixed max M
 // as in K3.  LSE: lse = (m + log2 l) * ln 2, f32 (B, H, Sq), the layout the
-// backward (flash_bwd.cu, flash_bwd_sm90.cu) reads, written by the thread
-// of each row with tig = 0; rows past Sq are dropped.  MASK (D = 80): a
-// (B, Sk) key mask, packed in the same call by `pack_mask_kernel` (a warp
-// a word, by ballot) into 32-bit words, four a key tile (bit c of word w is
-// key 32 w + c, 0 past Sk).  A consumer loads the
+// backward (flash_bwd.cu, flash_bwd_sm90.cu, flash_bwd_rows_sm90.cu)
+// reads, written by the thread of each row with tig = 0; rows past Sq are
+// dropped.  MASK (D = 80): a (B, Sk) key mask, packed by
+// `pack_mask_kernel` (a warp a word, by ballot) into 32-bit words, four a
+// key tile (bit c of word w is key 32 w + c, 0 past Sk): in the same call,
+// or for a training forward by an earlier `pack_mask_words`, whose words
+// the backward (flash_bwd_rows_sm90.cu) reads too.  A consumer loads the
 // four words of a key tile as it starts the tile and gives each masked
 // column of the S accumulator -inf before the row max and the exp2 (so
 // p = 0 under either softmax; sm_scale > 0); the words' zeros past Sk take
@@ -884,17 +886,40 @@ __global__ void pack_mask_kernel(const unsigned char* mask, uint32_t* words,
     words[static_cast<long long>(b) * n_words + (key >> 5)] = w;
 }
 
+int pack_mask(const void* mask, long long mask_sb, void* words, int B,
+              int Sk, cudaStream_t s) {
+  if (B <= 0 || B > 65535 || Sk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (Sk + BLOCK_N - 1) / BLOCK_N;
+  pack_mask_kernel<<<dim3(n_tiles, B), BLOCK_N, 0, s>>>(
+      static_cast<const unsigned char*>(mask), static_cast<uint32_t*>(words),
+      Sk, mask_sb, 4 * n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The (B, Sk) key mask as bytes (0 = masked), rows `mask_sb` bytes apart,
+// packed into `words` ((B, ceil(Sk / 128) * 4) 32-bit words, 16-byte
+// aligned) as the persistent kernel and the short-row backward
+// (flash_bwd_rows_sm90.cu) read them.  Returns the CUDA error of the launch.
+extern "C" int pack_mask_words(const void* mask, long long mask_sb,
+                               void* words, int B, int Sk, void* stream) {
+  return pack_mask(mask, mask_sb, words, B, Sk,
+                   static_cast<cudaStream_t>(stream));
+}
 
 // Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
 // for what no kernel takes: a head width other than 64, 72, 80 or 128; a
 // key mask at a width other than 72 or 80; at 128 (K3's kernel) the online
 // softmax, the LSE or B*H above 65535; or a tensor TMA cannot read in
 // place.  d = 64, 72 and 80 take the persistent kernel.  `lse` is null
-// without the LSE; `online` 0 takes the fixed max `static_max`.  `mask` is
-// null, or the (B, Sk) key mask as bytes (0 = masked), rows `mask_sb` bytes
-// apart, which the call first packs into `words` ((B, ceil(Sk / 128) * 4)
-// 32-bit words, 16-byte aligned) for the persistent kernel.
+// without the LSE; `online` 0 takes the fixed max `static_max`.  `words`
+// is null without a key mask, else the mask's (B, ceil(Sk / 128) * 4)
+// 32-bit words (16-byte aligned) that the persistent kernel reads: packed
+// by an earlier `pack_mask_words` when `mask` is null, else first packed
+// by this call from `mask`, the (B, Sk) key mask as bytes (0 = masked),
+// rows `mask_sb` bytes apart.
 extern "C" int flash_fwd_sm90_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* mask, long long mask_sb, void* words, int B, int H, int Sq,
@@ -910,20 +935,17 @@ extern "C" int flash_fwd_sm90_bf16(
                        {v_sb, v_ss, v_sh}}};
   const bool wide = d == 72 || d == 80;
   if (wide || d == 64) {
-    if (mask && !wide) return static_cast<int>(cudaErrorInvalidValue);
+    if ((mask || words) && !wide)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (mask) {
-      if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-      const int n_tiles = (Sk + BLOCK_N - 1) / BLOCK_N;
-      pack_mask_kernel<<<dim3(n_tiles, B), BLOCK_N, 0, s>>>(
-          static_cast<const unsigned char*>(mask),
-          static_cast<uint32_t*>(words), Sk, mask_sb, 4 * n_tiles);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
+      if (!words) return static_cast<int>(cudaErrorInvalidValue);
+      const int e = pack_mask(mask, mask_sb, words, B, Sk, s);
+      if (e != 0) return e;
     }
     PParams p;
     p.o = static_cast<__nv_bfloat16*>(o);
     p.lse = static_cast<float*>(lse);
-    p.mask = static_cast<const uint4*>(mask ? words : nullptr);
+    p.mask = static_cast<const uint4*>(words);
     p.H = H;
     p.Sq = Sq;
     p.Sk = Sk;
@@ -936,13 +958,13 @@ extern "C" int flash_fwd_sm90_bf16(
     if (!wide)
       return launch_persistent_modes<64, false>(q, k, v, p, B, st, online,
                                                 lse != nullptr, s);
-    if (mask)
+    if (words)
       return launch_persistent_modes<80, true>(q, k, v, p, B, st, online,
                                                lse != nullptr, s);
     return launch_persistent_modes<80, false>(q, k, v, p, B, st, online,
                                               lse != nullptr, s);
   }
-  if (d != 128 || online || lse || mask || (long long)B * H > 65535)
+  if (d != 128 || online || lse || words || (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by flash_fwd_sm90.cu and
-// flash_bwd_sm90.cu: mbarriers, TMA tensor maps and loads, named barriers,
-// register reallocation, and warpgroup matrix products (wgmma) with their
-// shared-memory descriptors.  Raw PTX, no CUTLASS.
+// Hopper (sm_90a) building blocks shared by flash_fwd_sm90.cu,
+// flash_bwd_sm90.cu and flash_bwd_rows_sm90.cu: mbarriers, TMA tensor maps
+// and loads, named barriers, register reallocation, and warpgroup matrix
+// products (wgmma) with their shared-memory descriptors.  Raw PTX, no
+// CUTLASS.
 //
 // Shared-memory tiles.  Every bf16 tile is loaded by TMA as boxes of 64
 // head columns (128 bytes a row) with the 128-byte swizzle: row r of a box
@@ -231,6 +232,19 @@ __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da,
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 8, f32) (+)= A (64 x 16, shared memory) * B (16 x 8, shared
+// memory); TA / TB: 0 = K-major, 1 = MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n8(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
