@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --hunyuan-train FRAMES
+
+The second form builds the kernels and runs only the HunyuanVideo LoRA
+training (phase 21) at FRAMES×720×1280, without the resume, and prints its
+peak memory and seconds per step as a JSON line: the frame cut of phase 21
+is chosen from such runs.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -26,7 +32,10 @@ without a result line:
                 200×200 with a fixed max on LayerNormed q, k on
                 flash_fwd.cu; every case with the LSE.  Timed at the STDiT
                 shape beside the old design (flash_fwd.cu) on the same
-                tensors and SDPA, by CUDA events and by device time.
+                tensors and SDPA, by CUDA events and by device time.  The
+                f32 causal case of HunyuanVideo's LLaMA (B=1, 256 tokens,
+                32 heads of d=128) on flash_fwd.cu against the f32 plain
+                version, timed beside its bound at the f32 rate and SDPA.
 5. K4         — the key-masked route (flash_fwd_sm90.cu's persistent
                 kernel with the packed mask) at the STDiT-XL/2
                 cross-attention shape (B=2, 4096 queries, 120 keys, H=16,
@@ -93,7 +102,12 @@ without a result line:
                 design and SDPA as K2.  Times beside the bound, the plain
                 version and SDPA's backward (fwd+bwd minus fwd, backend
                 named, by events and by device time; a yardstick the port
-                never calls).
+                never calls).  HunyuanVideo's training attention (B=1, the
+                LoRA run's 7,456 tokens, H=24, d=128, RMSNormed q and k):
+                K5 under the fixed max 0 with the LSE and K8 unmasked, on
+                flash_fwd.cu and flash_bwd.cu, against the plain chunked
+                versions, timed beside the bound, the plain version and
+                SDPA's forward and backward.
 12. f32       — flash_fwd with f32 inputs against the f32 plain version at
                 the narrow VAE's mid-attention shape.
 13. train-cog — the training CLI's trainer on
@@ -105,17 +119,19 @@ without a result line:
                 (the cut and the peak memory at the encode are printed).
                 Asserts K1 = 60 and K7 = 30 per step, every K1 launch on
                 flash_fwd_sm90 and every K7 on flash_bwd_sm90, finite
-                losses and
-                gradient norms, the step-3 checkpoint and a --resume run
-                that restores step 3.
+                losses and gradient norms, the LoRA moved, the step-3
+                checkpoint and a --resume run that restores step 3.
 14. train-stdit — the same on configs/003_opensora/opensorav10_256x256.yaml
                 (STDiT-XL/2 full fine-tune, EMA 0.9999, 16×256×256):
                 K5 = K4 = 28 and K8 = 56 per step, every K5 and K4 on
                 flash_fwd_sm90 and every K8 on flash_bwd_rows_sm90, and the
                 EMA moved.
 15. train-reference — one training step of each flow at narrow width on the
-                card and on the CPU with the same weights, batch, t, noise
-                and LoRA tree: loss and trainable gradients must agree.
+                card and on the CPU with the same weights, batch, t (σ for
+                HunyuanVideo), noise and LoRA tree: loss and trainable
+                gradients must agree.  HunyuanVideo at d=128 (dim 256, 1
+                double and 2 single blocks, 192 image + 160 text tokens, so
+                K5 and K8 run on the card).
 16. K3        — the fixed-max route at d ≤ 128 (``flash_attention`` with
                 static_max, launching flash_fwd_sm90 counted as K3) against
                 its plain version at the HunyuanVideo 13B joint-attention
@@ -154,17 +170,34 @@ without a result line:
                 beside the old flash_bwd.cu at both training shapes: at
                 0.01–0.2 ms a kernel the host's launch (host_ms in the
                 compare= lines) can set a loop's CUDA-event time.
-21. kernels   — status of every TPU kernel of the JAX package.
+21. train-hunyuan — HunyuanVideo T2V LoRA through the registry's command
+                ``train-hunyuan-t2v-lora`` (cli/commands.py), on one card
+                (train.mesh.fsdp=1, train.mesh.sp=1), remat on: full width
+                and depth (dim 3072, 20 double and 40 single blocks, 24
+                heads of d=128; LoRA rank 64; LLaMA and CLIP in f32), 3
+                steps on dummy video at 720×1280 cut to 5 frames (2
+                latent frames, 7,456 tokens: at 9 frames the f32 VAE encode
+                runs out of memory beside the weights), then --resume.  Asserts K5 = 120, K8 = 60 and K2 =
+                32 per step and no other launch, none on a Hopper design,
+                finite losses, the LoRA moved, lora.pt and state.pt, step 3
+                restored; logs the peak memory, the tokens per attention and
+                the step taken apart.
+22. kernels   — status of every TPU kernel of the JAX package.
 
-They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–21.  Every launch
-count (K1–K10) is set to 0 just before each main-path run (the three
-sampling runs and the two training runs) and read just after; the
-kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those five runs (K1, K3, K4, K6, K7, K8 and K10
+They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–19, 21, 20, 22.
+Every launch count (K1–K10) is set to 0 just before each main-path run
+(the three sampling runs and the three training runs) and read just after;
+the kernels' JSON record, on the line before the last, gives each kernel's
+launches summed over those six runs, per design: an entry for each Hopper
+kernel and one for each case of a route that runs flash_fwd.cu or
+flash_bwd.cu on a main path (LLaMA's f32 K2, HunyuanVideo training's d=128
+K5 and K8) (K1, K3, K4, K6, K7, K8 and K10
 also give the old design's ms on the same tensors, flash_fwd.cu for K1
 and K6, flash_bwd.cu for K7, K8 and K10; K2, K4, K5 and K8 also the device
 times, K8 its host times and the cross-attention's figures as cross_*; K1
-its time at the training shape with the LSE).  K1's and K6's bound_ms is the largest of three floors: the
+its time at the training shape with the LSE; K5 and K8 their
+HunyuanVideo training figures as d128_*, K2 LLaMA's as llama_*).  K1's
+and K6's bound_ms is the largest of three floors: the
 bytes, the products and the exp2 (the special-function units).  The
 last line is
 {"ok": true, "device": {...}}.
@@ -235,7 +268,16 @@ HY_STEPS = 2                 # of the config's 50: every step costs the same
 HY_DECODE_LATENT_FRAMES = 2  # 5 pixel frames: the f32 decode of 33 won't fit
 HY_DEPTH = 20 + 40           # double + single blocks, one K3 launch each
 HY_LLAMA_LAYERS = 32         # one f32 K2 (causal, 256 tokens) each
+HY_LLAMA_HEADS = 32          # of d=128
 HY_REF_STEPS = 2             # narrow HunyuanVideo card-vs-CPU trajectory
+# HunyuanVideo LoRA training through the registry's command: 720×1280 held,
+# frames cut to the largest of 33, 17, 9, 5 whose run leaves ≥ 3 GB free:
+# 33, 17 and 9 run out of memory (``--hunyuan-train FRAMES``)
+HY_LORA_COMMAND = "train-hunyuan-t2v-lora"
+HY_TRAIN_FRAMES = 5
+HY_TRAIN_SIZE = (720, 1280)
+# tokens of each joint attention: the latent frames' 45×80 patches + 256 text
+HY_TRAIN_TOKENS = ((HY_TRAIN_FRAMES - 1) // 4 + 1) * 45 * 80 + 256
 
 
 def log(phase: str, **fields) -> None:
@@ -448,11 +490,12 @@ def _qkv(b, sq, sk, h, gen):
 
 
 def _plain_chunked(A, q, k, v, static_max, rows=256):
-    """The plain version over all query rows, a block of rows at a time
-    (the full score matrix would not fit)."""
+    """The plain version with the LSE over all query rows, a block of rows
+    at a time (the full score matrix would not fit)."""
     outs, lses = [], []
     for i in range(0, q.shape[1], rows):
-        o, lse = A.flash_fwd_plain(q[:, i:i + rows], k, v, sm_scale=0.125,
+        o, lse = A.flash_fwd_plain(q[:, i:i + rows], k, v,
+                                   sm_scale=q.shape[-1] ** -0.5,
                                    static_max=static_max, emit_lse=True)
         outs.append(o)
         lses.append(lse)
@@ -647,8 +690,9 @@ def _check_fwd(A, label, q, k, v, **kw) -> float:
 
 def _bound(flops: float, io_bytes: float, exp2_ms: float = 0.0):
     """The least time of the work: the larger of its bytes at the memory
-    rate and its operations at their peak rates, the products' and, where
-    given, the exp2's on the special-function units (``exp2_ms``)."""
+    rate and its operations at their peak rates, the bf16 products' on the
+    tensor cores and, where given, the exp2's on the special-function units
+    (``exp2_ms``)."""
     t_ops = max(flops / PEAK_BF16_FLOPS, exp2_ms / 1e3)
     t_bytes = io_bytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -700,7 +744,57 @@ def check_k2(A) -> dict:
         library=f"scaled_dot_product_attention[{backend}]",
         library_ms=f"{rec['library_ms']:.4f}")
     compare_designs(A, "stdit-xl2 spatial", q, k, v, False, rec)
+    rec.update(_check_llama_k2(A, gen))
     return dict(max_abs_err=err, **rec)
+
+
+def _check_llama_k2(A, gen) -> dict:
+    """K2 as HunyuanVideo's LLaMA runs it: f32, causal, B=1, 256 tokens,
+    32 heads of d=128 (GQA's kv heads repeated before the call), on
+    flash_fwd.cu; against the f32 plain version (F32_TOL of max|o|, the
+    LSE absolute), timed beside its bound and SDPA with is_causal.  The
+    kernel runs each f32 product as three bf16 tensor-core products (hi·hi +
+    hi·lo + lo·hi), so the bound takes the causal half of the scores three
+    times at the bf16 rate, beside q, k, v and o in f32."""
+    b, s, h, d = 1, 256, HY_LLAMA_HEADS, 128
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+               for _ in range(3))
+    kw = dict(sm_scale=d ** -0.5, causal=True)
+    before = (A.flash_fwd.launches["K2"], A.flash_fwd.launches_sm90["K2"])
+    out, lse = A.flash_fwd(q, k, v, emit_lse=True, **kw)
+    ref, ref_lse = A.flash_fwd_plain(q, k, v, emit_lse=True, **kw)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = F32_TOL * ref.abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = (err <= tol and lse_err <= F32_TOL
+          and (A.flash_fwd.launches["K2"], A.flash_fwd.launches_sm90["K2"])
+          == (before[0] + 1, before[1]))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms, backend = sdpa_ms((qt, kt, vt), {"is_causal": True},
+                                  reps=50)
+    bound_ms, bound_by = _bound(3 * 4.0 * b * h * d * s * (s + 1) / 2,
+                                4 * q.numel() * q.element_size())
+    rec = dict(llama_max_abs_err=err,
+               llama_ms=cuda_time_ms(lambda: A.flash_fwd(q, k, v, **kw),
+                                     reps=50),
+               llama_plain_ms=cuda_time_ms(
+                   lambda: A.flash_fwd_plain(q, k, v, **kw), reps=5),
+               llama_bound_ms=bound_ms, llama_bound_by=bound_by,
+               llama_library_ms=library_ms)
+    log("K2", case="llama f32 causal (HunyuanVideo text encode)",
+        shape=f"B{b}xS{s}xH{h}xd{d}", kernel="flash_fwd", dtype="f32",
+        max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+        lse_err=f"{lse_err:.3e}", lse_tol=F32_TOL,
+        ms=f"{rec['llama_ms']:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, plain_ms=f"{rec['llama_plain_ms']:.4f}",
+        library=f"scaled_dot_product_attention[{backend}](is_causal)",
+        library_ms=f"{library_ms:.4f}", ok=ok)
+    if not ok:
+        raise AssertionError("K2 (f32 causal, LLaMA's shape) disagrees with "
+                             "its plain version, or did not launch "
+                             "flash_fwd.cu")
+    return rec
 
 
 def check_k4(A) -> dict:
@@ -837,7 +931,7 @@ def run_e2e(A) -> dict:
         raise AssertionError(f"video shape {video.shape}")
     if not os.path.isfile(os.path.join(savedir, "metric.json")):
         raise AssertionError("metric.json missing")
-    return launches
+    return dict(launches=launches, sm90=sm90)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -947,7 +1041,7 @@ def run_e2e_opensora(A) -> dict:
         raise AssertionError(f"video shape {video.shape}")
     if not os.path.isfile(os.path.join(savedir, "metric.json")):
         raise AssertionError("metric.json missing")
-    return launches
+    return dict(launches=launches, sm90=sm90)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1517,7 +1611,102 @@ def check_bwd(A) -> dict:
         if not ok:
             raise AssertionError(f"gradients through the custom VJP "
                                  f"disagree with autograd ({label})")
+    check_bwd_hunyuan(A, gen, rec)
     return rec
+
+
+def check_bwd_hunyuan(A, gen, rec) -> None:
+    """HunyuanVideo's training attention (B=1, the LoRA run's tokens, H=24,
+    d=128, bf16, RMSNormed q and k): K5, the forward under the fixed max 0
+    with the LSE, against the plain chunked forward; K8, unmasked, on that
+    forward's output and LSE against the plain chunked backward.  Both on
+    the old designs (flash_fwd.cu, flash_bwd.cu: neither Hopper kernel
+    takes d=128 with the LSE), timed beside the bound, the plain version
+    and SDPA (forward; backward as forward plus backward minus forward).
+    Into ``rec["K5"]`` and ``rec["K8"]`` as ``d128_*``."""
+    b, s, h, d = 1, HY_TRAIN_TOKENS, SHAPE_HY["h"], 128
+    sm = d ** -0.5
+    q, k = (_rms(torch.randn((b, s, h, d), generator=gen,
+                             device="cuda")).bfloat16() for _ in range(2))
+    v, g = (torch.randn((b, s, h, d), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    shape = f"B{b}xS{s}xH{h}xd{d}"
+
+    def fwd():
+        return A.flash_fwd(q, k, v, sm_scale=sm, static_max=0.0,
+                           emit_lse=True, route="K5")
+
+    counts = (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"])
+    out, lse = fwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_lse = _plain_chunked(A, q, k, v, 0.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = FWD_TOL * ref.float().abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = (err <= tol and lse_err <= LSE_TOL
+          and (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"])
+          == (counts[0] + 1, counts[1]))
+    del ref, ref_lse
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=10)
+    del qt, kt, vt
+    flops = 4.0 * b * h * s * s * d
+    bound_ms, bound_by = _bound(flops, 4 * q.numel() * q.element_size()
+                                + lse.numel() * 4)
+    ms = cuda_time_ms(fwd, reps=10)
+    k5 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=library_ms)
+    log("K5", case="hunyuan training joint, static_max=0, emit_lse",
+        shape=shape, kernel="flash_fwd", max_abs_err=f"{err:.3e}",
+        tol=f"{tol:.3e}", lse_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
+        ms=f"{ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}",
+        bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.1f}",
+        library=f"scaled_dot_product_attention[{backend}]",
+        library_ms=f"{library_ms:.3f}", ok=ok)
+    if not ok:
+        raise AssertionError("K5 at HunyuanVideo's training shape disagrees "
+                             "with its plain version, or did not launch "
+                             "flash_fwd.cu")
+    rec["K5"].update({f"d128_{key}": val for key, val in k5.items()})
+
+    def bwd():
+        return A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm)
+
+    counts = (A.flash_bwd.launches["K8"], A.flash_bwd.launches_sm90["K8"])
+    got = bwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = _bwd_plain_chunked(A, q, k, v, out, g, lse, sm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, ok, rows = _bwd_errs(got, ref)
+    ok = ok and (A.flash_bwd.launches["K8"],
+                 A.flash_bwd.launches_sm90["K8"]) == (counts[0] + 1,
+                                                      counts[1])
+    del got, ref
+    flops = 10.0 * b * h * s * s * d
+    bound_ms, bound_by = _bound(flops, 8 * q.numel() * q.element_size()
+                                + lse.numel() * 4)
+    ms = cuda_time_ms(bwd, reps=5)
+    library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=5)
+    k8 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=library_ms)
+    log("K8", case="hunyuan training joint, unmasked", shape=shape,
+        kernel="flash_bwd", dq=rows[0], dk=rows[1], dv=rows[2],
+        ms=f"{ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}",
+        bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.1f}", library=f"sdpa backward[{backend}]",
+        library_ms=f"{library_ms:.3f}", ok=ok)
+    if not ok:
+        raise AssertionError("K8 at HunyuanVideo's training shape disagrees "
+                             "with the plain backward, or did not launch "
+                             "flash_bwd.cu")
+    rec["K8"].update({f"d128_{key}": val for key, val in k8.items()})
+    del q, k, v, g, out, lse
 
 
 # ---------------------------------------------------------------- phase 12
@@ -1566,35 +1755,48 @@ def _dummy_data(frames: int, height: int, width: int) -> str:
             f"num_frames: {frames}, resolution: [{height}, {width}]}}}}")
 
 
-def _train_run(A, tag: str, argv, per_step: dict, lora: bool) -> dict:
+def _train_run(A, tag: str, argv, per_step: dict, lora: bool,
+               resume: bool = True) -> dict:
     """``TRAIN_STEPS`` steps through the training CLI's trainer: loss,
     grad-norm and seconds per step, peak memory, launches per step (checked
-    against ``per_step``), the trainable count, the checkpoint; then a
-    ``--resume`` run of ``run_train`` that must restore the last step."""
+    against ``per_step``), the trainable count, the checkpoint, that a LoRA
+    run's b matrices (or a full fine-tune's EMA) moved; then, with
+    ``resume``, a ``--resume`` run of ``run_train`` that must restore the
+    last step."""
     import shutil
     from videotuna_tpu_torch.cli.train import build_trainer, run_train
     workdir = argv[argv.index("--workdir") + 1]
     shutil.rmtree(workdir, ignore_errors=True)
     trainer, loader, _ = build_trainer(argv)
+    log(tag, weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state()
     n_trainable = trainer.num_trainable(state)
     ema0 = ({k: v.cpu() for k, v in state.ema_params.items()}
             if state.ema_params is not None else None)   # off the card
-    p0 = {k: v.clone() for k, v in list(state.params.items())[:8]}
+    # a LoRA run's b matrices start at 0 and move only if its steps train;
+    # a full fine-tune's first leaves (host copies, off the card)
+    moving = ([k for k in state.params if k.endswith("/b")] if lora
+              else list(state.params)[:8])
+    p0 = {k: state.params[k].detach().to("cpu", copy=True) for k in moving}
     zero_counts(A)
     state = trainer.fit(loader, state)
     torch.cuda.synchronize()
     launches = read_counts(A)
     sm90 = read_sm90_counts(A)
     peak = torch.cuda.max_memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    # the card's memory left at the peak: its total less the CUDA context
+    # and everything the caching allocator held at its most
+    context = total - free - torch.cuda.memory_reserved()
+    free_at_peak = total - context - torch.cuda.max_memory_reserved()
     hist = trainer.metrics_history
     for m in hist:
         log(tag, step=m["step"], loss=f"{m['loss']:.6f}",
             grad_norm=f"{m['grad_norm']:.6f}",
             sec=f"{1.0 / m['steps_per_sec']:.3f}")
     sec = [1.0 / m["steps_per_sec"] for m in hist[1:]]
-    moved = max((state.params[k] - v).abs().max().item()
+    moved = max((state.params[k].detach().cpu() - v).abs().max().item()
                 for k, v in p0.items())
     ema_moved = (max((v.cpu() - ema0[k]).abs().max().item()
                      for k, v in state.ema_params.items())
@@ -1604,7 +1806,10 @@ def _train_run(A, tag: str, argv, per_step: dict, lora: bool) -> dict:
     files = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
     log(tag, steps=len(hist), sec_per_step_2_3=",".join(f"{x:.3f}"
                                                          for x in sec),
-        peak_mem_gb=f"{peak / 1e9:.2f}", trainable=n_trainable,
+        peak_mem_gb=f"{peak / 1e9:.2f}",
+        peak_reserved_gb=f"{torch.cuda.max_memory_reserved() / 1e9:.2f}",
+        free_at_peak_gb=f"{free_at_peak / 1e9:.2f}",
+        card_gb=f"{total / 1e9:.2f}", trainable=n_trainable,
         launches_per_step=got, sm90_launches=sm90,
         params_moved=f"{moved:.3e}",
         ema_moved=("none" if ema_moved is None else f"{ema_moved:.3e}"),
@@ -1618,12 +1823,18 @@ def _train_run(A, tag: str, argv, per_step: dict, lora: bool) -> dict:
                              f"{per_step}")
     if "state.pt" not in files or (lora and "lora.pt" not in files):
         raise AssertionError(f"{tag}: checkpoint files {files}")
+    if lora and not moved > 0:
+        raise AssertionError(f"{tag}: the LoRA b matrices did not move")
     if ema_moved is not None and not ema_moved > 0:
         raise AssertionError(f"{tag}: the EMA did not move")
     del ema0, p0
     _step_breakdown(trainer, loader, state, tag)
     del trainer, loader, state
     _free()
+    out = dict(launches=launches, sm90=sm90, sec_per_step=sec,
+               peak_gb=peak / 1e9, free_at_peak_gb=free_at_peak / 1e9)
+    if not resume:
+        return out
     zero_counts(A)
     resumed = run_train(argv + ["--resume"])
     step = resumed.step
@@ -1632,27 +1843,34 @@ def _train_run(A, tag: str, argv, per_step: dict, lora: bool) -> dict:
     log(tag, resume=f"restored step {step}", launches=read_counts(A))
     if step != TRAIN_STEPS or any(read_counts(A).values()):
         raise AssertionError(f"{tag}: --resume gave step {step}")
-    return dict(launches=launches, sm90=sm90, sec_per_step=sec,
-                peak_gb=peak / 1e9)
+    return out
 
 
 def _step_breakdown(trainer, loader, state, tag: str) -> None:
     """One more step taken apart, host clock around synchronised parts:
-    the host data pipeline, the T5 encode, the VAE encode, the denoiser's
-    forward and backward, and the whole step (the optimizer's update is
-    the difference).  After the checkpoint; its launches are not counted."""
-    def timed(fn):
+    the host data pipeline, the caption encode with the batch's copy to the
+    card, the VAE encode, the denoiser's forward and backward, and the
+    whole step (the optimizer's update is the difference).  After the
+    checkpoint; its launches are not counted."""
+    from videotuna_tpu_torch.data.prefetch import to_device
+    peaks = {}
+
+    def timed(fn, part=None):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        if part is not None:
+            peaks[part] = torch.cuda.max_memory_allocated() / 1e9
         return out, time.perf_counter() - t0
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     batch, t_data = timed(lambda: next(iter(loader)))
-    batch, t_text = timed(lambda: trainer.prepare_batch(batch))
+    batch, t_text = timed(lambda: to_device(trainer.prepare_batch(batch),
+                                            "cuda"))
     z, t_vae = timed(lambda: trainer.flow.encode_video(batch.pop("video"),
-                                                       gen))
+                                                       gen), "vae_encode")
     batch["latents"] = z
 
     def fwd_bwd():
@@ -1667,12 +1885,13 @@ def _step_breakdown(trainer, loader, state, tag: str) -> None:
             for p in state.params.values():
                 p.grad = None
 
-    _, t_fb = timed(fwd_bwd)
+    _, t_fb = timed(fwd_bwd, "denoiser_fwd_bwd")
     _, t_step = timed(lambda: trainer.compiled_step()(state, batch, gen))
     log(tag, breakdown_sec=f"data={t_data:.3f},text_encode={t_text:.3f},"
         f"vae_encode={t_vae:.3f},denoiser_fwd_bwd={t_fb:.3f},"
         f"optimizer={t_step - t_fb:.3f}",
-        step_without_data_and_encoders=f"{t_step:.3f}")
+        step_without_data_and_encoders=f"{t_step:.3f}",
+        peak_gb=",".join(f"{k}={v:.2f}" for k, v in peaks.items()))
 
 
 def run_train_cog(A) -> dict:
@@ -1759,6 +1978,57 @@ def run_train_stdit(A) -> dict:
     return out
 
 
+def _hunyuan_lora_argv(frames: int):
+    """The registry's ``train-hunyuan-t2v-lora`` command line (its configs
+    and overrides) with this run's: one card (the config's mesh is for 8
+    and 2), remat, dummy video, ``TRAIN_STEPS`` steps, a log line each."""
+    from videotuna_tpu_torch.cli.commands import COMMANDS
+    cmd = COMMANDS[HY_LORA_COMMAND]
+    argv = []
+    for cfg in cmd.configs:
+        argv += ["--config", cfg]
+    return argv + [
+        "--device", "cuda", "--quiet", "--max_steps", str(TRAIN_STEPS),
+        "--workdir", os.path.join(OUT_DIR, f"train_hunyuan_{frames}")] \
+        + cmd.overrides + [
+        "train.mesh.fsdp=1", "train.mesh.sp=1",
+        "flow.params.denoiser_config.params.remat=true",
+        _dummy_data(frames, *HY_TRAIN_SIZE),
+        f"train.ckpt_every={TRAIN_STEPS}", "train.log_every=1"]
+
+
+def run_train_hunyuan(A, frames: int = HY_TRAIN_FRAMES,
+                      resume: bool = True) -> dict:
+    """HunyuanVideo T2V LoRA (rank 64 on every matched projection of the 13B
+    DiT: dim 3072, 20 double and 40 single blocks, 24 heads of d=128; LLaMA
+    and CLIP in f32; remat) through the registry's command, 3 steps on dummy
+    video at ``frames``×720×1280, then ``--resume``.  Per step: K5 = 120
+    (each block's joint attention forward, and again when remat recomputes
+    it), K8 = 60 (its backward), K2 = 32 (the f32 causal LLaMA layers of
+    the caption encode), none on a Hopper design at these widths."""
+    height, width = HY_TRAIN_SIZE
+    _free()
+    lat = (frames - 1) // 4 + 1
+    tokens = lat * (height // 16) * (width // 16) + 256
+    log("train-hunyuan", command=HY_LORA_COMMAND, frames=frames,
+        height=height, width=width, latent_frames=lat,
+        tokens_per_attention=tokens, lora_rank=64, remat=True,
+        cut=f"frames {frames} of the config's 129 ({height}x{width} held)",
+        resident_before_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    per_step = {"K5": 2 * HY_DEPTH, "K8": HY_DEPTH, "K2": HY_LLAMA_LAYERS,
+                "K1": 0, "K3": 0, "K4": 0, "K6": 0, "K7": 0, "K9": 0,
+                "K10": 0}
+    out = _train_run(A, "train-hunyuan",
+                     _hunyuan_lora_argv(frames), per_step,
+                     lora=True, resume=resume)
+    if any(out["sm90"][k] for k in ("K2", "K5", "K8")):
+        raise AssertionError(f"train-hunyuan: {out['sm90']}: K2, K5 and K8 "
+                             "have no Hopper design at d=128 (f32, or bf16 "
+                             "with the LSE): every launch must run "
+                             "flash_fwd.cu / flash_bwd.cu")
+    return dict(out, frames=frames, tokens=tokens)
+
+
 # ---------------------------------------------------------------- phase 15
 def _grads_close(tag, named_gpu, named_cpu):
     """Each trainable gradient, card against CPU, within TRAIN_GRAD_TOL of
@@ -1788,8 +2058,11 @@ def check_train_reference(A) -> None:
     """One training step of each flow at narrow width, on the card and on
     the CPU, with the same weights, batch, t, noise and LoRA tree, TF32 off:
     CogVideoX (2 layers, 2 heads of d=64, LoRA rank 8, 128 video + 226 text
-    tokens: K1 and K7) and STDiT (2 layers, 2 heads of d=72, 4×32×32
-    latents, 256 spatial tokens and a 13-of-120 caption: K5, K4, K8).  Loss
+    tokens: K1 and K7), STDiT (2 layers, 2 heads of d=72, 4×32×32 latents,
+    256 spatial tokens and a 13-of-120 caption: K5, K4, K8) and
+    HunyuanVideo (dim 256, 2 heads of d=128, 1 double and 2 single blocks,
+    LoRA rank 8, 192 image + 160 text tokens, σ = 0.417, pooled text: K5 and
+    K8 under the fixed max).  Loss
     within TRAIN_LOSS_TOL relative, gradients within TRAIN_GRAD_TOL (bf16
     models on both sides, summed in other orders)."""
     from videotuna_tpu_torch.core.config import load_configs
@@ -1818,6 +2091,13 @@ def check_train_reference(A) -> None:
                   + narrow_t5,
                   (1, 4, 32, 32, 4), (1, 120, 64), 13,
                   {"K5": 2, "K4": 2, "K8": 4}),
+        # dim 256, 2 heads of d=128, 1 double + 2 single blocks; 3×16×16
+        # latents: 192 image + 160 text tokens in each joint attention
+        "hunyuan_d128": (os.path.join(ROOT, "configs", "007_hunyuanvideo",
+                                      "hunyuanvideo_t2v_lora.yaml"),
+                         _narrow_hunyuan(),
+                         (1, 3, 16, 16, 16), (1, 160, 256), 13,
+                         {"K5": 3, "K8": 3}),
     }
     for name, (config, overrides, zshape, yshape, n_valid, expect) \
             in cases.items():
@@ -1831,14 +2111,18 @@ def check_train_reference(A) -> None:
         z = torch.randn(zshape, generator=gen)
         noise = torch.randn(zshape, generator=gen)
         y = torch.randn(yshape, generator=gen)
-        t = torch.tensor([417])
         batch = {"latents": z, "text_states": y}
+        if name == "hunyuan_d128":   # CLIP's vector; σ instead of t
+            batch["pooled_text"] = torch.randn((1, 64), generator=gen)
+            draw = {"sigma": torch.tensor([0.417])}
+        else:
+            draw = {"t": torch.tensor([417])}
         if n_valid is not None:
             mask = torch.zeros(yshape[:2], dtype=torch.bool)
             mask[:, :n_valid] = True
             batch["text_mask"] = mask
         tree = None
-        if name == "cogvideox":    # LoRA: a from the init, b small random
+        if name != "stdit":    # LoRA: a from the init, b small random
             tree = init_lora(cpu.denoiser, rank=8,
                              generator=torch.Generator().manual_seed(3))
             for path, leaf in flatten_tree(tree).items():
@@ -1863,7 +2147,8 @@ def check_train_reference(A) -> None:
                 stack.enter_context(flow._attn_scope())
                 loss, _ = flow.training_loss(
                     {k: v.to(dev) for k, v in batch.items()},
-                    t=t.to(dev), noise=noise.to(dev))
+                    noise=noise.to(dev),
+                    **{k: v.to(dev) for k, v in draw.items()})
                 loss.backward()
             if dev == "cuda":
                 torch.cuda.synchronize()
@@ -2040,7 +2325,7 @@ def run_e2e_hunyuan(A) -> dict:
         raise AssertionError("metric.json missing")
     del result
     _free()
-    return launches
+    return dict(launches=launches, sm90=sm90)
 
 
 def profile_hunyuan_call() -> dict:
@@ -2084,6 +2369,24 @@ def profile_hunyuan_call() -> dict:
                         prof, start.elapsed_time(end), "flash_fwd_sm90 (K3)")
 
 
+def _narrow_hunyuan():
+    """HunyuanVideo at narrow width, d=128 kept: the DiT at dim 256 (2
+    heads, 1 double and 2 single blocks), a 2-layer LLaMA of dim 256, a
+    2-layer CLIP of dim 64, the VAE at (32, 32, 64, 64), 160 text tokens."""
+    den = "flow.params.denoiser_config.params"
+    llama = "flow.params.cond_stage_config.params"
+    clip = "flow.params.cond_stage_2_config.params"
+    vae = "flow.params.first_stage_config.params"
+    return [
+        f"{den}.dim=256", f"{den}.heads=2", f"{den}.double_blocks=1",
+        f"{den}.single_blocks=2", f"{den}.text_dim=256",
+        f"{llama}.dim=256", f"{llama}.heads=2", f"{llama}.num_layers=2",
+        f"{clip}.dim=64", f"{clip}.heads=2",
+        f"{clip}.num_layers=2", f"{den}.pooled_dim=64",
+        f"{vae}.block_out_channels=[32, 32, 64, 64]",
+        f"{vae}.norm_num_groups=8", "flow.params.model_max_length=160"]
+
+
 def check_small_reference_hunyuan() -> None:
     """The narrow HunyuanVideo flow (dim 256, 2 heads of d=128, 1 double
     and 2 single blocks, a 2-layer LLaMA of d=128 over 160 tokens, the VAE
@@ -2094,20 +2397,8 @@ def check_small_reference_hunyuan() -> None:
     from videotuna_tpu_torch.core.config import load_configs
     from videotuna_tpu_torch.core.registry import instantiate
     import videotuna_tpu_torch.kernels.attention as A
-    den = "flow.params.denoiser_config.params"
-    llama = "flow.params.cond_stage_config.params"
-    clip = "flow.params.cond_stage_2_config.params"
-    vae = "flow.params.first_stage_config.params"
-    cfg = load_configs([CONFIG_HY], [
-        f"{den}.dim=256", f"{den}.heads=2", f"{den}.double_blocks=1",
-        f"{den}.single_blocks=2", f"{den}.text_dim=256",
-        f"{llama}.dim=256", f"{llama}.heads=2", f"{llama}.num_layers=2",
-        f"{clip}.dim=64", f"{clip}.heads=2",
-        f"{clip}.num_layers=2", f"{den}.pooled_dim=64",
-        f"{vae}.block_out_channels=[32, 32, 64, 64]",
-        f"{vae}.norm_num_groups=8", "flow.params.model_max_length=160",
-        f"flow.params.scheduler_config.params.num_steps={HY_REF_STEPS}",
-    ])
+    cfg = load_configs([CONFIG_HY], _narrow_hunyuan() + [
+        f"flow.params.scheduler_config.params.num_steps={HY_REF_STEPS}"])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cpu = instantiate(cfg["flow"], device="cpu")
@@ -2153,7 +2444,8 @@ def check_small_reference_hunyuan() -> None:
 
 
 # ---------------------------------------------------------------- main
-def main() -> None:
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
@@ -2186,6 +2478,17 @@ def main() -> None:
     if serialised:
         raise AssertionError(f"ptxas serialised the wgmma of {serialised} "
                              "(C751x): see the build lines")
+    if argv[:1] == ["--hunyuan-train"]:
+        # one HunyuanVideo LoRA size alone, without resume: the frame cut is
+        # chosen from such runs (an out-of-memory error ends it non-zero)
+        frames = int(argv[1])
+        out = run_train_hunyuan(A, frames, resume=False)
+        print(json.dumps({"hunyuan_train": {
+            "frames": frames, "size": HY_TRAIN_SIZE, "tokens": out["tokens"],
+            "peak_gb": out["peak_gb"],
+            "free_at_peak_gb": out["free_at_peak_gb"],
+            "sec_per_step": out["sec_per_step"]}}), flush=True)
+        return
 
     k1 = check_k1(A)
     k6 = k1.pop("k6")
@@ -2202,32 +2505,37 @@ def main() -> None:
     profile_opensora_call()
     cog = run_train_cog(A)
     stdit = run_train_stdit(A)
-    runs += [cog["launches"], stdit["launches"]]
+    runs += [cog, stdit]
     check_train_reference(A)
     runs.append(run_e2e_hunyuan(A))
     check_small_reference_hunyuan()
     profile_hunyuan_call()
+    runs.append(run_train_hunyuan(A))
     device_times(A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the five main-path runs
-    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    # each kernel's launches over the six main-path runs
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
               "bf16, fixed max or online, optional LSE), checked",
         "K2": "redesigned for Hopper (flash_fwd_sm90 persistent, d=72/80 "
-              "bf16), checked",
+              "bf16), checked; f32 causal (LLaMA) on flash_fwd.cu, checked",
         "K3": "redesigned for Hopper (flash_fwd_sm90: TMA, wgmma, "
               "warp-specialised), checked",
         "K4": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
               "key mask, d=72/80 bf16), checked",
         "K5": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
-              "LSE, d=72/80 bf16), checked",
+              "LSE, d=72/80 bf16), checked; d=128 with the LSE "
+              "(HunyuanVideo training) on flash_fwd.cu, checked",
         "K6": "mapped onto K1's kernel (flash_fwd_sm90 persistent, online), "
               "checked",
         "K7": "redesigned for Hopper (flash_bwd_sm90: single pass, wgmma), "
               "checked",
         "K8": "redesigned for Hopper (flash_bwd_rows_sm90: single pass, "
-              "persistent, d=72/80 bf16, key mask as bit words), checked",
+              "persistent, d=72/80 bf16, key mask as bit words), checked; "
+              "d=128 (HunyuanVideo training) on flash_bwd.cu, checked",
         "K9": "mapped onto K8's kernel (flash_bwd_rows_sm90 at d=72/80), "
               "checked",
         "K10": "mapped onto K7's kernel (flash_bwd_sm90), checked"}
@@ -2235,6 +2543,8 @@ def main() -> None:
     fwd90 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_sm90.cu"
     rows90 = "videotuna_tpu_torch/kernels/csrc/flash_bwd_rows_sm90.cu"
     bwd90 = "videotuna_tpu_torch/kernels/csrc/flash_bwd_sm90.cu"
+    fwd_mma = "videotuna_tpu_torch/kernels/csrc/flash_fwd.cu"
+    bwd_mma = "videotuna_tpu_torch/kernels/csrc/flash_bwd.cu"
     tpu = "videotuna_tpu/kernels/attention.py"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2247,17 +2557,25 @@ def main() -> None:
                                "bound_by", "library_ms", "old_design_ms",
                                "device_ms", "old_design_device_ms",
                                "library_device_ms", "host_ms",
-                               "old_design_host_ms"))
+                               "old_design_host_ms")) + tuple(
+        f"{p}_{k}" for p in ("d128", "llama")
+        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms"))
 
-    def entry(name, source, replaces, kernel, rec):
+    def entry(name, source, replaces, kernel, rec, hopper=True):
         # a redesigned kernel adds the old design's ms on the same tensors
         # (K2, K4, K5: and the device times of both designs and the
-        # library; K1: its time at the training shape with the LSE)
+        # library; K1: its time at the training shape with the LSE); its
+        # launches are those of this entry's design: the Hopper kernel's,
+        # or the rest of the route's on flash_fwd.cu / flash_bwd.cu
         old = {k: rec[k] for k in extra_keys if k in rec}
+        n = sm90[kernel] if hopper else launches[kernel] - sm90[kernel]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": f"{tpu}:{replaces}",
-                "launches": launches[kernel],
+                "replaces": f"{tpu}:{replaces}", "launches": n,
                 **{k: rec[k] for k in keys}, **old}
+
+    def fields(rec, prefix):
+        return {k: rec[f"{prefix}_{k}"] for k in keys}
 
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1),
@@ -2279,6 +2597,14 @@ def main() -> None:
               1107, "K9", bwd["K9"]),
         entry("flash_bwd_sm90 single_pass=False, d=64 (K10)", bwd90, 1260,
               "K10", bwd["K10"]),
+        # the routes' cases that no Hopper kernel takes, on the main paths:
+        # LLaMA's f32 causal K2, HunyuanVideo training's d=128 K5 and K8
+        entry("flash_fwd.cu f32 causal, LLaMA (K2)", fwd_mma, 78, "K2",
+              fields(k2, "llama"), hopper=False),
+        entry("flash_fwd.cu d=128 with the LSE, HunyuanVideo training (K5)",
+              fwd_mma, 867, "K5", fields(bwd["K5"], "d128"), hopper=False),
+        entry("flash_bwd.cu d=128, HunyuanVideo training (K8)", bwd_mma,
+              1148, "K8", fields(bwd["K8"], "d128"), hopper=False),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -393,8 +393,7 @@ def test_hunyuan_configs_load_and_resolve_to_the_port(path):
 def test_hunyuan_flow_parts_that_wait_raise():
     cfg = pconfig.load_configs([TINY])["flow"]
     flow = pregistry.instantiate(cfg, device="cpu")
-    for call, what in ((flow.training_loss, "training"),
-                       (flow.encode_text_i2v, "i2v"),
+    for call, what in ((flow.encode_text_i2v, "i2v"),
                        (flow.prepare_image_cond, "i2v")):
         with pytest.raises(NotImplementedError, match=what):
             call({})

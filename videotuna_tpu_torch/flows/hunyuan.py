@@ -1,25 +1,30 @@
-"""HunyuanVideoFlow (torch): HunyuanVideo text-to-video sampling, the
-counterpart of ``videotuna_tpu/flows/hunyuan.py``: LLaMA states and the CLIP
-state at the last valid token → ``HYVideoDiT`` with embedded guidance on the
-shifted flow-matching Euler schedule → the causal VAE.
+"""HunyuanVideoFlow (torch): HunyuanVideo text-to-video sampling and
+training, the counterpart of ``videotuna_tpu/flows/hunyuan.py``: LLaMA states
+and the CLIP state at the last valid token → ``HYVideoDiT`` with embedded
+guidance on the shifted flow-matching Euler schedule → the causal VAE;
+training draws logit-normal sigmas, x_t = (1 − σ)·x0 + σ·ε, and regresses
+the velocity ε − x0.
 
 The DiT's joint attention runs under the fixed softmax max 0 (its q and k are
 RMSNormed at d=128, so every scaled log2-score lies within ±√128·log2e ≈ 16.3,
-inside exp2's window (−126, 127)).  Training and image-to-video wait for
-later slices (see ROADMAP.md).
+inside exp2's window (−126, 127)).  Image-to-video waits for a later slice
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from videotuna_tpu_torch.core.registry import register
 from videotuna_tpu_torch.flows.generation import Cond, GenerationFlow
 from videotuna_tpu_torch.models.text_encoders import tokenize
-from videotuna_tpu_torch.schedulers import FlowMatchSchedule, cfg_denoise
+from videotuna_tpu_torch.schedulers import (FlowMatchSchedule, cfg_denoise,
+                                            flow_interpolate, flow_target,
+                                            sample_sigmas)
+from videotuna_tpu_torch.schedulers.common import randn
 
 
 def riflex_temporal_scale(dim_t: int, num_latent_frames: int, k: int = 4,
@@ -110,10 +115,36 @@ class HunyuanVideoFlow(GenerationFlow):
                              cond.get("mask"), guidance, temporal_rope_scale)
 
     # --------------------------------------------------------------- training
-    def training_loss(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HunyuanVideo training (flow-matching loss, LoRA) waits for the "
-            "Hunyuan training queue of ROADMAP.md")
+    def training_loss(self, batch: Dict[str, Any],
+                      generator: Optional[torch.Generator] = None, *,
+                      sigma: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      posterior_noise: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Flow-matching MSE of the velocity, the per-sample mean with a
+        NaN sample counted as 0, then the batch mean.  ``batch``: "video"
+        (B, T, H, W, 3) in [−1, 1] or "latents", "text_states" and
+        optionally "text_mask" and "pooled_text" (CLIP's vector).  Given
+        ``sigma``, ``noise`` or ``posterior_noise`` replace the draws."""
+        z = batch.get("latents")
+        if z is None:
+            z = self.encode_video(batch["video"], generator,
+                                  noise=posterior_noise)
+        if sigma is None:
+            sigma = sample_sigmas(generator, z.shape[0], "logit_normal",
+                                  device=z.device)
+        sigma = sigma.to(z)
+        noise = (randn(z.shape, generator, z.device) if noise is None
+                 else noise.to(z))
+        x_t = flow_interpolate(z, noise, sigma)
+        cond = {"y": batch["text_states"], "mask": batch.get("text_mask"),
+                "pooled": batch.get("pooled_text")}
+        v_pred = self.denoise_apply(x_t, sigma * 1000.0, cond)
+        per = ((v_pred - flow_target(z, noise)) ** 2).mean(
+            dim=tuple(range(1, z.ndim)))
+        per = torch.where(torch.isnan(per), 0.0, per)
+        loss = per.mean()
+        return loss, {"loss": loss, "sigma_mean": sigma.mean()}
 
     # -------------------------------------------------------------- sampling
     def temporal_rope_scale(self, num_latent_frames: int

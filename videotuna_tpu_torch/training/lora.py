@@ -12,7 +12,9 @@ which the port's ``nn.Linear`` flattens (they carry ``flax_features``).
 
 The port's modules carry the flax names, so a module's flax kernel paths
 are its ``nn.Linear`` names with ``blocks.<i>`` read as ``block_<i>``
-or, when scanned, as depth ``i`` of the ``blocks`` stack.  The matching rules
+(``pairs.<i>`` as ``pair_<i>``, HunyuanVideo's ``double_blocks.<i>`` and
+``single_blocks.<i>`` as ``double_<i>`` and ``single_<i>``) or, when
+scanned, as depth ``i`` of the stack.  The matching rules
 (``default_match``, ``lora_target``) are the JAX package's, applied to the
 flax path and kernel shape.
 
@@ -43,7 +45,8 @@ MatchFn = Callable[[Tuple[str, ...], Tuple[int, ...]], bool]
 # leading depth axis
 _SCAN_STACKS = ("blocks", "double_blocks", "single_blocks")
 # port ModuleLists and the flax names of their unscanned members
-_LISTS = {"blocks": "block", "pairs": "pair"}
+_LISTS = {"blocks": "block", "pairs": "pair", "double_blocks": "double",
+          "single_blocks": "single"}
 
 
 def _is_stacked(path: Tuple[str, ...]) -> bool:

@@ -25,22 +25,26 @@ place.
   run takes (the JAX loop draws its keys from a counter and restarts the
   epoch on resume).  The host-side augmentation draws (``random``) are not
   part of the checkpoint, as in the JAX package.
+- ``fit`` prepares the batches (host pipeline, caption encode, copy to the
+  device) in a ``DevicePrefetcher`` thread, on the step's CUDA stream, as
+  the JAX trainer does; the losses are those of the plain loop.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import math
 import signal
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from videotuna_tpu_torch.core import checkpoint as ckpt_lib
 from videotuna_tpu_torch.core.prng import KeyChain
+from videotuna_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from videotuna_tpu_torch.training.lora import (count_lora_params,
                                                default_match, flatten_tree,
                                                init_lora, lora_scope,
@@ -301,18 +305,6 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
     return step
 
 
-def _to_device(batch: Dict[str, Any], device: torch.device
-               ) -> Dict[str, Any]:
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, np.ndarray):
-            v = torch.from_numpy(v)
-        if isinstance(v, torch.Tensor):
-            v = v.to(device, non_blocking=True)
-        out[k] = v
-    return out
-
-
 class Trainer:
     """Host-side loop: data, the train step, logging, checkpoints, signals,
     resume."""
@@ -450,8 +442,12 @@ class Trainer:
             t_last = time.perf_counter()
             while done < max_steps:
                 epoch_start = done
-                for batch in loader:
-                    batch = self.prepare_batch(batch)
+                # only the batches the remaining steps take, so the host's
+                # draws (augmentation, dummy clips) are those of the plain
+                # loop and a resumed run continues them
+                for batch in DevicePrefetcher(
+                        itertools.islice(loader, max_steps - done),
+                        self.flow.device, prepare=self.prepare_batch):
                     state, metrics = step_fn(
                         state, batch, self.keys.fixed("train_step", done))
                     done += 1
@@ -494,24 +490,27 @@ class Trainer:
             for i, batch in enumerate(val_loader):
                 if i >= max_batches:
                     break
-                loss, _ = self.flow.training_loss(self.prepare_batch(batch),
-                                                  self.keys("val_step"))
+                batch = to_device(self.prepare_batch(batch), self.flow.device)
+                loss, _ = self.flow.training_loss(batch, self.keys("val_step"))
                 losses.append(float(loss))
         return {"val_loss": sum(losses) / max(len(losses), 1),
                 "val_batches": float(len(losses))}
 
     def prepare_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """Host batch → device batch: arrays to the flow's device, captions
-        encoded by the frozen text encoder."""
+        """Host batch → model batch: captions encoded by the frozen text
+        encoder (on the flow's device), the other arrays left where they are
+        for the caller's copy (``DevicePrefetcher`` in ``fit``)."""
         out = dict(batch)
         if "caption" in out and "text_states" not in out:
             cond = self.flow.encode_text(out.pop("caption"))
             out["text_states"] = cond["y"]
             if cond.get("mask") is not None:
                 out["text_mask"] = cond["mask"]
+            if cond.get("pooled") is not None:
+                out["pooled_text"] = cond["pooled"]
         out.pop("path", None)
         out.pop("is_image", None)
-        return _to_device(out, self.flow.device)
+        return out
 
     def save(self, state: TrainState, step: int) -> str:
         """``state.pt`` (and, for LoRA, ``lora.pt``, the delta tree that
