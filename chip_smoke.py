@@ -90,9 +90,11 @@ without a result line:
                 flash_bwd_rows_sm90.cu at the STDiT-XL/2 spatial shape
                 (B=16, S=256, H=16, d=72) and K8 at the cross shape (4096
                 queries over 120 keys with a ragged mask, and a batch row
-                with no valid key: zeros); K8 on flash_bwd.cu at d=64
-                causal 333×333, d=128 300×4322, d=32 causal at a ragged
-                edge, d=256 and d=160 (B=2, S=300, H=3) causal and masked;
+                with no valid key: zeros); K8 on flash_bwd_sm90 at d=128
+                300×4322; K8 on flash_bwd.cu at d=128 masked 300×4322,
+                d=64 causal 333×333, d=32
+                causal at a ragged edge, d=256 and d=160 (B=2, S=300, H=3)
+                causal and masked;
                 the custom VJPs' gradients against autograd of the plain
                 math.  K8 timed at both STDiT shapes (the cross case with
                 13 of 120 keys and its own bound) beside the old design,
@@ -104,10 +106,12 @@ without a result line:
                 named, by events and by device time; a yardstick the port
                 never calls).  HunyuanVideo's training attention (B=1, the
                 LoRA run's 7,456 tokens, H=24, d=128, RMSNormed q and k):
-                K5 under the fixed max 0 with the LSE and K8 unmasked, on
-                flash_fwd.cu and flash_bwd.cu, against the plain chunked
-                versions, timed beside the bound, the plain version and
-                SDPA's forward and backward.
+                K5 under the fixed max 0 with the LSE on K3's Hopper kernel
+                and K8 unmasked on flash_bwd_sm90 at its width 128, against
+                the plain chunked versions (the old flash_bwd.cu too),
+                timed beside the bound, the plain version, SDPA's forward
+                and backward and the old designs (flash_fwd.cu,
+                flash_bwd.cu) on the same tensors.
 12. f32       — flash_fwd with f32 inputs against the f32 plain version at
                 the narrow VAE's mid-attention shape.
 13. train-cog — the training CLI's trainer on
@@ -129,9 +133,10 @@ without a result line:
 15. train-reference — one training step of each flow at narrow width on the
                 card and on the CPU with the same weights, batch, t (σ for
                 HunyuanVideo), noise and LoRA tree: loss and trainable
-                gradients must agree.  HunyuanVideo at d=128 (dim 256, 1
-                double and 2 single blocks, 192 image + 160 text tokens, so
-                K5 and K8 run on the card).
+                gradients must agree, and every card launch must be on a
+                Hopper design.  HunyuanVideo at d=128 (dim 256, 1 double
+                and 2 single blocks, 192 image + 160 text tokens, so K5 and
+                K8 run on the card, on the Hopper designs at d=128).
 16. K3        — the fixed-max route at d ≤ 128 (``flash_attention`` with
                 static_max, launching flash_fwd_sm90 counted as K3) against
                 its plain version at the HunyuanVideo 13B joint-attention
@@ -177,29 +182,34 @@ without a result line:
                 heads of d=128; LoRA rank 64; LLaMA and CLIP in f32), 3
                 steps on dummy video at 720×1280 cut to 5 frames (2
                 latent frames, 7,456 tokens: at 9 frames the f32 VAE encode
-                runs out of memory beside the weights), then --resume.  Asserts K5 = 120, K8 = 60 and K2 =
-                32 per step and no other launch, none on a Hopper design,
-                finite losses, the LoRA moved, lora.pt and state.pt, step 3
-                restored; logs the peak memory, the tokens per attention and
-                the step taken apart.
+                runs out of memory beside the weights), then --resume.
+                Asserts K5 = 120, K8 = 60 and K2 = 32 per step and no other
+                launch, every K5 and K8 on the Hopper designs at d=128
+                (K3's kernel with the LSE, flash_bwd_sm90) and every K2 on
+                flash_fwd.cu, finite losses, the LoRA moved, lora.pt and
+                state.pt, step 3 restored; logs the peak memory, the tokens
+                per attention and the step taken apart.
 22. kernels   — status of every TPU kernel of the JAX package.
 
 They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–19, 21, 20, 22.
+Each timed phase first logs the TF32 flags it runs under: PyTorch's
+defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
+(7, 9, 15, 18) turn TF32 off inside ``tf32_off`` and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
 (the three sampling runs and the three training runs) and read just after;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those six runs, per design: an entry for each Hopper
-kernel and one for each case of a route that runs flash_fwd.cu or
-flash_bwd.cu on a main path (LLaMA's f32 K2, HunyuanVideo training's d=128
-K5 and K8) (K1, K3, K4, K6, K7, K8 and K10
-also give the old design's ms on the same tensors, flash_fwd.cu for K1
-and K6, flash_bwd.cu for K7, K8 and K10; K2, K4, K5 and K8 also the device
-times, K8 its host times and the cross-attention's figures as cross_*; K1
-its time at the training shape with the LSE; K5 and K8 their
-HunyuanVideo training figures as d128_*, K2 LLaMA's as llama_*).  K1's
-and K6's bound_ms is the largest of three floors: the
-bytes, the products and the exp2 (the special-function units).  The
-last line is
+launches summed over those six runs, per design and, for the Hopper
+designs, per width: an entry for each Hopper kernel, with HunyuanVideo
+training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
+width 128) apart from STDiT's d=72 K5 and K8, and one for the case of a
+route that runs flash_fwd.cu on a main path (LLaMA's f32 K2) (K1, K3,
+K4, K5, K6, K7, K8 and K10 also give the old design's ms on the same
+tensors, flash_fwd.cu for K1, K5 and K6, flash_bwd.cu for K7, K8 and
+K10; K2, K4, K5 and K8 also the device times, K8 its host times and the
+cross-attention's figures as cross_*; K1 its time at the training shape
+with the LSE; K2 LLaMA's figures as llama_*).  K1's and K6's bound_ms is
+the largest of three floors: the bytes, the products and the exp2 (the
+special-function units).  The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -283,6 +293,37 @@ HY_TRAIN_TOKENS = ((HY_TRAIN_FRAMES - 1) // 4 + 1) * 45 * 80 + 256
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def tf32_flags() -> dict:
+    """The TF32 switches that f32 convolutions (cuDNN) and f32 matrix
+    products read."""
+    return {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Full f32 convolutions and products inside, for a card-vs-CPU check;
+    the flags it found are restored on the way out, so that every later
+    phase runs under PyTorch's defaults (TF32 convolutions, f32 products).
+    Also a decorator."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def timed_phase(phase: str, fn, *args):
+    """Run a timed phase after a log line of the TF32 flags it runs
+    under."""
+    log(phase, tf32=tf32_flags())
+    return fn(*args)
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -849,12 +890,15 @@ def check_k4(A) -> dict:
 # ---------------------------------------------------------------- phase 6
 def zero_counts(A) -> None:
     """Set every kernel's launch count to 0 just before a main-path run:
-    per route, per Hopper design, and the forward's alignment copies."""
+    per route, per Hopper design and of those at d = 128, and the
+    alignment copies."""
     A.flash_fwd.launches = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5",
                                            "K6")}
     A.flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
     A.flash_fwd.launches_sm90 = dict(A.flash_fwd.launches)
     A.flash_bwd.launches_sm90 = dict(A.flash_bwd.launches)
+    A.flash_fwd.launches_d128 = dict(A.flash_fwd.launches)
+    A.flash_bwd.launches_d128 = dict(A.flash_bwd.launches)
     A.flash_fwd.tma_copies = 0
     A.flash_bwd.tma_copies = 0
 
@@ -866,10 +910,15 @@ def read_counts(A) -> dict:
 
 def read_sm90_counts(A) -> dict:
     """The Hopper designs' launches (flash_fwd_sm90 for K1-K6,
-    flash_bwd_sm90 for K7 and K10, flash_bwd_rows_sm90 for K8 and K9) and
-    the alignment copies of the forward (``tma_copies``) and of the
-    backward (``bwd_tma_copies``), read with ``read_counts``."""
+    flash_bwd_sm90 for K7 and K10 and for K8 and K9 at d = 128,
+    flash_bwd_rows_sm90 for K8 and K9 at d = 72 and 80), of those the
+    launches at d = 128 as ``<route>_d128`` (K3's kernel for K3 and K5,
+    flash_bwd_sm90 for K8 and K9), and the alignment copies of the forward
+    (``tma_copies``) and of the backward (``bwd_tma_copies``), read with
+    ``read_counts``."""
+    d128 = dict(A.flash_fwd.launches_d128, **A.flash_bwd.launches_d128)
     return dict(A.flash_fwd.launches_sm90, **A.flash_bwd.launches_sm90,
+                **{f"{k}_d128": n for k, n in d128.items()},
                 tma_copies=A.flash_fwd.tma_copies,
                 bwd_tma_copies=A.flash_bwd.tma_copies)
 
@@ -935,6 +984,7 @@ def run_e2e(A) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
+@tf32_off()
 def check_small_reference() -> None:
     """The narrow 5B-shaped flow on the card (K1) against the CPU (K1's
     plain version), same weights, same x_T and noise, TF32 off."""
@@ -955,8 +1005,6 @@ def check_small_reference() -> None:
         f"flow.params.ddim_steps={E2E_STEPS}",
         f"flow.params.scheduler_config.params.num_steps={E2E_STEPS}",
     ])
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cpu = instantiate(cfg["flow"], device="cpu")
     gpu = instantiate(cfg["flow"], device="cuda")
     cpu.init_params(seed=1)
@@ -1045,6 +1093,7 @@ def run_e2e_opensora(A) -> dict:
 
 
 # ---------------------------------------------------------------- phase 9
+@tf32_off()
 def check_small_reference_opensora() -> None:
     """The narrow Open-Sora flow on the card (K2, K4) against the CPU (their
     plain versions), same weights, x_T, prompt and latents, TF32 off."""
@@ -1061,8 +1110,6 @@ def check_small_reference_opensora() -> None:
         "flow.params.first_stage_config.params.num_res_blocks=1",
         f"flow.params.ddim_steps={OS_REF_STEPS}",
     ])
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cpu = instantiate(cfg["flow"], device="cpu")
     gpu = instantiate(cfg["flow"], device="cuda")
     cpu.init_params(seed=1)
@@ -1345,7 +1392,7 @@ def _check_bwd_case(A, label, route, q, k, v, g, single_pass=True,
         and A.flash_bwd.launches_sm90 == dict(
             before[1], **{route: before[1][route] + (design == "sm90")})
     b, sq, h, d = q.shape
-    kernel = {"mma": "flash_bwd", "sm90": "flash_bwd_sm90" if d == 64
+    kernel = {"mma": "flash_bwd", "sm90": "flash_bwd_sm90" if d in (64, 128)
               else "flash_bwd_rows_sm90"}[design]
     log(route, case=label, shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}",
         kernel=kernel, causal=kw.get("causal", False),
@@ -1557,6 +1604,7 @@ def check_bwd(A) -> dict:
     for label, (bb, sq, sk, hh, dd, causal, masked) in {
             "d64 causal": (2, 333, 333, 2, 64, True, False),
             "d128 ragged long": (1, 300, 4322, 2, 128, False, False),
+            "d128 masked": (1, 300, 4322, 2, 128, False, True),
             "d32 causal ragged edge": (1, 130, 300, 2, 32, True, False),
             "d256 causal": (2, 300, 300, 3, 256, True, False),
             "d256 masked": (2, 300, 300, 3, 256, False, True),
@@ -1618,12 +1666,13 @@ def check_bwd(A) -> dict:
 def check_bwd_hunyuan(A, gen, rec) -> None:
     """HunyuanVideo's training attention (B=1, the LoRA run's tokens, H=24,
     d=128, bf16, RMSNormed q and k): K5, the forward under the fixed max 0
-    with the LSE, against the plain chunked forward; K8, unmasked, on that
-    forward's output and LSE against the plain chunked backward.  Both on
-    the old designs (flash_fwd.cu, flash_bwd.cu: neither Hopper kernel
-    takes d=128 with the LSE), timed beside the bound, the plain version
-    and SDPA (forward; backward as forward plus backward minus forward).
-    Into ``rec["K5"]`` and ``rec["K8"]`` as ``d128_*``."""
+    with the LSE, on K3's Hopper kernel, against the plain chunked forward;
+    K8, unmasked, on that forward's output and LSE, on flash_bwd_sm90 at
+    its width 128, against the plain chunked backward.  Each counted per
+    route, per design and at d=128, and timed beside the bound, the plain
+    version, SDPA (forward; backward as forward plus backward minus
+    forward) and the old design on the same tensors (flash_fwd.cu,
+    flash_bwd.cu).  Into ``rec["K5"]`` and ``rec["K8"]`` as ``d128_*``."""
     b, s, h, d = 1, HY_TRAIN_TOKENS, SHAPE_HY["h"], 128
     sm = d ** -0.5
     q, k = (_rms(torch.randn((b, s, h, d), generator=gen,
@@ -1636,7 +1685,11 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
         return A.flash_fwd(q, k, v, sm_scale=sm, static_max=0.0,
                            emit_lse=True, route="K5")
 
-    counts = (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"])
+    def fwd_counts():
+        return (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"],
+                A.flash_fwd.launches_d128["K5"])
+
+    counts = fwd_counts()
     out, lse = fwd()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1647,8 +1700,7 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
     tol = FWD_TOL * ref.float().abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     ok = (err <= tol and lse_err <= LSE_TOL
-          and (A.flash_fwd.launches["K5"], A.flash_fwd.launches_sm90["K5"])
-          == (counts[0] + 1, counts[1]))
+          and fwd_counts() == tuple(n + 1 for n in counts))
     del ref, ref_lse
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=10)
@@ -1657,26 +1709,35 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
     bound_ms, bound_by = _bound(flops, 4 * q.numel() * q.element_size()
                                 + lse.numel() * 4)
     ms = cuda_time_ms(fwd, reps=10)
+    old_ms = cuda_time_ms(lambda: A._flash_fwd_mma(
+        q, k, v, sm, False, None, 0.0, True), reps=10)
     k5 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, library_ms=library_ms)
+              bound_by=bound_by, library_ms=library_ms, old_design_ms=old_ms)
     log("K5", case="hunyuan training joint, static_max=0, emit_lse",
-        shape=shape, kernel="flash_fwd", max_abs_err=f"{err:.3e}",
-        tol=f"{tol:.3e}", lse_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
+        shape=shape, kernel="flash_fwd_sm90 (K3's kernel with the LSE)",
+        max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+        lse_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
         ms=f"{ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}",
         bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
         plain_ms=f"{plain_ms:.1f}",
         library=f"scaled_dot_product_attention[{backend}]",
-        library_ms=f"{library_ms:.3f}", ok=ok)
+        library_ms=f"{library_ms:.3f}",
+        old_design="flash_fwd.cu", old_design_ms=f"{old_ms:.3f}",
+        old_tflops=f"{flops / old_ms / 1e9:.1f}", ok=ok)
     if not ok:
         raise AssertionError("K5 at HunyuanVideo's training shape disagrees "
                              "with its plain version, or did not launch "
-                             "flash_fwd.cu")
+                             "flash_fwd_sm90 at d=128")
     rec["K5"].update({f"d128_{key}": val for key, val in k5.items()})
 
     def bwd():
         return A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm)
 
-    counts = (A.flash_bwd.launches["K8"], A.flash_bwd.launches_sm90["K8"])
+    def bwd_counts():
+        return (A.flash_bwd.launches["K8"], A.flash_bwd.launches_sm90["K8"],
+                A.flash_bwd.launches_d128["K8"])
+
+    counts = bwd_counts()
     got = bwd()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1684,27 +1745,35 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err, ok, rows = _bwd_errs(got, ref)
-    ok = ok and (A.flash_bwd.launches["K8"],
-                 A.flash_bwd.launches_sm90["K8"]) == (counts[0] + 1,
-                                                      counts[1])
+    ok = ok and bwd_counts() == tuple(n + 1 for n in counts)
+    _, old_ok, old_rows = _bwd_errs(
+        A._flash_bwd_mma(q, k, v, out, g, lse, sm), ref)
     del got, ref
     flops = 10.0 * b * h * s * s * d
     bound_ms, bound_by = _bound(flops, 8 * q.numel() * q.element_size()
                                 + lse.numel() * 4)
     ms = cuda_time_ms(bwd, reps=5)
+    old_ms = cuda_time_ms(lambda: A._flash_bwd_mma(q, k, v, out, g, lse, sm),
+                          reps=5)
     library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=5)
     k8 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by=bound_by, library_ms=library_ms)
+              bound_by=bound_by, library_ms=library_ms, old_design_ms=old_ms)
     log("K8", case="hunyuan training joint, unmasked", shape=shape,
-        kernel="flash_bwd", dq=rows[0], dk=rows[1], dv=rows[2],
+        kernel="flash_bwd_sm90 d=128", dq=rows[0], dk=rows[1], dv=rows[2],
         ms=f"{ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}",
         bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
         plain_ms=f"{plain_ms:.1f}", library=f"sdpa backward[{backend}]",
-        library_ms=f"{library_ms:.3f}", ok=ok)
+        library_ms=f"{library_ms:.3f}", old_design="flash_bwd.cu",
+        old_design_ms=f"{old_ms:.3f}",
+        old_tflops=f"{flops / old_ms / 1e9:.1f}",
+        old_design_errs=",".join(old_rows), ok=ok and old_ok)
     if not ok:
         raise AssertionError("K8 at HunyuanVideo's training shape disagrees "
                              "with the plain backward, or did not launch "
-                             "flash_bwd.cu")
+                             "flash_bwd_sm90 at d=128")
+    if not old_ok:
+        raise AssertionError("flash_bwd.cu disagrees with the plain backward "
+                             "at HunyuanVideo's training shape")
     rec["K8"].update({f"d128_{key}": val for key, val in k8.items()})
     del q, k, v, g, out, lse
 
@@ -2004,8 +2073,9 @@ def run_train_hunyuan(A, frames: int = HY_TRAIN_FRAMES,
     and CLIP in f32; remat) through the registry's command, 3 steps on dummy
     video at ``frames``×720×1280, then ``--resume``.  Per step: K5 = 120
     (each block's joint attention forward, and again when remat recomputes
-    it), K8 = 60 (its backward), K2 = 32 (the f32 causal LLaMA layers of
-    the caption encode), none on a Hopper design at these widths."""
+    it), K8 = 60 (its backward), every one on the Hopper designs at d = 128
+    (K3's kernel with the LSE, flash_bwd_sm90), and K2 = 32 (the f32 causal
+    LLaMA layers of the caption encode) on flash_fwd.cu."""
     height, width = HY_TRAIN_SIZE
     _free()
     lat = (frames - 1) // 4 + 1
@@ -2021,11 +2091,15 @@ def run_train_hunyuan(A, frames: int = HY_TRAIN_FRAMES,
     out = _train_run(A, "train-hunyuan",
                      _hunyuan_lora_argv(frames), per_step,
                      lora=True, resume=resume)
-    if any(out["sm90"][k] for k in ("K2", "K5", "K8")):
-        raise AssertionError(f"train-hunyuan: {out['sm90']}: K2, K5 and K8 "
-                             "have no Hopper design at d=128 (f32, or bf16 "
-                             "with the LSE): every launch must run "
-                             "flash_fwd.cu / flash_bwd.cu")
+    sm90 = out["sm90"]
+    hopper = {k: (sm90[k], sm90[f"{k}_d128"]) for k in ("K5", "K8")}
+    if hopper != {k: (n * TRAIN_STEPS,) * 2 for k, n in (
+            ("K5", per_step["K5"]), ("K8", per_step["K8"]))} \
+            or sm90["K2"]:
+        raise AssertionError(f"train-hunyuan: {sm90}: every K5 and K8 must "
+                             "run the Hopper designs at d=128 (K3's kernel "
+                             "with the LSE, flash_bwd_sm90) and every f32 "
+                             "K2 flash_fwd.cu")
     return dict(out, frames=frames, tokens=tokens)
 
 
@@ -2054,6 +2128,7 @@ def _grads_close(tag, named_gpu, named_cpu):
     return worst, worst_name, worst_rel
 
 
+@tf32_off()
 def check_train_reference(A) -> None:
     """One training step of each flow at narrow width, on the card and on
     the CPU, with the same weights, batch, t, noise and LoRA tree, TF32 off:
@@ -2062,16 +2137,15 @@ def check_train_reference(A) -> None:
     256 spatial tokens and a 13-of-120 caption: K5, K4, K8) and
     HunyuanVideo (dim 256, 2 heads of d=128, 1 double and 2 single blocks,
     LoRA rank 8, 192 image + 160 text tokens, σ = 0.417, pooled text: K5 and
-    K8 under the fixed max).  Loss
-    within TRAIN_LOSS_TOL relative, gradients within TRAIN_GRAD_TOL (bf16
-    models on both sides, summed in other orders)."""
+    K8 under the fixed max, on the Hopper designs at d=128).  Every card
+    launch must be on a Hopper design.  Loss within TRAIN_LOSS_TOL
+    relative, gradients within TRAIN_GRAD_TOL (bf16 models on both sides,
+    summed in other orders)."""
     from videotuna_tpu_torch.core.config import load_configs
     from videotuna_tpu_torch.core.registry import instantiate
     from videotuna_tpu_torch.training.lora import (flatten_tree, init_lora,
                                                    lora_scope,
                                                    unflatten_tree)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     den = "flow.params.denoiser_config.params"
     t5 = "flow.params.cond_stage_config.params"
     narrow_t5 = [f"{t5}.dim=64", f"{t5}.heads=2", f"{t5}.head_dim=32",
@@ -2153,20 +2227,28 @@ def check_train_reference(A) -> None:
             if dev == "cuda":
                 torch.cuda.synchronize()
                 launches = {k: v for k, v in read_counts(A).items() if v}
+                hopper = {k: v for k, v in read_sm90_counts(A).items()
+                          if v and k.startswith("K")}
             losses.append(loss.item())
             grads.append({k: p.grad.float().cpu() for k, p in params.items()
                           if p.grad is not None})
         rel = abs(losses[1] - losses[0]) / abs(losses[0])
         worst, worst_name, worst_rel = _grads_close(
             f"train-reference {name}", grads[1], grads[0])
+        # every launch on a Hopper design; HunyuanVideo's at d=128
+        expect_hopper = dict(expect, **({f"{k}_d128": n
+                                         for k, n in expect.items()}
+                                        if name == "hunyuan_d128" else {}))
         ok = (math.isfinite(rel) and rel <= TRAIN_LOSS_TOL
-              and launches == expect and set(grads[0]) == set(grads[1]))
+              and launches == expect and hopper == expect_hopper
+              and set(grads[0]) == set(grads[1]))
         log("train-reference", flow=name, loss_cpu=f"{losses[0]:.6f}",
             loss_card=f"{losses[1]:.6f}", loss_rel_err=f"{rel:.3e}",
             loss_tol=TRAIN_LOSS_TOL, grads=len(grads[0]),
             worst_grad_err_over_tol=f"{worst:.3f}", worst_grad=worst_name,
             grad_rel_err=f"{worst_rel:.3e}", grad_tol=TRAIN_GRAD_TOL,
-            card_launches=launches, ok=ok)
+            card_launches=launches, hopper_launches=hopper, tf32=tf32_flags(),
+            ok=ok)
         if not ok:
             raise AssertionError(f"train-reference {name}: card and CPU "
                                  "disagree")
@@ -2387,6 +2469,7 @@ def _narrow_hunyuan():
         f"{vae}.norm_num_groups=8", "flow.params.model_max_length=160"]
 
 
+@tf32_off()
 def check_small_reference_hunyuan() -> None:
     """The narrow HunyuanVideo flow (dim 256, 2 heads of d=128, 1 double
     and 2 single blocks, a 2-layer LLaMA of d=128 over 160 tokens, the VAE
@@ -2399,8 +2482,6 @@ def check_small_reference_hunyuan() -> None:
     import videotuna_tpu_torch.kernels.attention as A
     cfg = load_configs([CONFIG_HY], _narrow_hunyuan() + [
         f"flow.params.scheduler_config.params.num_steps={HY_REF_STEPS}"])
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cpu = instantiate(cfg["flow"], device="cpu")
     gpu = instantiate(cfg["flow"], device="cuda")
     cpu.init_params(seed=1)
@@ -2482,7 +2563,8 @@ def main(argv=None) -> None:
         # one HunyuanVideo LoRA size alone, without resume: the frame cut is
         # chosen from such runs (an out-of-memory error ends it non-zero)
         frames = int(argv[1])
-        out = run_train_hunyuan(A, frames, resume=False)
+        out = timed_phase("train-hunyuan", run_train_hunyuan, A, frames,
+                          False)
         print(json.dumps({"hunyuan_train": {
             "frames": frames, "size": HY_TRAIN_SIZE, "tokens": out["tokens"],
             "peak_gb": out["peak_gb"],
@@ -2490,32 +2572,38 @@ def main(argv=None) -> None:
             "sec_per_step": out["sec_per_step"]}}), flush=True)
         return
 
-    k1 = check_k1(A)
+    # every timed phase under PyTorch's defaults, its flags logged first;
+    # the card-vs-CPU checks turn TF32 off inside and restore it
+    k1 = timed_phase("K1", check_k1, A)
     k6 = k1.pop("k6")
-    k2 = check_k2(A)
-    k4 = check_k4(A)
-    k3 = check_k3(A)
-    bwd = check_bwd(A)
+    k2 = timed_phase("K2", check_k2, A)
+    k4 = timed_phase("K4", check_k4, A)
+    k3 = timed_phase("K3", check_k3, A)
+    bwd = timed_phase("bwd", check_bwd, A)
     k1["train_lse_ms"] = bwd["K1_train"]["ms"]
-    check_f32_forward(A)
-    runs = [run_e2e(A)]
+    timed_phase("f32", check_f32_forward, A)
+    runs = [timed_phase("e2e", run_e2e, A)]
     check_small_reference()
-    runs.append(run_e2e_opensora(A))
+    runs.append(timed_phase("e2e-opensora", run_e2e_opensora, A))
     check_small_reference_opensora()
-    profile_opensora_call()
-    cog = run_train_cog(A)
-    stdit = run_train_stdit(A)
+    timed_phase("profile-opensora", profile_opensora_call)
+    cog = timed_phase("train-cog", run_train_cog, A)
+    stdit = timed_phase("train-stdit", run_train_stdit, A)
     runs += [cog, stdit]
     check_train_reference(A)
-    runs.append(run_e2e_hunyuan(A))
+    runs.append(timed_phase("e2e-hunyuan", run_e2e_hunyuan, A))
     check_small_reference_hunyuan()
-    profile_hunyuan_call()
-    runs.append(run_train_hunyuan(A))
-    device_times(A, k2, bwd["K5"], k4, bwd["K8"])
+    timed_phase("profile-hunyuan", profile_hunyuan_call)
+    runs.append(timed_phase("train-hunyuan", run_train_hunyuan, A))
+    timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
     # each kernel's launches over the six main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
+    # of those, the Hopper designs' launches at d = 128 (K3's kernel for K3
+    # and K5, flash_bwd_sm90 for K8 and K9): counted apart, so that the
+    # d = 72 entries of K5, K8 and K9 hold STDiT's launches alone
+    d128 = {k: sum(r["sm90"][f"{k}_d128"] for r in runs) for k in launches}
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
@@ -2527,17 +2615,18 @@ def main(argv=None) -> None:
         "K4": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
               "key mask, d=72/80 bf16), checked",
         "K5": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
-              "LSE, d=72/80 bf16), checked; d=128 with the LSE "
-              "(HunyuanVideo training) on flash_fwd.cu, checked",
+              "LSE, d=72/80 bf16; K3's kernel with the LSE at d=128 under "
+              "the fixed max, HunyuanVideo training), checked",
         "K6": "mapped onto K1's kernel (flash_fwd_sm90 persistent, online), "
               "checked",
         "K7": "redesigned for Hopper (flash_bwd_sm90: single pass, wgmma), "
               "checked",
         "K8": "redesigned for Hopper (flash_bwd_rows_sm90: single pass, "
-              "persistent, d=72/80 bf16, key mask as bit words), checked; "
-              "d=128 (HunyuanVideo training) on flash_bwd.cu, checked",
-        "K9": "mapped onto K8's kernel (flash_bwd_rows_sm90 at d=72/80), "
+              "persistent, d=72/80 bf16, key mask as bit words; "
+              "flash_bwd_sm90 at d=128 unmasked, HunyuanVideo training), "
               "checked",
+        "K9": "mapped onto K8's kernels (flash_bwd_rows_sm90 at d=72/80, "
+              "flash_bwd_sm90 at d=128), checked",
         "K10": "mapped onto K7's kernel (flash_bwd_sm90), checked"}
     log("kernels", **statuses)
     fwd90 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_sm90.cu"
@@ -2558,31 +2647,33 @@ def main(argv=None) -> None:
                                "device_ms", "old_design_device_ms",
                                "library_device_ms", "host_ms",
                                "old_design_host_ms")) + tuple(
-        f"{p}_{k}" for p in ("d128", "llama")
-        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                  "library_ms"))
+        f"llama_{k}" for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms"))
 
-    def entry(name, source, replaces, kernel, rec, hopper=True):
+    def entry(name, source, replaces, kernel, rec, design="sm90"):
         # a redesigned kernel adds the old design's ms on the same tensors
         # (K2, K4, K5: and the device times of both designs and the
         # library; K1: its time at the training shape with the LSE); its
-        # launches are those of this entry's design: the Hopper kernel's,
-        # or the rest of the route's on flash_fwd.cu / flash_bwd.cu
+        # launches are those of this entry's design: the Hopper kernel's at
+        # the route's other widths ("sm90") or at d = 128 ("d128"), or the
+        # rest of the route's on flash_fwd.cu / flash_bwd.cu ("mma")
         old = {k: rec[k] for k in extra_keys if k in rec}
-        n = sm90[kernel] if hopper else launches[kernel] - sm90[kernel]
+        n = {"sm90": sm90[kernel] - d128[kernel], "d128": d128[kernel],
+             "mma": launches[kernel] - sm90[kernel]}[design]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": f"{tpu}:{replaces}", "launches": n,
                 **{k: rec[k] for k in keys}, **old}
 
     def fields(rec, prefix):
-        return {k: rec[f"{prefix}_{k}"] for k in keys}
+        return {k: rec[f"{prefix}_{k}"] for k in keys + ("old_design_ms",)
+                if f"{prefix}_{k}" in rec}
 
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1),
         entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
               "K2", k2),
         entry("flash_fwd_sm90 static_max, d = 128 (K3)", fwd90, 581,
-              "K3", k3),
+              "K3", k3, design="d128"),
         entry("flash_fwd_sm90 persistent, key mask (K4)", fwd90, 970, "K4",
               k4),
         entry("flash_fwd_sm90 persistent with the LSE, training forward "
@@ -2597,14 +2688,17 @@ def main(argv=None) -> None:
               1107, "K9", bwd["K9"]),
         entry("flash_bwd_sm90 single_pass=False, d=64 (K10)", bwd90, 1260,
               "K10", bwd["K10"]),
-        # the routes' cases that no Hopper kernel takes, on the main paths:
-        # LLaMA's f32 causal K2, HunyuanVideo training's d=128 K5 and K8
+        # HunyuanVideo training's d=128 cases of K5 and K8 on the Hopper
+        # designs, with the old design's ms on the same tensors
+        entry("flash_fwd_sm90 K3's kernel with the LSE, d=128, HunyuanVideo "
+              "training (K5)", fwd90, 867, "K5", fields(bwd["K5"], "d128"),
+              design="d128"),
+        entry("flash_bwd_sm90 d=128 single pass, HunyuanVideo training (K8)",
+              bwd90, 1148, "K8", fields(bwd["K8"], "d128"), design="d128"),
+        # the route's case that no Hopper kernel takes, on a main path:
+        # LLaMA's f32 causal K2
         entry("flash_fwd.cu f32 causal, LLaMA (K2)", fwd_mma, 78, "K2",
-              fields(k2, "llama"), hopper=False),
-        entry("flash_fwd.cu d=128 with the LSE, HunyuanVideo training (K5)",
-              fwd_mma, 867, "K5", fields(bwd["K5"], "d128"), hopper=False),
-        entry("flash_bwd.cu d=128, HunyuanVideo training (K8)", bwd_mma,
-              1148, "K8", fields(bwd["K8"], "d128"), hopper=False),
+              fields(k2, "llama"), design="mma"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

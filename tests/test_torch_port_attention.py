@@ -301,16 +301,26 @@ def test_k4_mask_words_match_the_bool_mask(sk):
 
 
 # ---------------------------------------------------------------- K5
+def _rmsnorm(x):
+    return x / np.sqrt((x * x).mean(-1, keepdims=True) + 1e-6)
+
+
 @pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
-@pytest.mark.parametrize("sq,sk", [(256, 256), (200, 300)])
-def test_k5_plain_lse_matches_pallas(sq, sk, static_max):
-    """K5, the training forward with its LSE, at STDiT's d=72: the port's
-    plain version against the Pallas ``_flash_forward_lse`` (interpret
-    mode) on q, k, v padded to 128 columns and packed to (B·H, S_pad, 128)
-    as ``_fa_fwd`` does; the fixed max on LayerNormed q, k."""
-    b, h, d = 1, 2, 72
+@pytest.mark.parametrize("sq,sk,d", [pytest.param(256, 256, 72, id="256-256"),
+                                     pytest.param(200, 300, 72, id="200-300"),
+                                     pytest.param(256, 256, 128, id="d128")])
+def test_k5_plain_lse_matches_pallas(sq, sk, d, static_max):
+    """K5, the training forward with its LSE, at STDiT's d=72 and at
+    HunyuanVideo's d=128: the port's plain version against the Pallas
+    ``_flash_forward_lse`` (interpret mode) on q, k, v padded to a multiple
+    of 128 columns and packed to (B·H, S_pad, d_pad) as ``_fa_fwd`` does;
+    at d=72 the fixed max on LayerNormed q, k, at d=128 RMSNormed q, k (the
+    DiT's qk-norm) in both modes."""
+    b, h = 1, 2
     q, k, v = _qkv(20, b, sq, h, d, sk=sk)
-    if static_max is not None:
+    if d == 128:
+        q, k = _rmsnorm(q), _rmsnorm(k)
+    elif static_max is not None:
         q, k = _layernorm(q), _layernorm(k)
     d_pad = A._round_to(d, 128)
     block_q = min(A.DEFAULT_BLOCK_Q, A._round_to(sq, 128))
@@ -366,9 +376,9 @@ def _jax_bwd(q, k, v, g, causal):
 
 @pytest.mark.parametrize("d,causal", [(64, False), (72, False), (64, True),
                                      (256, False), (160, False),
-                                     (80, False)],
+                                     (80, False), (128, False)],
                          ids=["k7_d64", "k8_d72", "k8_d64_causal", "k8_d256",
-                              "k8_d160", "k8_d80"])
+                              "k8_d160", "k8_d80", "k8_d128"])
 def test_bwd_plain_matches_pallas(d, causal):
     """``flash_bwd_plain`` against the Pallas fused backward (K7 for d=64
     non-causal, K8 otherwise, which pads d to a multiple of 128 and runs
@@ -511,7 +521,7 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K3", _F32, 128, False, False, False, True, "mma"),
     ("K3", _BF, 128, True, False, False, True, "mma"),
     ("K3", _BF, 128, False, True, False, True, "mma"),
-    ("K3", _BF, 128, False, False, True, True, "mma"),
+    ("K3", _BF, 128, False, False, True, True, "sm90"),
     ("K2", _BF, 128, False, False, False, False, "mma"),
     ("K4", _BF, 128, False, True, False, False, "mma"),
     ("K5", _BF, 128, False, False, True, False, "mma"),
@@ -527,7 +537,7 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _BF, 72, False, False, False, False, "sm90"),
     ("K5", _BF, 80, False, False, True, False, "sm90"),
     ("K5", _BF, 80, False, False, True, True, "sm90"),
-    # everything else keeps flash_fwd.cu
+    # everything else keeps flash_fwd.cu (K5 online at d = 128 above)
     # K1 and K6 at d=64 in bf16: the persistent kernel in either softmax
     # mode, with or without the LSE; f32 keeps flash_fwd.cu
     ("K1", _BF, 64, False, False, False, True, "sm90"),
@@ -555,15 +565,23 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _BF, 72, True, False, True, False, "mma"),
     ("K2", _BF, 96, False, False, False, False, "mma"),
     ("K2", _BF, 256, False, False, False, False, "mma"),
+    # K5 at d = 128 under the fixed max (HunyuanVideo's training forward):
+    # K3's kernel with its LSE; online, causal or f32 keep flash_fwd.cu
+    ("K5", _BF, 128, False, False, True, True, "sm90"),
+    ("K5", _BF, 128, False, False, False, True, "sm90"),
+    ("K5", _BF, 128, True, False, True, True, "mma"),
+    ("K5", _F32, 128, False, False, True, True, "mma"),
+    ("K5", _BF, 128, False, True, True, True, "mma"),
 ])
 def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
                                                        fixed, design):
     """The Hopper forward (flash_fwd_sm90.cu) serves the fixed-max route K3
-    in bf16 at d = 64 or 128 without the LSE, K1 and K6 in bf16 at d = 64,
+    in bf16 at d = 64 without the LSE, the fixed-max routes K3 and K5 in
+    bf16 at d = 128 with or without the LSE, K1 and K6 in bf16 at d = 64,
     and K2, K3, K5 and the masked K4 in bf16 at d = 72 or 80, in either
-    softmax mode, with or without the LSE, all non-causal; every other call
-    keeps flash_fwd.cu."""
+    softmax mode, with or without the LSE, all non-causal and unmasked but
+    for K4; every other call keeps flash_fwd.cu."""
     kv_valid = torch.ones((1, 8), dtype=torch.bool) if masked else None
     assert P._fwd_design(route, dtype, d, causal, kv_valid, lse,
                          0.0 if fixed else None) == design
@@ -594,20 +612,25 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
     ("K8", _BF, 64, False, False, "mma"),
     ("K8", _BF, 64, True, False, "mma"),
     ("K8", _BF, 64, False, True, "mma"),
-    ("K8", _BF, 128, False, False, "mma"),
+    ("K8", _BF, 128, False, False, "sm90"),
     ("K8", _BF, 128, False, True, "mma"),
-    ("K9", _BF, 128, False, False, "mma"),
+    ("K9", _BF, 128, False, False, "sm90"),
     ("K8", _BF, 256, False, False, "mma"),
     ("K8", _BF, 256, False, True, "mma"),
     ("K8", _BF, 160, True, False, "mma"),
     ("K8", _BF, 32, True, False, "mma"),
+    # K8 and K9 at d = 128 (HunyuanVideo's training backward): the single
+    # pass of flash_bwd_sm90.cu unmasked and non-causal, else flash_bwd.cu
+    ("K8", _BF, 128, True, False, "mma"),
+    ("K9", _BF, 128, False, True, "mma"),
+    ("K8", _F32, 128, False, False, "mma"),
 ])
 def test_bwd_design_is_a_function_of_route(route, dtype, d, causal, masked,
                                            design):
     """The Hopper backwards serve bf16 non-causal calls only: K7 and K10
-    at d=64 (flash_bwd_sm90.cu), K8 and K9 at d = 72 and 80, masked or not
-    (flash_bwd_rows_sm90.cu); causal, f32 and every other width keep
-    flash_bwd.cu."""
+    at d=64 and K8 and K9 at d = 128 unmasked (flash_bwd_sm90.cu), K8 and
+    K9 at d = 72 and 80, masked or not (flash_bwd_rows_sm90.cu); causal,
+    f32, masked d = 128 and every other width keep flash_bwd.cu."""
     assert P._bwd_design(route, dtype, d, causal, masked) == design
 
 
@@ -661,11 +684,23 @@ def test_sm90_counters_untouched_on_cpu():
         (1, 128, 2, 64), dtype=np.float32)).bfloat16()
     before = (dict(P.flash_fwd.launches), dict(P.flash_fwd.launches_sm90),
               P.flash_fwd.tma_copies, dict(P.flash_bwd.launches),
-              dict(P.flash_bwd.launches_sm90))
+              dict(P.flash_bwd.launches_sm90),
+              dict(P.flash_fwd.launches_d128),
+              dict(P.flash_bwd.launches_d128))
     out = P.flash_attention(q, k, v.transpose(1, 2).contiguous()
                             .transpose(1, 2), static_max=0.0)
     ref = P.flash_fwd_plain(q, k, v, sm_scale=128 ** -0.5, static_max=0.0)
     assert torch.equal(out, ref)
+    # K5 and K8 at HunyuanVideo's d=128 under the fixed max
+    out, lse = P.flash_fwd(q, k, v, sm_scale=128 ** -0.5, static_max=0.0,
+                           emit_lse=True, route="K5")
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, sm_scale=128 ** -0.5,
+                                     static_max=0.0, emit_lse=True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+    g3 = torch.ones_like(out)
+    got = P.flash_bwd(q, k, v, out, g3, lse, sm_scale=128 ** -0.5)
+    ref = P.flash_bwd_plain(q, k, v, out, g3, lse, sm_scale=128 ** -0.5)
+    assert all(torch.equal(x, r) for x, r in zip(got, ref))
     # K2 and K5 at STDiT's d=72, strided v included
     q7, k7, v7 = (torch.from_numpy(x).bfloat16()
                   for x in _qkv(19, 1, 256, 2, 72))
@@ -683,5 +718,20 @@ def test_sm90_counters_untouched_on_cpu():
     P.flash_attention_diff(q2, k2, v2).backward(g.float())
     assert (P.flash_fwd.launches, P.flash_fwd.launches_sm90,
             P.flash_fwd.tma_copies, P.flash_bwd.launches,
-            P.flash_bwd.launches_sm90) == before
+            P.flash_bwd.launches_sm90, P.flash_fwd.launches_d128,
+            P.flash_bwd.launches_d128) == before
 
+
+
+def test_attribution_variants_apply_to_the_sources():
+    """Every variant of ``kernels/attribution.py`` edits text that its
+    kernel's source still holds (on the card a stale one raises), K5 and
+    K8 at d=128 among them."""
+    from videotuna_tpu_torch import kernels
+    from videotuna_tpu_torch.kernels import attribution
+    names = {kernel for kernel, _, _ in attribution.VARIANTS}
+    assert {"K5_d128", "K8_d128"} <= names
+    for (kernel, source, name), edits in attribution.VARIANTS.items():
+        text = (kernels.CSRC / source).read_text()
+        for old, _ in edits:
+            assert old in text, f"{kernel} {name}: {old[:60]!r}"

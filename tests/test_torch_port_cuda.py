@@ -844,3 +844,179 @@ def test_k10_runs_k7s_kernel():
     for x, r in zip(got, ref):
         assert (x.float() - r.float()).abs().max() \
             <= 2e-2 * r.float().abs().max()
+
+
+# ------------------------------------- d = 128: HunyuanVideo training (K5, K8)
+# (sq, sk): a full tile, one row or key past it, ragged, the narrow card-vs-CPU
+# step's 352 tokens, a long tail, the LoRA run's 7,456; then queries other
+# than keys
+_D128_LENGTHS = [(128, 128), (129, 129), (300, 300), (352, 352),
+                 (4112, 4112), (7456, 7456), (129, 7456), (4112, 300)]
+
+
+def _rms_qkv(b, sq, sk, h, seed, fused=False):
+    """RMSNormed q, k (HunyuanVideo's qk-norm: bounded logits) and v, d=128,
+    bf16; with ``fused`` q, k and v are views of one (B, S, 3, H, 128)
+    projection, as HunyuanVideo's blocks hand them."""
+    gen = torch.Generator().manual_seed(seed)
+    if fused:
+        qkv = torch.randn((b, sq, 3, h, 128), generator=gen)
+        q, k, v = qkv.unbind(dim=2)
+    else:
+        q, k, v = (torch.randn((b, s, h, 128), generator=gen)
+                   for s in (sq, sk, sk))
+    q, k = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6)
+            for x in (q, k))
+    if fused:
+        qkv = torch.stack([q, k, v], dim=2).cuda().bfloat16()
+        return qkv.unbind(dim=2)
+    return [x.cuda().bfloat16() for x in (q, k, v)]
+
+
+def _plain_by_heads(fn, *args, heads=4, **kw):
+    """A plain version over a few heads at a time (the f32 scores of 24
+    heads at 7,456 tokens are 5.3 GB each), concatenated per output."""
+    h = args[0].shape[2]
+    parts = []
+    for i in range(0, h, heads):
+        sl = [x[:, :, i:i + heads] if x.ndim == 4 else x[:, i:i + heads]
+              for x in args]
+        parts.append(fn(*sl, **kw))
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=2)
+    return tuple(torch.cat([p[j] for p in parts],
+                           dim=2 if parts[0][j].ndim == 4 else 1)
+                 for j in range(len(parts[0])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K5", "K3"])
+@pytest.mark.parametrize("h", [2, 24])
+@pytest.mark.parametrize("sq,sk", _D128_LENGTHS)
+def test_d128_forward_with_lse_matches_plain(sq, sk, h, route):
+    """K5 (and K3 asked for the LSE) at d=128 under the fixed max 0 on K3's
+    Hopper kernel with its LSE, against ``flash_fwd_plain``: counted per
+    route, per design and at d=128; empty rows cannot occur without a mask,
+    so every LSE is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _rms_qkv(1, sq, sk, h, seed=sq + sk + h)
+    before = (P.flash_fwd.launches[route], P.flash_fwd.launches_sm90[route],
+              P.flash_fwd.launches_d128[route], P.flash_fwd.tma_copies)
+    out, lse = P.flash_fwd(q, k, v, sm_scale=128 ** -0.5, static_max=0.0,
+                           emit_lse=True, route=route)
+    ref, ref_lse = _plain_by_heads(P.flash_fwd_plain, q, k, v,
+                                   sm_scale=128 ** -0.5, static_max=0.0,
+                                   emit_lse=True)
+    torch.cuda.synchronize()
+    assert (P.flash_fwd.launches[route], P.flash_fwd.launches_sm90[route],
+            P.flash_fwd.launches_d128[route], P.flash_fwd.tma_copies) \
+        == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert out.shape == ref.shape and lse.shape == ref_lse.shape == (1, h, sq)
+    # bf16 output rounding; p is bf16 on both sides: 2e-2 of max|o|
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+    assert torch.isfinite(lse).all()
+    assert (lse - ref_lse).abs().max() <= 1e-3
+
+
+def _check_bwd128(q, k, v, g, route="K8", copies=0):
+    """flash_bwd at d=128 against ``flash_bwd_plain`` on the LSE of K5's
+    Hopper forward: counted per route, per design and at d=128, with
+    ``copies`` alignment copies.  Returns the gradients."""
+    out, lse = P.flash_fwd(q, k, v, sm_scale=128 ** -0.5, static_max=0.0,
+                           emit_lse=True, route="K5")
+    before = (P.flash_bwd.launches[route], P.flash_bwd.launches_sm90[route],
+              P.flash_bwd.launches_d128[route], P.flash_bwd.tma_copies)
+    got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=128 ** -0.5,
+                      single_pass=route == "K8")
+    ref = _plain_by_heads(P.flash_bwd_plain, q, k, v, out, g, lse,
+                          sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert (P.flash_bwd.launches[route], P.flash_bwd.launches_sm90[route],
+            P.flash_bwd.launches_d128[route], P.flash_bwd.tma_copies) \
+        == (before[0] + 1, before[1] + 1, before[2] + 1, before[3] + copies)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.bfloat16
+        assert torch.isfinite(x.float()).all()
+        # p and ds are bf16 operands, gradients bf16: 2e-2 of max|grad|
+        assert (x.float() - r.float()).abs().max() \
+            <= 2e-2 * r.float().abs().max()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [2, 24])
+@pytest.mark.parametrize("sq,sk", _D128_LENGTHS)
+def test_d128_backward_matches_plain(sq, sk, h):
+    """K8 at d=128, unmasked, non-causal, on the single pass of
+    flash_bwd_sm90.cu at its width 128: ragged query and key tails (pad
+    rows, keys past Sk) and Sq ≠ Sk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _rms_qkv(1, sq, sk, h, seed=sq + 3 * sk + h)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(sq)
+                    ).cuda().bfloat16()
+    _check_bwd128(q, k, v, g)
+
+
+@pytest.mark.cuda
+def test_k9_d128_runs_the_same_kernel():
+    """K9 (single_pass=False) at d=128 launches the same single pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _rms_qkv(1, 300, 300, 2, seed=11)
+    g = torch.randn(q.shape, device="cuda").bfloat16()
+    _check_bwd128(q, k, v, g, route="K9")
+
+
+@pytest.mark.cuda
+def test_d128_reads_a_fused_qkv_in_place():
+    """q, k and v as views of one fused projection, and a dO sliced out of
+    a wider tensor: the forward's and the backward's TMA read them in
+    place, without a copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _rms_qkv(1, 352, 352, 2, seed=12, fused=True)
+    g = torch.randn((1, 352, 2, 2, 128), device="cuda").bfloat16()[:, :, 0]
+    assert all(P._aligned(x) and not x.is_contiguous() for x in (q, k, v, g))
+    copies = P.flash_fwd.tma_copies
+    _check_bwd128(q, k, v, g)
+    assert P.flash_fwd.tma_copies == copies
+
+
+@pytest.mark.cuda
+def test_d128_copies_what_tma_cannot_read():
+    """A v whose row stride (132 elements, 264 bytes) is not a multiple of
+    16 bytes is copied, by the forward and by the backward, and each copy is
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, _ = _rms_qkv(1, 300, 300, 2, seed=13)
+    v = torch.randn((1, 300, 2, 132), device="cuda").bfloat16()[..., :128]
+    g = torch.randn(q.shape, device="cuda").bfloat16()
+    assert not P._aligned(v)
+    copies = P.flash_fwd.tma_copies
+    _check_bwd128(q, k, v, g, copies=1)
+    assert P.flash_fwd.tma_copies == copies + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [352, 7456])
+def test_d128_backward_dk_dv_are_reproducible(s):
+    """dk and dv bit-equal across two calls; dq is summed by f32 atomics in
+    another order each call, within the tolerance of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _rms_qkv(1, s, s, 24, seed=s)
+    g = torch.randn(q.shape, device="cuda").bfloat16()
+    out, lse = P.flash_fwd(q, k, v, sm_scale=128 ** -0.5, static_max=0.0,
+                           emit_lse=True, route="K5")
+
+    def run():
+        return P.flash_bwd(q, k, v, out, g, lse, sm_scale=128 ** -0.5)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[2], second[2])

@@ -587,3 +587,55 @@ def test_run_train_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_train(["--config", TINY_T2V, "--quiet",
                    "--workdir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("model", ["hunyuan_d128", "cogvideox_d64"])
+def test_remat_recompute_keeps_the_attention_options(model, monkeypatch):
+    """A checkpointed block recomputes its attention under the options its
+    forward ran under, though the backward runs outside their scope (as it
+    does on autograd's thread for a CUDA tensor): every flash forward, the
+    recompute's included, takes the fixed max, and the gradients are those
+    of the model without remat."""
+    from videotuna_tpu_torch.kernels import attention as PA
+    from videotuna_tpu_torch.models.cogvideo.mmdit import CogVideoXTransformer
+    from videotuna_tpu_torch.models.hunyuan.dit import HYVideoDiT
+    torch.manual_seed(0)
+    gen = torch.Generator().manual_seed(1)
+    if model == "hunyuan_d128":   # 192 video + 32 text tokens, heads of 128
+        m = HYVideoDiT(in_channels=16, out_channels=16, dim=256, heads=2,
+                       double_blocks=1, single_blocks=1, text_dim=64,
+                       pooled_dim=32)
+        args = (torch.randn((1, 3, 16, 16, 16), generator=gen),
+                torch.tensor([400.0]), torch.randn((1, 32, 64), generator=gen),
+                torch.randn((1, 32), generator=gen))
+    else:                         # 128 video + 6 text tokens, heads of 64
+        m = CogVideoXTransformer(in_channels=16, out_channels=16, dim=128,
+                                 num_layers=2, heads=2, text_dim=16,
+                                 time_embed_dim=24)
+        args = (torch.randn((1, 2, 16, 16, 16), generator=gen),
+                torch.tensor([400]), torch.randn((1, 6, 16), generator=gen))
+    seen = []
+    fwd = PA.flash_fwd
+
+    def spy(*a, **kw):
+        seen[-1].append(kw.get("static_max"))
+        return fwd(*a, **kw)
+
+    monkeypatch.setattr(PA, "flash_fwd", spy)
+    grads = []
+    for remat in (False, True):
+        m.remat = remat
+        m.zero_grad()
+        seen.append([])
+        with PA.attention_options(static_max=0.0):
+            out = m(*args)
+        out.square().mean().backward()   # outside the options' scope
+        grads.append([p.grad.clone() for p in m.parameters()
+                      if p.grad is not None])
+    plain, remat = seen
+    assert plain and len(remat) == 2 * len(plain)
+    assert set(plain) == set(remat) == {0.0}
+    assert len(grads[0]) == len(grads[1])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()) + 1e-12)

@@ -21,15 +21,17 @@ math path.  The kernels it can reach, and where each is in the port:
   persistent Hopper kernel of ``csrc/flash_fwd_sm90.cu`` (K4 with its key
   mask packed into bit words as ``_mask_words`` does);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
-  on the same two kernels as K2;
+  on the same two kernels as K2, and in bf16 at d = 128 under the fixed max
+  on K3's Hopper kernel, which writes the LSE too;
 - K7 (d=64 single-pass backward) and its two-kernel baseline K10:
   ``flash_bwd``, launching in bf16 the Hopper kernel
   ``csrc/flash_bwd_sm90.cu`` (single pass, TMA, wgmma);
 - K8 (generic and masked single-pass backward, d ≤ 256) and its two-kernel
   baseline K9: ``flash_bwd``, launching in bf16 at d = 72 and 80,
   non-causal, the short-row Hopper kernel ``csrc/flash_bwd_rows_sm90.cu``
-  (single pass, persistent, the key mask as bit words), else
-  ``csrc/flash_bwd.cu``;
+  (single pass, persistent, the key mask as bit words), in bf16 at d = 128,
+  non-causal and unmasked, K7's kernel ``csrc/flash_bwd_sm90.cu`` at its
+  width 128, else ``csrc/flash_bwd.cu``;
 - K3 (d ≤ 128 non-causal fixed max, the qk-normed denoisers' sampling
   forward): ``flash_fwd`` with ``static_max``, counted as K3; at d = 64,
   72, 80 and 128 in bf16 it launches ``csrc/flash_fwd_sm90.cu`` (TMA,
@@ -39,7 +41,8 @@ math path.  The kernels it can reach, and where each is in the port:
 Which kernel a route launches is a function of the route, the dtype, the
 head width and the options (``_fwd_design``, ``_bwd_design``), decided
 before the launch; ``flash_fwd.launches_sm90`` and
-``flash_bwd.launches_sm90`` count the Hopper kernels' launches.
+``flash_bwd.launches_sm90`` count the Hopper kernels' launches, and
+``launches_d128`` those of each at d = 128.
 
 Under autograd (``torch.is_grad_enabled()`` and q, k or v requiring grad)
 ``dot_product_attention`` takes the custom VJPs: the forward kernel with
@@ -80,14 +83,16 @@ _KERNELS = {
           "bf16, else csrc/flash_fwd.cu",
     "K5": "generic flash forward with the LSE (_flash_forward_lse): "
           "flash_fwd with emit_lse, csrc/flash_fwd_sm90.cu at d=72 and 80 "
-          "in bf16 (non-causal), else csrc/flash_fwd.cu",
+          "in bf16 (non-causal) and at d=128 under the fixed max (K3's "
+          "kernel), else csrc/flash_fwd.cu",
     "K6": "d=64 natural-layout packed forward (_flash_packed2): "
           "flash_fwd route K6, K1's kernel in online mode",
     "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
           "csrc/flash_bwd_sm90.cu",
     "K8": "single-pass generic and kv_valid-masked flash backward "
           "(flash_attention_bwd): csrc/flash_bwd_rows_sm90.cu at d=72 and "
-          "80 in bf16 (non-causal), else csrc/flash_bwd.cu",
+          "80 in bf16 (non-causal), csrc/flash_bwd_sm90.cu at d=128 in "
+          "bf16 (non-causal, unmasked), else csrc/flash_bwd.cu",
     "K9": "two-kernel generic flash backward (flash_attention_bwd, "
           "single_pass=False): mapped onto K8's kernels",
     "K10": "two-kernel d=64 flash backward (_flash_bwd_packed2, "
@@ -269,9 +274,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``pack2=True``) and "K3" for its fixed-max route at d ≤ 128, the
     training forward "K1" or "K5".  The calls ``_fwd_design`` names "sm90"
     (bf16, non-causal: K1 and K6 at d = 64; K2, K3, K5 and the masked K4 at
-    d = 72 or 80; K3 at d = 64 or 128 without the LSE) launch
+    d = 72 or 80; K3 at d = 64 without the LSE; K3 and K5 at d = 128 under
+    the fixed max, with or without the LSE) launch
     ``csrc/flash_fwd_sm90.cu`` and add one to
-    ``flash_fwd.launches_sm90[route]``; q, k or v that TMA cannot read in
+    ``flash_fwd.launches_sm90[route]``, at d = 128 (K3's kernel) also to
+    ``flash_fwd.launches_d128[route]``; q, k or v that TMA cannot read in
     place is copied first and counted in ``flash_fwd.tma_copies``; the
     masked K4 there reads ``mask_words`` (``_mask_words_for`` of q and
     ``kv_valid``, packed by the caller) when given, else packs the mask in
@@ -302,6 +309,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         res = _flash_fwd_sm90(q, k, v, sm_scale, static_max, emit_lse,
                               kv_valid, mask_words)
         flash_fwd.launches_sm90[route] += 1
+        if q.shape[-1] == 128:
+            flash_fwd.launches_d128[route] += 1
     else:
         res = _flash_fwd_mma(q, k, v, sm_scale, causal, kv_valid, static_max,
                              emit_lse)
@@ -363,6 +372,8 @@ flash_fwd.launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
 # counted in ``launches`` too
 flash_fwd.launches_sm90 = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                            "K6": 0}
+# of those, the launches at d = 128 (K3's kernel), per route
+flash_fwd.launches_d128 = dict(flash_fwd.launches_sm90)
 # q, k or v copied because TMA could not read it in place
 flash_fwd.tma_copies = 0
 
@@ -374,9 +385,10 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     width and options alone: "sm90" (``csrc/flash_fwd_sm90.cu``: TMA,
     wgmma, warp-specialised) for bf16 non-causal calls of K1 and K6 at
     d = 64, of K2, K3, K5 and the masked K4 at d = 72 or 80 (the persistent
-    kernel: online or fixed max, with or without the LSE), and of the
-    fixed-max route K3 without the LSE at d = 64 (the persistent kernel)
-    or 128 (K3's kernel); "mma" (``csrc/flash_fwd.cu``) for everything
+    kernel: online or fixed max, with or without the LSE), of the
+    fixed-max route K3 without the LSE at d = 64 (the persistent kernel),
+    and of the fixed-max routes K3 and K5 at d = 128, with or without the
+    LSE (K3's kernel); "mma" (``csrc/flash_fwd.cu``) for everything
     else."""
     if dtype != torch.bfloat16 or causal:
         return "mma"
@@ -386,8 +398,11 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
         return "sm90"
     if d in (72, 80) and route in ("K2", "K3", "K5"):
         return "sm90"
-    if (d in (64, 128) and route == "K3" and static_max is not None
-            and not emit_lse):
+    if static_max is None:
+        return "mma"
+    if d == 128 and route in ("K3", "K5"):
+        return "sm90"
+    if d == 64 and route == "K3" and not emit_lse:
         return "sm90"
     return "mma"
 
@@ -482,8 +497,8 @@ def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal: the persistent
     kernel (online or fixed max, with or without the LSE) at d = 64, 72 or
     80 (at 72 and 80 with the key mask ``kv_valid`` too: its ``words`` when
-    given, else packed by the same call); K3's fixed-max kernel at
-    d = 128."""
+    given, else packed by the same call); K3's fixed-max kernel, with or
+    without the LSE, at d = 128."""
     _check_layout("flash_fwd", q, k, v, check_aligned=False)
     q, k, v = (_tma_ready(x) for x in (q, k, v))
     b, sq, h, d = q.shape
@@ -589,13 +604,15 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     "K9" for the same two cases, whose two-kernel TPU baselines compute the
     same function.  The calls ``_bwd_design`` names "sm90" add one to
     ``flash_bwd.launches_sm90[route]``: K7 and K10 run the single-pass
-    ``csrc/flash_bwd_sm90.cu``; K8 and K9 in bf16 at d = 72 or 80,
-    non-causal, with or without ``kv_valid``, run the short-row
-    ``csrc/flash_bwd_rows_sm90.cu`` (tensors TMA cannot read in place
-    copied first, counted in ``flash_bwd.tma_copies``), which reads the key
-    mask as ``mask_words`` (``_pack_mask_words`` of ``kv_valid``, as the
-    masked training forward packed them) or packs it first.  Everything
-    else runs ``csrc/flash_bwd.cu``.  On a CPU tensor it runs
+    ``csrc/flash_bwd_sm90.cu``, and so do K8 and K9 in bf16 at d = 128,
+    non-causal and unmasked (counted in ``flash_bwd.launches_d128`` too);
+    K8 and K9 in bf16 at d = 72 or 80, non-causal, with or without
+    ``kv_valid``, run the short-row ``csrc/flash_bwd_rows_sm90.cu``, which
+    reads the key mask as ``mask_words`` (``_pack_mask_words`` of
+    ``kv_valid``, as the masked training forward packed them) or packs it
+    first.  On both Hopper designs tensors TMA cannot read in place are
+    copied first, counted in ``flash_bwd.tma_copies``.  Everything else
+    runs ``csrc/flash_bwd.cu``.  On a CPU tensor it runs
     ``flash_bwd_plain``.  Replaces ``_flash_bwd_packed2`` (K7,
     videotuna_tpu/kernels/attention.py :1424, :1517; K10 :1260, :1343) and
     ``flash_attention_bwd`` (K8 :1148, :1725; K9 :1107, :1197)."""
@@ -623,9 +640,11 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             == "mma":
         res = _flash_bwd_mma(q, k, v, out, dout, lse, sm_scale, causal,
                              kv_valid)
-    elif d == 64:
+    elif d in (64, 128):
         res = _flash_bwd_sm90(q, k, v, out, dout, lse, sm_scale)
         flash_bwd.launches_sm90[route] += 1
+        if d == 128:
+            flash_bwd.launches_d128[route] += 1
     else:
         if kv_valid is not None and mask_words is None:
             mask_words = _pack_mask_words(kv_valid, b, sk)
@@ -640,6 +659,9 @@ flash_bwd.launches = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
 # flash_bwd_rows_sm90.cu for K8 and K9), per route; counted in ``launches``
 # too
 flash_bwd.launches_sm90 = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
+# of those, the launches at d = 128 (flash_bwd_sm90.cu's width 128), per
+# route
+flash_bwd.launches_d128 = dict(flash_bwd.launches_sm90)
 # q, k, v, out or dout copied because TMA could not read it in place
 flash_bwd.tma_copies = 0
 
@@ -648,13 +670,16 @@ def _bwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
                 masked: bool) -> str:
     """Which backward kernel a CUDA call launches, from its route, dtype,
     width and options alone: "sm90" for bf16 non-causal calls of K7 and
-    K10 (d=64, unmasked: ``csrc/flash_bwd_sm90.cu``) and of K8 and K9 at
-    d = 72 or 80, masked or not (``csrc/flash_bwd_rows_sm90.cu``); "mma"
+    K10 (d=64, unmasked: ``csrc/flash_bwd_sm90.cu``), of K8 and K9 at
+    d = 72 or 80, masked or not (``csrc/flash_bwd_rows_sm90.cu``), and of
+    K8 and K9 at d = 128, unmasked (``csrc/flash_bwd_sm90.cu``); "mma"
     (``csrc/flash_bwd.cu``) for everything else."""
     if dtype != torch.bfloat16 or causal:
         return "mma"
     if route in ("K7", "K10"):
         return "sm90" if d == 64 and not masked else "mma"
+    if d == 128:
+        return "mma" if masked else "sm90"
     return "sm90" if d in (72, 80) else "mma"
 
 
@@ -706,20 +731,21 @@ _BWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
 
 def _flash_bwd_sm90(q, k, v, out, dout, lse, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_bwd_sm90.cu`` (K7 and K10: d=64, non-causal,
-    unmasked) → dq, dk, dv, with its f32 scratch: lse2 and delta rows
-    padded to 64 queries, and the zeroed dq accumulator (B·H, Sq_pad,
-    64)."""
-    _check_layout("flash_bwd", q, k, v)
+    """Launch ``csrc/flash_bwd_sm90.cu`` (bf16, non-causal, unmasked: K7
+    and K10 at d = 64, K8 and K9 at d = 128) → dq, dk, dv, with its f32
+    scratch: lse2 and delta rows padded to 64 queries, and the zeroed dq
+    accumulator (B·H, Sq_pad, d): 92 MB at HunyuanVideo's training shape,
+    freed when the call returns.  q, k, v, out or dout that TMA (or the
+    prep kernel's 16-byte loads) cannot read in place is copied first."""
+    q, k, v, out, dout = (_tma_ready(x, flash_bwd)
+                          for x in (q, k, v, out, dout))
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if b * h > 65535:
         raise ValueError("B·H above 65535 exceeds the launch grid")
-    out = out if _aligned(out) else out.contiguous()
-    dout = dout if _aligned(dout) else dout.contiguous()
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
     sq_pad = -(-sq // 64) * 64
     lse2 = torch.empty((b * h, sq_pad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse2)
@@ -976,6 +1002,20 @@ def attention_options(static_max: Optional[float] = None):
         yield
     finally:
         _ATTN_OPTS.cfg = prev
+
+
+def remat_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint`` for the models' remat:
+    (the forward's context, the recompute's).  A checkpointed block is
+    recomputed in the backward, for a CUDA tensor on autograd's own thread,
+    where the forward's thread-local ``attention_options`` are not set, so
+    the recompute would take the online softmax where the forward took the
+    fixed max.  The recompute re-enters the options the forward ran under,
+    and so computes what the forward did, as the JAX package's ``nn.remat``
+    replays its traced forward."""
+    cfg = getattr(_ATTN_OPTS, "cfg", None)
+    return (contextlib.nullcontext(),
+            attention_options(**cfg) if cfg else contextlib.nullcontext())
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

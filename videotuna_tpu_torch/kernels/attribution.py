@@ -1,7 +1,7 @@
 """Where a Hopper kernel's time goes: the kernel timed beside copies of its
 source with one part of its work taken out, on the same tensors.
 
-    python -m videotuna_tpu_torch.kernels.attribution [K1] [K3] [K4] [K5] [K7] [K8] [host]
+    python -m videotuna_tpu_torch.kernels.attribution [K1] [K3] [K4] [K5] [K7] [K8] [K5_d128] [K8_d128] [host]
 
 Variants (their outputs are wrong by design; only their times count):
 
@@ -32,6 +32,13 @@ Variants (their outputs are wrong by design; only their times count):
 - K7, ``csrc/flash_bwd_sm90.cu`` at CogVideoX-2B's training shape (B=1,
   S=17,776, H=30, d=64): ``no_exp2`` likewise, and ``no_dq_adds`` drops the
   atomic adds of dq into its f32 scratch.
+- K5_d128 and K8_d128, HunyuanVideo's LoRA training attention (B=1,
+  S=7,456, H=24, d=128, RMSNormed q and k): K5 under the fixed max 0 with
+  the LSE on K3's kernel (``csrc/flash_fwd_sm90.cu``), ``no_exp2``; K8 on
+  ``csrc/flash_bwd_sm90.cu`` at its width 128, ``no_exp2``,
+  ``no_dq_adds`` (as K7) and ``no_dq``, which drops the dQ product as
+  well as leaving its adds; what none of them saves is the chain of the
+  other four products and the loads.
 - K5 and K2, the persistent kernel of ``csrc/flash_fwd_sm90.cu`` at
   STDiT-XL/2's training forward (K5: B=16, S=256, H=16, d=72, online
   softmax with the LSE) and sampling (K2: B=32, without the LSE), each
@@ -64,7 +71,7 @@ Variants (their outputs are wrong by design; only their times count):
 Each variant is built from an edited copy under ``kernels/_build/
 attribution/`` and loaded in place of the kernel's library for its timing.
 Prints the card's name and power limit, then one line per variant; the
-arguments pick kernels (all six by default).  ``host`` instead takes the
+arguments pick kernels (all eight by default).  ``host`` instead takes the
 K8 wrapper's host time apart at both STDiT shapes, beside the old design's
 (``host_breakdown``).
 """
@@ -82,13 +89,13 @@ import torch
 from videotuna_tpu_torch import kernels
 import videotuna_tpu_torch.kernels.attention as A
 
-_ADD = '''          atomicAdd(reinterpret_cast<float2*>(acc + row * D + col),
-                    make_float2(dqa[nb * 4 + 2 * r], dqa[nb * 4 + 2 * r + 1]));'''
-_NO_ADD = ('          if (dqa[nb * 4 + 2 * r] == 12345.f) '
-           'acc[row * D + col] = 0.f;')
+# flash_bwd_sm90.cu without the atomic adds of dq (either width)
+_NO_DQ_ADDS = [('''          atomicAdd(reinterpret_cast<float2*>(acc + row * D + col),
+                    make_float2(dqa[nb * 4 + 2 * r], dqa[nb * 4 + 2 * r + 1]));''',
+                '          if (dqa[nb * 4 + 2 * r] == 12345.f) acc[row * D + col] = 0.f;')]
 
-_K3_LAUNCH = '''  return launch<128>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                     v_sb, v_ss, v_sh, s);'''
+_K3_LAUNCH = '''  return launch<128, false>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss,
+                            k_sh, v_sb, v_ss, v_sh, s);'''
 
 # the products of flash_bwd_rows_sm90.cu: columns 64-79 (the 16-column
 # boxes), dQ, and the rest
@@ -127,7 +134,15 @@ VARIANTS = {
     ("K3", "flash_fwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
     ("K7", "flash_bwd_sm90.cu", "base"): [],
     ("K7", "flash_bwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
-    ("K7", "flash_bwd_sm90.cu", "no_dq_adds"): [(_ADD, _NO_ADD)],
+    ("K7", "flash_bwd_sm90.cu", "no_dq_adds"): _NO_DQ_ADDS,
+    ("K5_d128", "flash_fwd_sm90.cu", "base"): [],
+    ("K5_d128", "flash_fwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
+    ("K8_d128", "flash_bwd_sm90.cu", "base"): [],
+    ("K8_d128", "flash_bwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
+    ("K8_d128", "flash_bwd_sm90.cu", "no_dq_adds"): _NO_DQ_ADDS,
+    ("K8_d128", "flash_bwd_sm90.cu", "no_dq"): _NO_DQ_ADDS + [
+        ("wgmma_ss_mn<D / 2>(dqa,", "if (false) wgmma_ss_mn<D / 2>(dqa,")],
+    ("K8_d128", "flash_bwd_sm90.cu", "base_again"): [],
     ("K5", "flash_fwd_sm90.cu", "base"): [],
     ("K5", "flash_fwd_sm90.cu", "no_exp2"): [("fast_exp2(", "(")],
     ("K5", "flash_fwd_sm90.cu", "no_rescale"): [
@@ -342,7 +357,8 @@ def host_breakdown(gen: torch.Generator) -> None:
 def main(argv=None) -> None:
     import sys
     picked = set((sys.argv[1:] if argv is None else argv)
-                 or ("K1", "K3", "K4", "K5", "K7", "K8"))
+                 or ("K1", "K3", "K4", "K5", "K7", "K8", "K5_d128",
+                     "K8_d128"))
     if not torch.cuda.is_available():
         raise SystemExit("attribution: no CUDA device")
     print(subprocess.run(
@@ -398,6 +414,19 @@ def main(argv=None) -> None:
                                emit_lse=True)
         calls["K7"] = [("K7", lambda: A.flash_bwd(
             q7, k7, v7, o7, g7, lse7, sm_scale=0.125), _time_ms, 5)]
+    if "K5_d128" in picked or "K8_d128" in picked:
+        qh, kh, vh = _inputs(1, 7456, 24, 128, gen)
+        gh = torch.randn(qh.shape, generator=gen, device="cuda").bfloat16()
+        oh, lseh = A.flash_fwd(qh, kh, vh, sm_scale=128 ** -0.5,
+                               static_max=0.0, emit_lse=True, route="K5")
+        calls["K5_d128"] = [("K5_d128", lambda: A.flash_fwd(
+            qh, kh, vh, sm_scale=128 ** -0.5, static_max=0.0, emit_lse=True,
+            route="K5"), _time_ms, 10)]
+        calls["K8_d128"] = [("K8_d128", lambda: A.flash_bwd(
+            qh, kh, vh, oh, gh, lseh, sm_scale=128 ** -0.5), _time_ms, 5)]
+        for name in ("K5_d128", "K8_d128"):
+            if name not in picked:
+                del calls[name]
     if "K8" in picked:
         calls["K8"] = [
             (label, (lambda t=t: A.flash_bwd(

@@ -1,8 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a), bf16, non-causal: TMA
 // loads, wgmma products, a producer warpgroup and two consumer warpgroups
 // that take turns on the tensor cores.  Two kernels share that design:
-// `flash_fwd_sm90_kernel<D>` (fixed max, built at D = 128, one block per
-// query tile; K3 at d = 128, described first) and
+// `flash_fwd_sm90_kernel<D, LSE>` (fixed max, built at D = 128, one block
+// per query tile, optional LSE; K3 at d = 128, and with the LSE K5 at
+// d = 128, described first) and
 // `flash_fwd_sm90_persistent` (d = 64, 72 or 80, online or fixed max,
 // optional LSE and key mask, a persistent grid; K1, K2, K4, K5 and K6, and
 // K3 at those widths, described below).  K3's kernel is left as it was
@@ -15,7 +16,11 @@
 // Replaces the TPU kernel K3 of the JAX package, `_flash_kernel_t128`
 // launched by `_flash_t128` (videotuna_tpu/kernels/attention.py:581, :648),
 // the d <= 128 fixed-max forward of the qk-normed denoisers (HunyuanVideo's
-// joint attention).  It computes the function of `flash_fwd` (flash_fwd.cu)
+// joint attention), and with the LSE (LSE = true) K5 at d = 128,
+// `_flash_fwd_lse_kernel` launched by `_flash_forward_lse` (:867, :933;
+// `pallas_call` at :943) under the fixed max, the training forward of that
+// attention in HunyuanVideo's LoRA fine-tune (B=1, 7,456 tokens, H=24,
+// M = 0).  It computes the function of `flash_fwd` (flash_fwd.cu)
 // with use_static=1, not the TPU kernel's blocks: the transposed scores and
 // the row sum folded into the PV product answer the TPU's matrix unit and
 // are not copied, and keys past Sk score -inf where the TPU kernel removes
@@ -58,6 +63,11 @@
 // Shared memory at d=128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.  The
 // epilogue stores o / l as bf16 pairs straight from the accumulator, rows
 // past Sq dropped (0.73 GB at the HunyuanVideo shape, well under 1 ms).
+// With LSE it also writes lse = (M + log2 l) * ln 2, f32 (B, H, Sq), the
+// layout of the persistent kernel's LSE, from the row sum l it already
+// has (summed over the row's quad), by the thread of the row with
+// tig = 0: 4 bytes a row, nothing added inside the loop.  A row whose l is
+// 0 gets -inf.  The LSE = false instantiation is K3's kernel as it was.
 //
 // ------------------------------------------------------ K1, K2, K4-K6
 // `flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK>` replaces the TPU
@@ -177,13 +187,14 @@ struct Cfg {
 
 struct Params {
   __nv_bfloat16* o;
+  float* lse;        // (B, H, Sq) f32 (LSE), natural log
   int H, Sq, Sk;
   long long o_sb, o_ss, o_sh;
   float scale_log2;  // sm_scale * log2(e)
   float static_max;  // M, log2 domain
 };
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -384,6 +395,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           *reinterpret_cast<__nv_bfloat162*>(orow + db * 8 + tig * 2) =
               __floats2bfloat162_rn(o[db * 4 + 2 * r] * inv,
                                     o[db * 4 + 2 * r + 1] * inv);
+        if constexpr (LSE) {
+          if (tig == 0)
+            p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
+                (p.static_max + log2f(l)) * 0.69314718055994531f;
+        }
       }
     }
   }
@@ -761,7 +777,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 int launch(const void* q, const void* k, const void* v, const Params& p,
            int B, long long q_sb, long long q_ss, long long q_sh,
            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
@@ -776,7 +792,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
     err = sm90_host::make_map(&tv, v, B, p.Sk, p.H, D, v_sb, v_ss, v_sh,
                               BLOCK_N);
   if (err != 0) return err;
-  auto kernel = flash_fwd_sm90_kernel<D>;
+  auto kernel = flash_fwd_sm90_kernel<D, LSE>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -912,7 +928,7 @@ extern "C" int pack_mask_words(const void* mask, long long mask_sb,
 // Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
 // for what no kernel takes: a head width other than 64, 72, 80 or 128; a
 // key mask at a width other than 72 or 80; at 128 (K3's kernel) the online
-// softmax, the LSE or B*H above 65535; or a tensor TMA cannot read in
+// softmax, a key mask or B*H above 65535; or a tensor TMA cannot read in
 // place.  d = 64, 72 and 80 take the persistent kernel.  `lse` is null
 // without the LSE; `online` 0 takes the fixed max `static_max`.  `words`
 // is null without a key mask, else the mask's (B, ceil(Sk / 128) * 4)
@@ -964,10 +980,11 @@ extern "C" int flash_fwd_sm90_bf16(
     return launch_persistent_modes<80, false>(q, k, v, p, B, st, online,
                                               lse != nullptr, s);
   }
-  if (d != 128 || online || lse || words || (long long)B * H > 65535)
+  if (d != 128 || online || words || (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.H = H;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -976,6 +993,9 @@ extern "C" int flash_fwd_sm90_bf16(
   p.o_sh = o_sh;
   p.scale_log2 = scale_log2;
   p.static_max = static_max;
-  return launch<128>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                     v_sb, v_ss, v_sh, s);
+  if (lse)
+    return launch<128, true>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss,
+                             k_sh, v_sb, v_ss, v_sh, s);
+  return launch<128, false>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss,
+                            k_sh, v_sb, v_ss, v_sh, s);
 }

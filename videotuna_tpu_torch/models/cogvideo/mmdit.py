@@ -21,7 +21,8 @@ from torch.utils.checkpoint import checkpoint
 
 from videotuna_tpu_torch.core.config import resolve_dtype
 from videotuna_tpu_torch.core.registry import register
-from videotuna_tpu_torch.kernels.attention import dot_product_attention
+from videotuna_tpu_torch.kernels.attention import (dot_product_attention,
+                                                   remat_contexts)
 from videotuna_tpu_torch.models.layers import (LayerNorm, TimestepEmbedder,
                                                apply_rope, dense_general,
                                                rope_3d, split_rope_dims,
@@ -177,7 +178,8 @@ class CogVideoXTransformer(nn.Module):
         for block in self.blocks:
             if remat:
                 tok = checkpoint(block, tok, temb, lt, rope_cos, rope_sin,
-                                 use_reentrant=False)
+                                 use_reentrant=False,
+                                 context_fn=remat_contexts)
             else:
                 tok = block(tok, temb, lt, rope_cos, rope_sin)
 

@@ -39,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from videotuna_tpu_torch.core.config import resolve_dtype
 from videotuna_tpu_torch.core.registry import register
-from videotuna_tpu_torch.kernels.attention import dot_product_attention
+from videotuna_tpu_torch.kernels.attention import (dot_product_attention,
+                                                   remat_contexts)
 from videotuna_tpu_torch.models.layers import (HUNYUAN_ROPE_DIMS, LayerNorm,
                                                RMSNorm, TimestepEmbedder,
                                                apply_rope, dense_general,
@@ -320,7 +321,8 @@ class HYVideoDiT(nn.Module):
 
         def run(block, *args):
             if remat:
-                return checkpoint(block, *args, use_reentrant=False)
+                return checkpoint(block, *args, use_reentrant=False,
+                                  context_fn=remat_contexts)
             return block(*args)
 
         for block in self.double_blocks:

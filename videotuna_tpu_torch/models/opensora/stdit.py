@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from videotuna_tpu_torch.core.config import resolve_dtype
 from videotuna_tpu_torch.core.registry import register
+from videotuna_tpu_torch.kernels.attention import remat_contexts
 from videotuna_tpu_torch.models.layers import (Attention, LayerNorm, Mlp,
                                                PatchEmbed3D,
                                                TimestepEmbedder, gelu_tanh,
@@ -358,7 +359,8 @@ class STDiT(nn.Module):
 
         def run(cell, *args, **kwargs):
             if remat:
-                return checkpoint(cell, *args, use_reentrant=False, **kwargs)
+                return checkpoint(cell, *args, use_reentrant=False,
+                                  context_fn=remat_contexts, **kwargs)
             return cell(*args, **kwargs)
 
         if self.paired_blocks:
