@@ -18,13 +18,18 @@ without a result line:
                 flash_fwd_sm90.cu at D=64) against its plain PyTorch
                 version on the card, at the CogVideoX-5B shape (B=2 with
                 CFG, S=17776, H=48, bf16) in both softmax modes with the
-                LSE, and at ragged shapes; K6 (``pack2=True``) on the same
-                kernel in online mode at one ragged shape, counted as K6.
-                Times the kernel, its plain version and torch's
-                scaled_dot_product_attention (SDPA, a yardstick only: the
-                port never calls it), and, at K1's shape beside K1, the
-                mma.sync kernel (flash_fwd.cu, the A/B baseline); K6 also
-                by device time and host time, beside SDPA's device time.
+                LSE, and at ragged shapes (300 × 4322 and 17 × 4322 split
+                their keys into ranges, counted as splits); K6 at its A/B
+                shape (B=2, 300 × 4322, H=4) on the same kernel with its
+                keys split into 5 ranges and the combine, online and under
+                the fixed max with the LSE, the same bits twice, counted
+                as K6 and as a split.  Times the kernel, its plain version
+                and torch's scaled_dot_product_attention (SDPA, a
+                yardstick only: the port never calls it), and, at K1's
+                shape beside K1, the mma.sync kernel (flash_fwd.cu, the
+                A/B baseline); K6 also by device time and host time,
+                beside the unsplit walk on the same tensors (in turns),
+                flash_fwd.cu and SDPA's device time.
 4. K2         — the generic flash route against its plain version: the
                 STDiT-XL/2 spatial shape (B=32, S=256, H=16, d=72, online)
                 and d=72 1×64 on the Hopper kernel (flash_fwd_sm90.cu,
@@ -34,8 +39,11 @@ without a result line:
                 shape beside the old design (flash_fwd.cu) on the same
                 tensors and SDPA, by CUDA events and by device time.  The
                 f32 causal case of HunyuanVideo's LLaMA (B=1, 256 tokens,
-                32 heads of d=128) on flash_fwd.cu against the f32 plain
-                version, timed beside its bound at the f32 rate and SDPA.
+                32 heads of d=128) on the f32 design (flash_fwd_f32_sm90.cu,
+                split key ranges and the combine) against the f32 plain
+                version with the LSE, the same bits twice, timed by
+                events, device time and host time beside its bound, the
+                old flash_fwd.cu on the same tensors (in turns) and SDPA.
 5. K4         — the key-masked route (flash_fwd_sm90.cu's persistent
                 kernel with the packed mask) at the STDiT-XL/2
                 cross-attention shape (B=2, 4096 queries, 120 keys, H=16,
@@ -54,7 +62,7 @@ without a result line:
                 decode does not fit beside the weights.  Asserts 42×3 = 126
                 K1 launches, finite latents and pixels, the video's shape and
                 metric.json, and every K1 on flash_fwd_sm90 with no
-                alignment copy.
+                alignment copy and unsplit.
 7. reference  — the same flow at narrow width (2 layers, 2 heads of d=64)
                 on the card and on the CPU with the same weights and noise:
                 one denoiser call, the latents, and the VAE's decode of
@@ -113,7 +121,8 @@ without a result line:
                 and backward and the old designs (flash_fwd.cu,
                 flash_bwd.cu) on the same tensors.
 12. f32       — flash_fwd with f32 inputs against the f32 plain version at
-                the narrow VAE's mid-attention shape.
+                the narrow VAE's mid-attention shape (d=128: the f32
+                design) and a ragged causal d=72 shape (flash_fwd.cu).
 13. train-cog — the training CLI's trainer on
                 configs/004_cogvideox/cogvideo2b_lora.yaml at full width and
                 depth (dim 1920, 30 layers, 30 heads of d=64, T5-XXL, the
@@ -155,7 +164,8 @@ without a result line:
                 decodes the first 2 latent frames (5 pixel frames): the f32
                 decode of all 33 does not fit.  Asserts K3 = 60 per step,
                 all on flash_fwd_sm90 with no alignment copy, K2 = 32 (the
-                f32 LLaMA encode) and no other launch, finite
+                f32 LLaMA encode), every one on the f32 design and split,
+                none on flash_fwd.cu, and no other launch, finite
                 latents and pixels, a (5, 720, 1280, 3) video and
                 metric.json; logs seconds per step, the text encode, the
                 decode and the peak memory.
@@ -186,7 +196,7 @@ without a result line:
                 Asserts K5 = 120, K8 = 60 and K2 = 32 per step and no other
                 launch, every K5 and K8 on the Hopper designs at d=128
                 (K3's kernel with the LSE, flash_bwd_sm90) and every K2 on
-                flash_fwd.cu, finite losses, the LoRA moved, lora.pt and
+                the split f32 design, finite losses, the LoRA moved, lora.pt and
                 state.pt, step 3 restored; logs the peak memory, the tokens
                 per attention and the step taken apart.
 22. kernels   — status of every TPU kernel of the JAX package.
@@ -197,17 +207,20 @@ defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
 (7, 9, 15, 18) turn TF32 off inside ``tf32_off`` and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
 (the three sampling runs and the three training runs) and read just after;
+in each, no launch splits its keys but LLaMA's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
 launches summed over those six runs, per design and, for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
 training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
 width 128) apart from STDiT's d=72 K5 and K8, and one for the case of a
-route that runs flash_fwd.cu on a main path (LLaMA's f32 K2) (K1, K3,
-K4, K5, K6, K7, K8 and K10 also give the old design's ms on the same
-tensors, flash_fwd.cu for K1, K5 and K6, flash_bwd.cu for K7, K8 and
+route's f32 design on a main path (LLaMA's f32 K2), each with its status
+(K1, K3, K4, K5, K6, K7, K8 and K10 also give the old design's ms on the
+same tensors, flash_fwd.cu for K1, K5 and K6, flash_bwd.cu for K7, K8 and
 K10; K2, K4, K5 and K8 also the device times, K8 its host times and the
 cross-attention's figures as cross_*; K1 its time at the training shape
-with the LSE; K2 LLaMA's figures as llama_*).  K1's and K6's bound_ms is
+with the LSE; K6 device and host times beside its unsplit walk's
+(unsplit_*); K2 LLaMA's figures as llama_*, device and host times
+beside flash_fwd.cu's).  K1's and K6's bound_ms is
 the largest of three floors: the bytes, the products and the exp2 (the
 special-function units).  The last line is
 {"ok": true, "device": {...}}.
@@ -615,9 +628,14 @@ def check_k1(A) -> dict:
         library_ms=f"{record['library_ms']:.3f}")
     del q, k, v, qt, kt, vt
 
-    for sq, sk in ((200, 200), (300, 4322), (1, 64), (130, 300)):
+    # ragged shapes; 300 × 4322 (5 ranges) and 17 × 4322 (9) split their
+    # keys, the others stay unsplit
+    for sq, sk in ((200, 200), (300, 4322), (1, 64), (130, 300),
+                   (17, 4322)):
         q, k, v = _qkv(2, sq, sk, 4, gen)
+        splits = A._fwd_plan("sm90", q, k, False, False).splits
         for static_max in (0.0, None):
+            split_before = A.flash_fwd.launches_split["K1"]
             out, lse = _k1(A, q, k, v, static_max, emit_lse=True)
             ref, ref_lse = A.flash_fwd_plain(
                 q, k, v, sm_scale=0.125, static_max=static_max, emit_lse=True)
@@ -625,66 +643,120 @@ def check_k1(A) -> dict:
             err = (out.float() - ref.float()).abs().max().item()
             lse_err = (lse - ref_lse).abs().max().item()
             scale = ref.float().abs().max().item()
-            ok = err <= K1_TOL * scale and lse_err <= LSE_TOL
+            ok = (err <= K1_TOL * scale and lse_err <= LSE_TOL
+                  and A.flash_fwd.launches_split["K1"]
+                  == split_before + (splits > 1))
             log("K1", mode="static_max=0" if static_max == 0.0 else "online",
-                shape=f"B2xSq{sq}xSk{sk}xH4xd64", max_abs_err=f"{err:.3e}",
-                tol=f"{K1_TOL * scale:.3e}", lse_err=f"{lse_err:.3e}", ok=ok)
+                shape=f"B2xSq{sq}xSk{sk}xH4xd64", splits=splits,
+                max_abs_err=f"{err:.3e}", tol=f"{K1_TOL * scale:.3e}",
+                lse_err=f"{lse_err:.3e}", ok=ok)
             if not ok:
-                raise AssertionError(f"K1 disagrees at Sq={sq}, Sk={sk}")
+                raise AssertionError(f"K1 disagrees at Sq={sq}, Sk={sk}, or "
+                                     "its split was not counted")
+    if A._fwd_split_plan("sm90", b, h, s, s, 64, False, False,
+                         A._sm_count(torch.device("cuda"))).splits != 1:
+        raise AssertionError("K1's main-path shape must stay unsplit")
+    record["k6"] = check_k6(A, gen)
+    return record
 
-    # K6: pack2=True runs K1's function in online mode, route K6
-    q, k, v = _qkv(2, 300, 4322, 4, gen)
-    before = (dict(A.flash_fwd.launches), dict(A.flash_fwd.launches_sm90))
+
+def check_k6(A, gen) -> dict:
+    """K6 (``pack2=True``: K1's function in online mode, route K6) at its
+    A/B shape, B=2, 300 queries over 4,322 keys, H=4, d=64: the plan cuts
+    each query tile's keys into 5 ranges (120 units for 132 SMs), the
+    persistent kernel walks them and the combine sums their partials.
+    Against the plain version with the LSE, online and under the fixed
+    max; the same bits from a second call; counted as a split launch.
+    Timed by CUDA events, device time (CUDA-graph replay) and host time,
+    beside the unsplit walk on the same tensors (the private launcher with
+    one range), the old flash_fwd.cu and SDPA (wall and device)."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    b, sq, sk, h = 2, 300, 4322, 4
+    q, k, v = _qkv(b, sq, sk, h, gen)
+    splits = A._fwd_plan("sm90", q, k, False, False).splits
+    for static_max in (None, 0.0):
+        before = (dict(A.flash_fwd.launches), dict(A.flash_fwd.launches_sm90),
+                  dict(A.flash_fwd.launches_split))
+        run = lambda: A.flash_fwd(q, k, v, sm_scale=0.125,
+                                  static_max=static_max, emit_lse=True,
+                                  route="K6")
+        (out, lse), (out2, lse2) = run(), run()
+        ref, ref_lse = A.flash_fwd_plain(q, k, v, sm_scale=0.125,
+                                         static_max=static_max, emit_lse=True)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        scale = ref.float().abs().max().item()
+        same = torch.equal(out, out2) and torch.equal(lse, lse2)
+        counted = all(c == dict(bc, K6=bc["K6"] + 2) for c, bc in zip(
+            (A.flash_fwd.launches, A.flash_fwd.launches_sm90,
+             A.flash_fwd.launches_split), before))
+        ok = (err <= K1_TOL * scale and lse_err <= LSE_TOL and same
+              and counted and splits == 5)
+        log("K6", route="flash_fwd route K6, flash_fwd_sm90 persistent, "
+            "split keys + combine", mode="online" if static_max is None
+            else "static_max=0", shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd64",
+            splits=splits, max_abs_err=f"{err:.3e}",
+            tol=f"{K1_TOL * scale:.3e}", lse_err=f"{lse_err:.3e}",
+            lse_tol=LSE_TOL, same_bits=same, counted_split=counted, ok=ok)
+        if not ok:
+            raise AssertionError("K6 disagrees with its plain version, is "
+                                 "not the same bits twice, or did not run "
+                                 "the split design (5 ranges)")
+        if static_max is None:
+            rec = dict(max_abs_err=err)
+        del out, lse, out2, lse2, ref, ref_lse
+    before = dict(A.flash_fwd.launches_split)
     out = A.flash_attention(q, k, v, pack2=True)
     ref = A.flash_fwd_plain(q, k, v, sm_scale=0.125)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
-    ok = (err <= K1_TOL * scale
-          and A.flash_fwd.launches == dict(before[0], K6=before[0]["K6"] + 1)
-          and A.flash_fwd.launches_sm90 == dict(before[1],
-                                                K6=before[1]["K6"] + 1))
-    log("K6", route="flash_attention(pack2=True) -> flash_fwd route K6, "
-        "flash_fwd_sm90 persistent online",
-        shape="B2xSq300xSk4322xH4xd64", max_abs_err=f"{err:.3e}",
-        tol=f"{K1_TOL * scale:.3e}", ok=ok)
-    if not ok:
-        raise AssertionError("K6 (pack2=True) disagrees with K1's plain "
-                             "online version, or did not launch "
-                             "flash_fwd_sm90")
+    if err > K1_TOL * ref.float().abs().max().item() \
+            or A.flash_fwd.launches_split != dict(before,
+                                                  K6=before["K6"] + 1):
+        raise AssertionError("flash_attention(pack2=True) disagrees or did "
+                             "not run the split design")
+    new = lambda: A.flash_attention(q, k, v, pack2=True)
+    unsplit = lambda: A._flash_fwd_sm90(q, k, v, 0.125, None, False, splits=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    bound_ms, bound_by = _bound(4.0 * 2 * 4 * 300 * 4322 * 64,
-                                (2 * q.numel() + 2 * k.numel())
-                                * q.element_size(),
-                                _exp2_floor_ms(2 * 4 * 300 * 4322))
-    from videotuna_tpu_torch.kernels.attribution import device_ms
-    library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=20)
-    lib_dev, dev_backend = sdpa_device_ms((qt, kt, vt), {}, reps=20)
-    record["k6"] = dict(
-        max_abs_err=err,
-        ms=cuda_time_ms(lambda: A.flash_attention(q, k, v, pack2=True),
-                        reps=20),
+    rec["bound_ms"], rec["bound_by"] = _bound(
+        4.0 * b * h * sq * sk * 64,
+        (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+        _exp2_floor_ms(b * h * sq * sk))
+    rec["library_ms"], backend = sdpa_ms((qt, kt, vt), {}, reps=20)
+    rec["library_device_ms"], dev_backend = sdpa_device_ms((qt, kt, vt), {},
+                                                           reps=20)
+    # in turns: split, unsplit, unsplit, split
+    dev = [device_ms(fn, reps=20) for fn in (new, unsplit, unsplit, new)]
+    rec.update(
+        ms=cuda_time_ms(new, reps=20), device_ms=min(dev[0], dev[3]),
+        host_ms=host_ms(new, 200),
+        unsplit_ms=cuda_time_ms(unsplit, reps=20),
+        unsplit_device_ms=min(dev[1], dev[2]),
+        unsplit_host_ms=host_ms(unsplit, 200),
         plain_ms=cuda_time_ms(lambda: A.flash_fwd_plain(
             q, k, v, sm_scale=0.125), reps=5),
         old_design_ms=cuda_time_ms(lambda: A._flash_fwd_mma(
             q, k, v, 0.125, False, None, None, False), reps=20),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-        device_ms=device_ms(lambda: A.flash_attention(q, k, v, pack2=True),
-                            reps=20),
-        host_ms=host_ms(lambda: A.flash_attention(q, k, v, pack2=True),
-                        200),
-        library_device_ms=lib_dev)
-    log("K6", ms=f"{record['k6']['ms']:.4f}",
-        device_ms=f"{record['k6']['device_ms']:.4f}",
-        host_ms=f"{record['k6']['host_ms']:.4f}",
-        library_device_ms=f"{lib_dev:.4f}",
-        library_device=f"scaled_dot_product_attention[{dev_backend}]",
-        bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by, plain_ms=f"{record['k6']['plain_ms']:.3f}",
-        old_design_ms=f"{record['k6']['old_design_ms']:.4f}",
+        old_design_device_ms=device_ms(lambda: A._flash_fwd_mma(
+            q, k, v, 0.125, False, None, None, False), reps=20))
+    log("K6", compare="split (5 ranges + combine) vs the unsplit walk "
+        "(splits=1) vs flash_fwd.cu vs sdpa",
+        ms=f"{rec['ms']:.4f}", device_ms=f"{rec['device_ms']:.4f}",
+        device_ms_turns="/".join(f"{x:.4f}" for x in dev),
+        host_ms=f"{rec['host_ms']:.4f}",
+        unsplit_ms=f"{rec['unsplit_ms']:.4f}",
+        unsplit_device_ms=f"{rec['unsplit_device_ms']:.4f}",
+        unsplit_host_ms=f"{rec['unsplit_host_ms']:.4f}",
+        old_design_ms=f"{rec['old_design_ms']:.4f}",
+        old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
         library=f"scaled_dot_product_attention[{backend}]",
-        library_ms=f"{record['k6']['library_ms']:.4f}")
-    return record
+        library_ms=f"{rec['library_ms']:.4f}",
+        library_device=f"scaled_dot_product_attention[{dev_backend}]",
+        library_device_ms=f"{rec['library_device_ms']:.4f}",
+        bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"],
+        plain_ms=f"{rec['plain_ms']:.3f}")
+    return rec
 
 
 # ---------------------------------------------------------------- phases 4-5
@@ -791,50 +863,84 @@ def check_k2(A) -> dict:
 
 def _check_llama_k2(A, gen) -> dict:
     """K2 as HunyuanVideo's LLaMA runs it: f32, causal, B=1, 256 tokens,
-    32 heads of d=128 (GQA's kv heads repeated before the call), on
-    flash_fwd.cu; against the f32 plain version (F32_TOL of max|o|, the
-    LSE absolute), timed beside its bound and SDPA with is_causal.  The
-    kernel runs each f32 product as three bf16 tensor-core products (hi·hi +
-    hi·lo + lo·hi), so the bound takes the causal half of the scores three
-    times at the bf16 rate, beside q, k, v and o in f32."""
+    32 heads of d=128 (GQA's kv heads repeated before the call), on the f32
+    design (flash_fwd_f32_sm90.cu: 10 units a head over split key ranges,
+    the combine); against the f32 plain version (F32_TOL of max|o|, the
+    LSE absolute), the same bits twice.  Timed by CUDA events, device time
+    and host time beside the old flash_fwd.cu on the same tensors and SDPA
+    with is_causal (wall and device).  Both kernels run each f32 product as
+    three bf16 tensor-core products (hi·hi + hi·lo + lo·hi), so the bound
+    takes the causal half of the scores three times at the bf16 rate,
+    beside q, k, v and o in f32."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
     b, s, h, d = 1, 256, HY_LLAMA_HEADS, 128
     q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                for _ in range(3))
     kw = dict(sm_scale=d ** -0.5, causal=True)
-    before = (A.flash_fwd.launches["K2"], A.flash_fwd.launches_sm90["K2"])
+    counts = lambda: (A.flash_fwd.launches["K2"],
+                      A.flash_fwd.launches_sm90["K2"],
+                      A.flash_fwd.launches_f32["K2"],
+                      A.flash_fwd.launches_split["K2"])
+    before = counts()
     out, lse = A.flash_fwd(q, k, v, emit_lse=True, **kw)
+    out2, lse2 = A.flash_fwd(q, k, v, emit_lse=True, **kw)
     ref, ref_lse = A.flash_fwd_plain(q, k, v, emit_lse=True, **kw)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     tol = F32_TOL * ref.abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    ok = (err <= tol and lse_err <= F32_TOL
-          and (A.flash_fwd.launches["K2"], A.flash_fwd.launches_sm90["K2"])
-          == (before[0] + 1, before[1]))
+    same = torch.equal(out, out2) and torch.equal(lse, lse2)
+    old = lambda: A._flash_fwd_mma(q, k, v, kw["sm_scale"], True, None, None,
+                                   False)
+    old_err = (old() - ref).abs().max().item()
+    ok = (err <= tol and lse_err <= F32_TOL and same and old_err <= tol
+          and counts() == (before[0] + 2, before[1], before[2] + 2,
+                           before[3] + 2))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms, backend = sdpa_ms((qt, kt, vt), {"is_causal": True},
                                   reps=50)
+    lib_dev, dev_backend = sdpa_device_ms((qt, kt, vt), {"is_causal": True},
+                                          reps=50)
     bound_ms, bound_by = _bound(3 * 4.0 * b * h * d * s * (s + 1) / 2,
                                 4 * q.numel() * q.element_size())
+    new = lambda: A.flash_fwd(q, k, v, **kw)
+    # in turns: new, old, old, new
+    dev = [device_ms(fn, reps=50) for fn in (new, old, old, new)]
     rec = dict(llama_max_abs_err=err,
-               llama_ms=cuda_time_ms(lambda: A.flash_fwd(q, k, v, **kw),
-                                     reps=50),
+               llama_ms=cuda_time_ms(new, reps=50),
+               llama_device_ms=min(dev[0], dev[3]),
+               llama_host_ms=host_ms(new, 200),
+               llama_old_design_ms=cuda_time_ms(old, reps=50),
+               llama_old_design_device_ms=min(dev[1], dev[2]),
+               llama_old_design_host_ms=host_ms(old, 200),
                llama_plain_ms=cuda_time_ms(
                    lambda: A.flash_fwd_plain(q, k, v, **kw), reps=5),
                llama_bound_ms=bound_ms, llama_bound_by=bound_by,
-               llama_library_ms=library_ms)
+               llama_library_ms=library_ms, llama_library_device_ms=lib_dev)
     log("K2", case="llama f32 causal (HunyuanVideo text encode)",
-        shape=f"B{b}xS{s}xH{h}xd{d}", kernel="flash_fwd", dtype="f32",
+        shape=f"B{b}xS{s}xH{h}xd{d}", kernel="flash_fwd_f32_sm90",
+        dtype="f32", splits=A._fwd_plan("f32", q, k, True, False).splits,
         max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
-        lse_err=f"{lse_err:.3e}", lse_tol=F32_TOL,
-        ms=f"{rec['llama_ms']:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by, plain_ms=f"{rec['llama_plain_ms']:.4f}",
+        lse_err=f"{lse_err:.3e}", lse_tol=F32_TOL, same_bits=same,
+        old_design_max_abs_err=f"{old_err:.3e}",
+        ms=f"{rec['llama_ms']:.4f}",
+        device_ms=f"{rec['llama_device_ms']:.4f}",
+        device_ms_turns="/".join(f"{x:.4f}" for x in dev),
+        host_ms=f"{rec['llama_host_ms']:.4f}",
+        old_design_ms=f"{rec['llama_old_design_ms']:.4f}",
+        old_design_device_ms=f"{rec['llama_old_design_device_ms']:.4f}",
+        old_design_host_ms=f"{rec['llama_old_design_host_ms']:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        plain_ms=f"{rec['llama_plain_ms']:.4f}",
         library=f"scaled_dot_product_attention[{backend}](is_causal)",
-        library_ms=f"{library_ms:.4f}", ok=ok)
+        library_ms=f"{library_ms:.4f}",
+        library_device=f"scaled_dot_product_attention[{dev_backend}]"
+                       "(is_causal)",
+        library_device_ms=f"{lib_dev:.4f}", ok=ok)
     if not ok:
         raise AssertionError("K2 (f32 causal, LLaMA's shape) disagrees with "
-                             "its plain version, or did not launch "
-                             "flash_fwd.cu")
+                             "its plain version, is not the same bits "
+                             "twice, or did not launch the split f32 design")
     return rec
 
 
@@ -899,6 +1005,8 @@ def zero_counts(A) -> None:
     A.flash_bwd.launches_sm90 = dict(A.flash_bwd.launches)
     A.flash_fwd.launches_d128 = dict(A.flash_fwd.launches)
     A.flash_bwd.launches_d128 = dict(A.flash_bwd.launches)
+    A.flash_fwd.launches_f32 = dict(A.flash_fwd.launches)
+    A.flash_fwd.launches_split = dict(A.flash_fwd.launches)
     A.flash_fwd.tma_copies = 0
     A.flash_bwd.tma_copies = 0
 
@@ -913,14 +1021,32 @@ def read_sm90_counts(A) -> dict:
     flash_bwd_sm90 for K7 and K10 and for K8 and K9 at d = 128,
     flash_bwd_rows_sm90 for K8 and K9 at d = 72 and 80), of those the
     launches at d = 128 as ``<route>_d128`` (K3's kernel for K3 and K5,
-    flash_bwd_sm90 for K8 and K9), and the alignment copies of the forward
+    flash_bwd_sm90 for K8 and K9), the f32 design's (flash_fwd_f32_sm90)
+    as ``<route>_f32``, the forward launches whose plan split the keys as
+    ``<route>_split``, and the alignment copies of the forward
     (``tma_copies``) and of the backward (``bwd_tma_copies``), read with
     ``read_counts``."""
     d128 = dict(A.flash_fwd.launches_d128, **A.flash_bwd.launches_d128)
     return dict(A.flash_fwd.launches_sm90, **A.flash_bwd.launches_sm90,
                 **{f"{k}_d128": n for k, n in d128.items()},
+                **{f"{k}_f32": n for k, n in A.flash_fwd.launches_f32.items()},
+                **{f"{k}_split": n
+                   for k, n in A.flash_fwd.launches_split.items()},
                 tma_copies=A.flash_fwd.tma_copies,
                 bwd_tma_copies=A.flash_bwd.tma_copies)
+
+
+def check_split_counts(phase: str, sm90: dict, llama: int = 0) -> None:
+    """A main-path run's split launches: none but LLaMA's ``llama`` f32 K2
+    (every one on the f32 design, split, and none on flash_fwd.cu): the
+    main paths' other shapes keep their unsplit plans."""
+    split = {k[:-6]: n for k, n in sm90.items() if k.endswith("_split")}
+    if split != dict({k: 0 for k in split}, K2=llama) \
+            or sm90["K2_f32"] != llama:
+        raise AssertionError(f"{phase}: split launches {split}, f32 K2 "
+                             f"{sm90['K2_f32']}: expected {llama} LLaMA "
+                             "launches on the split f32 design and no "
+                             "other split")
 
 
 def _read_video(path: str):
@@ -974,6 +1100,7 @@ def run_e2e(A) -> dict:
         raise AssertionError(f"{sm90}: every K1 launch must run "
                              f"flash_fwd_sm90 ({expected}), with no alignment "
                              "copy")
+    check_split_counts("e2e", sm90)
     if m["nonfinite_latents"] or m["nonfinite_pixels"]:
         raise AssertionError("non-finite latents or pixels")
     if tuple(video.shape) != (frames, 480, 720, 3):
@@ -1077,6 +1204,7 @@ def run_e2e_opensora(A) -> dict:
         raise AssertionError(f"launches {launches}, expected K2 = K4 = "
                              f"{expected} ({OS_DEPTH} layers × {OS_STEPS} "
                              "steps) and no K1")
+    check_split_counts("e2e-opensora", sm90)
     if sm90["K2"] != expected or sm90["K4"] != expected \
             or sm90["tma_copies"]:
         raise AssertionError(f"{sm90}: every K2 and K4 launch must run "
@@ -2015,6 +2143,7 @@ def run_train_cog(A) -> dict:
                              f"must run flash_bwd_sm90 ({30 * TRAIN_STEPS}) "
                              f"and every K1 launch flash_fwd_sm90 "
                              f"({60 * TRAIN_STEPS}), with no alignment copy")
+    check_split_counts("train-cog", out["sm90"])
     return dict(out, frames=frames, cut=cut)
 
 
@@ -2044,6 +2173,7 @@ def run_train_stdit(A) -> dict:
                              "alignment copy, and every K8 launch "
                              f"flash_bwd_rows_sm90 ({2 * OS_DEPTH} a step, "
                              "none on flash_bwd.cu)")
+    check_split_counts("train-stdit", out["sm90"])
     return out
 
 
@@ -2098,8 +2228,11 @@ def run_train_hunyuan(A, frames: int = HY_TRAIN_FRAMES,
             or sm90["K2"]:
         raise AssertionError(f"train-hunyuan: {sm90}: every K5 and K8 must "
                              "run the Hopper designs at d=128 (K3's kernel "
-                             "with the LSE, flash_bwd_sm90) and every f32 "
-                             "K2 flash_fwd.cu")
+                             "with the LSE, flash_bwd_sm90)")
+    # every LLaMA K2 (32 a step) on the f32 design, split, none on
+    # flash_fwd.cu
+    check_split_counts("train-hunyuan", sm90,
+                       llama=per_step["K2"] * TRAIN_STEPS)
     return dict(out, frames=frames, tokens=tokens)
 
 
@@ -2399,6 +2532,8 @@ def run_e2e_hunyuan(A) -> dict:
         raise AssertionError(f"{sm90}: every K3 launch must run "
                              f"flash_fwd_sm90 ({HY_DEPTH * HY_STEPS}), with "
                              f"no alignment copy")
+    # every LLaMA K2 on the f32 design, split, none on flash_fwd.cu
+    check_split_counts("e2e-hunyuan", sm90, llama=HY_LLAMA_LAYERS)
     if m["nonfinite_latents"] or m["nonfinite_pixels"]:
         raise AssertionError("non-finite latents or pixels")
     if tuple(video.shape) != (frames, 720, 1280, 3):
@@ -2604,12 +2739,17 @@ def main(argv=None) -> None:
     # and K5, flash_bwd_sm90 for K8 and K9): counted apart, so that the
     # d = 72 entries of K5, K8 and K9 hold STDiT's launches alone
     d128 = {k: sum(r["sm90"][f"{k}_d128"] for r in runs) for k in launches}
+    # the f32 design's launches (LLaMA's K2), also counted apart
+    f32 = {k: sum(r["sm90"].get(f"{k}_f32", 0) for r in runs)
+           for k in launches}
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
               "bf16, fixed max or online, optional LSE), checked",
         "K2": "redesigned for Hopper (flash_fwd_sm90 persistent, d=72/80 "
-              "bf16), checked; f32 causal (LLaMA) on flash_fwd.cu, checked",
+              "bf16), checked; f32 at d=128 (LLaMA's causal K2) redesigned "
+              "for Hopper (flash_fwd_f32_sm90: split key ranges, a cp.async "
+              "ring, the combine), checked",
         "K3": "redesigned for Hopper (flash_fwd_sm90: TMA, wgmma, "
               "warp-specialised), checked",
         "K4": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
@@ -2617,8 +2757,8 @@ def main(argv=None) -> None:
         "K5": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
               "LSE, d=72/80 bf16; K3's kernel with the LSE at d=128 under "
               "the fixed max, HunyuanVideo training), checked",
-        "K6": "mapped onto K1's kernel (flash_fwd_sm90 persistent, online), "
-              "checked",
+        "K6": "redesigned for Hopper (flash_fwd_sm90 persistent with a "
+              "key-range split and the combine, online), checked",
         "K7": "redesigned for Hopper (flash_bwd_sm90: single pass, wgmma), "
               "checked",
         "K8": "redesigned for Hopper (flash_bwd_rows_sm90: single pass, "
@@ -2632,7 +2772,7 @@ def main(argv=None) -> None:
     fwd90 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_sm90.cu"
     rows90 = "videotuna_tpu_torch/kernels/csrc/flash_bwd_rows_sm90.cu"
     bwd90 = "videotuna_tpu_torch/kernels/csrc/flash_bwd_sm90.cu"
-    fwd_mma = "videotuna_tpu_torch/kernels/csrc/flash_fwd.cu"
+    fwd32 = "videotuna_tpu_torch/kernels/csrc/flash_fwd_f32_sm90.cu"
     bwd_mma = "videotuna_tpu_torch/kernels/csrc/flash_bwd.cu"
     tpu = "videotuna_tpu/kernels/attention.py"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2641,7 +2781,8 @@ def main(argv=None) -> None:
     extra_keys = ("old_design_ms", "device_ms", "old_design_device_ms",
                   "library_device_ms", "lse_device_ms",
                   "lse_old_design_device_ms", "train_lse_ms", "host_ms",
-                  "old_design_host_ms") + tuple(
+                  "old_design_host_ms", "unsplit_ms", "unsplit_device_ms",
+                  "unsplit_host_ms") + tuple(
         f"cross_{k}" for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "old_design_ms",
                                "device_ms", "old_design_device_ms",
@@ -2650,23 +2791,30 @@ def main(argv=None) -> None:
         f"llama_{k}" for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms"))
 
-    def entry(name, source, replaces, kernel, rec, design="sm90"):
+    def entry(name, source, replaces, kernel, rec, design="sm90",
+              status=None):
         # a redesigned kernel adds the old design's ms on the same tensors
         # (K2, K4, K5: and the device times of both designs and the
-        # library; K1: its time at the training shape with the LSE); its
+        # library; K1: its time at the training shape with the LSE; K6 and
+        # LLaMA's K2: device and host times, K6 its unsplit walk's); its
         # launches are those of this entry's design: the Hopper kernel's at
-        # the route's other widths ("sm90") or at d = 128 ("d128"), or the
-        # rest of the route's on flash_fwd.cu / flash_bwd.cu ("mma")
+        # the route's other widths ("sm90") or at d = 128 ("d128"), the f32
+        # design's ("f32"), or the rest of the route's on flash_fwd.cu /
+        # flash_bwd.cu ("mma")
         old = {k: rec[k] for k in extra_keys if k in rec}
         n = {"sm90": sm90[kernel] - d128[kernel], "d128": d128[kernel],
-             "mma": launches[kernel] - sm90[kernel]}[design]
+             "f32": f32[kernel],
+             "mma": launches[kernel] - sm90[kernel] - f32[kernel]}[design]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": f"{tpu}:{replaces}", "launches": n,
-                **{k: rec[k] for k in keys}, **old}
+                **{k: rec[k] for k in keys}, **old,
+                "status": status or statuses[kernel]}
 
     def fields(rec, prefix):
-        return {k: rec[f"{prefix}_{k}"] for k in keys + ("old_design_ms",)
-                if f"{prefix}_{k}" in rec}
+        return {k: rec[f"{prefix}_{k}"] for k in keys + (
+            "old_design_ms", "device_ms", "host_ms", "old_design_device_ms",
+            "old_design_host_ms", "library_device_ms")
+            if f"{prefix}_{k}" in rec}
 
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1),
@@ -2678,8 +2826,8 @@ def main(argv=None) -> None:
               k4),
         entry("flash_fwd_sm90 persistent with the LSE, training forward "
               "(K5)", fwd90, 867, "K5", bwd["K5"]),
-        entry("flash_fwd_sm90 persistent online, pack2=True (K6)", fwd90,
-              163, "K6", k6),
+        entry("flash_fwd_sm90 persistent online with a key-range split and "
+              "the combine, pack2=True (K6)", fwd90, 163, "K6", k6),
         entry("flash_bwd_sm90 d=64 single pass (K7)", bwd90, 1424, "K7",
               bwd["K7"]),
         entry("flash_bwd_rows_sm90 single pass, spatial and key-masked "
@@ -2695,10 +2843,12 @@ def main(argv=None) -> None:
               design="d128"),
         entry("flash_bwd_sm90 d=128 single pass, HunyuanVideo training (K8)",
               bwd90, 1148, "K8", fields(bwd["K8"], "d128"), design="d128"),
-        # the route's case that no Hopper kernel takes, on a main path:
-        # LLaMA's f32 causal K2
-        entry("flash_fwd.cu f32 causal, LLaMA (K2)", fwd_mma, 78, "K2",
-              fields(k2, "llama"), design="mma"),
+        # LLaMA's f32 causal K2 on the f32 design
+        entry("flash_fwd_f32_sm90 f32 causal, split key ranges, LLaMA (K2)",
+              fwd32, 78, "K2", fields(k2, "llama"), design="f32",
+              status="redesigned for Hopper (flash_fwd_f32_sm90: split key "
+                     "ranges, a cp.async ring, three bf16 products a "
+                     "product, the combine), checked"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -518,7 +518,7 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K3", _BF, 64, False, False, False, True, "sm90"),
     ("K3", _BF, 72, False, False, False, True, "sm90"),
     ("K3", _BF, 32, False, False, False, True, "mma"),
-    ("K3", _F32, 128, False, False, False, True, "mma"),
+    ("K3", _F32, 128, False, False, False, True, "f32"),
     ("K3", _BF, 128, True, False, False, True, "mma"),
     ("K3", _BF, 128, False, True, False, True, "mma"),
     ("K3", _BF, 128, False, False, True, True, "sm90"),
@@ -570,8 +570,21 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _BF, 128, False, False, True, True, "sm90"),
     ("K5", _BF, 128, False, False, False, True, "sm90"),
     ("K5", _BF, 128, True, False, True, True, "mma"),
-    ("K5", _F32, 128, False, False, True, True, "mma"),
+    ("K5", _F32, 128, False, False, True, True, "f32"),
     ("K5", _BF, 128, False, True, True, True, "mma"),
+    # f32 at d = 128 without a key mask (LLaMA's causal K2, the 2D VAE's
+    # mid attention): flash_fwd_f32_sm90.cu, causal or not, online or fixed
+    # max, with or without the LSE; the masked f32 call and other f32
+    # widths keep flash_fwd.cu
+    ("K2", _F32, 128, True, False, False, False, "f32"),
+    ("K2", _F32, 128, True, False, True, False, "f32"),
+    ("K2", _F32, 128, False, False, False, False, "f32"),
+    ("K2", _F32, 128, False, False, True, True, "f32"),
+    ("K5", _F32, 128, True, False, True, False, "f32"),
+    ("K4", _F32, 128, False, True, False, False, "mma"),
+    ("K4", _F32, 128, False, True, True, True, "mma"),
+    ("K2", _F32, 64, True, False, False, False, "mma"),
+    ("K2", _F32, 256, True, False, True, False, "mma"),
 ])
 def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
@@ -581,7 +594,8 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
     bf16 at d = 128 with or without the LSE, K1 and K6 in bf16 at d = 64,
     and K2, K3, K5 and the masked K4 in bf16 at d = 72 or 80, in either
     softmax mode, with or without the LSE, all non-causal and unmasked but
-    for K4; every other call keeps flash_fwd.cu."""
+    for K4; the f32 design (flash_fwd_f32_sm90.cu) every unmasked f32 call
+    at d = 128; every other call keeps flash_fwd.cu."""
     kv_valid = torch.ones((1, 8), dtype=torch.bool) if masked else None
     assert P._fwd_design(route, dtype, d, causal, kv_valid, lse,
                          0.0 if fixed else None) == design

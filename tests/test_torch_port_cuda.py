@@ -1020,3 +1020,184 @@ def test_d128_backward_dk_dv_are_reproducible(s):
     torch.cuda.synchronize()
     assert torch.equal(first[1], second[1])
     assert torch.equal(first[2], second[2])
+
+
+# ---------------------------------------------------------------- split keys
+def _check_split(q, k, v, route, static_max, emit_lse, splits=None):
+    """flash_fwd on ``route`` (or, with ``splits``, the private launcher
+    with that many key ranges) against ``flash_fwd_plain``: counted as a
+    split launch of the Hopper design exactly when the plan splits, and the
+    same bits from a second call."""
+    d = q.shape[-1]
+    sm = d ** -0.5
+    before = (dict(P.flash_fwd.launches_sm90), dict(P.flash_fwd.launches_split))
+    if splits is None:
+        run = lambda: P.flash_fwd(q, k, v, sm_scale=sm, static_max=static_max,
+                                  emit_lse=emit_lse, route=route)
+        plan = P._fwd_plan("sm90", q, k, False, False)
+    else:
+        run = lambda: P._flash_fwd_sm90(q, k, v, sm, static_max, emit_lse,
+                                        splits=splits)
+    first, second = run(), run()
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, sm_scale=sm,
+                                     static_max=static_max, emit_lse=True)
+    torch.cuda.synchronize()
+    if splits is None:
+        n = 2 * (plan.splits > 1)
+        assert P.flash_fwd.launches_sm90 == dict(
+            before[0], **{route: before[0][route] + 2})
+        assert P.flash_fwd.launches_split == dict(
+            before[1], **{route: before[1][route] + n})
+    out, lse = first if emit_lse else (first, None)
+    # bf16 output rounding; p is bf16 on both sides: 2e-2 of max|o|
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+    if emit_lse:
+        assert (lse - ref_lse).abs().max() <= 1e-3
+        assert torch.equal(lse, second[1])
+    assert torch.equal(out, second[0] if emit_lse else second)
+    return plan.splits if splits is None else splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("route,static_max", [("K6", None), ("K1", None),
+                                              ("K1", 0.0)])
+@pytest.mark.parametrize("sq,sk,splits", [(300, 4322, 5), (17, 4322, 9),
+                                          (1, 1100, 3), (130, 2000, 4)])
+def test_split_k1_k6_matches_plain(sq, sk, splits, route, static_max,
+                                   emit_lse):
+    """K6 and K1 (d=64, B=2, H=4) at short query sides over long key rows
+    (Sk not a multiple of 128, Sq below 64, a single query): the plan cuts
+    every query tile's keys into ``splits`` ranges, and the split walk and
+    its combine match the plain version in either softmax mode, with and
+    without the LSE, the same bits on every call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(2, sq, sk, 4, seed=sq + 7 * sk)
+    assert _check_split(q, k, v, route, static_max, emit_lse) == splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_split_ranges_of_any_count_match_plain(splits, static_max, emit_lse):
+    """The private launcher with 1 to 8 key ranges at 64 queries over 1000
+    keys (8 key tiles: 8 ranges is one tile each, more ranges than the
+    plan would cut)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(1, 64, 1000, 2, seed=splits)
+    _check_split(q, k, v, "K1", static_max, emit_lse, splits=splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,emit_lse", [("K2", False), ("K5", True)])
+@pytest.mark.parametrize("d", [72, 80])
+def test_split_d72_matches_plain(d, route, emit_lse):
+    """K2 and K5 at d = 72 and 80 (the persistent kernel's two boxes) over
+    long keys split too (B=1, H=3, 300 × 4322: 9 ranges)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(1, 300, 4322, 3, d, seed=d)
+    assert _check_split(q, k, v, route, None, emit_lse) == 9
+
+
+@pytest.mark.cuda
+def test_split_rejects_what_it_does_not_take():
+    """More ranges than key tiles, a split key mask and a split at
+    d = 128 are refused by the C entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(1, 64, 1000, 2, seed=3)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        P._flash_fwd_sm90(q, k, v, 0.125, None, False, splits=9)
+    q7, k7, v7 = _qkv_d(1, 64, 1000, 2, 72, seed=4)
+    m = torch.ones((1, 1000), dtype=torch.bool, device="cuda")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        P._flash_fwd_sm90(q7, k7, v7, 72 ** -0.5, None, False, kv_valid=m,
+                          splits=2)
+    q8, k8, v8 = _qkv_d(1, 64, 1000, 2, 128, seed=5)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        P._flash_fwd_sm90(q8, k8, v8, 128 ** -0.5, 0.0, False, splits=2)
+
+
+# ---------------------------------------------------------------- f32 design
+def _f32_qkv(b, sq, sk, h, seed, normed=False):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, s, h, 128), generator=gen)
+               for s in (sq, sk, sk))
+    if normed:
+        q = torch.nn.functional.layer_norm(q, (128,))
+        k = torch.nn.functional.layer_norm(k, (128,))
+    return [x.cuda() for x in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("b,sq,sk,h,causal", [
+    (1, 256, 256, 32, True),      # LLaMA in HunyuanVideo's text encode
+    (2, 333, 333, 2, True),       # ragged, causal
+    (2, 300, 130, 3, True),       # more queries than keys
+    (1, 1, 77, 2, False),         # one query
+    (1, 1024, 1024, 1, False),    # the 2D VAE's mid attention
+    (3, 200, 4322, 2, False),     # long keys
+])
+def test_f32_design_matches_plain(b, sq, sk, h, causal, static_max,
+                                  emit_lse):
+    """flash_fwd_f32_sm90.cu at d = 128 against the f32 plain version (1e-4
+    of max|o|, LSE 1e-4), counted on the f32 design (and as a split where
+    the plan splits), the same bits from a second call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _f32_qkv(b, sq, sk, h, seed=sq + sk + h,
+                       normed=static_max is not None)
+    route = "K5" if emit_lse else "K2"
+    plan = P._fwd_plan("f32", q, k, causal, False)
+    before = (dict(P.flash_fwd.launches_f32), dict(P.flash_fwd.launches_split),
+              dict(P.flash_fwd.launches_sm90))
+    kw = dict(sm_scale=128 ** -0.5, causal=causal, static_max=static_max)
+    first = P.flash_fwd(q, k, v, emit_lse=emit_lse, route=route, **kw)
+    second = P.flash_fwd(q, k, v, emit_lse=emit_lse, route=route, **kw)
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, emit_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert P.flash_fwd.launches_f32 == dict(
+        before[0], **{route: before[0][route] + 2})
+    assert P.flash_fwd.launches_split == dict(
+        before[1], **{route: before[1][route] + 2 * (plan.splits > 1)})
+    assert P.flash_fwd.launches_sm90 == before[2]
+    out, lse = first if emit_lse else (first, None)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    if emit_lse:
+        assert (lse - ref_lse).abs().max() <= 1e-4
+        assert torch.equal(lse, second[1])
+    assert torch.equal(out, second[0] if emit_lse else second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [
+    (1, 1024, 1024, 1, 128, False),
+    (2, 200, 333, 2, 72, False),
+    (1, 130, 130, 2, 256, True),
+])
+def test_k2_f32_shapes_launch_per_design(b, sq, sk, h, d, causal):
+    """``test_k2_kernel_takes_f32``'s shapes, counted per design: d = 128
+    on the f32 design, d = 72 and 256 on flash_fwd.cu (no Hopper or f32
+    launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(sq + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen).cuda()
+               for s in (sq, sk, sk))
+    before = (P.flash_fwd.launches["K2"], P.flash_fwd.launches_f32["K2"],
+              P.flash_fwd.launches_sm90["K2"])
+    out = P.flash_fwd(q, k, v, sm_scale=d ** -0.5, causal=causal)
+    ref = P.flash_fwd_plain(q, k, v, sm_scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert (P.flash_fwd.launches["K2"], P.flash_fwd.launches_f32["K2"],
+            P.flash_fwd.launches_sm90["K2"]) \
+        == (before[0] + 1, before[1] + (d == 128), before[2])
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()

@@ -35,7 +35,7 @@ class OpenSoraFlow(GenerationFlow):
             raise NotImplementedError(
                 "Open-Sora 1.2 rectified-flow sampling and training (the "
                 "flow-match branch and STDiT's fps conditioning) are not "
-                "ported yet (ROADMAP.md queue 1, item 10)")
+                "ported yet (ROADMAP.md queue 1, item 5)")
         super().__init__(*args, **kwargs)
         self.num_frames = num_frames
         self.height = height

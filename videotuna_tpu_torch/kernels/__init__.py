@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_fwd_sm90.cu",
-           "flash_bwd_sm90.cu", "flash_bwd_rows_sm90.cu")
+           "flash_fwd_f32_sm90.cu", "flash_bwd_sm90.cu",
+           "flash_bwd_rows_sm90.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

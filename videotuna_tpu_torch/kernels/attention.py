@@ -14,12 +14,16 @@ math path.  The kernels it can reach, and where each is in the port:
   softmax in another layout): ``flash_fwd`` on routes "K1" and "K6",
   launching in bf16 the persistent Hopper kernel of
   ``csrc/flash_fwd_sm90.cu`` (TMA, wgmma, online softmax or fixed max,
-  optional LSE), in f32 ``csrc/flash_fwd.cu``;
+  optional LSE; few query tiles over many keys, as at K6's A/B shape,
+  split their keys into ranges whose partials a second launch combines:
+  ``_fwd_split_plan``), in f32 ``csrc/flash_fwd.cu``;
 - K2 (generic: any d ≤ 256, causal, fixed max) and K4 (``kv_valid``-masked):
   ``flash_fwd``, one CUDA kernel (``csrc/flash_fwd.cu``), which also takes
   f32 q, k, v; in bf16 at d = 72 and 80, non-causal, K2 and K4 launch the
   persistent Hopper kernel of ``csrc/flash_fwd_sm90.cu`` (K4 with its key
-  mask packed into bit words as ``_mask_words`` does);
+  mask packed into bit words as ``_mask_words`` does); in f32 at d = 128
+  without a key mask (LLaMA's causal K2) ``csrc/flash_fwd_f32_sm90.cu``
+  (split key ranges, a cp.async ring, three bf16 products a product);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
   on the same two kernels as K2, and in bf16 at d = 128 under the fixed max
   on K3's Hopper kernel, which writes the LSE too;
@@ -41,8 +45,10 @@ math path.  The kernels it can reach, and where each is in the port:
 Which kernel a route launches is a function of the route, the dtype, the
 head width and the options (``_fwd_design``, ``_bwd_design``), decided
 before the launch; ``flash_fwd.launches_sm90`` and
-``flash_bwd.launches_sm90`` count the Hopper kernels' launches, and
-``launches_d128`` those of each at d = 128.
+``flash_bwd.launches_sm90`` count the Hopper kernels' launches,
+``launches_d128`` those of each at d = 128, ``flash_fwd.launches_f32``
+the f32 design's and ``flash_fwd.launches_split`` the forward launches
+whose plan (a function of the shape and the SM count) split the keys.
 
 Under autograd (``torch.is_grad_enabled()`` and q, k or v requiring grad)
 ``dot_product_attention`` takes the custom VJPs: the forward kernel with
@@ -58,7 +64,7 @@ import ctypes
 import functools
 import math
 import threading
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -74,6 +80,7 @@ _KERNELS = {
           "else csrc/flash_fwd.cu",
     "K2": "generic online-softmax flash forward (flash_attention): "
           "csrc/flash_fwd_sm90.cu at d=72 and 80 in bf16 (non-causal), "
+          "csrc/flash_fwd_f32_sm90.cu in f32 at d=128 (LLaMA, causal), "
           "else csrc/flash_fwd.cu",
     "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
           "csrc/flash_fwd_sm90.cu at d=64, 72, 80 and 128 in bf16, else "
@@ -86,7 +93,8 @@ _KERNELS = {
           "in bf16 (non-causal) and at d=128 under the fixed max (K3's "
           "kernel), else csrc/flash_fwd.cu",
     "K6": "d=64 natural-layout packed forward (_flash_packed2): "
-          "flash_fwd route K6, K1's kernel in online mode",
+          "flash_fwd route K6, K1's kernel in online mode, its keys split "
+          "into ranges at short query sides",
     "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
           "csrc/flash_bwd_sm90.cu",
     "K8": "single-pass generic and kv_valid-masked flash backward "
@@ -282,8 +290,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     place is copied first and counted in ``flash_fwd.tma_copies``; the
     masked K4 there reads ``mask_words`` (``_mask_words_for`` of q and
     ``kv_valid``, packed by the caller) when given, else packs the mask in
-    the same call.  Everything else launches ``csrc/flash_fwd.cu`` (bf16 or
-    f32, d a multiple of 8; anything else raises).  On a CPU tensor it runs
+    the same call.  The calls it names "f32" (f32 at d = 128, unmasked)
+    launch ``csrc/flash_fwd_f32_sm90.cu`` and add one to
+    ``flash_fwd.launches_f32[route]``.  On both, a call whose
+    ``_fwd_split_plan`` cuts the keys into ranges also adds one to
+    ``flash_fwd.launches_split[route]``.  Everything else launches
+    ``csrc/flash_fwd.cu`` (bf16 or f32, d a multiple of 8; anything else
+    raises).  On a CPU tensor it runs
     ``flash_fwd_plain``.  Replaces the TPU kernels
     ``_flash_kernel_packed2t`` / ``_flash_packed2t`` (K1,
     videotuna_tpu/kernels/attention.py:268, :449), ``_flash_kernel`` /
@@ -304,16 +317,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{sorted(flash_fwd.launches)}, got {route}")
     if route == "K3" and static_max is None:
         raise ValueError("route K3 is the fixed-max route: give static_max")
-    if _fwd_design(route, q.dtype, q.shape[-1], causal, kv_valid, emit_lse,
-                   static_max) == "sm90":
-        res = _flash_fwd_sm90(q, k, v, sm_scale, static_max, emit_lse,
-                              kv_valid, mask_words)
-        flash_fwd.launches_sm90[route] += 1
-        if q.shape[-1] == 128:
-            flash_fwd.launches_d128[route] += 1
-    else:
+    design = _fwd_design(route, q.dtype, q.shape[-1], causal, kv_valid,
+                         emit_lse, static_max)
+    if design == "mma":
         res = _flash_fwd_mma(q, k, v, sm_scale, causal, kv_valid, static_max,
                              emit_lse)
+    else:
+        plan = _fwd_plan(design, q, k, causal, kv_valid is not None)
+        if design == "sm90":
+            res = _flash_fwd_sm90(q, k, v, sm_scale, static_max, emit_lse,
+                                  kv_valid, mask_words, splits=plan.splits)
+            flash_fwd.launches_sm90[route] += 1
+            if q.shape[-1] == 128:
+                flash_fwd.launches_d128[route] += 1
+        else:
+            res = _flash_fwd_f32(q, k, v, sm_scale, causal, static_max,
+                                 emit_lse)
+            flash_fwd.launches_f32[route] += 1
+        if plan.splits > 1:
+            flash_fwd.launches_split[route] += 1
     flash_fwd.launches[route] += 1
     return res
 
@@ -374,6 +396,11 @@ flash_fwd.launches_sm90 = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
                            "K6": 0}
 # of those, the launches at d = 128 (K3's kernel), per route
 flash_fwd.launches_d128 = dict(flash_fwd.launches_sm90)
+# the launches of the f32 design (flash_fwd_f32_sm90.cu), per route
+flash_fwd.launches_f32 = dict(flash_fwd.launches_sm90)
+# the launches of the Hopper designs whose plan split a query tile's keys
+# into ranges (``_fwd_split_plan``), per route
+flash_fwd.launches_split = dict(flash_fwd.launches_sm90)
 # q, k or v copied because TMA could not read it in place
 flash_fwd.tma_copies = 0
 
@@ -388,8 +415,13 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     kernel: online or fixed max, with or without the LSE), of the
     fixed-max route K3 without the LSE at d = 64 (the persistent kernel),
     and of the fixed-max routes K3 and K5 at d = 128, with or without the
-    LSE (K3's kernel); "mma" (``csrc/flash_fwd.cu``) for everything
-    else."""
+    LSE (K3's kernel); "f32" (``csrc/flash_fwd_f32_sm90.cu``: split key
+    ranges, a cp.async ring, three bf16 products a product) for f32 calls
+    at d = 128 without a key mask, causal or not, online or fixed max,
+    with or without the LSE (LLaMA's K2); "mma" (``csrc/flash_fwd.cu``)
+    for everything else."""
+    if dtype == torch.float32:
+        return "f32" if d == 128 and kv_valid is None else "mma"
     if dtype != torch.bfloat16 or causal:
         return "mma"
     if kv_valid is not None:
@@ -486,23 +518,34 @@ _FWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong,
                                                 ctypes.c_void_p]
                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                         ctypes.c_void_p])
+                         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
 def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float, static_max: Optional[float],
                     emit_lse: bool, kv_valid: Optional[torch.Tensor] = None,
-                    words: Optional[torch.Tensor] = None
+                    words: Optional[torch.Tensor] = None,
+                    splits: Optional[int] = None
                     ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal: the persistent
     kernel (online or fixed max, with or without the LSE) at d = 64, 72 or
     80 (at 72 and 80 with the key mask ``kv_valid`` too: its ``words`` when
     given, else packed by the same call); K3's fixed-max kernel, with or
-    without the LSE, at d = 128."""
+    without the LSE, at d = 128.  ``splits``, the key ranges of each query
+    tile, defaults to ``_fwd_split_plan``'s; above 1 the persistent kernel
+    writes f32 partials (B·H·⌈Sq/128⌉·splits·128·(D + 2) floats, D = 64 or
+    80) that the same call combines (1 is the unsplit walk)."""
     _check_layout("flash_fwd", q, k, v, check_aligned=False)
     q, k, v = (_tma_ready(x) for x in (q, k, v))
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    if splits is None:
+        splits = _fwd_plan("sm90", q, k, False, kv_valid is not None).splits
+    part = None
+    if splits > 1:
+        part = torch.empty(b * h * -(-sq // 128) * splits * 128
+                           * ((64 if d == 64 else 80) + 2),
+                           dtype=torch.float32, device=q.device)
     if d == 128:
         if b * h > 65535:
             raise ValueError("B·H above 65535 exceeds the launch grid")
@@ -536,6 +579,51 @@ def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3],
             float(sm_scale * _LOG2E), int(static_max is None),
+            float(static_max or 0.0), splits,
+            part.data_ptr() if part is not None else None)
+    return (out, lse) if emit_lse else out
+
+
+_FWD_F32_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+                     + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_float, ctypes.c_void_p])
+
+
+def _flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   sm_scale: float, causal: bool,
+                   static_max: Optional[float], emit_lse: bool
+                   ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Launch ``csrc/flash_fwd_f32_sm90.cu``: f32 q, k, v at d = 128,
+    causal or not, online or fixed max, with or without the LSE, on the
+    units of ``_fwd_split_plan("f32", …)`` (their tables on the device,
+    made once a shape); f32 scratch for the partials of split query tiles
+    (B·H·slots·64·130 floats: 7.5 MB at LLaMA's shape), which the same
+    call combines.  Counts nothing."""
+    _check_layout("flash_fwd", q, k, v, (torch.float32,))
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d != 128:
+        raise ValueError(f"the f32 design takes head_dim 128, got {d}")
+    if b * h > 65535:
+        raise ValueError("B·H above 65535 exceeds the launch grid")
+    units, combine, slots = _f32_tables(b, h, sq, sk, causal,
+                                        _sm_count(q.device), q.device)
+    part = (torch.empty(b * h * slots * 64 * 130, dtype=torch.float32,
+                        device=q.device) if slots else None)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if emit_lse else None)
+    _launch("flash_fwd_f32_sm90.cu", "flash_fwd_f32_sm90", _FWD_F32_ARGTYPES,
+            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr() if lse is not None else None,
+            part.data_ptr() if part is not None else None,
+            units.data_ptr(), units.shape[0],
+            combine.data_ptr() if combine is not None else None,
+            combine.shape[0] if combine is not None else 0, slots,
+            b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3],
+            float(sm_scale * _LOG2E), int(causal), int(static_max is None),
             float(static_max or 0.0))
     return (out, lse) if emit_lse else out
 
@@ -772,6 +860,15 @@ _ROWS_CHUNKS_MAX = 8
 _SMS = {}   # SM count per device index
 
 
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA ``device``, asked once a device."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_rows_plan(bh: int, sq: int, sk: int, sms: int) -> Tuple[bool, int]:
     """(atomic, unit_m) of a short-row backward of ``bh`` heads on ``sms``
@@ -795,6 +892,150 @@ def _bwd_rows_plan(bh: int, sq: int, sk: int, sms: int) -> Tuple[bool, int]:
     return False, best[1]
 
 
+# The split-key forward, per design: (query rows a tile, keys a tile, blocks
+# resident on an SM, fewest key tiles a range).  "sm90": the persistent
+# kernel, one block an SM; "f32": flash_fwd_f32_sm90.cu, two blocks an SM
+# (its register budget).
+_SPLIT_TILING = {"sm90": (128, 128, 1, 4), "f32": (64, 32, 2, 1)}
+
+
+class _FwdPlan(NamedTuple):
+    """Work units of a forward: query tile i of every head runs one unit per
+    key-tile range [t0, t1) of ``ranges[i]``, in the order the combine sums
+    them; ``splits`` is the most ranges of one tile (1: nothing split)."""
+    block_m: int
+    block_n: int
+    ranges: Tuple[Tuple[Tuple[int, int], ...], ...]
+    splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_split_plan(design: str, b: int, h: int, sq: int, sk: int, d: int,
+                    causal: bool, masked: bool, sms: int) -> _FwdPlan:
+    """The units of a Hopper forward (``design`` "sm90" or "f32") of
+    ``b``·``h`` heads, ``sq`` queries over ``sk`` keys, on ``sms`` SMs.
+
+    Query tile i meets n_i key tiles: all of them, or under ``causal`` those
+    up to its last row.  A tile stays one unit (a range of all n_i tiles)
+    unless the unsplit units, ``b``·``h``·⌈sq/block_m⌉, cannot fill the
+    card's resident blocks and some tile meets at least twice the fewest
+    key tiles a range may hold.  Then every tile's keys are cut into
+    ⌈n_i / L⌉ ranges of near-equal length (range j of r is
+    [j·n_i // r, (j+1)·n_i // r), as ``csrc/flash_fwd_sm90.cu``'s
+    ``unit_of`` cuts them), L the shortest range length from that fewest
+    up whose units fit the resident blocks at once; when none fits, nothing
+    is split.  K3's kernel (``sm90`` at d = 128) and the key mask (K4)
+    are never split."""
+    block_m, block_n, per_sm, fewest = _SPLIT_TILING[design]
+    m_tiles, n_tiles = -(-sq // block_m), -(-sk // block_n)
+    counts = [min(n_tiles, -(-min((i + 1) * block_m, sq) // block_n))
+              if causal else n_tiles for i in range(m_tiles)]
+    whole = _FwdPlan(block_m, block_n, tuple(((0, n),) for n in counts), 1)
+    slots = per_sm * sms
+    if (design == "sm90" and (d == 128 or masked)) \
+            or b * h * m_tiles >= slots or max(counts) < 2 * fewest:
+        return whole
+    for span in range(fewest, max(counts)):
+        if b * h * sum(-(-n // span) for n in counts) <= slots:
+            break
+    else:
+        return whole
+    ranges = tuple(tuple((j * n // r, (j + 1) * n // r) for j in range(r))
+                   for n, r in ((n, -(-n // span)) for n in counts))
+    return _FwdPlan(block_m, block_n, ranges, max(len(x) for x in ranges))
+
+
+def _fwd_plan(design: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
+              masked: bool) -> _FwdPlan:
+    """``_fwd_split_plan`` of a CUDA call on q (B, Sq, H, d), k (B, Sk, …)."""
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("q, k, v must be (B, S, H, D)")
+    b, sq, h, d = q.shape
+    return _fwd_split_plan(design, b, h, sq, k.shape[1], d, causal, masked,
+                           _sm_count(q.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_tables(b: int, h: int, sq: int, sk: int, causal: bool, sms: int,
+                device: torch.device):
+    """The f32 design's plan as the kernel reads it, on ``device``: (units,
+    combine, slots).  units: int32 (n, 4) rows (query tile, first key tile,
+    end key tile, partial slot or −1 for a tile of one range), run for every
+    head; combine: int32 rows (query tile, first slot, ranges, 0) of the
+    split tiles, or None; slots: partial slots a head."""
+    plan = _fwd_split_plan("f32", b, h, sq, sk, 128, causal, False, sms)
+    units, combine = [], []
+    slots = 0
+    for qt, ranges in enumerate(plan.ranges):
+        split = len(ranges) > 1
+        if split:
+            combine.append((qt, slots, len(ranges), 0))
+        for t0, t1 in ranges:
+            units.append((qt, t0, t1, slots if split else -1))
+            slots += split
+    as_dev = lambda rows: torch.tensor(rows, dtype=torch.int32,
+                                       device=device) if rows else None
+    return as_dev(units), as_dev(combine), slots
+
+
+def flash_fwd_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, sm_scale: float, plan: _FwdPlan,
+                          causal: bool = False,
+                          static_max: Optional[float] = None,
+                          emit_lse: bool = False
+                          ) -> Union[torch.Tensor,
+                                     Tuple[torch.Tensor, torch.Tensor]]:
+    """Plain PyTorch version of the split-key forward, the function of
+    ``flash_fwd_plain`` computed as the Hopper designs compute it on
+    ``plan``: each unit's partials over its key range (o unnormalised, m
+    the fixed max or the range's row max, −inf where the range holds no
+    valid key of the row, l = Σp, p rounded to ``v.dtype`` for PV), then
+    the combine of ``csrc/split_combine.cuh``: m = max m_j, w_j =
+    exp2(m_j − m) (1 under the fixed max), l = Σ w_j l_j, o = Σ w_j o_j / l,
+    summed over j in order; o = 0 and lse = −inf where l = 0.  For the
+    tests: no wrapper takes it."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = sm_scale * _LOG2E
+    out = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, h, sq), float("-inf"), device=q.device)
+    for qt, ranges in enumerate(plan.ranges):
+        r0, r1 = qt * plan.block_m, min((qt + 1) * plan.block_m, sq)
+        rows = torch.arange(r0, r1, device=q.device)
+        parts = []
+        for t0, t1 in ranges:
+            k0, k1 = t0 * plan.block_n, min(t1 * plan.block_n, sk)
+            s = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:r1].float(),
+                             k[:, k0:k1].float()) * scale
+            if causal:
+                keys = torch.arange(k0, k1, device=q.device)
+                s = s.masked_fill(keys[None, :] > rows[:, None],
+                                  float("-inf"))
+            m = (s.amax(dim=-1) if static_max is None
+                 else torch.full_like(s[..., 0], float(static_max)))
+            p = torch.exp2(s - m.masked_fill(m == float("-inf"),
+                                             0.0)[..., None])
+            o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                             v[:, k0:k1].float())
+            parts.append((m, p.sum(dim=-1), o))
+        m = torch.stack([x[0] for x in parts]).amax(dim=0)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(parts[0][2])
+        for mj, lj, oj in parts:
+            w = (torch.ones_like(mj) if static_max is not None else
+                 torch.where(mj == float("-inf"), 0.0, torch.exp2(mj - m)))
+            l = l + w * lj
+            acc = acc + w[..., None] * oj
+        some = l > 0
+        out[:, :, r0:r1] = torch.where(
+            some[..., None], acc / l.clamp_min(1e-30)[..., None], 0.0)
+        lse[:, :, r0:r1] = torch.where(
+            some, (m + torch.log2(l.clamp_min(1e-30))) / _LOG2E,
+            float("-inf"))
+    out = out.to(q.dtype).permute(0, 2, 1, 3).contiguous()
+    return (out, lse) if emit_lse else out
+
+
 _BWD_ROWS_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                       + [ctypes.c_longlong] * 24
                       + [ctypes.c_float] + [ctypes.c_int] * 2
@@ -816,11 +1057,7 @@ def _flash_bwd_rows(q, k, v, out, dout, lse, sm_scale: float,
     sk = k.shape[1]
     if words is not None:
         _check_words(words, b, sk, q.device)
-    dev = q.device.index if q.device.index is not None \
-        else torch.cuda.current_device()
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    atomic, unit_m = _bwd_rows_plan(b * h, sq, sk, _SMS[dev])
+    atomic, unit_m = _bwd_rows_plan(b * h, sq, sk, _sm_count(q.device))
     m_tiles = -(-sq // 64)
     chunks = -(-m_tiles // unit_m)
     scratch = None

@@ -1,7 +1,7 @@
 """Where a Hopper kernel's time goes: the kernel timed beside copies of its
 source with one part of its work taken out, on the same tensors.
 
-    python -m videotuna_tpu_torch.kernels.attribution [K1] [K3] [K4] [K5] [K7] [K8] [K5_d128] [K8_d128] [host]
+    python -m videotuna_tpu_torch.kernels.attribution [K1] [K3] [K4] [K5] [K7] [K8] [K5_d128] [K8_d128] [K6] [K2_f32] [host]
 
 Variants (their outputs are wrong by design; only their times count):
 
@@ -68,10 +68,22 @@ Variants (their outputs are wrong by design; only their times count):
   exp2, so that what is left is the loads, delta, the barriers and the
   stores.
 
+- K6, the persistent kernel of ``csrc/flash_fwd_sm90.cu`` at its A/B
+  shape (B=2, 300 queries over 4,322 keys, H=4, d=64, online), by device
+  time: the call as planned (5 key ranges and the combine) beside the
+  private launcher with 1 (the unsplit walk), 3 and 6 ranges; ``no_combine``
+  leaves out the combine's launch.
+- K2_f32, ``csrc/flash_fwd_f32_sm90.cu`` at LLaMA's f32 causal shape
+  (B=1, 256 tokens, H=32, d=128), by device time: ``no_combine`` leaves out
+  the combine's launch; ``no_split`` the in-place hi/lo split of the K and
+  V tiles (they are read as if split); ``one_product`` keeps hi·hi of the
+  three products of QK^T and PV; ``three_blocks`` compiles for three
+  blocks an SM (168 registers, spills) on the same plan.
+
 Each variant is built from an edited copy under ``kernels/_build/
 attribution/`` and loaded in place of the kernel's library for its timing.
 Prints the card's name and power limit, then one line per variant; the
-arguments pick kernels (all eight by default).  ``host`` instead takes the
+arguments pick kernels (all ten by default).  ``host`` instead takes the
 K8 wrapper's host time apart at both STDiT shapes, beside the old design's
 (``host_breakdown``).
 """
@@ -173,6 +185,23 @@ VARIANTS = {
     ("K8", "flash_bwd_rows_sm90.cu", "no_math"): (
         _K8_TAIL[:4] + _K8_DQ + _K8_REST + [("fast_exp2(", "(")]),
     ("K8", "flash_bwd_rows_sm90.cu", "base_again"): [],
+    ("K6", "flash_fwd_sm90.cu", "base"): [],
+    ("K6", "flash_fwd_sm90.cu", "no_combine"): [
+        ("  if (err != 0 || !SPLIT) return err;", "  return err;")],
+    ("K2_f32", "flash_fwd_f32_sm90.cu", "base"): [],
+    ("K2_f32", "flash_fwd_f32_sm90.cu", "no_combine"): [
+        ("  if (err != 0 || n_combine == 0) return err;", "  return err;")],
+    ("K2_f32", "flash_fwd_f32_sm90.cu", "no_split"): [
+        ("    split_tile(i & 1);\n", "")],
+    ("K2_f32", "flash_fwd_f32_sm90.cu", "one_product"): [
+        (line, "") for line in (
+            "        mma_bf16(s[nb], qh[ks], b0.y, b1.y);\n",
+            "        mma_bf16(s[nb], ql[ks], b0.x, b1.x);\n",
+            "        mma_bf16(acc[db], ph[kk], bl0, bl1);\n",
+            "        mma_bf16(acc[db], pl[kk], bh0, bh1);\n")],
+    ("K2_f32", "flash_fwd_f32_sm90.cu", "three_blocks"): [
+        ("__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 3)")],
+    ("K2_f32", "flash_fwd_f32_sm90.cu", "base_again"): [],
     ("K5", "flash_fwd_sm90.cu", "no_tail"): [
         ("if constexpr (C::TAIL)\n          wgmma_rs_n16",
          "if constexpr (false)\n          wgmma_rs_n16"),
@@ -358,7 +387,7 @@ def main(argv=None) -> None:
     import sys
     picked = set((sys.argv[1:] if argv is None else argv)
                  or ("K1", "K3", "K4", "K5", "K7", "K8", "K5_d128",
-                     "K8_d128"))
+                     "K8_d128", "K6", "K2_f32"))
     if not torch.cuda.is_available():
         raise SystemExit("attribution: no CUDA device")
     print(subprocess.run(
@@ -427,6 +456,21 @@ def main(argv=None) -> None:
         for name in ("K5_d128", "K8_d128"):
             if name not in picked:
                 del calls[name]
+    if "K6" in picked:
+        q6, k6, v6 = (torch.randn((2, s, 4, 64), generator=gen,
+                                  device="cuda").bfloat16()
+                      for s in (300, 4322, 4322))
+        calls["K6"] = [
+            ("K6", lambda: A.flash_fwd(q6, k6, v6, sm_scale=0.125,
+                                       route="K6"), device_ms, 20)] + [
+            (f"K6_splits_{n}", (lambda n=n: A._flash_fwd_sm90(
+                q6, k6, v6, 0.125, None, False, splits=n)), device_ms, 20)
+            for n in (1, 3, 6)]
+    if "K2_f32" in picked:
+        qf, kf, vf = (torch.randn((1, 256, 32, 128), generator=gen,
+                                  device="cuda") for _ in range(3))
+        calls["K2_f32"] = [("K2_f32", lambda: A.flash_fwd(
+            qf, kf, vf, sm_scale=128 ** -0.5, causal=True), device_ms, 50)]
     if "K8" in picked:
         calls["K8"] = [
             (label, (lambda t=t: A.flash_bwd(

@@ -70,7 +70,7 @@
 // 0 gets -inf.  The LSE = false instantiation is K3's kernel as it was.
 //
 // ------------------------------------------------------ K1, K2, K4-K6
-// `flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK>` replaces the TPU
+// `flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK, SPLIT>` replaces the TPU
 // kernels K1, `_flash_kernel_packed2t` launched by `_flash_packed2t`
 // (videotuna_tpu/kernels/attention.py:268, :449; d = 64, fixed max or
 // online, optional LSE) and K6, `_flash_kernel_packed2` launched by
@@ -140,6 +140,22 @@
 // Shared memory: Q 3 x 20 KB + 4 x (K 20 KB + V 20 KB) = 220 KB at D = 80,
 // Q 3 x 16 KB + 4 x (16 KB + 16 KB) = 176 KB at D = 64.
 //
+// Key-range split.  Few query tiles over many keys leave the card empty:
+// K6's A/B shape (B = 2, 300 queries over 4,322 keys, H = 4) makes 24 units
+// of 34 key tiles each for 132 SMs, so 108 SMs idle while each busy one
+// walks its 34 tiles in turn.  When the unsplit units cannot fill the SMs
+// and each would walk many key tiles, `_fwd_split_plan`
+// (kernels/attention.py) cuts every query tile's keys into `splits` ranges
+// of near-equal length (K6: 5 ranges of 6-7 tiles, 120 units), and each
+// range is a unit of its own: the producer loads only the range's K and V
+// tiles, the consumers' turns and softmax are unchanged, and the epilogue
+// writes f32 partials (o unnormalised, the row's m and l) in place of o.
+// A second launch, the combine of split_combine.cuh, rescales and sums the
+// ranges of each row in a fixed order into o and the LSE.  The key mask
+// (K4) is never split: its rows are short.  The split is the template
+// flag SPLIT, so that the unsplit instantiations (every main path) are
+// the kernel as it was; splits = 1 is the unsplit walk.
+//
 // What bounds it.  At STDiT's sampling shape (B = 32, S = 256, H = 16,
 // d = 72) q, k, v and o are 75.5 MB: 22.5 us at 3.35 TB/s, above the 9.7
 // GFLOP's 9.8 us at 989 TF/s (10.7 GFLOP at the padded width).  So bytes,
@@ -161,6 +177,7 @@
 #include <math.h>
 
 #include "sm90.cuh"
+#include "split_combine.cuh"
 
 namespace {
 
@@ -431,13 +448,44 @@ struct PParams {
   int H, Sq, Sk, d;
   int m_tiles;       // query tiles of a head
   int unit_m;        // query tiles of a unit: 1, or more while K, V stay
+  int splits;        // key ranges of a query tile (> 1: unit_m is 1)
   int n_units;
+  float* part_o;     // split: (units, BLOCK_M, D) f32 unnormalised o
+  float* part_ml;    // split: (units, BLOCK_M, 2) f32 m and l of a row
   long long o_sb, o_ss, o_sh;
   float scale_log2;  // sm_scale * log2(e)
   float static_max;  // M, log2 domain (fixed max only)
 };
 
-template <int D, bool ONLINE, bool LSE, bool MASK>
+// Work unit u of the persistent walk: head bh, its first query tile mt0,
+// and key tiles [t0, t1).  Units run head by head, a head's query-tile
+// chunks in order, a chunk's `splits` key ranges adjacent: range j is
+// [j * n_tiles / splits, (j + 1) * n_tiles / splits), as
+// `_fwd_split_plan` (kernels/attention.py) cuts it.  With splits = 1 the
+// unit walks every key tile; with splits > 1 a chunk is one query tile and
+// u is its partial slot.  Without SPLIT, splits is 1 at compile time and
+// the walk is the unsplit kernel's own: with splits a runtime value, the
+// decode and the epilogue's branch slowed K1 at CogVideoX's shape.
+struct Unit {
+  int bh, mt0, t0, t1;
+};
+template <bool SPLIT>
+__device__ __forceinline__ Unit unit_of(int u, int chunks, int unit_m,
+                                        int splits, int n_tiles) {
+  if (!SPLIT) splits = 1;
+  const int per_head = chunks * splits;
+  Unit x;
+  x.bh = u / per_head;
+  const int rem = u - x.bh * per_head;
+  const int chunk = rem / splits;
+  const int j = rem - chunk * splits;
+  x.mt0 = chunk * unit_m;
+  x.t0 = j * n_tiles / splits;
+  x.t1 = (j + 1) * n_tiles / splits;
+  return x;
+}
+
+template <int D, bool ONLINE, bool LSE, bool MASK, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_sm90_persistent(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tq2,
@@ -485,23 +533,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (threadIdx.x == 0) {
       int qi = 0, kvi = 0;  // Q tiles and K/V tiles loaded so far
       for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
-        const int bh = u / chunks;
-        const int mt0 = (u - bh * chunks) * p.unit_m;
-        const int mts = min(p.unit_m, p.m_tiles - mt0);
-        const int b = bh / p.H;
-        const int h = bh - b * p.H;
+        const Unit x = unit_of<SPLIT>(u, chunks, p.unit_m, p.splits,
+                                      n_tiles);
+        const int mts = min(p.unit_m, p.m_tiles - x.mt0);
+        const int b = x.bh / p.H;
+        const int h = x.bh - b * p.H;
         // the unit's first Q tile, its K and V tiles, then its other Q tile
         for (int j = 0; j < mts; ++j) {
           const int s = qi % P_Q_STAGES;
           mbar_wait(q_empty(s), ((qi / P_Q_STAGES) & 1) ^ 1);
           ++qi;
           const uint32_t dst = sQ + s * C::Q_BYTES;
-          const int m0 = (mt0 + j) * BLOCK_M;
+          const int m0 = (x.mt0 + j) * BLOCK_M;
           mbar_expect_tx(q_full(s), C::Q_BYTES);
           tma_load_4d(dst, &tq, q_full(s), 0, h, m0, b);
           if constexpr (C::TAIL)
             tma_load_4d(dst + C::BOX_Q, &tq2, q_full(s), 64, h, m0, b);
-          for (int t = 0; j == 0 && t < n_tiles; ++t, ++kvi) {
+          for (int t = x.t0; j == 0 && t < x.t1; ++t, ++kvi) {
             const int ks = kvi % P_KV_STAGES;
             const uint32_t ph = ((kvi / P_KV_STAGES) & 1) ^ 1;
             const uint32_t dk = sK + ks * C::KV_BYTES;
@@ -669,9 +717,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
-    // o / l of the query tile at row m0, columns below d, and the LSE; then
-    // a zero accumulator for the next tile
-    auto store = [&](int b, int h, int m0) {
+    // o / l of the query tile at row m0, columns below d, and the LSE; or,
+    // split, the unit's partials (o unnormalised, m, l) in partial slot
+    // `slot`; then a zero accumulator for the next tile
+    auto store = [&](int b, int h, int m0, int slot) {
       #pragma unroll
       for (int r = 0; r < 2; ++r) {
         float l = row_l[r];
@@ -679,7 +728,21 @@ __global__ void __launch_bounds__(THREADS, 1)
         l += __shfl_xor_sync(0xffffffff, l, 2);
         const float inv = l > 0.f ? 1.f / l : 0.f;
         const int row = m0 + c * 64 + warp * 16 + g + r * 8;
-        if (row < p.Sq) {
+        if (SPLIT && row < p.Sq) {
+          const long long pr =
+              static_cast<long long>(slot) * BLOCK_M + (row - m0);
+          float* po = p.part_o + pr * D;
+          #pragma unroll
+          for (int db = 0; db < D / 8; ++db)
+            if (db * 8 < p.d)
+              *reinterpret_cast<float2*>(po + db * 8 + tig * 2) =
+                  make_float2(o[db * 4 + 2 * r], o[db * 4 + 2 * r + 1]);
+          if (tig == 0) {
+            p.part_ml[2 * pr] = ONLINE ? row_m[r] : p.static_max;
+            p.part_ml[2 * pr + 1] = l;
+          }
+        }
+        if (!SPLIT && row < p.Sq) {
           __nv_bfloat16* orow = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
           #pragma unroll
           for (int db = 0; db < D / 8; ++db)
@@ -702,14 +765,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (c == 1) named_arrive(BAR_TURN0, 256);  // warpgroup 1 goes first
     int qi = 0, kvi = 0;  // Q tiles and K/V tiles consumed so far
     for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
-      const int bh = u / chunks;
-      const int mt0 = (u - bh * chunks) * p.unit_m;
-      const int mts = min(p.unit_m, p.m_tiles - mt0);
-      const int b = bh / p.H;
-      const int h = bh - b * p.H;
-      auto st = [&](int t) { return (kvi + t) % P_KV_STAGES; };
-      auto ph = [&](int t) {
-        return static_cast<uint32_t>(((kvi + t) / P_KV_STAGES) & 1);
+      const Unit x = unit_of<SPLIT>(u, chunks, p.unit_m, p.splits, n_tiles);
+      const int mts = min(p.unit_m, p.m_tiles - x.mt0);
+      const int b = x.bh / p.H;
+      const int h = x.bh - b * p.H;
+      const int nt = x.t1 - x.t0;  // key tiles of the unit; i counts them
+      auto st = [&](int i) { return (kvi + i) % P_KV_STAGES; };
+      auto ph = [&](int i) {
+        return static_cast<uint32_t>(((kvi + i) / P_KV_STAGES) & 1);
       };
       for (int j = 0; j < mts; ++j) {
         // K and V go back to the producer after the unit's last query tile
@@ -719,7 +782,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         ++qi;
         row_l[0] = row_l[1] = 0.f;
         row_m[0] = row_m[1] = -INFINITY;
-        mask_words(b, 0);
+        mask_words(b, x.t0);
         mbar_wait(q_full(qs), qph);
         mbar_wait(k_full(st(0)), ph(0));
         named_sync(my_turn, 256);
@@ -729,15 +792,15 @@ __global__ void __launch_bounds__(THREADS, 1)
         named_arrive(their_turn, 256);
         wgmma_wait<0>();
         if (last) release(k_empty(st(0)));
-        softmax(0);
+        softmax(x.t0);
         pack();
-        for (int t = 0; t + 1 < n_tiles; ++t) {
-          // one turn: S(t+1), then PV(t); tile t+1's exp2 runs while PV(t)
+        for (int i = 0; i + 1 < nt; ++i) {
+          // one turn: S(i+1), then PV(i); tile i+1's exp2 runs while PV(i)
           // is still on the tensor cores
-          const int s = st(t);
-          const int s1 = st(t + 1);
-          mbar_wait(k_full(s1), ph(t + 1));
-          mbar_wait(v_full(s), ph(t));
+          const int s = st(i);
+          const int s1 = st(i + 1);
+          mbar_wait(k_full(s1), ph(i + 1));
+          mbar_wait(v_full(s), ph(i));
           named_sync(my_turn, 256);
           wgmma_fence();
           qk(qs, s1);
@@ -745,10 +808,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           pv(s);
           wgmma_commit();
           named_arrive(their_turn, 256);
-          mask_words(b, t + 1);
+          mask_words(b, x.t0 + i + 1);
           wgmma_wait<1>();
           if (last) release(k_empty(s1));
-          softmax(t + 1);
+          softmax(x.t0 + i + 1);
           wgmma_wait<0>();
           if (last) release(v_empty(s));
           if constexpr (ONLINE) {
@@ -758,8 +821,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           pack();
         }
         // the last tile's PV product
-        const int sl = st(n_tiles - 1);
-        mbar_wait(v_full(sl), ph(n_tiles - 1));
+        const int sl = st(nt - 1);
+        mbar_wait(v_full(sl), ph(nt - 1));
         named_sync(my_turn, 256);
         wgmma_fence();
         pv(sl);
@@ -768,9 +831,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_wait<0>();
         if (last) release(v_empty(sl));
         release(q_empty(qs));
-        store(b, h, (mt0 + j) * BLOCK_M);
+        store(b, h, (x.mt0 + j) * BLOCK_M, u);
       }
-      kvi += n_tiles;
+      kvi += nt;
     }
     // warpgroup 1's last hand-over is to warpgroup 0: take it
     if (c == 0) named_sync(BAR_TURN0, 256);
@@ -808,7 +871,7 @@ struct Strides {
 
 // q, k, v (B, S, H, d) through the persistent kernel of padded width D: d
 // = 64 at D = 64, d = 72 or 80 at D = 80
-template <int D, bool ONLINE, bool LSE, bool MASK>
+template <int D, bool ONLINE, bool LSE, bool MASK, bool SPLIT>
 int launch_persistent(const void* q, const void* k, const void* v,
                       PParams p, int B, const Strides& st,
                       cudaStream_t stream) {
@@ -828,7 +891,7 @@ int launch_persistent(const void* q, const void* k, const void* v,
     }
     if (BOXES == 1) m[2 * x + 1] = m[2 * x];
   }
-  auto kernel = flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK>;
+  auto kernel = flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK, SPLIT>;
   // per device, at the kernel's first launch there: its shared-memory limit
   // and the SM count (the grid); the launches after it skip both calls
   static int sms_of[64] = {};
@@ -864,29 +927,54 @@ int launch_persistent(const void* q, const void* k, const void* v,
       }
     }
   }
-  const long long units = units_of(p.unit_m);
+  // a split walks one query tile a unit, at most one range a key tile
+  if (SPLIT != (p.splits > 1) || (SPLIT && (MASK || p.unit_m != 1 ||
+                                            p.splits > n_tiles || !p.part_o)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long units = units_of(p.unit_m) * p.splits;
   if (units > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   p.n_units = static_cast<int>(units);
+  p.part_ml = SPLIT ? p.part_o + units * BLOCK_M * D : nullptr;
   const int grid = static_cast<int>(units < sms ? units : sms);
   kernel<<<grid, THREADS, PCfg<D>::SMEM, stream>>>(m[0], m[1], m[2], m[3],
                                                    m[4], m[5], p);
-  return static_cast<int>(cudaGetLastError());
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || !SPLIT) return err;
+  split::CombineParams cp;
+  cp.part_o = p.part_o;
+  cp.part_ml = p.part_ml;
+  cp.table = nullptr;
+  cp.splits = p.splits;
+  cp.slots = p.m_tiles * p.splits;
+  cp.block_m = BLOCK_M;
+  cp.pitch = D;
+  cp.d = p.d;
+  cp.H = p.H;
+  cp.Sq = p.Sq;
+  cp.o_sb = p.o_sb;
+  cp.o_ss = p.o_ss;
+  cp.o_sh = p.o_sh;
+  cp.lse = p.lse;
+  cp.online = ONLINE;
+  return split::combine(cp, p.o, p.m_tiles, static_cast<int>(heads), stream);
 }
 
 // the persistent kernel's instantiation for the run-time options
-template <int D, bool MASK>
+template <int D, bool MASK, bool SPLIT>
 int launch_persistent_modes(const void* q, const void* k, const void* v,
                             const PParams& p, int B, const Strides& st,
                             bool online, bool lse, cudaStream_t stream) {
   if (online && lse)
-    return launch_persistent<D, true, true, MASK>(q, k, v, p, B, st, stream);
+    return launch_persistent<D, true, true, MASK, SPLIT>(q, k, v, p, B, st,
+                                                         stream);
   if (online)
-    return launch_persistent<D, true, false, MASK>(q, k, v, p, B, st,
-                                                   stream);
+    return launch_persistent<D, true, false, MASK, SPLIT>(q, k, v, p, B, st,
+                                                          stream);
   if (lse)
-    return launch_persistent<D, false, true, MASK>(q, k, v, p, B, st,
-                                                   stream);
-  return launch_persistent<D, false, false, MASK>(q, k, v, p, B, st, stream);
+    return launch_persistent<D, false, true, MASK, SPLIT>(q, k, v, p, B, st,
+                                                          stream);
+  return launch_persistent<D, false, false, MASK, SPLIT>(q, k, v, p, B, st,
+                                                         stream);
 }
 
 // The key mask (B, Sk) bytes (0 = masked), rows `sb` bytes apart, as the
@@ -935,7 +1023,11 @@ extern "C" int pack_mask_words(const void* mask, long long mask_sb,
 // 32-bit words (16-byte aligned) that the persistent kernel reads: packed
 // by an earlier `pack_mask_words` when `mask` is null, else first packed
 // by this call from `mask`, the (B, Sk) key mask as bytes (0 = masked),
-// rows `mask_sb` bytes apart.
+// rows `mask_sb` bytes apart.  `splits` > 1 (unmasked, d = 64, 72 or 80, at
+// least 3 key tiles, at most one range a key tile) cuts each query tile's
+// keys into that many ranges: `part` is then f32 scratch of
+// B*H*ceil(Sq/128)*splits*128*(D + 2) floats (D = 64 at d = 64, else 80),
+// and a second launch combines the partials into o and the LSE.
 extern "C" int flash_fwd_sm90_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* mask, long long mask_sb, void* words, int B, int H, int Sq,
@@ -943,8 +1035,8 @@ extern "C" int flash_fwd_sm90_bf16(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
     long long o_sh, float scale_log2, int online, float static_max,
-    void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0)
+    int splits, void* part, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides st = {{{q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh},
@@ -971,16 +1063,25 @@ extern "C" int flash_fwd_sm90_bf16(
     p.o_sh = o_sh;
     p.scale_log2 = scale_log2;
     p.static_max = static_max;
-    if (!wide)
-      return launch_persistent_modes<64, false>(q, k, v, p, B, st, online,
-                                                lse != nullptr, s);
+    p.splits = splits;
+    p.part_o = static_cast<float*>(part);
+    const bool l = lse != nullptr;
     if (words)
-      return launch_persistent_modes<80, true>(q, k, v, p, B, st, online,
-                                               lse != nullptr, s);
-    return launch_persistent_modes<80, false>(q, k, v, p, B, st, online,
-                                              lse != nullptr, s);
+      return splits > 1 ? static_cast<int>(cudaErrorInvalidValue)
+                        : launch_persistent_modes<80, true, false>(
+                              q, k, v, p, B, st, online, l, s);
+    if (!wide)
+      return splits > 1 ? launch_persistent_modes<64, false, true>(
+                              q, k, v, p, B, st, online, l, s)
+                        : launch_persistent_modes<64, false, false>(
+                              q, k, v, p, B, st, online, l, s);
+    return splits > 1 ? launch_persistent_modes<80, false, true>(
+                            q, k, v, p, B, st, online, l, s)
+                      : launch_persistent_modes<80, false, false>(
+                            q, k, v, p, B, st, online, l, s);
   }
-  if (d != 128 || online || words || (long long)B * H > 65535)
+  if (d != 128 || online || words || splits != 1 ||
+      (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);

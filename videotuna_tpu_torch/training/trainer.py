@@ -235,7 +235,7 @@ def make_optimizer(cfg: TrainConfig, num_devices: int = 1) -> Optimizer:
     if cfg.optimizer != "adamw":
         raise NotImplementedError(
             f"optimizer {cfg.optimizer!r} is not ported: the port has AdamW "
-            "(adafactor waits in ROADMAP.md queue 1, slice C)")
+            "(adafactor waits in ROADMAP.md queue 1, item 9)")
     lr = cfg.learning_rate * (num_devices if cfg.scale_lr_by_devices else 1)
     if cfg.warmup_steps > 0:
         schedule = warmup_cosine_decay_schedule(
