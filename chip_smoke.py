@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --hunyuan-train FRAMES
+    python3 chip_smoke.py --wan
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
 peak memory and seconds per step as a JSON line: the frame cut of phase 21
-is chosen from such runs.
+is chosen from such runs.  The third runs only the Wan 2.1 phases (23–27)
+and prints their figures as a JSON line.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -200,16 +202,58 @@ without a result line:
                 state.pt, step 3 restored; logs the peak memory, the tokens
                 per attention and the step taken apart.
 22. kernels   — status of every TPU kernel of the JAX package.
+23. K3-wan    — K3 (``flash_attention`` under the fixed max 0, K3's Hopper
+                kernel at d=128, in place) at Wan 2.1's shapes, B=2 under
+                CFG, q and k RMSNormed over the full width: the 14B
+                self-attention (75,600 tokens, H=40), the 1.3B
+                self-attention (32,760, H=12) and the 14B text
+                cross-attention (75,600 queries over 512 keys, H=40, four
+                key tiles a query tile), each against its plain version
+                (a block of query rows at a time) and timed beside its
+                bound, the plain version and SDPA (device time too for a
+                call under 0.2 ms).
+24. e2e-wan14b — Wan 2.1 T2V 14B through the registry's
+                ``inference-wanvideo-t2v-720p`` at full width and depth
+                (dim 5120, 40 layers, 40 heads of d=128, bf16; T5-XXL in
+                f32 over 512 tokens; the Wan VAE in f32), random weights
+                from the seed, one prompt at 81×720×1280 with CFG 5 and the
+                default negative prompt.  Cut: 2 of the 50 UniPC steps;
+                all 21 latent frames decoded by the streamed decode (one
+                latent frame a chunk).  Asserts K3 = 80 a step (40 self-
+                and 40 cross-attention launches at B=2), all on K3's
+                Hopper kernel in place, no other launch and no split,
+                finite latents and pixels, an (81, 720, 1280, 3) video and
+                metric.json; logs seconds per step, the text encode, the
+                decode and the peak memory.
+25. reference-wan — the 1.3B flow at narrow width (dim 256, 2 heads of
+                d=128, 2 layers, a 2-layer T5 over 512 tokens, the VAE at
+                dim 16) on the card and on the CPU, same weights, prompt,
+                negative prompt and x_T, TF32 off: one denoiser call, the
+                latents after 3 UniPC steps with CFG 5 and the streamed
+                decode must agree, with K3 launched on the card for the
+                self- (192 × 192) and the cross-attention (192 × 512).
+26. profile-wan14b — one full-width 14B DiT call at B=2 (the work of one
+                step) timed with CUDA events and traced with
+                torch.profiler: device time of K3, the GEMMs and the rest,
+                the busy share.
+27. e2e-wan1.3b — Wan 2.1 T2V 1.3B through the registry's
+                ``inference-wanvideo-t2v-1-3B``, the shipped configuration
+                whole: dim 1536, 30 layers, 12 heads of d=128, 81×480×832
+                (32,760 tokens), all 50 UniPC steps with CFG 5, all 81
+                frames decoded.  Asserts K3 = 60 a step on K3's Hopper
+                kernel, no other launch, an (81, 480, 832, 3) video and
+                finite values.
 
-They run in the order 1–5, 16, 11, 12, 6–10, 13–15, 17–19, 21, 20, 22.
+They run in the order 1–5, 16, 23, 11, 12, 6–10, 13–15, 17–19, 21, 24,
+25, 26, 27, 20, 22.
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
 (7, 9, 15, 18) turn TF32 off inside ``tf32_off`` and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the three sampling runs and the three training runs) and read just after;
+(the five sampling runs and the three training runs) and read just after;
 in each, no launch splits its keys but LLaMA's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those six runs, per design and, for the Hopper
+launches summed over those eight runs, per design and, for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
 training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
 width 128) apart from STDiT's d=72 K5 and K8, and one for the case of a
@@ -301,6 +345,29 @@ HY_TRAIN_FRAMES = 5
 HY_TRAIN_SIZE = (720, 1280)
 # tokens of each joint attention: the latent frames' 45×80 patches + 256 text
 HY_TRAIN_TOKENS = ((HY_TRAIN_FRAMES - 1) // 4 + 1) * 45 * 80 + 256
+
+CONFIG_WAN14 = os.path.join(ROOT, "configs", "008_wanvideo",
+                            "wan2_1_t2v_14B.yaml")
+CONFIG_WAN13 = os.path.join(ROOT, "configs", "008_wanvideo",
+                            "wan2_1_t2v_1_3B.yaml")
+WAN14_COMMAND = "inference-wanvideo-t2v-720p"
+WAN13_COMMAND = "inference-wanvideo-t2v-1-3B"
+WAN_PROMPT = "a red panda climbing a snow-covered pine tree at dawn"
+WAN_TEXT = 512               # umT5 tokens: the cross-attention's keys
+# CFG doubles the batch: 81×720×1280 → 21×90×160 latents → 21×45×80 =
+# 75,600 tokens after the (1, 2, 2) patch; 81×480×832 → 21×30×52 = 32,760
+SHAPE_WAN14 = dict(b=2, s=21 * 45 * 80, h=40)
+SHAPE_WAN13 = dict(b=2, s=21 * 30 * 52, h=12)
+WAN_K3_CASES = {
+    "self 14B": (2, SHAPE_WAN14["s"], SHAPE_WAN14["s"], 40),
+    "self 1.3B": (2, SHAPE_WAN13["s"], SHAPE_WAN13["s"], 12),
+    "cross 14B": (2, SHAPE_WAN14["s"], WAN_TEXT, 40),
+}
+WAN14_STEPS = 2              # of the config's 50: every step costs the same
+WAN14_DEPTH = 40             # layers: a self- and a cross-attention each
+WAN13_STEPS = 50             # the 1.3B config whole: every step
+WAN13_DEPTH = 30
+WAN_REF_STEPS = 3            # narrow Wan card-vs-CPU trajectory (UniPC 1, 2, 1)
 
 
 def log(phase: str, **fields) -> None:
@@ -2659,6 +2726,287 @@ def check_small_reference_hunyuan() -> None:
     _free()
 
 
+# ---------------------------------------------------------------- phases 23-27
+def _wan_qkv(b, sq, sk, h, gen):
+    """Wan's q and k (RMSNormed over the full width h·128 before the head
+    split: bounded logits) and v, bf16 on the card."""
+    q, k, v = (torch.randn((b, s, h * 128), generator=gen, device="cuda")
+               for s in (sq, sk, sk))
+    q, k = (_rms(x) for x in (q, k))
+    return [x.unflatten(-1, (h, 128)).bfloat16() for x in (q, k, v)]
+
+
+def check_k3_wan(A) -> dict:
+    """K3 at Wan 2.1's shapes, B=2 under CFG, d=128, the fixed max 0,
+    through ``flash_attention`` (K3's Hopper kernel in place): the 14B
+    self-attention (75,600 tokens, H=40), the 1.3B self-attention (32,760,
+    H=12) and the 14B text cross-attention (75,600 queries over 512 keys,
+    H=40), each against its plain version (a block of query rows at a
+    time) and timed beside its bound, the plain version and SDPA."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    recs = {}
+    for case, (b, sq, sk, h) in WAN_K3_CASES.items():
+        q, k, v = _wan_qkv(b, sq, sk, h, gen)
+        before = (A.flash_fwd.launches["K3"],
+                  A.flash_fwd.launches_sm90["K3"],
+                  A.flash_fwd.launches_d128["K3"], A.flash_fwd.tma_copies)
+        out = A.flash_attention(q, k, v, static_max=0.0)
+        torch.cuda.synchronize()
+        launched = (A.flash_fwd.launches["K3"],
+                    A.flash_fwd.launches_sm90["K3"],
+                    A.flash_fwd.launches_d128["K3"], A.flash_fwd.tma_copies)
+        t0 = time.perf_counter()
+        ref = _plain_k3_chunked(A, q, k, v, 128 if sq == sk else 1024)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        ok = (err <= FWD_TOL * scale and bool(torch.isfinite(out).all())
+              and launched == (before[0] + 1, before[1] + 1, before[2] + 1,
+                               before[3]))
+        log("K3-wan", case=case, shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd128",
+            kernel="flash_fwd_sm90", static_max=0.0, key_tail=sk % 128,
+            max_abs_err=f"{err:.3e}", tol=f"{FWD_TOL * scale:.3e}",
+            plain_ms=f"{plain_ms:.1f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version at "
+                                 f"Wan's {case} shape, or did not launch "
+                                 f"K3's kernel in place")
+        del out, ref
+        flops = 4.0 * b * h * sq * sk * 128
+        io_bytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        bound_ms, bound_by = _bound(flops, io_bytes)
+        ms = cuda_time_ms(lambda: A.flash_attention(q, k, v, static_max=0.0),
+                          reps=3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=3)
+        del qt, kt, vt
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        extra = {}
+        if ms < 0.2:   # a short call: its device time, without the host's
+            rec["device_ms"] = device_ms(
+                lambda: A.flash_attention(q, k, v, static_max=0.0), 20)
+            extra["device_ms"] = f"{rec['device_ms']:.4f}"
+        log("K3-wan", case=f"{case} timing", kernel="flash_fwd_sm90",
+            ms=f"{ms:.3f}", **extra, bound_ms=f"{bound_ms:.3f}",
+            bound_by=bound_by, tflops=f"{flops / ms / 1e9:.1f}",
+            of_bound=f"{bound_ms / ms:.3f}", plain_ms=f"{plain_ms:.1f}",
+            library=f"scaled_dot_product_attention[{backend}]",
+            library_ms=f"{library_ms:.3f}",
+            vs_library=f"{library_ms / ms:.3f}")
+        recs[case] = rec
+        del q, k, v
+        _free()
+    return recs
+
+
+def _wan_command_argv(name: str, savedir: str, extra=()):
+    return [name, "--device", "cuda", "--quiet", "--savedir", savedir,
+            "--prompt", WAN_PROMPT, *extra]
+
+
+def _run_wan(A, phase: str, name: str, tag: str, steps: int, depth: int,
+             frames: int, size, tokens: int, extra=()) -> dict:
+    """One prompt through the registry's ``name`` at full width: the
+    launch counts (K3 = 2·depth a step: each block's self- and text
+    cross-attention, at B = 2 under CFG, all on K3's Hopper kernel in place;
+    no other launch), finite latents and pixels, the mp4's frames and
+    metric.json; logs seconds per step, the text encode, the decode and the
+    peak memory."""
+    from videotuna_tpu_torch.cli.commands import main as command
+    savedir = os.path.join(OUT_DIR, tag)
+    _free()
+    resident = torch.cuda.memory_allocated()    # left by earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(A)
+    t0 = time.perf_counter()
+    rc = command(_wan_command_argv(name, savedir, extra))
+    wall = time.perf_counter() - t0
+    launches = read_counts(A)
+    sm90 = read_sm90_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(savedir, "metric.json")) as f:
+        m = json.load(f)
+    videos = sorted(p for p in os.listdir(savedir)
+                    if p.endswith((".mp4", ".npy")))
+    video = _read_video(os.path.join(savedir, videos[0]))
+    height, width = size
+    log(phase, command=name, frames=frames, height=height, width=width,
+        tokens=tokens, text_tokens=WAN_TEXT, batch="2 (CFG)",
+        steps=m["denoise_steps"],
+        sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
+        resident_before_gb=f"{resident / 1e9:.2f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}",
+        k3_per_step=launches["K3"] / max(m["denoise_steps"], 1),
+        launches=launches, sm90_launches=sm90,
+        nonfinite_latents=m["nonfinite_latents"],
+        nonfinite_pixels=m["nonfinite_pixels"],
+        video_shape="x".join(map(str, video.shape)))
+    expected = dict({k: 0 for k in launches}, K3=2 * depth * steps)
+    if rc != 0 or m["denoise_steps"] != steps or launches != expected:
+        raise AssertionError(f"{phase}: rc {rc}, launches {launches}, "
+                             f"expected {expected}: K3 = {depth} blocks × "
+                             f"(self + cross) × {steps} steps, no other")
+    if (sm90["K3"], sm90["K3_d128"], sm90["tma_copies"]) \
+            != (2 * depth * steps,) * 2 + (0,):
+        raise AssertionError(f"{phase}: {sm90}: every K3 launch must run K3's "
+                             "Hopper kernel at d=128, with no alignment "
+                             "copy")
+    check_split_counts(phase, sm90)
+    if m["nonfinite_latents"] or m["nonfinite_pixels"]:
+        raise AssertionError(f"{phase}: non-finite latents or pixels")
+    if len(videos) != 1 or tuple(video.shape) != (frames, height, width, 3):
+        raise AssertionError(f"{phase}: videos {videos}, shape "
+                             f"{video.shape}")
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                sec_per_step=m["sample_sec"] / m["denoise_steps"])
+
+
+def run_e2e_wan14b(A) -> dict:
+    """Wan 2.1 T2V 14B through the registry's ``inference-wanvideo-t2v-720p``
+    (configs/008_wanvideo/wan2_1_t2v_14B.yaml) at full width and depth (dim
+    5120, 40 layers, 40 heads of d=128, ffn 13,824, bf16; T5-XXL in f32 over
+    512 tokens; the Wan VAE in f32), random weights from the seed, one
+    prompt at 81×720×1280 (21×90×160 latents, 75,600 tokens) with CFG 5 and
+    the default negative prompt.  Cut: 2 of the 50 UniPC steps (every step
+    costs the same); all 21 latent frames decoded by the streamed decode."""
+    return _run_wan(A, "e2e-wan14b", WAN14_COMMAND, "e2e_wan14b", WAN14_STEPS,
+                    WAN14_DEPTH, 81, (720, 1280), SHAPE_WAN14["s"],
+                    [f"flow.params.scheduler_config.params.num_steps="
+                     f"{WAN14_STEPS}"])
+
+
+def run_e2e_wan1_3b(A) -> dict:
+    """Wan 2.1 T2V 1.3B through the registry's ``inference-wanvideo-t2v-1-3B``
+    (configs/008_wanvideo/wan2_1_t2v_1_3B.yaml), the shipped configuration
+    whole: dim 1536, 30 layers, 12 heads of d=128, bf16, T5-XXL, 81×480×832
+    (21×60×104 latents, 32,760 tokens), all 50 UniPC steps with CFG 5, all
+    81 frames decoded; nothing cut."""
+    return _run_wan(A, "e2e-wan1.3b", WAN13_COMMAND, "e2e_wan1_3b",
+                    WAN13_STEPS, WAN13_DEPTH, 81, (480, 832),
+                    SHAPE_WAN13["s"])
+
+
+def profile_wan14b_call() -> dict:
+    """One full-width Wan 2.1 14B DiT call at 81×720×1280 with CFG (B=2:
+    75,600 tokens each, 512 text tokens) under the flow's fixed max, the
+    work of one sampling step: timed with CUDA events around the traced
+    call, device time by kernel group and the busy share from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.models.layers import init_weights_
+    import videotuna_tpu_torch.kernels.attention as A
+    _free()
+    cfg = load_configs([CONFIG_WAN14])["flow"]["params"]["denoiser_config"]
+    with torch.device("meta"):
+        model = instantiate(cfg)
+    model = model.to_empty(device="cuda").eval()
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((2, 21, 90, 160, 16), generator=gen, device="cuda")
+    y = torch.randn((2, WAN_TEXT, 4096), generator=gen, device="cuda")
+    t = torch.tensor([999.0, 999.0], device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    resident = torch.cuda.memory_allocated()    # the DiT's weights, inputs
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), A.attention_options(static_max=0.0), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        start.record()
+        model(x, t, y)
+        end.record()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log("profile-wan14b", dit_weights_and_inputs_gb=f"{resident / 1e9:.2f}",
+        call_peak_gb=f"{peak / 1e9:.2f}",
+        call_transient_gb=f"{(peak - resident) / 1e9:.2f}")
+    del model
+    _free()
+    return _log_profile("profile-wan14b",
+                        "one Wan 2.1 14B DiT call, CFG batch 2, 75,600 "
+                        "tokens and 512 text tokens each", prof,
+                        start.elapsed_time(end), "flash_fwd_sm90 (K3)")
+
+
+def _narrow_wan():
+    """Wan 1.3B at narrow width, d=128 kept: the DiT at dim 256 (2 heads, 2
+    layers, ffn 512, bf16 as configured), a 2-layer T5 of dim 64 over the
+    config's 512 tokens, the VAE at dim 16."""
+    den = "flow.params.denoiser_config.params"
+    t5 = "flow.params.cond_stage_config.params"
+    return [f"{den}.dim=256", f"{den}.heads=2", f"{den}.num_layers=2",
+            f"{den}.ffn_dim=512", f"{den}.text_dim=64", f"{t5}.dim=64",
+            f"{t5}.heads=2", f"{t5}.head_dim=32", f"{t5}.ff_dim=128",
+            f"{t5}.num_layers=2", "flow.params.first_stage_config.params."
+            "dim=16",
+            f"flow.params.scheduler_config.params.num_steps={WAN_REF_STEPS}"]
+
+
+@tf32_off()
+def check_small_reference_wan() -> None:
+    """The narrow Wan flow (dim 256, 2 heads of d=128, 2 layers, a 2-layer
+    T5 over 512 tokens, the VAE at dim 16) on the card and on the CPU with
+    the same weights, prompt, negative prompt and x_T, TF32 off: 3×16×16
+    latents give 192 tokens, so K3 runs each self-attention (192 × 192) and
+    cross-attention (192 × 512) on the card.  One denoiser call, the
+    latents after 3 UniPC steps with CFG 5 and the streamed decode of the
+    same latents must agree."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.flows.wan import DEFAULT_NEGATIVE
+    import videotuna_tpu_torch.kernels.attention as A
+    cfg = load_configs([CONFIG_WAN13], _narrow_wan())
+    cpu = instantiate(cfg["flow"], device="cpu")
+    gpu = instantiate(cfg["flow"], device="cuda")
+    cpu.init_params(seed=1)
+    for name, module in cpu.components().items():
+        gpu.components()[name].load_state_dict(module.state_dict())
+    shape = cpu.latent_shape(1, 9, 128, 128)      # 3×16×16 latents
+    x_T = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    t = cpu.scheduler.timesteps[1].reshape(1)
+    outs, z_cpu, launches = [], None, {}
+    for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        zero_counts(A)
+        cond = flow.encode_text([WAN_PROMPT])
+        uncond = flow.encode_text([DEFAULT_NEGATIVE])
+        with torch.inference_mode(), flow._attn_scope():
+            call = flow.denoise_apply(x_T.to(dev), t.to(dev), cond)
+        z = flow.sample(cond, uncond, shape, None, 5.0, x_T=x_T.to(dev))
+        launches = {k: v for k, v in read_counts(A).items() if v}
+        z_cpu = z if z_cpu is None else z_cpu
+        video = flow.decode_latents(z_cpu.to(dev))
+        outs.append([x.float().cpu() for x in (call, z, video)])
+    expected = {"K3": 2 * 2 * (1 + WAN_REF_STEPS)}
+    if launches != expected:
+        raise AssertionError(f"narrow Wan flow on the card launched "
+                             f"{launches}, expected {expected}")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs = [rel(a, b) for a, b in zip(outs[1], outs[0])]
+    tols = (REF_TOL_CALL, REF_TOL_TRAJ, REF_TOL_DECODE)
+    ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
+    log("reference-wan", what="narrow wan2_1_t2v_1_3B flow, cuda vs cpu",
+        steps=WAN_REF_STEPS, cfg=5.0, card_launches=launches,
+        denoiser_call_rel_err=f"{errs[0]:.3e}", call_tol=REF_TOL_CALL,
+        latent_rel_err=f"{errs[1]:.3e}", latent_tol=REF_TOL_TRAJ,
+        decode_rel_err=f"{errs[2]:.3e}", decode_tol=REF_TOL_DECODE, ok=ok)
+    if not ok:
+        raise AssertionError("GPU Wan flow disagrees with the CPU flow")
+    del cpu, gpu
+    _free()
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
@@ -2707,6 +3055,21 @@ def main(argv=None) -> None:
             "sec_per_step": out["sec_per_step"]}}), flush=True)
         return
 
+    if argv[:1] == ["--wan"]:
+        # the Wan 2.1 phases alone (K3 at Wan's shapes, the narrow
+        # card-vs-CPU check, both sampling runs and the traced DiT call)
+        k3w = timed_phase("K3-wan", check_k3_wan, A)
+        check_small_reference_wan()
+        w14 = timed_phase("e2e-wan14b", run_e2e_wan14b, A)
+        timed_phase("profile-wan14b", profile_wan14b_call)
+        w13 = timed_phase("e2e-wan1.3b", run_e2e_wan1_3b, A)
+        print(json.dumps({"wan": {
+            "k3": k3w, "wan14b": {k: w14[k] for k in ("peak_gb",
+                                                       "sec_per_step")},
+            "wan1_3b": {k: w13[k] for k in ("peak_gb", "sec_per_step")}}}),
+            flush=True)
+        return
+
     # every timed phase under PyTorch's defaults, its flags logged first;
     # the card-vs-CPU checks turn TF32 off inside and restore it
     k1 = timed_phase("K1", check_k1, A)
@@ -2714,6 +3077,7 @@ def main(argv=None) -> None:
     k2 = timed_phase("K2", check_k2, A)
     k4 = timed_phase("K4", check_k4, A)
     k3 = timed_phase("K3", check_k3, A)
+    k3w = timed_phase("K3-wan", check_k3_wan, A)
     bwd = timed_phase("bwd", check_bwd, A)
     k1["train_lse_ms"] = bwd["K1_train"]["ms"]
     timed_phase("f32", check_f32_forward, A)
@@ -2730,8 +3094,13 @@ def main(argv=None) -> None:
     check_small_reference_hunyuan()
     timed_phase("profile-hunyuan", profile_hunyuan_call)
     runs.append(timed_phase("train-hunyuan", run_train_hunyuan, A))
+    wan_runs = [timed_phase("e2e-wan14b", run_e2e_wan14b, A)]
+    check_small_reference_wan()
+    timed_phase("profile-wan14b", profile_wan14b_call)
+    wan_runs.append(timed_phase("e2e-wan1.3b", run_e2e_wan1_3b, A))
+    runs += wan_runs
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the six main-path runs
+    # each kernel's launches over the eight main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
@@ -2742,6 +3111,8 @@ def main(argv=None) -> None:
     # the f32 design's launches (LLaMA's K2), also counted apart
     f32 = {k: sum(r["sm90"].get(f"{k}_f32", 0) for r in runs)
            for k in launches}
+    # K3's launches in the Wan runs, apart from HunyuanVideo's
+    wan_k3 = sum(r["sm90"]["K3_d128"] for r in wan_runs)
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
@@ -2789,10 +3160,13 @@ def main(argv=None) -> None:
                                "library_device_ms", "host_ms",
                                "old_design_host_ms")) + tuple(
         f"llama_{k}" for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms"))
+                               "bound_by", "library_ms")) + tuple(
+        f"{p}_{k}" for p in ("wan13", "cross") for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms"))
 
     def entry(name, source, replaces, kernel, rec, design="sm90",
-              status=None):
+              status=None, launches_n=None):
         # a redesigned kernel adds the old design's ms on the same tensors
         # (K2, K4, K5: and the device times of both designs and the
         # library; K1: its time at the training shape with the LSE; K6 and
@@ -2805,6 +3179,7 @@ def main(argv=None) -> None:
         n = {"sm90": sm90[kernel] - d128[kernel], "d128": d128[kernel],
              "f32": f32[kernel],
              "mma": launches[kernel] - sm90[kernel] - f32[kernel]}[design]
+        n = n if launches_n is None else launches_n
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": f"{tpu}:{replaces}", "launches": n,
                 **{k: rec[k] for k in keys}, **old,
@@ -2821,7 +3196,17 @@ def main(argv=None) -> None:
         entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
               "K2", k2),
         entry("flash_fwd_sm90 static_max, d = 128 (K3)", fwd90, 581,
-              "K3", k3, design="d128"),
+              "K3", k3, design="d128", launches_n=d128["K3"] - wan_k3),
+        # Wan 2.1's self- and text cross-attention on the same kernel: the
+        # 14B self-attention's figures, the 14B cross-attention's as
+        # cross_*, the 1.3B self-attention's as wan13_*
+        entry("flash_fwd_sm90 static_max, d = 128, Wan 2.1 self- and "
+              "cross-attention (K3)", fwd90, 581, "K3",
+              dict(k3w["self 14B"],
+                   **{f"cross_{k}": v for k, v in k3w["cross 14B"].items()},
+                   **{f"wan13_{k}": v
+                      for k, v in k3w["self 1.3B"].items()}),
+              design="d128", launches_n=wan_k3),
         entry("flash_fwd_sm90 persistent, key mask (K4)", fwd90, 970, "K4",
               k4),
         entry("flash_fwd_sm90 persistent with the LSE, training forward "

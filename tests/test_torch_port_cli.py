@@ -84,6 +84,7 @@ def test_hunyuan_lora_command_resolves_like_jax():
 
 @pytest.mark.parametrize("name,queue", [
     ("inference-mochi", "queue 1, item 8"),
+    ("inference-wanvideo-i2v-720p", "queue 1, item 8"),
     ("inference-hunyuan-i2v-720p", "queue 1, item 4"),
     ("inference-cogvideox-15-5b-t2v", "queue 1, item 3"),
     ("serve", "item 10.2"), ("eval", "item 10.5")])
@@ -96,6 +97,10 @@ def test_main_lists_trains_and_needs_cuda_unless_asked(tmp_path, capsys):
     assert pcommands.main(["list"]) == 0
     listed = capsys.readouterr().out
     assert all(name in listed for name in jcommands.COMMANDS)
+    # the Wan T2V commands run the port (no waiting mark); its I2V waits
+    for name in ("inference-wanvideo-t2v-720p", "inference-wanvideo-t2v-1-3B"):
+        assert f"  {name}" in listed and f"*{name}" not in listed
+    assert "*inference-wanvideo-i2v-720p" in listed
     assert pcommands.main(["no-such-command"]) == 2
     assert pcommands.main(["install-flash-attn"]) == 0
     assert "CUDA kernels" in capsys.readouterr().out

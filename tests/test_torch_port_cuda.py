@@ -315,6 +315,50 @@ def test_k3_reads_the_single_stream_v_in_place():
         <= 2e-2 * ref.float().abs().max()
 
 
+def _wan_qkv(b, sq, sk, h, seed):
+    """Wan's q and k: RMSNormed over the full width h·128 before the head
+    split (bounded logits), v plain; bf16 on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, s, h * 128), generator=gen)
+               for s in (sq, sk, sk))
+    q, k = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6)
+            for x in (q, k))
+    return [x.unflatten(-1, (h, 128)).cuda().bfloat16() for x in (q, k, v)]
+
+
+# Wan 2.1's K3 shapes at a reduced length that keeps each one's key tail
+# (75,600 and 32,760 tokens end 80 and 120 keys into a tile) and the cross
+# attention's 512 text keys: self-attention 14B (H=40) and 1.3B (H=12),
+# cross-attention 14B
+_WAN_K3 = {"self_14b": (2, 4176, 4176, 40), "self_1_3b": (2, 4216, 4216, 12),
+           "cross_14b": (2, 4176, 512, 40)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_WAN_K3))
+def test_k3_at_wan_shapes_matches_plain(case):
+    """``flash_attention`` under the fixed max at Wan's shapes (B=2 with
+    CFG): K3 on K3's Hopper kernel in place, against the plain version a
+    few heads at a time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    b, sq, sk, h = _WAN_K3[case]
+    q, k, v = _wan_qkv(b, sq, sk, h, seed=sq + sk + h)
+    before = (P.flash_fwd.launches["K3"], P.flash_fwd.launches_sm90["K3"],
+              P.flash_fwd.launches_d128["K3"], P.flash_fwd.tma_copies)
+    out = P.flash_attention(q, k, v, static_max=0.0)
+    ref = _plain_by_heads(P.flash_fwd_plain, q, k, v, sm_scale=128 ** -0.5,
+                          static_max=0.0)
+    torch.cuda.synchronize()
+    assert (P.flash_fwd.launches["K3"], P.flash_fwd.launches_sm90["K3"],
+            P.flash_fwd.launches_d128["K3"], P.flash_fwd.tma_copies) \
+        == (before[0] + 1, before[1] + 1, before[2] + 1, before[3])
+    assert out.shape == (b, sq, h, 128) and torch.isfinite(out.float()).all()
+    # bf16 output rounding; p is bf16 on both sides: 2e-2 of max|o|
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+
+
 # (sq, sk): a full key tile, one key past it, ragged, a long tail; queries
 # other than keys
 _SM90_FWD_LENGTHS = [(128, 128), (129, 129), (300, 300), (4112, 4112),

@@ -160,10 +160,14 @@ def test_unported_inference_options_raise(argv, what, tmp_path):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax, flax nor the JAX package: the tiny
     CogVideoX and Open-Sora flows sample and train (two steps, one of them
-    with LoRA) and the tiny HunyuanVideo flow samples with them blocked, and
-    every module of the port imports."""
+    with LoRA), the tiny HunyuanVideo flow samples and the narrow Wan 1.3B
+    flow samples through the registry (``flows/wan.py``, ``models/wan``,
+    ``schedulers/fm_solvers.py``) with them blocked, and every module of the
+    port imports."""
+    from tests.test_torch_port_wan import NARROW as WAN_NARROW
     runs = [(TINY, tmp_path / "cogvideox"), (TINY_T2V, tmp_path / "t2v")]
     hunyuan = tmp_path / "hunyuan"
+    wan = tmp_path / "wan"
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'videotuna_tpu'):\n"
@@ -183,6 +187,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
                                                       ""]))
         + f"run_inference(['--config', {TINY_HUNYUAN!r}, '--device', 'cpu', "
           f"'--quiet', '--savedir', {str(hunyuan)!r}])\n"
+        + "from videotuna_tpu_torch.cli.commands import main\n"
+        + f"assert main(['inference-wanvideo-t2v-1-3B', '--device', 'cpu', "
+          f"'--quiet', '--savedir', {str(wan)!r}, '--prompt', 'a lake', "
+          f"*{WAN_NARROW!r}]) == 0\n"
         + "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'videotuna_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
@@ -194,6 +202,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert os.path.isfile(out / "metric.json")
         assert os.path.isfile(f"{out}_train/step_2/state.pt")
     assert os.path.isfile(hunyuan / "metric.json")
+    assert os.path.isfile(wan / "metric.json")
 
 
 _CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "004_cogvideox",

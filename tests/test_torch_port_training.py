@@ -589,7 +589,8 @@ def test_run_train_needs_cuda_unless_cpu_is_asked_for(tmp_path):
                    "--workdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("model", ["hunyuan_d128", "cogvideox_d64"])
+@pytest.mark.parametrize("model", ["hunyuan_d128", "cogvideox_d64",
+                                   "wan_d128"])
 def test_remat_recompute_keeps_the_attention_options(model, monkeypatch):
     """A checkpointed block recomputes its attention under the options its
     forward ran under, though the backward runs outside their scope (as it
@@ -608,6 +609,13 @@ def test_remat_recompute_keeps_the_attention_options(model, monkeypatch):
         args = (torch.randn((1, 3, 16, 16, 16), generator=gen),
                 torch.tensor([400.0]), torch.randn((1, 32, 64), generator=gen),
                 torch.randn((1, 32), generator=gen))
+    elif model == "wan_d128":     # 192 video + 160 text tokens
+        from videotuna_tpu_torch.models.wan.dit import WanModel
+        m = WanModel(in_channels=16, out_channels=16, dim=256, ffn_dim=512,
+                     num_layers=2, heads=2, text_dim=64)
+        args = (torch.randn((1, 3, 16, 16, 16), generator=gen),
+                torch.tensor([400.0]), torch.randn((1, 160, 64),
+                                                   generator=gen))
     else:                         # 128 video + 6 text tokens, heads of 64
         m = CogVideoXTransformer(in_channels=16, out_channels=16, dim=128,
                                  num_layers=2, heads=2, text_dim=16,

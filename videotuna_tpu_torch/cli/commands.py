@@ -168,9 +168,8 @@ WAITING: Dict[str, str] = {
     "train-cogvideox-i2v-fullft": _COGVIDEOX_REST,
     "inference-hunyuan-i2v-720p": "ROADMAP.md queue 1, item 4 "
                                   "(HunyuanVideo i2v)",
-    "inference-wanvideo-t2v-720p": _SLICE_E,
-    "inference-wanvideo-t2v-1-3B": _SLICE_E,
-    "inference-wanvideo-i2v-720p": _SLICE_E,
+    "inference-wanvideo-i2v-720p": "ROADMAP.md queue 1, item 8 (Wan "
+                                   "i2v, with models/clip_vision.py)",
     "inference-stepvideo-t2v-544x992": _SLICE_E,
     "inference-mochi": _SLICE_E,
     "inference-v2v-ms": _SLICE_E,

@@ -6,6 +6,7 @@ from videotuna_tpu_torch.flows.generation import (GenerationFlow,
 from videotuna_tpu_torch.flows.cogvideo import CogVideoXFlow
 from videotuna_tpu_torch.flows.hunyuan import HunyuanVideoFlow
 from videotuna_tpu_torch.flows.opensora import OpenSoraFlow
+from videotuna_tpu_torch.flows.wan import WanVideoFlow
 
 __all__ = ["GenerationFlow", "CogVideoXFlow", "HunyuanVideoFlow",
-           "OpenSoraFlow", "load_prompts", "savename"]
+           "OpenSoraFlow", "WanVideoFlow", "load_prompts", "savename"]

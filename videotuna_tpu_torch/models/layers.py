@@ -1,6 +1,6 @@
 """Shared building blocks (torch): the subset of the JAX package's
 ``models/layers.py`` that the CogVideoX MMDiT, the Open-Sora STDiT, the
-HunyuanVideo DiT and the LLaMA text encoder use, plus the norms and the
+HunyuanVideo and Wan DiTs and the LLaMA text encoder use, plus the norms and the
 random initialiser every module of the port shares.
 
 Parameter names follow the flax modules (``fc1``, ``q_norm``, …) so that
@@ -241,6 +241,13 @@ def split_rope_dims(head_dim: int) -> Tuple[int, int, int]:
     return head_dim - 2 * dh, dh, dh
 
 
+def wan_rope_dims(head_dim: int) -> Tuple[int, int, int]:
+    """Wan 2.1's (t, h, w) split, (d − 4·⌊d/6⌋, 2·⌊d/6⌋, 2·⌊d/6⌋): 128 →
+    44/42/42, interleaved pairs."""
+    g = head_dim // 6
+    return head_dim - 4 * g, 2 * g, 2 * g
+
+
 def rope_3d(dim_t: int, dim_h: int, dim_w: int, t: int, h: int, w: int,
             theta: float = 10000.0,
             temporal_scale: Optional[torch.Tensor] = None,
@@ -290,7 +297,8 @@ def unpatchify_3d(x: torch.Tensor, grid: Tuple[int, int, int],
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in place, after flax's defaults: kernels
-    N(0, 1/fan_in), zero biases, embeddings N(0, 1/dim), unit norm scales,
+    N(0, 1/fan_in), zero biases, embeddings N(0, 1/dim), unit norm scales
+    (``weight``, or ``gamma`` of the Wan VAE's RMS norm),
     N(0, 0.02²) for free parameters (pos_embed, rel_bias).  Draws come from
     ``generator`` only, in module order, so a seed fixes every weight."""
     done = set()
@@ -308,6 +316,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.fill_(1.0)
             if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
+        elif isinstance(getattr(m, "gamma", None), nn.Parameter):
+            m.gamma.fill_(1.0)     # the Wan VAE's RMS norm scale
         else:
             continue
         done.update(id(p) for p in m.parameters(recurse=False))

@@ -1,6 +1,7 @@
 """Schedulers of the port: the DDPM/LDM buffers, DDIM with CFG wrappers, the
 CogVideoX SDE-DPM++(2M) and trailing DDIM samplers, IDDPM spaced sampling
-with learned variance, and the flow-matching Euler sampler."""
+with learned variance, the flow-matching Euler sampler and Wan's
+flow-matching UniPC and DPM-Solver++ multistep solvers."""
 
 from videotuna_tpu_torch.schedulers.common import (extract_into,
                                                    make_beta_schedule,
@@ -17,12 +18,15 @@ from videotuna_tpu_torch.schedulers.flow_match import (FlowMatchSchedule,
                                                        flow_target,
                                                        sample_sigmas,
                                                        shift_sigmas)
+from videotuna_tpu_torch.schedulers.fm_solvers import (FlowDPMSolverSchedule,
+                                                       FlowUniPCSchedule)
 from videotuna_tpu_torch.schedulers.iddpm import (SpacedSchedule,
                                                   space_timesteps)
 
 __all__ = [
     "DDPMSchedule", "DDIMSchedule", "CogVideoXDPMSchedule", "SpacedSchedule",
-    "FlowMatchSchedule", "space_timesteps", "flow_interpolate", "flow_target",
+    "FlowMatchSchedule", "FlowUniPCSchedule", "FlowDPMSolverSchedule",
+    "space_timesteps", "flow_interpolate", "flow_target",
     "sample_sigmas", "shift_sigmas",
     "build_cogvideox_ddim", "cfg_denoise", "dynamic_cfg_denoise",
     "extract_into", "make_beta_schedule", "make_ddim_timesteps",
