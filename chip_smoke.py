@@ -3,12 +3,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --hunyuan-train FRAMES
     python3 chip_smoke.py --wan
+    python3 chip_smoke.py --cogvideox
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
 peak memory and seconds per step as a JSON line: the frame cut of phase 21
 is chosen from such runs.  The third runs only the Wan 2.1 phases (23–27)
-and prints their figures as a JSON line.
+and prints their figures as a JSON line.  The fourth runs only the
+CogVideoX I2V and 1.5 phases (28–33) and prints their figures as a JSON
+line before the result line.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -243,17 +246,60 @@ without a result line:
                 frames decoded.  Asserts K3 = 60 a step on K3's Hopper
                 kernel, no other launch, an (81, 480, 832, 3) video and
                 finite values.
+28. K1-cog15  — K1 (the persistent kernel of flash_fwd_sm90.cu at D=64,
+                fixed max 0, as the main path runs it) at CogVideoX 1.5's
+                joint attention: B=2 under CFG, 9,674 = 224 text + 7×30×45
+                video tokens (a last query tile of 74 rows and a 74-key
+                tail), H=48, LayerNormed q and k, against its plain version
+                (a block of query rows at a time), unsplit, in place; timed
+                by CUDA events and device time beside its bound, the plain
+                version and SDPA.
+29. e2e-cog15-t2v — CogVideoX 1.5 5B T2V through the registry's
+                ``inference-cogvideox-15-5b-t2v`` at full width and depth
+                (dim 3072, 42 layers, 48 heads of d=64, the (2, 2, 2)
+                patch, 224 text tokens; T5-XXL; the CogVideoX VAE), random
+                weights from the seed, one prompt at 49×480×720: 13 latent
+                frames and one sampled in front for the temporal patch (14,
+                9,674 tokens), the front one dropped before the decode.
+                Cut as phase 6: 3 of 50 steps, the first 4 kept latent
+                frames decoded.  Asserts K1 = 42 a step on flash_fwd_sm90,
+                unsplit, no other launch, the sampled (14) and decoded (4
+                of 13) latent shapes, finite latents and pixels, a (13,
+                480, 720, 3) video and metric.json; logs seconds per step,
+                the text and image encodes, the decode and the peak memory.
+30. e2e-cog15-i2v — the same through ``inference-cogvideox-15-5b-i2v``
+                (32 input channels), with ``inference.input_dir`` a
+                directory of one seeded 480×720 PNG and a one-line
+                prompts.txt: the image's latent, zero-padded over latent
+                time, its front frame repeated, on the channels.
+31. e2e-cog-i2v — CogVideoX-5B I2V through
+                ``inference-cogvideo-i2v-diffusers`` (cogvideo5b_i2v.yaml,
+                the cosine dynamic CFG), the same image, 13 latent frames,
+                17,776 tokens; cut and asserts as phase 29.
+32. reference-cog15 — the 1.5 I2V flow at narrow width (dim 128, 2 heads
+                of d=64, 2 layers, the (2, 2, 2) patch, 32 input channels,
+                a 2-layer T5 over 224 tokens, the VAE at ch 32) on the card
+                and on the CPU, same weights, image, posterior noise, x_T
+                and noise, TF32 off: 4 latent frames sampled at 9×96×128,
+                320 tokens, so K1 runs on the card; the image latents, one
+                denoiser call, the latents after 3 steps and the decode of
+                the kept latents must agree.
+33. profile-cog15 — one full-width CogVideoX 1.5 MMDiT call at B=2 (the
+                work of one step, after an untraced warm-up call) timed
+                with CUDA events and traced with torch.profiler: device
+                time of K1, the GEMMs and the rest, the busy share.
 
-They run in the order 1–5, 16, 23, 11, 12, 6–10, 13–15, 17–19, 21, 24,
-25, 26, 27, 20, 22.
+They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
+33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 20, 22.
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18) turn TF32 off inside ``tf32_off`` and restore the flags.
+(7, 9, 15, 18, 25, 32) turn TF32 off inside ``tf32_off`` and restore the
+flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the five sampling runs and the three training runs) and read just after;
+(the eight sampling runs and the three training runs) and read just after;
 in each, no launch splits its keys but LLaMA's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those eight runs, per design and, for the Hopper
+launches summed over those eleven runs, per design and, for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
 training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
 width 128) apart from STDiT's d=72 K5 and K8, and one for the case of a
@@ -345,6 +391,21 @@ HY_TRAIN_FRAMES = 5
 HY_TRAIN_SIZE = (720, 1280)
 # tokens of each joint attention: the latent frames' 45×80 patches + 256 text
 HY_TRAIN_TOKENS = ((HY_TRAIN_FRAMES - 1) // 4 + 1) * 45 * 80 + 256
+
+CONFIG_15_T2V = os.path.join(ROOT, "configs", "005_cogvideox1.5",
+                             "cogvideox1.5_5b_t2v.yaml")
+CONFIG_15_I2V = os.path.join(ROOT, "configs", "005_cogvideox1.5",
+                             "cogvideox1.5_5b_i2v.yaml")
+COG_I2V_COMMAND = "inference-cogvideo-i2v-diffusers"
+COG15_T2V_COMMAND = "inference-cogvideox-15-5b-t2v"
+COG15_I2V_COMMAND = "inference-cogvideox-15-5b-i2v"
+COG_PROMPT = "a panda playing guitar by a lake at sunset"
+# CogVideoX 1.5 at 49×480×720: 13 latent frames and one sampled in front
+# for the (2, 2, 2) patch → 7×30×45 = 9,450 video tokens + 224 text tokens;
+# 75 full query tiles and a last one of 74 rows.  B=2 under CFG
+SHAPE_COG15 = dict(b=2, s=7 * 30 * 45 + 224, h=48)
+COG15_SAMPLED_FRAMES = 14    # latent frames sampled: 13 kept + 1 in front
+COG_DEPTH = 42               # MMDiT blocks: one K1 launch each a step
 
 CONFIG_WAN14 = os.path.join(ROOT, "configs", "008_wanvideo",
                             "wan2_1_t2v_14B.yaml")
@@ -3007,6 +3068,311 @@ def check_small_reference_wan() -> None:
     _free()
 
 
+# ------------------------------------------------------ phases 28-32
+def check_k1_cog15(A) -> dict:
+    """K1 at CogVideoX 1.5's joint attention (B=2 under CFG, 9,674 tokens:
+    a ragged last query tile and key tail, H=48, d=64, LayerNormed q and
+    k) under the fixed max 0, as the main path runs it, against its plain
+    version (a block of query rows at a time); timed by CUDA events and by
+    device time beside SDPA, its plain version and its bound."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, s, h = SHAPE_COG15["b"], SHAPE_COG15["s"], SHAPE_COG15["h"]
+    q, k, v = _qkv(b, s, s, h, gen)
+
+    def counts():
+        return (A.flash_fwd.launches["K1"], A.flash_fwd.launches_sm90["K1"],
+                A.flash_fwd.launches_split["K1"], A.flash_fwd.tma_copies)
+
+    before = counts()
+    out = _k1(A, q, k, v, 0.0)
+    torch.cuda.synchronize()
+    launched = counts()
+    t0 = time.perf_counter()
+    ref, _ = _plain_chunked(A, q, k, v, 0.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    ok = (err <= K1_TOL * scale and bool(torch.isfinite(out).all())
+          and launched == (before[0] + 1, before[1] + 1) + before[2:])
+    log("K1-cog15", shape=f"B{b}xS{s}xH{h}xd64", static_max=0.0,
+        kernel="flash_fwd_sm90 persistent", last_query_tile=s % 128,
+        max_abs_err=f"{err:.3e}", tol=f"{K1_TOL * scale:.3e}",
+        plain_ms=f"{plain_ms:.1f}", ok=ok)
+    if not ok:
+        raise AssertionError("K1 disagrees with its plain version at "
+                             "CogVideoX 1.5's shape, or did not launch "
+                             "flash_fwd_sm90 in place and unsplit")
+    del out, ref
+    flops = 4.0 * b * h * s * s * 64
+    io_bytes = 4 * q.numel() * q.element_size()
+    exp2_ms = _exp2_floor_ms(b * h * s * s)
+    bound_ms, bound_by = _bound(flops, io_bytes, exp2_ms)
+    ms = cuda_time_ms(lambda: _k1(A, q, k, v, 0.0), reps=10)
+    dev_ms = device_ms(lambda: _k1(A, q, k, v, 0.0), 10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=10)
+    log("K1-cog15", timing="flash_fwd_sm90 persistent", ms=f"{ms:.3f}",
+        device_ms=f"{dev_ms:.3f}", bound_ms=f"{bound_ms:.3f}",
+        bound_by=bound_by, exp2_floor_ms=f"{exp2_ms:.3f}",
+        tflops=f"{flops / ms / 1e9:.1f}", of_bound=f"{bound_ms / ms:.3f}",
+        plain_ms=f"{plain_ms:.1f}",
+        library=f"scaled_dot_product_attention[{backend}]",
+        library_ms=f"{library_ms:.3f}", vs_library=f"{library_ms / ms:.3f}")
+    del q, k, v, qt, kt, vt
+    _free()
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def _cog_i2v_inputs() -> str:
+    """An i2v input directory: one seeded 480×720 PNG (a colour gradient
+    with noise) and a one-line prompts.txt."""
+    import cv2
+    import numpy as np
+    path = os.path.join(OUT_DIR, "cog_i2v_inputs")
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:480, 0:720]
+    img = np.stack([255 * yy / 480, 255 * xx / 720,
+                    np.full((480, 720), 128.0)], axis=-1)
+    img = np.clip(img + rng.normal(0, 20, img.shape), 0, 255)
+    cv2.imwrite(os.path.join(path, "image.png"), img.astype(np.uint8))
+    with open(os.path.join(path, "prompts.txt"), "w") as f:
+        f.write(COG_PROMPT + "\n")
+    return path
+
+
+def _run_cog(A, phase: str, name: str, tag: str, sampled_frames: int,
+             tokens: int, i2v: bool) -> dict:
+    """One prompt (with its image for i2v) at 49×480×720 through the
+    registry's ``name`` at full width and depth (dim 3072, 42 layers, 48
+    heads of d=64, bf16; T5-XXL; the CogVideoX VAE in f32), random weights
+    from the seed.  Cut as phase 6: 3 of the 50 steps, and the first 4
+    kept latent frames decoded.  Asserts K1 = 42 a step, all on
+    flash_fwd_sm90 unsplit with no alignment copy, no other launch, the
+    sampled and the decoded latent shapes, finite latents and pixels, the
+    mp4's frames and metric.json; logs seconds per step, the text and
+    image encodes, the decode and the peak memory."""
+    from videotuna_tpu_torch.cli.commands import main as command
+    savedir = os.path.join(OUT_DIR, tag)
+    inputs = ([f"inference.input_dir={_cog_i2v_inputs()}"] if i2v
+              else [f"inference.prompt={COG_PROMPT}"])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(A)
+    t0 = time.perf_counter()
+    rc = command([name, "--device", "cuda", "--quiet", "--savedir", savedir,
+                  f"flow.params.ddim_steps={E2E_STEPS}",
+                  f"flow.params.scheduler_config.params.num_steps={E2E_STEPS}",
+                  f"inference.decode_latent_frames={DECODE_LATENT_FRAMES}",
+                  *inputs])
+    wall = time.perf_counter() - t0
+    launches = read_counts(A)
+    sm90 = read_sm90_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(savedir, "metric.json")) as f:
+        m = json.load(f)
+    videos = sorted(p for p in os.listdir(savedir)
+                    if p.endswith((".mp4", ".npy")))
+    video = _read_video(os.path.join(savedir, videos[0]))
+    frames = 1 + 4 * (DECODE_LATENT_FRAMES - 1)
+    steps = m["denoise_steps"]
+    log(phase, command=name, frames=49, height=480, width=720,
+        tokens=tokens, batch="2 (CFG)", steps=steps,
+        sec_per_step=f"{m['sample_sec'] / steps:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        image_encode_sec=f"{m['image_encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}",
+        k1_per_step=launches["K1"] / max(steps, 1),
+        sampled_latent_shape=m["latent_shape"],
+        decoded_latent_shape=m["decoded_latent_shape"],
+        launches=launches, sm90_launches=sm90,
+        nonfinite_latents=m["nonfinite_latents"],
+        nonfinite_pixels=m["nonfinite_pixels"],
+        video_shape="x".join(map(str, video.shape)))
+    expected = dict({k: 0 for k in launches}, K1=COG_DEPTH * E2E_STEPS)
+    if rc != 0 or steps != E2E_STEPS or launches != expected:
+        raise AssertionError(f"{phase}: rc {rc}, launches {launches}, "
+                             f"expected {expected}: K1 = {COG_DEPTH} blocks "
+                             f"× {E2E_STEPS} steps, no other")
+    if sm90["K1"] != COG_DEPTH * E2E_STEPS or sm90["tma_copies"]:
+        raise AssertionError(f"{phase}: {sm90}: every K1 launch must run "
+                             "flash_fwd_sm90, with no alignment copy")
+    check_split_counts(phase, sm90)
+    if (m["latent_shape"], m["decoded_latent_shape"]) != (
+            [1, sampled_frames, 60, 90, 16],
+            [1, DECODE_LATENT_FRAMES, 60, 90, 16]):
+        raise AssertionError(f"{phase}: sampled {m['latent_shape']}, "
+                             f"decoded {m['decoded_latent_shape']}")
+    if i2v != (m["image_encode_sec"] > 0):
+        raise AssertionError(f"{phase}: image encode {m['image_encode_sec']}")
+    if m["nonfinite_latents"] or m["nonfinite_pixels"]:
+        raise AssertionError(f"{phase}: non-finite latents or pixels")
+    if len(videos) != 1 or tuple(video.shape) != (frames, 480, 720, 3):
+        raise AssertionError(f"{phase}: videos {videos}, shape "
+                             f"{video.shape}")
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                sec_per_step=m["sample_sec"] / steps,
+                text_encode_sec=m["encode_sec"],
+                image_encode_sec=m["image_encode_sec"],
+                decode_sec=m["decode_sec"])
+
+
+def run_e2e_cog_i2v(A) -> dict:
+    """CogVideoX-5B I2V (configs/004_cogvideox/cogvideo5b_i2v.yaml: 32
+    input channels, the cosine dynamic CFG) through the registry's
+    ``inference-cogvideo-i2v-diffusers``: 13 latent frames, 226 + 13·30·45
+    = 17,776 tokens."""
+    return _run_cog(A, "e2e-cog-i2v", COG_I2V_COMMAND, "e2e_cog_i2v", 13,
+                    SHAPE_5B["s"], i2v=True)
+
+
+def run_e2e_cog15_t2v(A) -> dict:
+    """CogVideoX 1.5 5B T2V (configs/005_cogvideox1.5/
+    cogvideox1.5_5b_t2v.yaml: the (2, 2, 2) patch, 224 text tokens) through
+    ``inference-cogvideox-15-5b-t2v``: 14 latent frames sampled, 9,674
+    tokens, the first dropped before the decode."""
+    return _run_cog(A, "e2e-cog15-t2v", COG15_T2V_COMMAND, "e2e_cog15_t2v",
+                    COG15_SAMPLED_FRAMES, SHAPE_COG15["s"], i2v=False)
+
+
+def run_e2e_cog15_i2v(A) -> dict:
+    """CogVideoX 1.5 5B I2V (cogvideox1.5_5b_i2v.yaml) through
+    ``inference-cogvideox-15-5b-i2v``, as the T2V run with the image."""
+    return _run_cog(A, "e2e-cog15-i2v", COG15_I2V_COMMAND, "e2e_cog15_i2v",
+                    COG15_SAMPLED_FRAMES, SHAPE_COG15["s"], i2v=True)
+
+
+def profile_cog15_call() -> dict:
+    """One full-width CogVideoX 1.5 MMDiT call at 49×480×720 with CFG
+    (B=2: 14×60×90 latents, 9,674 tokens each with 224 text tokens) under
+    the flow's fixed max, the work of one sampling step: timed with CUDA
+    events around the traced call, device time by kernel group and the
+    busy share from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.models.layers import init_weights_
+    import videotuna_tpu_torch.kernels.attention as A
+    _free()
+    cfg = load_configs([CONFIG_15_T2V])["flow"]["params"]["denoiser_config"]
+    with torch.device("meta"):
+        model = instantiate(cfg)
+    model = model.to_empty(device="cuda").eval()
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((2, COG15_SAMPLED_FRAMES, 60, 90, 16), generator=gen,
+                    device="cuda")
+    y = torch.randn((2, 224, 4096), generator=gen, device="cuda")
+    t = torch.tensor([500, 500], device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode(), A.attention_options(static_max=0.0):
+        model(x, t, y)     # warm-up: the step's first call is not traced
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            model(x, t, y)
+            end.record()
+            torch.cuda.synchronize()
+    del model
+    _free()
+    return _log_profile("profile-cog15",
+                        "one CogVideoX 1.5 MMDiT call, CFG batch 2, 9,674 "
+                        "tokens each", prof, start.elapsed_time(end),
+                        "flash_fwd_sm90 (K1)")
+
+
+@tf32_off()
+def check_small_reference_cog15() -> None:
+    """The 1.5 I2V flow at narrow width (dim 128, 2 heads of d=64, 2
+    layers, the (2, 2, 2) patch, 32 input channels; a 2-layer T5 of dim 64
+    over 224 tokens; the VAE at ch 32) on the card and on the CPU with the
+    same weights, image, posterior noise, x_T and per-step noise, TF32 off:
+    9×96×128 gives 3 latent frames, 4 sampled, so 2·6·8 + 224 = 320 tokens
+    and K1 runs each attention on the card.  The image latents, one
+    denoiser call, the latents after 3 steps with CFG 6 and the decode of
+    the same kept latents must agree."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    import videotuna_tpu_torch.kernels.attention as A
+    den = "flow.params.denoiser_config.params"
+    t5 = "flow.params.cond_stage_config.params"
+    cfg = load_configs([CONFIG_15_I2V], [
+        f"{den}.dim=128", f"{den}.heads=2", f"{den}.num_layers=2",
+        f"{den}.text_dim=64", f"{t5}.dim=64", f"{t5}.heads=2",
+        f"{t5}.head_dim=32", f"{t5}.ff_dim=128", f"{t5}.num_layers=2",
+        "flow.params.first_stage_config.params.ch=32",
+        "flow.params.first_stage_config.params.num_res_blocks=1",
+        f"flow.params.ddim_steps={E2E_STEPS}",
+        f"flow.params.scheduler_config.params.num_steps={E2E_STEPS}"])
+    cpu = instantiate(cfg["flow"], device="cpu")
+    gpu = instantiate(cfg["flow"], device="cuda")
+    cpu.init_params(seed=1)
+    for name, module in cpu.components().items():
+        gpu.components()[name].load_state_dict(module.state_dict())
+    frames, height, width = 9, 96, 128
+    shape = cpu.latent_shape(1, frames, height, width)    # 4×12×16
+    if shape[1] != 4:
+        raise AssertionError(f"1.5 latent shape {shape}: expected 4 frames")
+    gen = torch.Generator().manual_seed(2)
+    image = torch.rand((1, height, width, 3), generator=gen) * 2 - 1
+    post = torch.randn((1, 1, *shape[2:]), generator=gen)
+    x_T = torch.randn(shape, generator=gen)
+    noises = torch.randn((E2E_STEPS, *shape), generator=gen)
+    t = torch.tensor([cpu.scheduler.timesteps[1].item()])
+    outs, z_cpu, launches = [], None, {}
+    for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        zero_counts(A)
+        cond, uncond = flow.prepare_image_cond(
+            flow.encode_text([COG_PROMPT]), flow.encode_text([""]),
+            image.to(dev), frames, height, width,
+            posterior_noise=post.to(dev))
+        with torch.inference_mode(), flow._attn_scope():
+            call = flow.denoise_apply(x_T.to(dev), t.to(dev), cond)
+        z = flow.sample(cond, uncond, shape, None, 6.0, x_T=x_T.to(dev),
+                        noises=noises.to(dev))
+        launches = {k: v for k, v in read_counts(A).items() if v}
+        z_cpu = z if z_cpu is None else z_cpu
+        video = flow.decode_latents(flow.kept_latents(z_cpu.to(dev), frames))
+        outs.append([x.float().cpu() for x in (cond["image_latents"], call,
+                                                z, video)])
+    expected = {"K1": 2 * (1 + E2E_STEPS)}
+    if launches != expected:
+        raise AssertionError(f"narrow 1.5 flow on the card launched "
+                             f"{launches}, expected {expected}")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs = [rel(a, b) for a, b in zip(outs[1], outs[0])]
+    tols = (REF_TOL_DECODE, REF_TOL_CALL, REF_TOL_TRAJ, REF_TOL_DECODE)
+    ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
+    log("reference-cog15", what="narrow cogvideox1.5_5b_i2v flow, cuda vs "
+        "cpu", sampled_latent_shape=list(shape), steps=E2E_STEPS, cfg=6.0,
+        card_launches=launches, image_latents_rel_err=f"{errs[0]:.3e}",
+        image_latents_tol=REF_TOL_DECODE,
+        denoiser_call_rel_err=f"{errs[1]:.3e}", call_tol=REF_TOL_CALL,
+        latent_rel_err=f"{errs[2]:.3e}", latent_tol=REF_TOL_TRAJ,
+        decode_rel_err=f"{errs[3]:.3e}", decode_tol=REF_TOL_DECODE, ok=ok)
+    if not ok:
+        raise AssertionError("GPU 1.5 i2v flow disagrees with the CPU flow")
+    del cpu, gpu
+    _free()
+
+
+def print_result() -> None:
+    """The last line: the device the run took place on."""
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 # ---------------------------------------------------------------- main
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
@@ -3070,10 +3436,28 @@ def main(argv=None) -> None:
             flush=True)
         return
 
+    if argv[:1] == ["--cogvideox"]:
+        # the CogVideoX i2v and 1.5 phases alone (K1 at 1.5's shape, the
+        # narrow card-vs-CPU check, the three sampling runs)
+        k1c = timed_phase("K1-cog15", check_k1_cog15, A)
+        check_small_reference_cog15()
+        out = {tag: timed_phase(tag, fn, A) for tag, fn in (
+            ("e2e-cog-i2v", run_e2e_cog_i2v),
+            ("e2e-cog15-t2v", run_e2e_cog15_t2v),
+            ("e2e-cog15-i2v", run_e2e_cog15_i2v))}
+        timed_phase("profile-cog15", profile_cog15_call)
+        print(json.dumps({"cogvideox": {"k1_cog15": k1c, **{
+            tag: {k: v for k, v in r.items() if k not in ("launches",
+                                                         "sm90")}
+            for tag, r in out.items()}}}), flush=True)
+        print_result()
+        return
+
     # every timed phase under PyTorch's defaults, its flags logged first;
     # the card-vs-CPU checks turn TF32 off inside and restore it
     k1 = timed_phase("K1", check_k1, A)
     k6 = k1.pop("k6")
+    k1c = timed_phase("K1-cog15", check_k1_cog15, A)
     k2 = timed_phase("K2", check_k2, A)
     k4 = timed_phase("K4", check_k4, A)
     k3 = timed_phase("K3", check_k3, A)
@@ -3083,6 +3467,11 @@ def main(argv=None) -> None:
     timed_phase("f32", check_f32_forward, A)
     runs = [timed_phase("e2e", run_e2e, A)]
     check_small_reference()
+    cog15_runs = [timed_phase("e2e-cog15-t2v", run_e2e_cog15_t2v, A),
+                  timed_phase("e2e-cog15-i2v", run_e2e_cog15_i2v, A)]
+    runs += [timed_phase("e2e-cog-i2v", run_e2e_cog_i2v, A)] + cog15_runs
+    check_small_reference_cog15()
+    timed_phase("profile-cog15", profile_cog15_call)
     runs.append(timed_phase("e2e-opensora", run_e2e_opensora, A))
     check_small_reference_opensora()
     timed_phase("profile-opensora", profile_opensora_call)
@@ -3100,7 +3489,7 @@ def main(argv=None) -> None:
     wan_runs.append(timed_phase("e2e-wan1.3b", run_e2e_wan1_3b, A))
     runs += wan_runs
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the eight main-path runs
+    # each kernel's launches over the eleven main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
@@ -3113,6 +3502,8 @@ def main(argv=None) -> None:
            for k in launches}
     # K3's launches in the Wan runs, apart from HunyuanVideo's
     wan_k3 = sum(r["sm90"]["K3_d128"] for r in wan_runs)
+    # K1's launches at CogVideoX 1.5's 9,674 tokens, apart from the 5B's
+    cog15_k1 = sum(r["sm90"]["K1"] for r in cog15_runs)
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
@@ -3192,7 +3583,11 @@ def main(argv=None) -> None:
             if f"{prefix}_{k}" in rec}
 
     print(json.dumps({"kernels": [
-        entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1),
+        entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1,
+              launches_n=sm90["K1"] - d128["K1"] - cog15_k1),
+        # CogVideoX 1.5's joint attention on the same kernel (9,674 tokens)
+        entry("flash_fwd_sm90 persistent, d=64, CogVideoX 1.5 (K1)", fwd90,
+              268, "K1", k1c, launches_n=cog15_k1),
         entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
               "K2", k2),
         entry("flash_fwd_sm90 static_max, d = 128 (K3)", fwd90, 581,
@@ -3235,9 +3630,7 @@ def main(argv=None) -> None:
                      "ranges, a cp.async ring, three bf16 products a "
                      "product, the combine), checked"),
     ]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print_result()
 
 
 if __name__ == "__main__":

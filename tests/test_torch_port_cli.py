@@ -13,6 +13,7 @@ function.
   resumed reaches the same step-2 state.
 """
 
+import json
 import os
 import random
 import threading
@@ -86,11 +87,57 @@ def test_hunyuan_lora_command_resolves_like_jax():
     ("inference-mochi", "queue 1, item 8"),
     ("inference-wanvideo-i2v-720p", "queue 1, item 8"),
     ("inference-hunyuan-i2v-720p", "queue 1, item 4"),
-    ("inference-cogvideox-15-5b-t2v", "queue 1, item 3"),
+    ("train-cogvideox-i2v-lora", "queue 1, item 3"),
     ("serve", "item 10.2"), ("eval", "item 10.5")])
 def test_unported_command_returns_2_naming_its_queue(name, queue, capsys):
     assert pcommands.main([name, "--device", "cpu"]) == 2
     assert queue in capsys.readouterr().err
+
+
+# CogVideoX-5B I2V and CogVideoX 1.5 narrowed: the MMDiT at dim 64 (one
+# head of d=64, 2 layers), a one-layer T5 of dim 32, the VAE at ch 32 with
+# one res block, 2 steps at 9×64×64 (3 latent frames: 1.5 samples 4)
+_NARROW_COG = [f"flow.params.{k}" for k in (
+    "denoiser_config.params.dim=64", "denoiser_config.params.heads=1",
+    "denoiser_config.params.num_layers=2",
+    "denoiser_config.params.text_dim=32", "cond_stage_config.params.dim=32",
+    "cond_stage_config.params.heads=2", "cond_stage_config.params.head_dim=16",
+    "cond_stage_config.params.ff_dim=64",
+    "cond_stage_config.params.num_layers=1", "first_stage_config.params.ch=32",
+    "first_stage_config.params.num_res_blocks=1",
+    "scheduler_config.params.num_steps=2", "ddim_steps=2")] + [
+    "inference.height=64", "inference.width=64", "inference.frames=9"]
+
+
+@pytest.mark.parametrize("name,i2v,sampled", [
+    ("inference-cogvideo-i2v-diffusers", True, 3),
+    ("inference-cogvideo-i2v-lora", True, 3),
+    ("inference-cogvideox-15-5b-t2v", False, 4),
+    ("inference-cogvideox-15-5b-i2v", True, 4)])
+def test_cogvideox_i2v_and_15_commands_run_the_port(name, i2v, sampled,
+                                                     tmp_path):
+    """Each command runs the port's CLI on the CPU: an i2v one from a
+    directory of one seeded PNG and a .txt; the 1.5 ones sample a padded
+    latent frame in front and decode the 3 kept ones."""
+    import cv2
+    assert name not in pcommands.WAITING
+    inputs = tmp_path / "inputs"
+    inputs.mkdir()
+    cv2.imwrite(str(inputs / "image.png"), np.random.default_rng(0).integers(
+        0, 256, (60, 80, 3), dtype=np.uint8))
+    (inputs / "prompts.txt").write_text("a red panda on a branch\n")
+    out = tmp_path / "out"
+    argv = [name, "--device", "cpu", "--quiet", "--savedir", str(out),
+            *_NARROW_COG]
+    argv.append(f"inference.input_dir={inputs}" if i2v
+                else "inference.prompt=a red panda on a branch")
+    assert pcommands.main(argv) == 0
+    m = json.loads((out / "metric.json").read_text())
+    assert m["num_videos"] == 1 and m["denoise_steps"] == 2
+    assert m["latent_shape"] == [1, sampled, 8, 8, 16]
+    assert m["decoded_latent_shape"] == [1, 3, 8, 8, 16]
+    assert (m["image_encode_sec"] > 0) == i2v
+    assert m["nonfinite_latents"] == 0 == m["nonfinite_pixels"]
 
 
 def test_main_lists_trains_and_needs_cuda_unless_asked(tmp_path, capsys):

@@ -66,6 +66,32 @@ def test_k1_kernel_matches_plain(static_max, sq, sk, emit_lse):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("static_max", [0.0, None], ids=["fixed", "online"])
+@pytest.mark.parametrize("s,h", [(2122, 4), (9674, 2)])
+def test_k1_at_cogvideox15_ragged_length(s, h, static_max):
+    """K1 at CogVideoX 1.5's joint length, 224 text + 9,450 video tokens =
+    9,674 = 75·128 + 74 (a last query tile of 74 rows and a 74-key tail),
+    at 2 of its 48 heads, and at a shorter stand-in of the same tail
+    (224 + 1,898 = 16·128 + 74)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(2, s, s, h, seed=s)
+    _check_k1(q, k, v, static_max, emit_lse=True)
+
+
+@pytest.mark.cuda
+def test_narrow_cogvideox15_i2v_flow_card_matches_cpu():
+    """``chip_smoke.py``'s narrow CogVideoX 1.5 I2V flow (the (2, 2, 2)
+    patch, 32 input channels, 320 tokens so that K1 runs on the card)
+    against the same flow on the CPU: image latents, one denoiser call,
+    the latents after 3 steps and the decode, TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke
+    chip_smoke.check_small_reference_cog15()
+
+
+@pytest.mark.cuda
 def test_k1_kernel_reads_strided_inputs():
     """q, k, v sliced out of one fused qkv tensor: TMA reads them in place,
     without a copy; K6 (the online route of pack2=True) likewise."""

@@ -207,6 +207,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
 
 _CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "004_cogvideox",
                                          "*.yaml"))
+                  + glob.glob(os.path.join(ROOT, "configs",
+                                           "005_cogvideox1.5", "*.yaml"))
                   + glob.glob(os.path.join(ROOT, "configs", "000_tiny",
                                            "*.yaml"))
                   + [OPENSORA_V10])
@@ -218,8 +220,7 @@ def test_configs_load_like_jax(path):
 
 
 @pytest.mark.parametrize("path", [
-    p for p in _CONFIGS
-    if "i2v" not in p and ("cogvideo" in os.path.basename(p))],
+    p for p in _CONFIGS if "cogvideo" in os.path.basename(p)],
     ids=os.path.basename)
 def test_cogvideox_targets_resolve_to_the_port(path):
     cfg = pconfig.load_configs([path])

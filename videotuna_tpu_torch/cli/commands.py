@@ -151,8 +151,9 @@ ALIASES: Dict[str, str] = {
 # The commands the port does not run yet, with the queue of ROADMAP.md each
 # waits for; every other command of COMMANDS runs the port's own CLI.
 _SLICE_E = "ROADMAP.md queue 1, item 8 (slice E: the other families)"
-_COGVIDEOX_REST = ("ROADMAP.md queue 1, item 3 (CogVideoX 1.5 and CogVideoX "
-                   "i2v)")
+_COGVIDEOX_I2V_TRAIN = ("ROADMAP.md queue 1, item 3 (CogVideoX i2v "
+                        "training), and queue 3's i2v-training fault: no "
+                        "dataset or trainer fills batch['image_latents']")
 WAITING: Dict[str, str] = {
     "inference-vc2-t2v-320x512": _SLICE_E,
     "inference-vc2-t2v-320x512-lora": _SLICE_E,
@@ -160,12 +161,9 @@ WAITING: Dict[str, str] = {
     "train-videocrafter-lora": _SLICE_E,
     "inference-dc-i2v-576x1024": _SLICE_E,
     "train-dynamicrafter": _SLICE_E,
-    "inference-cogvideo-i2v-diffusers": _COGVIDEOX_REST,
-    "inference-cogvideo-i2v-lora": _COGVIDEOX_REST,
-    "inference-cogvideox-15-5b-t2v": _COGVIDEOX_REST,
-    "inference-cogvideox-15-5b-i2v": _COGVIDEOX_REST,
-    "train-cogvideox-i2v-lora": _COGVIDEOX_REST,
-    "train-cogvideox-i2v-fullft": _COGVIDEOX_REST,
+    "train-cogvideox-i2v-lora": _COGVIDEOX_I2V_TRAIN,
+    "train-cogvideox-i2v-fullft": _COGVIDEOX_I2V_TRAIN
+    + "; its mesh {dp: 1, fsdp: 4} waits for queue 1, item 10.1",
     "inference-hunyuan-i2v-720p": "ROADMAP.md queue 1, item 4 "
                                   "(HunyuanVideo i2v)",
     "inference-wanvideo-i2v-720p": "ROADMAP.md queue 1, item 8 (Wan "

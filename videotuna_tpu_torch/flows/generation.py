@@ -27,6 +27,7 @@ from videotuna_tpu_torch.core.config import resolve_device, resolve_dtype
 from videotuna_tpu_torch.core.monitor import save_metrics
 from videotuna_tpu_torch.core.prng import KeyChain
 from videotuna_tpu_torch.core.registry import instantiate
+from videotuna_tpu_torch.data.transforms import CenterCropResize, Normalize
 from videotuna_tpu_torch.data.video_io import save_video
 from videotuna_tpu_torch.models.layers import init_weights_
 from videotuna_tpu_torch.models.text_encoders import tokenize
@@ -54,6 +55,7 @@ class GenerationFlow:
     latent_channels: int = 4
     vae_spatial_ratio: int = 8
     vae_temporal_ratio: int = 1
+    i2v_mode: bool = False      # a flow that samples from an image
 
     def __init__(self,
                  denoiser_config: Dict[str, Any],
@@ -160,6 +162,20 @@ class GenerationFlow:
         """Raw denoiser application; subclasses adapt the cond signature."""
         raise NotImplementedError
 
+    def prepare_image_cond(self, cond: Cond, uncond: Optional[Cond],
+                           images: torch.Tensor, frames: int, height: int,
+                           width: int,
+                           generator: Optional[torch.Generator] = None,
+                           posterior_noise: Optional[torch.Tensor] = None
+                           ) -> Tuple[Cond, Optional[Cond]]:
+        """Attach image conditioning to (cond, uncond) for i2v inference;
+        ``images``: (B, H, W, 3) in [−1, 1] at video resolution.  Flows
+        with an i2v path override it; ``posterior_noise`` replaces the
+        encode's draw from ``generator``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support image-conditioned "
+            "(i2v) inference")
+
     # -------------------------------------------------------------- training
     def training_loss(self, batch: Dict[str, Any],
                       generator: Optional[torch.Generator] = None, *,
@@ -180,6 +196,11 @@ class GenerationFlow:
                 height // self.vae_spatial_ratio,
                 width // self.vae_spatial_ratio,
                 self.latent_channels)
+
+    def kept_latents(self, z: torch.Tensor, num_frames: int) -> torch.Tensor:
+        """The sampled latents that the decode keeps: all of them, unless a
+        flow samples padded latents and drops the padding here."""
+        return z
 
     @torch.inference_mode()
     def sample(self, cond: Cond, uncond: Optional[Cond], shape,
@@ -206,22 +227,35 @@ class GenerationFlow:
     def inference(self, config: Dict[str, Any]) -> Dict[str, Any]:
         """Prompts → videos → mp4s (or .npy without a codec) + metric.json.
 
-        ``inference.decode_latent_frames`` (port only) decodes just the
-        first n latent frames, for a run whose full-length decode does not
-        fit in device memory."""
+        ``inference.input_dir`` (or ``image_dir``) makes it image-to-video:
+        the prompts and images of ``load_inputs_i2v``, through
+        ``prepare_image_cond``.  ``inference.decode_latent_frames`` (port
+        only) decodes just the first n kept latent frames, for a run whose
+        full-length decode does not fit in device memory."""
         inf = config.get("inference", config)
-        if inf.get("input_dir") or inf.get("image_dir"):
-            raise NotImplementedError(
-                "image-conditioned (i2v) inference is not ported yet")
         if inf.get("vbench_format", inf.get("standard_vbench", False)):
             raise NotImplementedError(
                 "VBench-format output waits for the evalkit slice")
         savedir = inf.get("savedir", "results/run")
-        prompts = load_prompts(inf)
-        bs = int(inf.get("bs", 1))
-        n_samples = int(inf.get("n_samples_prompt", 1))
         height = int(inf.get("height", 256))
         width = int(inf.get("width", 256))
+        # i2v: a directory of (image, prompt) pairs routes through
+        # prepare_image_cond
+        input_dir = inf.get("input_dir") or inf.get("image_dir")
+        i2v_images = None
+        if input_dir:
+            _, i2v_images, prompts = load_inputs_i2v(input_dir,
+                                                     (height, width))
+        elif self.i2v_mode:
+            raise ValueError(
+                f"{type(self).__name__} in i2v_mode needs its images: set "
+                "inference.input_dir=DIR (one .txt of prompts and the "
+                "images, sorted by name); the configs' prompt_dir names no "
+                "such directory (ROADMAP.md queue 3)")
+        else:
+            prompts = load_prompts(inf)
+        bs = int(inf.get("bs", 1))
+        n_samples = int(inf.get("n_samples_prompt", 1))
         frames = int(inf.get("frames", inf.get("num_frames", 16)))
         cfg_scale = float(inf.get("unconditional_guidance_scale",
                                   inf.get("cfg_scale", 7.5)))
@@ -232,7 +266,8 @@ class GenerationFlow:
 
         results = []
         per_prompt: Dict[str, float] = {}
-        encode_sec = sample_sec = decode_sec = 0.0
+        encode_sec = image_encode_sec = sample_sec = decode_sec = 0.0
+        shape = kept_shape = None
         nonfinite_latents = nonfinite_pixels = 0
         t_start = time.perf_counter()
         # negative prompt encoded once and tiled per chunk
@@ -248,6 +283,13 @@ class GenerationFlow:
             if uncond1 is not None:
                 uncond = {k: v.repeat_interleave(len(chunk), dim=0)
                           for k, v in uncond1.items()}
+            if i2v_images is not None:
+                t_i = time.perf_counter()
+                cond, uncond = self.prepare_image_cond(
+                    cond, uncond, i2v_images[i:i + len(chunk)], frames,
+                    height, width, keys("img_cond"))
+                self._sync()
+                image_encode_sec += time.perf_counter() - t_i
             for s in range(n_samples):
                 shape = self.latent_shape(len(chunk), frames, height, width)
                 self._sync()
@@ -256,9 +298,11 @@ class GenerationFlow:
                                 cfg_scale)
                 self._sync()
                 t1 = time.perf_counter()
+                z = self.kept_latents(z, frames)
                 nonfinite_latents += int((~torch.isfinite(z)).sum())
                 if decode_frames:
                     z = z[:, :int(decode_frames)]
+                kept_shape = tuple(z.shape)
                 videos = self.decode_latents(z).float().cpu().numpy()
                 t2 = time.perf_counter()
                 nonfinite_pixels += int((~np.isfinite(videos)).sum())
@@ -275,14 +319,49 @@ class GenerationFlow:
                    "num_videos": len(results),
                    "per_prompt_sec": per_prompt,
                    "encode_sec": encode_sec,
+                   "image_encode_sec": image_encode_sec,
                    "sample_sec": sample_sec,
                    "decode_sec": decode_sec,
                    "denoise_steps": self.scheduler.num_steps,
+                   # the sampled latents and the part of them decoded
+                   "latent_shape": list(shape) if shape else None,
+                   "decoded_latent_shape": (list(kept_shape) if kept_shape
+                                            else None),
                    "nonfinite_latents": nonfinite_latents,
                    "nonfinite_pixels": nonfinite_pixels,
                    "device": str(self.device)}
         save_metrics(metrics, savedir, config)
         return {"videos": results, "metrics": metrics}
+
+
+def load_inputs_i2v(input_dir: str, video_size: Tuple[int, int]
+                    ) -> Tuple[list, torch.Tensor, list]:
+    """(names, images, prompts) of an i2v input directory: ONE .txt of
+    prompts (the first by name), the images sorted by name and paired by
+    index, each resized on its short side and center-cropped to
+    ``video_size`` (H, W), in [−1, 1].  Images are f32 (N, H, W, 3) on the
+    CPU."""
+    import cv2
+
+    files = sorted(os.listdir(input_dir))
+    txts = [f for f in files if f.endswith(".txt")]
+    if not txts:
+        raise ValueError(f"found NO prompt .txt in {input_dir}")
+    with open(os.path.join(input_dir, txts[0])) as f:
+        prompts = [line.strip() for line in f if line.strip()]
+    img_files = [f for f in files if f.lower().endswith(
+        (".png", ".jpg", ".jpeg", ".webp"))]
+    if len(img_files) < len(prompts):
+        raise ValueError(f"{len(prompts)} prompts but only "
+                         f"{len(img_files)} images in {input_dir}")
+    crop, norm = CenterCropResize(video_size), Normalize()
+    images, names = [], []
+    for fname in img_files[:len(prompts)]:
+        img = cv2.imread(os.path.join(input_dir, fname))
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+        images.append(norm(crop(img[None]))[0])
+        names.append(os.path.splitext(fname)[0])
+    return names, torch.from_numpy(np.stack(images)), prompts
 
 
 def load_prompts(inf_config: Dict[str, Any]) -> list[str]:
