@@ -4,6 +4,7 @@
     python3 chip_smoke.py --hunyuan-train FRAMES
     python3 chip_smoke.py --wan
     python3 chip_smoke.py --cogvideox
+    python3 chip_smoke.py --videocrafter
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
@@ -11,7 +12,8 @@ peak memory and seconds per step as a JSON line: the frame cut of phase 21
 is chosen from such runs.  The third runs only the Wan 2.1 phases (23–27)
 and prints their figures as a JSON line.  The fourth runs only the
 CogVideoX I2V and 1.5 phases (28–33) and prints their figures as a JSON
-line before the result line.
+line before the result line.  The fifth runs only the VideoCrafter,
+DynamiCrafter and Wan I2V phases (34–40), likewise.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -288,18 +290,78 @@ without a result line:
                 work of one step, after an untraced warm-up call) timed
                 with CUDA events and traced with torch.profiler: device
                 time of K1, the GEMMs and the rest, the busy share.
+34. K-vc      — the attention of the UNet3D paths as they call it, each
+                against its plain version, counted per route and design,
+                timed by CUDA events and device time beside its bound, the
+                plain version and SDPA: K2 at d=64 with 5 heads (the UNet's
+                first level, online, on the persistent kernel of
+                flash_fwd_sm90.cu) at VideoCrafter2's 2,560 and
+                DynamiCrafter's 9,216 tokens (B=32), self and over 77 text
+                keys, each also beside the old design (flash_fwd.cu) on the
+                same tensors, which it must not lose to at the self shapes;
+                K1 online at the even-head levels (640 and 160 tokens, 2,304
+                and 576, H=10 and 20), self and over 77 keys; DynamiCrafter's
+                image cross-attention over its 16 resampler tokens (K2 at
+                9,216, K1 at 2,304, 576 and 144 queries) and its middle
+                block (K1, 144 tokens, H=20: self and over 77 keys); the CLIP image
+                encoder's f32 K2 (B=1, 256 tokens, 16 heads of d=80, on
+                flash_fwd.cu); K3 at Wan I2V's image cross-attention
+                (75,600 queries over 256 CLIP tokens, B=2, H=40, d=128,
+                the fixed max 0).
+35. reference-vc — VideoCrafter2 and DynamiCrafter at narrow width (the
+                UNet at 64 channels, 64-wide heads, one res block a level,
+                f32; a 2-layer text CLIP; DynamiCrafter's image encoder at 2
+                heads of d=80 over 256 tokens) on the card and on the CPU,
+                same weights, image, posterior noise and x_T, TF32 off,
+                4×128×256 frames: K2 (512 tokens) and K1 (128) run on the
+                card (flash_fwd.cu's f32 path); DynamiCrafter's image tokens
+                and latent, one UNet call, the latents after the DDIM steps
+                and the decode must agree, the call within 1e-4 and the
+                latents within 1e-3 (f32 limits: the sound runs read below
+                1.2e-5, the UNet in bf16 above 2e-2); then the control:
+                VideoCrafter2 again with every card attention output scaled
+                by 1 + 1e-3, which must fail those limits.
+36. e2e-vc2   — VideoCrafter2 T2V through ``inference-vc2-t2v-320x512``
+                whole: UNet3D at 320 channels, channel_mult [1, 2, 4, 4],
+                bf16, OpenCLIP-H text, 16×320×512, all 50 DDIM steps, CFG
+                12, all 16 frames decoded.  Asserts K2 = 10 and K1 = 20 a
+                step, all on flash_fwd_sm90 unsplit, no copy, no other
+                launch, finite latents and pixels, the video and
+                metric.json; logs seconds per step, the text encode, the
+                decode and the peak memory.
+37. e2e-dc    — DynamiCrafter I2V through ``inference-dc-i2v-576x1024``
+                from one seeded 1024×576 PNG (``inference.input_dir``):
+                16×576×1024, all 50 DDIM steps, CFG 7.5, every frame
+                decoded; K2 = 15 and K1 = 33 a step (the image
+                cross-attention, the middle at 144 tokens), the CLIP image
+                encoder's 32 f32 K2 on flash_fwd.cu; logs the image
+                conditioning's time too.
+38. e2e-vc1   — ``inference-vc1-t2v-576x1024`` and
+                ``inference-vc1-i2v-320x512`` at full width, 16 frames, cut
+                to ddim_steps 3 (4 steps), every frame decoded.
+39. profile-dc — one full-width DynamiCrafter UNet call at B=2·16 (after
+                an untraced warm-up call), traced: device time of the flash
+                kernels, GEMMs, convolutions, GroupNorm and the rest, the
+                busy share.
+40. e2e-wan-i2v — Wan 2.1 I2V-14B through ``inference-wanvideo-i2v-720p``
+                with the layout its config lacks as overrides (i2v_mode,
+                in_dim 36, cond_stage_2 the CLIP ViT-H/14 image embedder),
+                from one seeded 1280×720 PNG: 81×720×1280, 2 of 50 steps,
+                all frames by the streamed decode; K3 = 3·40 a step on K3's
+                kernel, the CLIP encoder's 32 f32 K2 on flash_fwd.cu.
 
 They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
-33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 20, 22.
+33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 20, 22.
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18, 25, 32) turn TF32 off inside ``tf32_off`` and restore the
-flags.
+(7, 9, 15, 18, 25, 32, 35) turn TF32 off inside ``tf32_off`` and restore
+the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the eight sampling runs and the three training runs) and read just after;
+(the thirteen sampling runs and the three training runs) and read just
+after;
 in each, no launch splits its keys but LLaMA's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those eleven runs, per design and, for the Hopper
+launches summed over those sixteen runs, per design and, for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
 training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
 width 128) apart from STDiT's d=72 K5 and K8, and one for the case of a
@@ -351,6 +413,14 @@ LSE_TOL = 1e-3  # absolute, f32 LSE
 REF_TOL_CALL = 3e-2
 REF_TOL_TRAJ = 1e-1
 REF_TOL_DECODE = 1e-3
+# the same for the narrow UNet3D flows, which run in f32 on both sides: the
+# sound runs read at most 3.2e-6 for a call and 1.2e-5 for the latents, the
+# UNet in bf16 2.4e-2 and 1.0e-1
+REF_VC_TOL_CALL = 1e-4
+REF_VC_TOL_TRAJ = 1e-3
+# reference-vc's control: every card attention output scaled by 1 + this
+# must fail the check
+REF_VC_CONTROL = 1e-3
 OS_STEPS = 50        # Open-Sora e2e: every DDIM step of the config
 OS_DEPTH = 28
 OS_REF_STEPS = 5     # narrow Open-Sora card-vs-CPU trajectory
@@ -1448,11 +1518,12 @@ def profile_opensora_call() -> dict:
 
 
 def _log_profile(phase: str, what: str, prof, call_ms: float,
-                 flash: str) -> dict:
+                 flash: str, extra_groups=()) -> dict:
     """Device time of a traced call by kernel group (the flash kernel,
-    GEMMs, everything else), its busy share of ``call_ms`` and the 8
-    longest kernels."""
-    groups = {flash: 0.0, "gemm": 0.0, "other": 0.0}
+    ``extra_groups`` ((name, substrings), matched first), GEMMs, everything
+    else), its busy share of ``call_ms`` and the 8 longest kernels."""
+    groups = {flash: 0.0, **{g: 0.0 for g, _ in extra_groups}, "gemm": 0.0,
+              "other": 0.0}
     kernels = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
@@ -1460,7 +1531,10 @@ def _log_profile(phase: str, what: str, prof, call_ms: float,
             continue
         kernels[e.key] = us / 1e3
         name = e.key.lower()
+        extra = [g for g, keys in extra_groups
+                 if any(k in name for k in keys)]
         group = (flash if "flash_fwd" in name else
+                 extra[0] if extra else
                  "gemm" if any(g in name for g in ("gemm", "nvjet", "xmma",
                                                    "cutlass", "cublas"))
                  else "other")
@@ -2870,13 +2944,15 @@ def _wan_command_argv(name: str, savedir: str, extra=()):
 
 
 def _run_wan(A, phase: str, name: str, tag: str, steps: int, depth: int,
-             frames: int, size, tokens: int, extra=()) -> dict:
+             frames: int, size, tokens: int, extra=(),
+             attn_per_layer: int = 2, clip_k2: int = 0) -> dict:
     """One prompt through the registry's ``name`` at full width: the
-    launch counts (K3 = 2·depth a step: each block's self- and text
-    cross-attention, at B = 2 under CFG, all on K3's Hopper kernel in place;
-    no other launch), finite latents and pixels, the mp4's frames and
-    metric.json; logs seconds per step, the text encode, the decode and the
-    peak memory."""
+    launch counts (K3 = ``attn_per_layer``·depth a step: each block's self-
+    and text cross-attention, and for I2V its image cross-attention, at
+    B = 2 under CFG, all on K3's Hopper kernel in place; I2V's CLIP image
+    encoder's ``clip_k2`` f32 K2 on flash_fwd.cu; no other launch), finite
+    latents and pixels, the mp4's frames and metric.json; logs seconds per
+    step, the text (and image) encode, the decode and the peak memory."""
     from videotuna_tpu_torch.cli.commands import main as command
     savedir = os.path.join(OUT_DIR, tag)
     _free()
@@ -2900,6 +2976,7 @@ def _run_wan(A, phase: str, name: str, tag: str, steps: int, depth: int,
         steps=m["denoise_steps"],
         sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.3f}",
         text_encode_sec=f"{m['encode_sec']:.3f}",
+        image_encode_sec=f"{m['image_encode_sec']:.3f}",
         decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
         resident_before_gb=f"{resident / 1e9:.2f}",
         peak_mem_gb=f"{peak / 1e9:.2f}",
@@ -2908,16 +2985,18 @@ def _run_wan(A, phase: str, name: str, tag: str, steps: int, depth: int,
         nonfinite_latents=m["nonfinite_latents"],
         nonfinite_pixels=m["nonfinite_pixels"],
         video_shape="x".join(map(str, video.shape)))
-    expected = dict({k: 0 for k in launches}, K3=2 * depth * steps)
+    k3 = attn_per_layer * depth * steps
+    expected = dict({k: 0 for k in launches}, K3=k3, K2=clip_k2)
     if rc != 0 or m["denoise_steps"] != steps or launches != expected:
         raise AssertionError(f"{phase}: rc {rc}, launches {launches}, "
                              f"expected {expected}: K3 = {depth} blocks × "
-                             f"(self + cross) × {steps} steps, no other")
-    if (sm90["K3"], sm90["K3_d128"], sm90["tma_copies"]) \
-            != (2 * depth * steps,) * 2 + (0,):
+                             f"{attn_per_layer} attentions × {steps} steps, "
+                             f"the CLIP encoder's {clip_k2} K2, no other")
+    if (sm90["K3"], sm90["K3_d128"], sm90["K2"], sm90["tma_copies"]) \
+            != (k3, k3, 0, 0):
         raise AssertionError(f"{phase}: {sm90}: every K3 launch must run K3's "
                              "Hopper kernel at d=128, with no alignment "
-                             "copy")
+                             "copy, and the f32 K2 flash_fwd.cu")
     check_split_counts(phase, sm90)
     if m["nonfinite_latents"] or m["nonfinite_pixels"]:
         raise AssertionError(f"{phase}: non-finite latents or pixels")
@@ -2926,7 +3005,10 @@ def _run_wan(A, phase: str, name: str, tag: str, steps: int, depth: int,
                              f"{video.shape}")
     _free()
     return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
-                sec_per_step=m["sample_sec"] / m["denoise_steps"])
+                sec_per_step=m["sample_sec"] / m["denoise_steps"],
+                text_encode_sec=m["encode_sec"],
+                image_encode_sec=m["image_encode_sec"],
+                decode_sec=m["decode_sec"])
 
 
 def run_e2e_wan14b(A) -> dict:
@@ -3126,21 +3208,22 @@ def check_k1_cog15(A) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def _cog_i2v_inputs() -> str:
-    """An i2v input directory: one seeded 480×720 PNG (a colour gradient
-    with noise) and a one-line prompts.txt."""
+def _i2v_inputs(tag: str, size, prompt: str) -> str:
+    """An i2v input directory under ``tag``: one seeded PNG at ``size``
+    (H, W; a colour gradient with noise) and a one-line prompts.txt."""
     import cv2
     import numpy as np
-    path = os.path.join(OUT_DIR, "cog_i2v_inputs")
+    path = os.path.join(OUT_DIR, f"{tag}_inputs")
     os.makedirs(path, exist_ok=True)
+    h, w = size
     rng = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:480, 0:720]
-    img = np.stack([255 * yy / 480, 255 * xx / 720,
-                    np.full((480, 720), 128.0)], axis=-1)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([255 * yy / h, 255 * xx / w, np.full((h, w), 128.0)],
+                   axis=-1)
     img = np.clip(img + rng.normal(0, 20, img.shape), 0, 255)
     cv2.imwrite(os.path.join(path, "image.png"), img.astype(np.uint8))
     with open(os.path.join(path, "prompts.txt"), "w") as f:
-        f.write(COG_PROMPT + "\n")
+        f.write(prompt + "\n")
     return path
 
 
@@ -3157,7 +3240,8 @@ def _run_cog(A, phase: str, name: str, tag: str, sampled_frames: int,
     image encodes, the decode and the peak memory."""
     from videotuna_tpu_torch.cli.commands import main as command
     savedir = os.path.join(OUT_DIR, tag)
-    inputs = ([f"inference.input_dir={_cog_i2v_inputs()}"] if i2v
+    inputs = ([f"inference.input_dir="
+               f"{_i2v_inputs('cog_i2v', (480, 720), COG_PROMPT)}"] if i2v
               else [f"inference.prompt={COG_PROMPT}"])
     _free()
     torch.cuda.reset_peak_memory_stats()
@@ -3366,6 +3450,493 @@ def check_small_reference_cog15() -> None:
     _free()
 
 
+# ------------------------------------------------------ phases 34-40
+CONFIG_VC2 = os.path.join(ROOT, "configs", "001_videocrafter2",
+                          "vc2_t2v_320x512.yaml")
+CONFIG_DC = os.path.join(ROOT, "configs", "002_dynamicrafter",
+                         "dc_i2v_576x1024.yaml")
+VC2_COMMAND = "inference-vc2-t2v-320x512"
+DC_COMMAND = "inference-dc-i2v-576x1024"
+VC1_T2V_COMMAND = "inference-vc1-t2v-576x1024"
+VC1_I2V_COMMAND = "inference-vc1-i2v-320x512"
+WAN_I2V_COMMAND = "inference-wanvideo-i2v-720p"
+VC_PROMPT = "a corgi running on a beach at sunset, waves in the background"
+VC_FRAMES = 16
+VC2_STEPS = 50       # the config's every DDIM step
+DC_STEPS = 50        # the config's every DDIM step
+VC1_DDIM_STEPS = 3   # ddim_steps=3: the uniform grid 1000 // 3 gives 4 steps
+WAN_I2V_STEPS = 2    # of the config's 50: every step costs the same
+CLIP_LAYERS = 32     # ViT-H/14: one f32 K2 (256 tokens, d=80) a layer
+# UNet3D at num_head_channels 64, channel_mult [1, 2, 4, 4], two res blocks
+# and attention at ds 1, 2, 4: 5 spatial transformers a level (2 down, 3
+# up) and one in the middle, each a self- and a text cross-attention (and
+# DynamiCrafter's image cross-attention); level 1 has 5 heads (K2), levels
+# 2 and 4 have 10 and 20 (K1), the middle 20 at ds 8, which 320×512 gives
+# 40 tokens (the plain math) and 576×1024 144 (K1).  B = 2·16 frames
+WAN_I2V_OVERRIDES = [
+    "flow.params.i2v_mode=true",
+    "flow.params.denoiser_config.params.in_channels=36",
+    "flow.params.cond_stage_2_config.target="
+    "videotuna_tpu.models.lvdm.CLIPImageEmbedder"]
+# K-vc: (label, route, B, Sq, Sk, H, d, dtype); the UNet's attention at
+# VideoCrafter2's 320×512 and DynamiCrafter's 576×1024 (B = 32), the CLIP
+# image encoder's (f32, d = 80) and Wan I2V's image cross-attention
+VC_CASES = [
+    ("K2 vc2 self", "K2", 32, 2560, 2560, 5, 64),
+    ("K2 dc self", "K2", 32, 9216, 9216, 5, 64),
+    ("K2 vc2 cross", "K2", 32, 2560, 77, 5, 64),
+    ("K2 dc cross", "K2", 32, 9216, 77, 5, 64),
+    ("K1 vc2 ds2 self", "K1", 32, 640, 640, 10, 64),
+    ("K1 vc2 ds4 self", "K1", 32, 160, 160, 20, 64),
+    ("K1 dc ds2 self", "K1", 32, 2304, 2304, 10, 64),
+    ("K1 dc ds4 self", "K1", 32, 576, 576, 20, 64),
+    ("K1 vc2 ds2 cross", "K1", 32, 640, 77, 10, 64),
+    ("K1 vc2 ds4 cross", "K1", 32, 160, 77, 20, 64),
+    ("K1 dc ds2 cross", "K1", 32, 2304, 77, 10, 64),
+    ("K1 dc ds4 cross", "K1", 32, 576, 77, 20, 64),
+    # DynamiCrafter's middle block (ds 8: 144 tokens, H=20) and its image
+    # cross-attention over the resampler's 16 tokens, a key side under one
+    # key tile, at every level
+    ("K1 dc mid self", "K1", 32, 144, 144, 20, 64),
+    ("K1 dc mid cross", "K1", 32, 144, 77, 20, 64),
+    ("K2 dc image cross", "K2", 32, 9216, 16, 5, 64),
+    ("K1 dc ds2 image cross", "K1", 32, 2304, 16, 10, 64),
+    ("K1 dc ds4 image cross", "K1", 32, 576, 16, 20, 64),
+    ("K1 dc mid image cross", "K1", 32, 144, 16, 20, 64),
+    ("K2 f32 clip", "K2", 1, 256, 256, 16, 80),
+    ("K3 wan i2v image cross", "K3", 2, SHAPE_WAN14["s"], 256, 40, 128),
+]
+
+
+def check_k_vc(A) -> dict:
+    """The attention of this slice's paths against its plain version, as
+    the main paths call it (``flash_attention``: K2 for the UNet's 5-head
+    level, K1 for its even-head levels, both online; the CLIP image
+    encoder's f32 K2 at d = 80; K3 under the fixed max 0 at Wan I2V's image
+    cross-attention), counted per route and per design; each timed by CUDA
+    events, by device time (CUDA-graph replay) and beside its bound, its
+    plain version (a block of query rows at a time) and SDPA; K2 at d = 64
+    also beside the old design (flash_fwd.cu, ``_flash_fwd_mma``) on the
+    same tensors, which the Hopper design must not lose to at the
+    self-attention shapes."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    recs = {}
+    for label, route, b, sq, sk, h, d in VC_CASES:
+        f32 = d == 80
+        static_max = 0.0 if route == "K3" else None
+        if route == "K3":
+            q, k, v = _wan_qkv(b, sq, sk, h, gen)
+        else:
+            q, k, v = (torch.randn((b, s, h, d), generator=gen,
+                                   device="cuda")
+                       for s in (sq, sk, sk))
+            if not f32:
+                q, k, v = (x.bfloat16() for x in (q, k, v))
+        design = A._fwd_design(route, q.dtype, d, False, None, False,
+                               static_max)
+
+        def call():
+            return A.flash_attention(q, k, v, static_max=static_max)
+
+        before = (A.flash_fwd.launches[route],
+                  A.flash_fwd.launches_sm90[route],
+                  A.flash_fwd.launches_split[route], A.flash_fwd.tma_copies)
+        out = call()
+        torch.cuda.synchronize()
+        launched = (A.flash_fwd.launches[route],
+                    A.flash_fwd.launches_sm90[route],
+                    A.flash_fwd.launches_split[route], A.flash_fwd.tma_copies)
+        t0 = time.perf_counter()
+        # query rows a block of the plain version: about 2 GB of f32 scores
+        rows = max(128, min(4096, int(2e9 / (4 * b * h * sk)) // 128 * 128))
+        ref = torch.cat([A.flash_fwd_plain(q[:, i:i + rows], k, v,
+                                           sm_scale=d ** -0.5,
+                                           static_max=static_max)
+                         for i in range(0, sq, rows)], dim=1)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = (F32_TOL if f32 else FWD_TOL) * scale
+        expected = (before[0] + 1, before[1] + (design == "sm90"),
+                    before[2], before[3])
+        ok = (err <= tol and bool(torch.isfinite(out).all())
+              and launched == expected
+              and design == ("mma" if f32 else "sm90"))
+        kernel = "flash_fwd_sm90" if design == "sm90" else "flash_fwd"
+        log("K-vc", case=label, shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd{d}",
+            route=route, kernel=kernel, dtype=str(q.dtype)[6:],
+            static_max=static_max, max_abs_err=f"{err:.3e}",
+            tol=f"{tol:.3e}", plain_ms=f"{plain_ms:.1f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"K-vc {label}: disagrees with its plain "
+                                 f"version, or launched {launched} on "
+                                 f"{design} (expected {expected})")
+        del out, ref
+        flops = 4.0 * b * h * sq * sk * d
+        io_bytes = q.element_size() * (2 * q.numel() + k.numel()
+                                       + v.numel())
+        # the exp2 floor counts for the bf16 kernels (one exp2 a score);
+        # the f32 kernel splits each product into three bf16 ones
+        exp2_ms = 0.0 if f32 else _exp2_floor_ms(b * h * sq * sk)
+        bound_ms, bound_by = _bound(3 * flops if f32 else flops, io_bytes,
+                                    exp2_ms)
+        reps = 3 if flops > 1e12 else 20
+        ms = cuda_time_ms(call, reps=reps)
+        dev = device_ms(call, 10)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=reps)
+        library_dev, _ = sdpa_device_ms((qt, kt, vt), {}, 10)
+        del qt, kt, vt
+        rec = dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, library_device_ms=library_dev)
+        extra = {}
+        if route == "K2" and not f32:
+            # the A/B baseline the rule replaced, on the same tensors, in
+            # turns with the Hopper design
+            def old():
+                return A._flash_fwd_mma(q, k, v, d ** -0.5, False, None,
+                                        None, False)
+            old_ms = cuda_time_ms(old, reps=reps)
+            rec["old_design_ms"] = old_ms
+            rec["old_design_device_ms"] = device_ms(old, 10)
+            rec["ms_again"] = cuda_time_ms(call, reps=reps)
+            extra = dict(old_design_ms=f"{old_ms:.4f}",
+                         old_design_device_ms=(
+                             f"{rec['old_design_device_ms']:.4f}"),
+                         ms_again=f"{rec['ms_again']:.4f}")
+            if sq == sk and min(ms, rec["ms_again"]) > old_ms:
+                raise AssertionError(f"K-vc {label}: the Hopper design "
+                                     f"({ms:.4f} ms) loses to flash_fwd.cu "
+                                     f"({old_ms:.4f} ms)")
+        log("K-vc", case=f"{label} timing", kernel=kernel, ms=f"{ms:.4f}",
+            device_ms=f"{dev:.4f}", **extra, bound_ms=f"{bound_ms:.4f}",
+            bound_by=bound_by, tflops=f"{flops / ms / 1e9:.1f}",
+            of_bound=f"{bound_ms / ms:.3f}", plain_ms=f"{plain_ms:.1f}",
+            library=f"scaled_dot_product_attention[{backend}]",
+            library_ms=f"{library_ms:.4f}",
+            library_device_ms=f"{library_dev:.4f}",
+            vs_library=f"{library_ms / ms:.3f}")
+        recs[label] = rec
+        del q, k, v
+        _free()
+    return recs
+
+
+def _unet_launches(size, image_cross: bool):
+    """(K2, K1) launches of one UNet3D call (B = 2·16) at ``size`` (H, W):
+    level 1's 5 spatial transformers on K2, levels 2 and 4 and, from 128
+    tokens on, the middle on K1; each a self- and a text cross-attention,
+    DynamiCrafter's an image cross-attention too."""
+    per = 3 if image_cross else 2
+    h, w = size[0] // 8, size[1] // 8
+    mid = (h // 8) * (w // 8) >= 128
+    return 5 * per, (10 + mid) * per
+
+
+def _run_vc(A, phase: str, name: str, tag: str, steps: int, size,
+            i2v: bool, image_cross: bool, clip: bool,
+            extra=()) -> dict:
+    """One prompt (with its image for i2v) through the registry's ``name``
+    at full width and depth (UNet3D at model_channels 320, channel_mult
+    [1, 2, 4, 4], 64-wide heads, bf16; OpenCLIP-H text over 77 tokens; the
+    2D VAE; for DynamiCrafter the CLIP ViT-H/14 image encoder and the
+    resampler), random weights from the seed, 16 frames with CFG, every
+    frame decoded.  Asserts the launches per step (``_unet_launches``), all
+    on flash_fwd_sm90 unsplit with no alignment copy, the CLIP image
+    encoder's 32 f32 K2 on flash_fwd.cu, no other launch, finite latents
+    and pixels, the mp4's frames and metric.json; logs seconds per step,
+    the text and image encodes, the decode and the peak memory."""
+    from videotuna_tpu_torch.cli.commands import main as command
+    savedir = os.path.join(OUT_DIR, tag)
+    inputs = ([f"inference.input_dir={_i2v_inputs(tag, size, VC_PROMPT)}"]
+              if i2v else [f"inference.prompt={VC_PROMPT}"])
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(A)
+    t0 = time.perf_counter()
+    rc = command([name, "--device", "cuda", "--quiet", "--savedir", savedir,
+                  f"flow.params.ddim_steps={steps}", *extra, *inputs])
+    wall = time.perf_counter() - t0
+    launches = read_counts(A)
+    sm90 = read_sm90_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(savedir, "metric.json")) as f:
+        m = json.load(f)
+    videos = sorted(p for p in os.listdir(savedir)
+                    if p.endswith((".mp4", ".npy")))
+    video = _read_video(os.path.join(savedir, videos[0]))
+    n = m["denoise_steps"]
+    k2, k1 = _unet_launches(size, image_cross)
+    h, w = size
+    log(phase, command=name, frames=VC_FRAMES, height=h, width=w,
+        tokens_level1=(h // 8) * (w // 8), batch="2x16 (CFG)", steps=n,
+        sec_per_step=f"{m['sample_sec'] / n:.4f}",
+        sample_sec=f"{m['sample_sec']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        image_encode_sec=f"{m['image_encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}", k2_per_step=k2, k1_per_step=k1,
+        launches=launches, sm90_launches=sm90,
+        sampled_latent_shape=m["latent_shape"],
+        nonfinite_latents=m["nonfinite_latents"],
+        nonfinite_pixels=m["nonfinite_pixels"],
+        video_shape="x".join(map(str, video.shape)))
+    clip_k2 = CLIP_LAYERS if clip else 0
+    expected = dict({k: 0 for k in launches}, K2=k2 * n + clip_k2,
+                    K1=k1 * n)
+    if rc != 0 or launches != expected:
+        raise AssertionError(f"{phase}: rc {rc}, launches {launches}, "
+                             f"expected {expected}")
+    if (sm90["K2"], sm90["K1"], sm90["tma_copies"]) != (k2 * n, k1 * n, 0):
+        raise AssertionError(f"{phase}: {sm90}: every UNet K2 and K1 launch "
+                             "must run flash_fwd_sm90, with no alignment "
+                             "copy (the CLIP encoder's f32 K2 flash_fwd.cu)")
+    check_split_counts(phase, sm90)
+    if m["latent_shape"] != [1, VC_FRAMES, h // 8, w // 8, 4]:
+        raise AssertionError(f"{phase}: sampled {m['latent_shape']}")
+    if i2v != (m["image_encode_sec"] > 0):
+        raise AssertionError(f"{phase}: image encode {m['image_encode_sec']}")
+    if m["nonfinite_latents"] or m["nonfinite_pixels"]:
+        raise AssertionError(f"{phase}: non-finite latents or pixels")
+    if len(videos) != 1 or tuple(video.shape) != (VC_FRAMES, h, w, 3):
+        raise AssertionError(f"{phase}: videos {videos}, shape "
+                             f"{video.shape}")
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9, steps=n,
+                sec_per_step=m["sample_sec"] / n,
+                sample_sec=m["sample_sec"], text_encode_sec=m["encode_sec"],
+                image_encode_sec=m["image_encode_sec"],
+                decode_sec=m["decode_sec"])
+
+
+def run_e2e_vc2(A) -> dict:
+    """VideoCrafter2 T2V (configs/001_videocrafter2/vc2_t2v_320x512.yaml:
+    v-prediction, zero terminal SNR) through ``inference-vc2-t2v-320x512``
+    whole: 16×320×512, all 50 DDIM steps, CFG 12, every frame decoded."""
+    return _run_vc(A, "e2e-vc2", VC2_COMMAND, "e2e_vc2", VC2_STEPS,
+                   (320, 512), False, False, False)
+
+
+def run_e2e_dc(A) -> dict:
+    """DynamiCrafter I2V (configs/002_dynamicrafter/dc_i2v_576x1024.yaml:
+    8 input channels, the image cross-attention) through
+    ``inference-dc-i2v-576x1024`` from one seeded 1024×576 PNG:
+    16×576×1024, all 50 DDIM steps, CFG 7.5, every frame decoded."""
+    return _run_vc(A, "e2e-dc", DC_COMMAND, "e2e_dc", DC_STEPS, (576, 1024),
+                   True, True, True)
+
+
+def run_e2e_vc1(A) -> list:
+    """VideoCrafter1 T2V at 576×1024 (relative positions in the temporal
+    attention, no temporal conv) and I2V at 320×512 (the CLIP image
+    embedder's tokens, which its UNet does not read: ROADMAP.md queue 3),
+    each 16 frames, cut to ddim_steps 3 (4 steps on the uniform grid)."""
+    return [_run_vc(A, "e2e-vc1-t2v", VC1_T2V_COMMAND, "e2e_vc1_t2v",
+                    VC1_DDIM_STEPS, (576, 1024), False, False, False),
+            _run_vc(A, "e2e-vc1-i2v", VC1_I2V_COMMAND, "e2e_vc1_i2v",
+                    VC1_DDIM_STEPS, (320, 512), True, False, True)]
+
+
+def run_e2e_wan_i2v(A) -> dict:
+    """Wan 2.1 I2V-14B through the registry's ``inference-wanvideo-i2v-720p``
+    with the layout its config lacks as overrides (i2v_mode, in_dim 36,
+    cond_stage_2 the CLIP ViT-H/14 image embedder: ROADMAP.md queue 3), at
+    full width and depth from one seeded 1280×720 PNG: 81×720×1280, 2 of 50
+    steps, all frames decoded by the streamed decode.  Each layer runs K3
+    three times a step: self-, text cross- and image cross-attention (256
+    CLIP tokens); the CLIP encoder its 32 f32 K2."""
+    inputs = _i2v_inputs("e2e_wan_i2v", (720, 1280), WAN_PROMPT)
+    return _run_wan(A, "e2e-wan-i2v", WAN_I2V_COMMAND, "e2e_wan_i2v",
+                    WAN_I2V_STEPS, WAN14_DEPTH, 81, (720, 1280),
+                    SHAPE_WAN14["s"],
+                    [f"flow.params.scheduler_config.params.num_steps="
+                     f"{WAN_I2V_STEPS}", f"inference.input_dir={inputs}",
+                     *WAN_I2V_OVERRIDES], attn_per_layer=3,
+                    clip_k2=CLIP_LAYERS)
+
+
+def _narrow_vc(dc: bool):
+    """VideoCrafter2 (or DynamiCrafter) at narrow width, 64-wide heads
+    kept: the UNet at model_channels 64 (1 head at level 1: K2; 2 and 4 at
+    levels 2 and 4: K1), one res block a level, in f32, a 2-layer CLIP text
+    encoder of dim 64, the VAE at ch 32; DynamiCrafter's CLIP image encoder
+    at dim 160 (2 heads of d = 80: the f32 K2 over 256 tokens), 2 layers,
+    and a 1-layer resampler.  The UNet runs in f32: in bf16 its rounding
+    alone moved one card call by up to 2.4e-2 of max|out| against the CPU,
+    and the latents by 1.0e-1, at ``REF_TOL_CALL`` and ``REF_TOL_TRAJ``:
+    too close for a card-vs-CPU check to tell a fault."""
+    u = "flow.params.denoiser_config.params"
+    c = "flow.params.cond_stage_config.params"
+    out = [f"{u}.model_channels=64", f"{u}.num_res_blocks=1",
+           f"{u}.dtype=float32", f"{u}.context_dim=64", f"{c}.dim=64",
+           f"{c}.heads=2",
+           f"{c}.num_layers=2", "flow.params.first_stage_config.params.ch=32",
+           "flow.params.first_stage_config.params.num_res_blocks=1",
+           f"flow.params.ddim_steps={E2E_STEPS}"]
+    if dc:
+        i = "flow.params.cond_stage_2_config.params"
+        out += [f"{i}.clip_dim=160", f"{i}.clip_heads=2",
+                f"{i}.clip_layers=2", f"{i}.dim=64", f"{i}.depth=1",
+                f"{i}.heads=2", f"{i}.output_dim=64"]
+    return out
+
+
+@tf32_off()
+def check_small_reference_vc(control: float = 0.0) -> None:
+    """VideoCrafter2 and DynamiCrafter at narrow width (``_narrow_vc``, in
+    f32) on the card and on the CPU with the same weights, prompt, image,
+    posterior noise and x_T, TF32 off: 4×128×256 frames give 16×32
+    latents, 512 tokens at level 1 (K2, 1 head) and 128 at level 2 (K1),
+    so flash_fwd.cu's f32 path runs each of those attentions on the card
+    (level 4's 32 tokens and the middle take the plain math on both; the
+    bf16 Hopper kernels of the full-size runs are held to their plain
+    versions in K-vc).  DynamiCrafter's image tokens and latent, one UNet
+    call, the latents after the DDIM steps with CFG (ddim_steps 3: 4 steps
+    on the uniform grid) and the decode of the same latents must agree.
+
+    With ``control`` > 0, the control of the check itself: VideoCrafter2
+    alone, every card attention output scaled by 1 + ``control``, and the
+    check must then fail."""
+    import videotuna_tpu_torch.kernels.attention as A
+    flash = A.flash_attention
+
+    def scaled(*args, **kwargs):
+        out = flash(*args, **kwargs)
+        return out * (1 + control) if out.is_cuda else out
+
+    if control:
+        A.flash_attention = scaled
+    try:
+        _reference_vc(A, control)
+    finally:
+        A.flash_attention = flash
+
+
+def _reference_vc(A, control: float) -> None:
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    frames, height, width = 4, 128, 256
+    flows = ((False, CONFIG_VC2),) + (() if control else ((True, CONFIG_DC),))
+    for dc, path in flows:
+        cfg = load_configs([path], _narrow_vc(dc))
+        cpu = instantiate(cfg["flow"], device="cpu")
+        gpu = instantiate(cfg["flow"], device="cuda")
+        cpu.init_params(seed=1)
+        for name, module in cpu.components().items():
+            gpu.components()[name].load_state_dict(module.state_dict())
+        shape = cpu.latent_shape(1, frames, height, width)
+        gen = torch.Generator().manual_seed(2)
+        image = torch.rand((1, height, width, 3), generator=gen) * 2 - 1
+        post = torch.randn((1, 1, *shape[2:]), generator=gen)
+        x_T = torch.randn(shape, generator=gen)
+        t = torch.tensor([int(cpu.scheduler.timesteps[1])])
+        outs, z_cpu, launches = [], None, {}
+        for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            zero_counts(A)
+            cond = flow.encode_text([VC_PROMPT])
+            uncond = flow.encode_text([""])
+            if dc:
+                cond, uncond = flow.prepare_image_cond(
+                    cond, uncond, image.to(dev), frames, height, width,
+                    posterior_noise=post.to(dev))
+            with torch.inference_mode():
+                call = flow.denoise_apply(x_T.to(dev), t.to(dev), cond)
+            z = flow.sample(cond, uncond, shape, None, 7.5, x_T=x_T.to(dev))
+            launches = {k: v for k, v in read_counts(A).items() if v}
+            z_cpu = z if z_cpu is None else z_cpu
+            video = flow.decode_latents(z_cpu.to(dev))
+            outs.append([x.float().cpu() for x in (
+                [cond["context_img"], cond["img_latents"]] if dc else [])
+                + [call, z, video]])
+        # a call and CFG's steps (B = 2): level 1's 3 spatial transformers
+        # on K2, level 2's on K1; each a self- and a text cross-attention
+        # (DynamiCrafter an image cross-attention too); DynamiCrafter's
+        # image conditioning adds 3 f32 K2: the CLIP encoder's 2 layers and
+        # the VAE encoder's middle attention (one head of d=128 over 512
+        # tokens)
+        per = 3 if dc else 2
+        calls = 1 + gpu.scheduler.num_steps
+        expected = {"K2": 3 * per * calls + 3 * dc, "K1": 3 * per * calls}
+        if launches != expected:
+            raise AssertionError(f"narrow {'DC' if dc else 'VC2'} flow on "
+                                 f"the card launched {launches}, expected "
+                                 f"{expected}")
+
+        def rel(a, b):
+            return ((a - b).abs().max() / b.abs().max()).item()
+
+        errs = [rel(a, b) for a, b in zip(outs[1], outs[0])]
+        tols = ((REF_TOL_DECODE,) * 2 if dc else ()) + (
+            REF_VC_TOL_CALL, REF_VC_TOL_TRAJ, REF_TOL_DECODE)
+        ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
+        log("reference-vc", what=f"narrow {os.path.basename(path)} flow, "
+            "cuda vs cpu", control=control, latent_shape=list(shape),
+            steps=gpu.scheduler.num_steps, cfg=7.5, card_launches=launches,
+            rel_errs=[f"{e:.3e}" for e in errs], tols=list(tols), ok=ok)
+        if control and ok:
+            raise AssertionError(f"reference-vc passed with every card "
+                                 f"attention output scaled by 1 + {control}")
+        if not control and not ok:
+            raise AssertionError("GPU VideoCrafter flow disagrees with the "
+                                 "CPU flow")
+        del cpu, gpu
+        _free()
+
+
+def profile_dc_call() -> dict:
+    """One full-width DynamiCrafter UNet call at 16×576×1024 with CFG (B =
+    2·16 frames of 72×128 latents, 8 input channels, 77 text and 16 image
+    tokens), the work of one sampling step: timed with CUDA events around
+    the traced call, device time by kernel group (the flash kernels, GEMMs,
+    convolutions, GroupNorm, the rest) and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.models.layers import init_weights_
+    _free()
+    cfg = load_configs([CONFIG_DC])["flow"]["params"]["denoiser_config"]
+    with torch.device("meta"):
+        model = instantiate(cfg)
+    model = model.to_empty(device="cuda").eval()
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((2, VC_FRAMES, 72, 128, 8), generator=gen, device="cuda")
+    y = torch.randn((2, 77, 1024), generator=gen, device="cuda")
+    img = torch.randn((2, 16, 1024), generator=gen, device="cuda")
+    t = torch.tensor([500, 500], device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        model(x, t, y, img)     # warm-up: the first call is not traced
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start.record()
+            model(x, t, y, img)
+            end.record()
+            torch.cuda.synchronize()
+    log("profile-dc", call_peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del model
+    _free()
+    return _log_profile("profile-dc",
+                        "one DynamiCrafter UNet3D call, CFG batch 2x16 "
+                        "frames, 9,216 tokens at level 1", prof,
+                        start.elapsed_time(end), "flash_fwd (K2, K1)",
+                        extra_groups=_UNET_GROUPS)
+
+
+# kernel groups of a UNet trace beside the flash kernels and the GEMMs,
+# matched (lower case) before them: cuDNN's convolutions and PyTorch's
+# GroupNorm kernels
+_UNET_GROUPS = (("conv", ("conv", "fprop", "implicit_convolve", "winograd")),
+                ("group_norm", ("group_norm", "groupnorm", "rowwisemoments",
+                                "computefusedparams", "moments")))
+
+
 def print_result() -> None:
     """The last line: the device the run took place on."""
     print(json.dumps({"ok": True, "device": {
@@ -3453,6 +4024,26 @@ def main(argv=None) -> None:
         print_result()
         return
 
+    if argv[:1] == ["--videocrafter"]:
+        # the VideoCrafter, DynamiCrafter and Wan I2V phases alone (the
+        # kernels at their shapes, the narrow card-vs-CPU checks, the
+        # sampling runs and the traced DynamiCrafter UNet call)
+        kvc = timed_phase("K-vc", check_k_vc, A)
+        check_small_reference_vc()
+        check_small_reference_vc(control=REF_VC_CONTROL)
+        out = {"e2e-vc2": timed_phase("e2e-vc2", run_e2e_vc2, A),
+               "e2e-dc": timed_phase("e2e-dc", run_e2e_dc, A)}
+        out.update(zip(("e2e-vc1-t2v", "e2e-vc1-i2v"),
+                       timed_phase("e2e-vc1", run_e2e_vc1, A)))
+        timed_phase("profile-dc", profile_dc_call)
+        out["e2e-wan-i2v"] = timed_phase("e2e-wan-i2v", run_e2e_wan_i2v, A)
+        print(json.dumps({"videocrafter": {"k_vc": kvc, **{
+            tag: {k: v for k, v in r.items() if k not in ("launches",
+                                                         "sm90")}
+            for tag, r in out.items()}}}), flush=True)
+        print_result()
+        return
+
     # every timed phase under PyTorch's defaults, its flags logged first;
     # the card-vs-CPU checks turn TF32 off inside and restore it
     k1 = timed_phase("K1", check_k1, A)
@@ -3488,6 +4079,15 @@ def main(argv=None) -> None:
     timed_phase("profile-wan14b", profile_wan14b_call)
     wan_runs.append(timed_phase("e2e-wan1.3b", run_e2e_wan1_3b, A))
     runs += wan_runs
+    kvc = timed_phase("K-vc", check_k_vc, A)
+    check_small_reference_vc()
+    check_small_reference_vc(control=REF_VC_CONTROL)
+    vc_runs = [timed_phase("e2e-vc2", run_e2e_vc2, A),
+               timed_phase("e2e-dc", run_e2e_dc, A),
+               *timed_phase("e2e-vc1", run_e2e_vc1, A)]
+    timed_phase("profile-dc", profile_dc_call)
+    wan_i2v = timed_phase("e2e-wan-i2v", run_e2e_wan_i2v, A)
+    runs += vc_runs + [wan_i2v]
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
     # each kernel's launches over the eleven main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
@@ -3504,11 +4104,19 @@ def main(argv=None) -> None:
     wan_k3 = sum(r["sm90"]["K3_d128"] for r in wan_runs)
     # K1's launches at CogVideoX 1.5's 9,674 tokens, apart from the 5B's
     cog15_k1 = sum(r["sm90"]["K1"] for r in cog15_runs)
+    # the UNet's K2 (d = 64, 5 heads) and K1 launches, apart from STDiT's
+    # and CogVideoX's; the CLIP image encoder's f32 K2 on flash_fwd.cu; Wan
+    # I2V's K3 launches
+    vc_k2 = sum(r["sm90"]["K2"] for r in vc_runs)
+    vc_k1 = sum(r["sm90"]["K1"] for r in vc_runs)
+    clip_k2 = sum(r["launches"]["K2"] - r["sm90"]["K2"] - r["sm90"]["K2_f32"]
+                  for r in vc_runs + [wan_i2v])
+    wan_i2v_k3 = wan_i2v["sm90"]["K3_d128"]
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
               "bf16, fixed max or online, optional LSE), checked",
-        "K2": "redesigned for Hopper (flash_fwd_sm90 persistent, d=72/80 "
+        "K2": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64/72/80 "
               "bf16), checked; f32 at d=128 (LLaMA's causal K2) redesigned "
               "for Hopper (flash_fwd_f32_sm90: split key ranges, a cp.async "
               "ring, the combine), checked",
@@ -3554,7 +4162,17 @@ def main(argv=None) -> None:
                                "bound_by", "library_ms")) + tuple(
         f"{p}_{k}" for p in ("wan13", "cross") for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "device_ms"))
+            "library_ms", "device_ms")) + ("ms_again",) + tuple(
+        f"{p}_{k}" for p in ("vc2_self", "vc2_cross", "dc_cross",
+                             "vc2_ds2_self", "vc2_ds4_self", "dc_ds4_self",
+                             "vc2_ds2_cross", "vc2_ds4_cross",
+                             "dc_ds2_cross", "dc_ds4_cross", "dc_mid_self",
+                             "dc_mid_cross", "dc_image_cross",
+                             "dc_ds2_image_cross", "dc_ds4_image_cross",
+                             "dc_mid_image_cross")
+        for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms", "library_device_ms",
+                  "old_design_ms", "old_design_device_ms", "ms_again"))
 
     def entry(name, source, replaces, kernel, rec, design="sm90",
               status=None, launches_n=None):
@@ -3584,14 +4202,47 @@ def main(argv=None) -> None:
 
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1,
-              launches_n=sm90["K1"] - d128["K1"] - cog15_k1),
+              launches_n=sm90["K1"] - d128["K1"] - cog15_k1 - vc_k1),
         # CogVideoX 1.5's joint attention on the same kernel (9,674 tokens)
         entry("flash_fwd_sm90 persistent, d=64, CogVideoX 1.5 (K1)", fwd90,
               268, "K1", k1c, launches_n=cog15_k1),
         entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
-              "K2", k2),
+              "K2", k2, launches_n=sm90["K2"] - d128["K2"] - vc_k2),
+        # the UNet's attention (VideoCrafter2 at 320x512, DynamiCrafter at
+        # 576x1024, B = 32): level 1's 5 heads on K2 (DynamiCrafter's self-
+        # attention's figures; VideoCrafter2's and the 77-key cross-
+        # attention's as vc2_self_*, vc2_cross_*, dc_cross_*, with the old
+        # design's on the same tensors), and the K1 levels (DynamiCrafter's
+        # level-2 self-attention's figures; the other shapes under their
+        # labels)
+        entry("flash_fwd_sm90 persistent, d=64 online, 5 heads, UNet3D "
+              "level 1 (K2)", fwd90, 78, "K2",
+              dict(kvc["K2 dc self"], **{
+                  f"{p}_{k}": v for p, lab in (
+                      ("vc2_self", "K2 vc2 self"),
+                      ("vc2_cross", "K2 vc2 cross"),
+                      ("dc_cross", "K2 dc cross"),
+                      ("dc_image_cross", "K2 dc image cross"))
+                  for k, v in kvc[lab].items()}), launches_n=vc_k2),
+        entry("flash_fwd_sm90 persistent, d=64 online, UNet3D levels 2 and "
+              "4 and the middle (K1)", fwd90, 268, "K1",
+              dict(kvc["K1 dc ds2 self"], **{
+                  lab.replace(" ", "_").lower()[3:] + "_" + k: v
+                  for lab, rec in kvc.items() if lab.startswith("K1")
+                  and lab != "K1 dc ds2 self" for k, v in rec.items()}),
+              launches_n=vc_k1),
+        entry("flash_fwd.cu f32, d=80, the CLIP ViT-H/14 image encoder "
+              "(K2)", "videotuna_tpu_torch/kernels/csrc/flash_fwd.cu", 78,
+              "K2", kvc["K2 f32 clip"], launches_n=clip_k2,
+              status="ported (flash_fwd.cu, f32, any d <= 256), checked"),
         entry("flash_fwd_sm90 static_max, d = 128 (K3)", fwd90, 581,
-              "K3", k3, design="d128", launches_n=d128["K3"] - wan_k3),
+              "K3", k3, design="d128",
+              launches_n=d128["K3"] - wan_k3 - wan_i2v_k3),
+        # Wan 2.1 I2V's self-, text and image cross-attention on the same
+        # kernel, timed at the image cross-attention (75,600 x 256 keys)
+        entry("flash_fwd_sm90 static_max, d = 128, Wan 2.1 I2V (K3)", fwd90,
+              581, "K3", kvc["K3 wan i2v image cross"], design="d128",
+              launches_n=wan_i2v_k3),
         # Wan 2.1's self- and text cross-attention on the same kernel: the
         # 14B self-attention's figures, the 14B cross-attention's as
         # cross_*, the 1.3B self-attention's as wan13_*

@@ -14,6 +14,8 @@ import torch
 import videotuna_tpu.kernels.attention as A
 import videotuna_tpu_torch.kernels.attention as P
 
+from tests.test_torch_port_models import torch_one_thread  # noqa: F401
+
 RTOL_MAX = 1e-5
 
 
@@ -585,13 +587,21 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K4", _F32, 128, False, True, True, True, "mma"),
     ("K2", _F32, 64, True, False, False, False, "mma"),
     ("K2", _F32, 256, True, False, True, False, "mma"),
+    # K2 at d=64 in bf16 (an odd head count: the UNet's 5-head level): the
+    # same persistent kernel, non-causal; causal or f32 keep flash_fwd.cu
+    ("K2", _BF, 64, False, False, False, False, "sm90"),
+    ("K2", _BF, 64, False, False, False, True, "sm90"),
+    ("K2", _BF, 64, False, False, True, False, "sm90"),
+    ("K2", _BF, 64, True, False, False, False, "mma"),
+    ("K2", _F32, 64, False, False, False, False, "mma"),
 ])
 def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
                                                        fixed, design):
     """The Hopper forward (flash_fwd_sm90.cu) serves the fixed-max route K3
     in bf16 at d = 64 without the LSE, the fixed-max routes K3 and K5 in
-    bf16 at d = 128 with or without the LSE, K1 and K6 in bf16 at d = 64,
+    bf16 at d = 128 with or without the LSE, K1, K2 and K6 in bf16 at
+    d = 64,
     and K2, K3, K5 and the masked K4 in bf16 at d = 72 or 80, in either
     softmax mode, with or without the LSE, all non-causal and unmasked but
     for K4; the f32 design (flash_fwd_f32_sm90.cu) every unmasked f32 call

@@ -33,7 +33,8 @@ from videotuna_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from videotuna_tpu_torch.training import lora as plora
 
 from tests.test_torch_port_flow import TINY_HUNYUAN, TINY_T2V
-from tests.test_torch_port_training import _assert_same, _state
+from tests.test_torch_port_models import torch_one_thread  # noqa: F401
+from tests.test_torch_port_training_run import _assert_same, _state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -85,7 +86,7 @@ def test_hunyuan_lora_command_resolves_like_jax():
 
 @pytest.mark.parametrize("name,queue", [
     ("inference-mochi", "queue 1, item 8"),
-    ("inference-wanvideo-i2v-720p", "queue 1, item 8"),
+    ("train-videocrafter-v2", "queue 1, item 8"),
     ("inference-hunyuan-i2v-720p", "queue 1, item 4"),
     ("train-cogvideox-i2v-lora", "queue 1, item 3"),
     ("serve", "item 10.2"), ("eval", "item 10.5")])
@@ -144,10 +145,12 @@ def test_main_lists_trains_and_needs_cuda_unless_asked(tmp_path, capsys):
     assert pcommands.main(["list"]) == 0
     listed = capsys.readouterr().out
     assert all(name in listed for name in jcommands.COMMANDS)
-    # the Wan T2V commands run the port (no waiting mark); its I2V waits
-    for name in ("inference-wanvideo-t2v-720p", "inference-wanvideo-t2v-1-3B"):
+    # the Wan T2V and I2V commands run the port (no waiting mark); the
+    # UNet's training waits
+    for name in ("inference-wanvideo-t2v-720p", "inference-wanvideo-t2v-1-3B",
+                 "inference-wanvideo-i2v-720p"):
         assert f"  {name}" in listed and f"*{name}" not in listed
-    assert "*inference-wanvideo-i2v-720p" in listed
+    assert "*train-videocrafter-v2" in listed
     assert pcommands.main(["no-such-command"]) == 2
     assert pcommands.main(["install-flash-attn"]) == 0
     assert "CUDA kernels" in capsys.readouterr().out

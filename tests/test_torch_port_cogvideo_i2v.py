@@ -45,7 +45,8 @@ from videotuna_tpu_torch.tools.from_jax import (load_flow_params,
 
 from tests.test_torch_port_flow import (PIXEL_TOL, TINY, TRAJ_TOL, _close,
                                         _jax_params)
-from tests.test_torch_port_models import jax_params
+from tests.test_torch_port_models import (  # noqa: F401
+    jax_params, torch_one_thread)
 
 FRAMES, HEIGHT, WIDTH = 9, 32, 32        # 3 latent frames of 4×4
 _VAE = ("flow.params.first_stage_config.params.ch_mult=[1, 2, 2, 2]",)

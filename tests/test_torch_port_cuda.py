@@ -1271,3 +1271,48 @@ def test_k2_f32_shapes_launch_per_design(b, sq, sk, h, d, causal):
             P.flash_fwd.launches_sm90["K2"]) \
         == (before[0] + 1, before[1] + (d == 128), before[2])
     assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def _check_k2_d64(q, k, v):
+    """flash_fwd on route K2 (online) against ``flash_fwd_plain``: launched
+    on flash_fwd_sm90 (the persistent kernel) and counted as K2 there."""
+    before = (P.flash_fwd.launches["K2"], P.flash_fwd.launches_sm90["K2"])
+    out = P.flash_attention(q, k, v)
+    ref = P.flash_fwd_plain(q, k, v, sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert (P.flash_fwd.launches["K2"],
+            P.flash_fwd.launches_sm90["K2"]) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(2600, 2600), (2600, 77), (300, 16),
+                                   (9216, 77)])
+def test_k2_d64_odd_heads_on_the_persistent_kernel(sq, sk):
+    """K2 at d = 64 with 5 heads (VideoCrafter2's and DynamiCrafter's
+    first UNet level: no head pairs, so the generic route) on the
+    persistent Hopper kernel, online softmax, self-attention at a length
+    that is not a multiple of the 128-row tile and over 77 text keys and 16
+    image tokens; unnormalised q, k as the UNet's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    assert P._fwd_design("K2", torch.bfloat16, 64, False, None, False,
+                         None) == "sm90"
+    gen = torch.Generator().manual_seed(sq + sk)
+    q, k, v = (torch.randn((2, s, 5, 64), generator=gen).cuda().bfloat16()
+               for s in (sq, sk, sk))
+    _check_k2_d64(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,h", [(640, 10), (2304, 10), (576, 20)])
+def test_k1_online_over_77_keys(sq, h):
+    """K1 (even heads at d = 64) online over 77 text keys, the UNet's
+    cross-attention at its second and third levels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv(2, sq, 77, h, seed=sq)
+    _check_k1(q, k, v, None, emit_lse=False)

@@ -26,6 +26,8 @@ from videotuna_tpu_torch.core import config as pconfig
 from videotuna_tpu_torch.core import registry as pregistry
 from videotuna_tpu_torch.tools.from_jax import load_flow_params
 
+from tests.test_torch_port_models import torch_one_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "configs", "000_tiny", "tiny_cogvideox.yaml")
 TINY_T2V = os.path.join(ROOT, "configs", "000_tiny", "tiny_t2v.yaml")
@@ -160,14 +162,26 @@ def test_unported_inference_options_raise(argv, what, tmp_path):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax, flax nor the JAX package: the tiny
     CogVideoX and Open-Sora flows sample and train (two steps, one of them
-    with LoRA), the tiny HunyuanVideo flow samples and the narrow Wan 1.3B
+    with LoRA), the tiny HunyuanVideo flow samples, the narrow Wan 1.3B
     flow samples through the registry (``flows/wan.py``, ``models/wan``,
-    ``schedulers/fm_solvers.py``) with them blocked, and every module of the
-    port imports."""
+    ``schedulers/fm_solvers.py``), and so do the narrow DynamiCrafter and
+    Wan I2V flows from an image (``flows/videocrafter.py``,
+    ``models/lvdm``), with them blocked, and every module of the port
+    imports."""
+    import cv2
+    from tests.test_torch_port_videocrafter import NARROW_DC
     from tests.test_torch_port_wan import NARROW as WAN_NARROW
+    from tests.test_torch_port_wan_i2v import NARROW_I2V
     runs = [(TINY, tmp_path / "cogvideox"), (TINY_T2V, tmp_path / "t2v")]
     hunyuan = tmp_path / "hunyuan"
     wan = tmp_path / "wan"
+    inputs = tmp_path / "inputs"
+    inputs.mkdir()
+    cv2.imwrite(str(inputs / "image.png"), np.random.default_rng(0).integers(
+        0, 256, (72, 96, 3), dtype=np.uint8))
+    (inputs / "prompts.txt").write_text("a lake\n")
+    i2v = [("inference-dc-i2v-576x1024", NARROW_DC, tmp_path / "dc"),
+           ("inference-wanvideo-i2v-720p", NARROW_I2V, tmp_path / "wan_i2v")]
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'videotuna_tpu'):\n"
@@ -191,10 +205,15 @@ def test_port_runs_with_jax_blocked(tmp_path):
         + f"assert main(['inference-wanvideo-t2v-1-3B', '--device', 'cpu', "
           f"'--quiet', '--savedir', {str(wan)!r}, '--prompt', 'a lake', "
           f"*{WAN_NARROW!r}]) == 0\n"
+        + "".join(f"assert main([{name!r}, '--device', 'cpu', '--quiet', "
+                  f"'--savedir', {str(out)!r}, *{narrow!r}, "
+                  f"'inference.input_dir={inputs}']) == 0\n"
+                  for name, narrow, out in i2v)
         + "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'videotuna_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # one torch thread, as the in-process tests (``torch_one_thread``)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
@@ -203,6 +222,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert os.path.isfile(f"{out}_train/step_2/state.pt")
     assert os.path.isfile(hunyuan / "metric.json")
     assert os.path.isfile(wan / "metric.json")
+    for _, _, out in i2v:
+        assert os.path.isfile(out / "metric.json")
 
 
 _CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "004_cogvideox",

@@ -50,7 +50,8 @@ from videotuna_tpu_torch.schedulers import flow_match as pfm
 from videotuna_tpu_torch.tools.from_jax import (load_flow_params,
                                                 load_jax_params)
 
-from tests.test_torch_port_models import jax_params
+from tests.test_torch_port_models import (  # noqa: F401
+    jax_params, torch_one_thread)
 from tests.test_torch_port_opensora import _apply, _close, _t
 
 MODULE_TOL = 1e-5

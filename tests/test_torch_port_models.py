@@ -37,6 +37,18 @@ MODULE_TOL = 1e-5
 PIXEL_TOL = 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """torch on one CPU thread for each port test module, restored after
+    it: the suite's workers share the machine's cores, and with torch's
+    default pool (a thread a core) in every worker the port's tests ran
+    twice as long.  Every port test module imports this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(out, ref, tol=MODULE_TOL):
     if isinstance(out, torch.Tensor):
         out = out.detach().numpy()

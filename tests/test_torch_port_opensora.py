@@ -35,7 +35,8 @@ from videotuna_tpu_torch.models.vae2d import AutoencoderKL2D as PVAE2D
 from videotuna_tpu_torch.schedulers import iddpm as piddpm
 from videotuna_tpu_torch.tools.from_jax import load_flow_params, load_jax_params
 
-from tests.test_torch_port_models import jax_params
+from tests.test_torch_port_models import (  # noqa: F401
+    jax_params, torch_one_thread)
 
 MODULE_TOL = 1e-5
 KERNEL_MODEL_TOL = 1e-4

@@ -17,6 +17,8 @@ import videotuna_tpu_torch.schedulers as PS
 import videotuna_tpu_torch.schedulers.cogvideox_dpm as PD
 from videotuna_tpu_torch.schedulers.ddim import build_ddim
 
+from tests.test_torch_port_models import torch_one_thread  # noqa: F401
+
 BUFFER_TOL = 1e-5
 SCHEDULE_TOL = 1e-4
 TRAJ_TOL = 1e-4

@@ -15,6 +15,7 @@ import torch
 import videotuna_tpu.kernels.attention as A
 import videotuna_tpu_torch.kernels.attention as P
 from tests.test_torch_port_attention import _K2_CASES, _qkv
+from tests.test_torch_port_models import torch_one_thread  # noqa: F401
 
 RTOL_MAX = 1e-5
 SMS = 132   # an H100's SMs

@@ -48,7 +48,8 @@ from videotuna_tpu_torch.schedulers import fm_solvers as pfm
 from videotuna_tpu_torch.tools.from_jax import (load_flow_params,
                                                 load_jax_params)
 
-from tests.test_torch_port_models import jax_params
+from tests.test_torch_port_models import (  # noqa: F401
+    jax_params, torch_one_thread)
 from tests.test_torch_port_opensora import _apply, _close, _t
 
 MODULE_TOL = 1e-5
@@ -394,12 +395,15 @@ def test_mapped_height_diverges_from_jax():
 
 
 def test_wan_i2v_raises_naming_item_8():
+    """The name is the test's history: the i2v flow once raised naming
+    queue 1, item 8.  Wan image-to-video is now ported
+    (``tests/test_torch_port_wan_i2v.py``), so this checks that an
+    ``i2v_mode`` flow builds, and that its image features raise, as the
+    JAX package's do, only where no ``cond_stage_2`` (the CLIP image
+    embedder) is configured."""
     cfg = pconfig.load_configs([CONFIG_1_3B], NARROW)["flow"]
     i2v = dict(cfg, params=dict(cfg["params"], i2v_mode=True))
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        pregistry.instantiate(i2v, device="cpu")
-    flow = pregistry.instantiate(cfg, device="cpu")
-    for call in (flow.prepare_image_cond, flow.prepare_image_features,
-                 flow.prepare_first_frame_latents):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            call({})
+    flow = pregistry.instantiate(i2v, device="cpu")
+    assert flow.i2v_mode
+    with pytest.raises(ValueError, match="cond_stage_2"):
+        flow.prepare_image_features(torch.zeros((1, 16, 16, 3)))

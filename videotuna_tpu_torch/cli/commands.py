@@ -154,25 +154,21 @@ _SLICE_E = "ROADMAP.md queue 1, item 8 (slice E: the other families)"
 _COGVIDEOX_I2V_TRAIN = ("ROADMAP.md queue 1, item 3 (CogVideoX i2v "
                         "training), and queue 3's i2v-training fault: no "
                         "dataset or trainer fills batch['image_latents']")
+_UNET_TRAIN = ("ROADMAP.md queue 1, item 8 (UNet3D training: the d=64 "
+               "backward, K7 at the even-head levels and K8 at the 5-head "
+               "level)")
 WAITING: Dict[str, str] = {
-    "inference-vc2-t2v-320x512": _SLICE_E,
-    "inference-vc2-t2v-320x512-lora": _SLICE_E,
-    "train-videocrafter-v2": _SLICE_E,
-    "train-videocrafter-lora": _SLICE_E,
-    "inference-dc-i2v-576x1024": _SLICE_E,
-    "train-dynamicrafter": _SLICE_E,
+    "train-videocrafter-v2": _UNET_TRAIN,
+    "train-videocrafter-lora": _UNET_TRAIN,
+    "train-dynamicrafter": _UNET_TRAIN,
     "train-cogvideox-i2v-lora": _COGVIDEOX_I2V_TRAIN,
     "train-cogvideox-i2v-fullft": _COGVIDEOX_I2V_TRAIN
     + "; its mesh {dp: 1, fsdp: 4} waits for queue 1, item 10.1",
     "inference-hunyuan-i2v-720p": "ROADMAP.md queue 1, item 4 "
                                   "(HunyuanVideo i2v)",
-    "inference-wanvideo-i2v-720p": "ROADMAP.md queue 1, item 8 (Wan "
-                                   "i2v, with models/clip_vision.py)",
     "inference-stepvideo-t2v-544x992": _SLICE_E,
     "inference-mochi": _SLICE_E,
     "inference-v2v-ms": _SLICE_E,
-    "inference-vc1-t2v-576x1024": _SLICE_E,
-    "inference-vc1-i2v-320x512": _SLICE_E,
     "inference-flux-dev": _SLICE_E,
     "inference-flux-schnell": _SLICE_E,
     "inference-flux-lora": _SLICE_E,

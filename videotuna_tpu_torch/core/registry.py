@@ -34,6 +34,7 @@ _MODULES = (
     "videotuna_tpu_torch.models.hunyuan.vae",
     "videotuna_tpu_torch.models.wan.dit",
     "videotuna_tpu_torch.models.wan.vae",
+    "videotuna_tpu_torch.models.lvdm",
     "videotuna_tpu_torch.schedulers",
     "videotuna_tpu_torch.flows",
     "videotuna_tpu_torch.data.datasets",

@@ -6,7 +6,9 @@ from videotuna_tpu_torch.flows.generation import (GenerationFlow,
 from videotuna_tpu_torch.flows.cogvideo import CogVideoXFlow
 from videotuna_tpu_torch.flows.hunyuan import HunyuanVideoFlow
 from videotuna_tpu_torch.flows.opensora import OpenSoraFlow
+from videotuna_tpu_torch.flows.videocrafter import VideocrafterFlow
 from videotuna_tpu_torch.flows.wan import WanVideoFlow
 
 __all__ = ["GenerationFlow", "CogVideoXFlow", "HunyuanVideoFlow",
-           "OpenSoraFlow", "WanVideoFlow", "load_prompts", "savename"]
+           "OpenSoraFlow", "VideocrafterFlow", "WanVideoFlow",
+           "load_prompts", "savename"]

@@ -6,9 +6,14 @@ velocity MSE.
 
 The DiT's attention runs under the fixed softmax max 0: its q and k are
 RMSNormed at d = 128, so every scaled log2-score lies within
-±√128·log2e ≈ 16.3, inside exp2's window (−126, 127).  Image-to-video
-(CLIP features and the masked first-frame latents) waits for
-``models/clip_vision.py`` (ROADMAP.md queue 1, item 8).
+±√128·log2e ≈ 16.3, inside exp2's window (−126, 127).
+
+Image-to-video (``i2v_mode``): ``cond_stage_2`` (the CLIP image embedder of
+``models/lvdm/image_cond.py``) gives the image's patch tokens to the DiT's
+image cross-attention, and a DiT with more input channels than the latents
+takes [mask ; the image's latent zero-padded over latent time] on its
+channels (in_dim 36 = 16 + 4 + 16); both are the same for the uncond half
+of CFG.
 """
 
 from __future__ import annotations
@@ -29,9 +34,6 @@ from videotuna_tpu_torch.schedulers.common import randn
 
 DEFAULT_NEGATIVE = ("low quality, blurry, distorted, text, watermark, "
                     "static, worst quality")
-I2V_WAITS = ("Wan image-to-video needs the CLIP vision encoder "
-             "(models/clip_vision.py): it waits for ROADMAP.md queue 1, "
-             "item 8")
 # latent frames a chunk of the streamed decode takes after frame 0: one, as
 # the reference decodes (4 pixel frames a chunk); at 81×720×1280 a chunk of
 # two does not fit in 80 GB beside the DiT's and T5's weights
@@ -53,11 +55,10 @@ class WanVideoFlow(GenerationFlow):
         """``height`` is where the configs' ``inference.mapping`` puts the
         sampling height; the flow keeps it and samples at
         ``inference.height``, as before."""
-        if i2v_mode:
-            raise NotImplementedError(I2V_WAITS)
         kwargs.setdefault("model_max_length", 512)
         kwargs.setdefault("attn_static_max", 0.0)
         super().__init__(*args, **kwargs)
+        self.i2v_mode = i2v_mode
         self.negative_prompt = negative_prompt
         self.height = height
         if not isinstance(self.scheduler, (FlowUniPCSchedule,
@@ -70,16 +71,53 @@ class WanVideoFlow(GenerationFlow):
 
     def denoise_apply(self, x: torch.Tensor, t: torch.Tensor,
                       cond: Cond) -> torch.Tensor:
-        return self.denoiser(x, t, cond["y"])
+        if cond.get("first_frame_latents") is not None:
+            x = torch.cat([x, cond["first_frame_latents"].to(x)], dim=-1)
+        return self.denoiser(x, t, cond["y"], cond.get("image_features"))
 
-    def prepare_image_cond(self, *args, **kwargs):
-        raise NotImplementedError(I2V_WAITS)
+    @torch.no_grad()
+    def prepare_image_cond(self, cond, uncond, images, frames, height, width,
+                           generator=None, posterior_noise=None):
+        """The image's CLIP tokens (with ``cond_stage_2``) and, for a DiT
+        with more input channels than the latents, the first-frame latents
+        behind a mask channel block that marks latent frame 0 as known;
+        the uncond half gets both.  The Wan VAE encodes to its mean, so
+        ``generator`` and ``posterior_noise`` are not used."""
+        cond = dict(cond)
+        images = images.to(self.device)
+        if self.cond_stage_2 is not None:
+            cond["image_features"] = self.prepare_image_features(images)
+        extra = self.denoiser.in_channels - self.latent_channels
+        if extra > 0:
+            n = self.latent_shape(images.shape[0], frames, height, width)[1]
+            ffl = self.prepare_first_frame_latents(images, n)
+            n_mask = extra - ffl.shape[-1]
+            if n_mask > 0:
+                mask = ffl.new_zeros((*ffl.shape[:-1], n_mask))
+                mask[:, 0] = 1.0
+                ffl = torch.cat([mask, ffl], dim=-1)
+            cond["first_frame_latents"] = ffl
+        if uncond is not None:
+            uncond = dict(uncond, **{k: cond[k] for k in (
+                "image_features", "first_frame_latents") if k in cond})
+        return cond, uncond
 
-    def prepare_image_features(self, *args, **kwargs):
-        raise NotImplementedError(I2V_WAITS)
+    @torch.no_grad()
+    def prepare_image_features(self, image: torch.Tensor) -> torch.Tensor:
+        """The CLIP patch tokens of the image (B, H, W, 3) for the blocks'
+        image cross-attention; needs ``cond_stage_2``."""
+        if self.cond_stage_2 is None:
+            raise ValueError("i2v needs cond_stage_2 (CLIP image encoder)")
+        return self.cond_stage_2(image.to(self.device))
 
-    def prepare_first_frame_latents(self, *args, **kwargs):
-        raise NotImplementedError(I2V_WAITS)
+    def prepare_first_frame_latents(self, image: torch.Tensor,
+                                    num_latent_frames: int) -> torch.Tensor:
+        """The image (B, H, W, 3) or its one-frame video encoded, then
+        zero-padded to ``num_latent_frames``."""
+        z0 = self.encode_video(image[:, None] if image.ndim == 4 else image)
+        pad = z0.new_zeros((z0.shape[0], num_latent_frames - z0.shape[1],
+                            *z0.shape[2:]))
+        return torch.cat([z0, pad], dim=1)
 
     # ------------------------------------------------------------------ vae
     @torch.no_grad()

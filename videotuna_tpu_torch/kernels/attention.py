@@ -19,9 +19,10 @@ math path.  The kernels it can reach, and where each is in the port:
   ``_fwd_split_plan``), in f32 ``csrc/flash_fwd.cu``;
 - K2 (generic: any d ≤ 256, causal, fixed max) and K4 (``kv_valid``-masked):
   ``flash_fwd``, one CUDA kernel (``csrc/flash_fwd.cu``), which also takes
-  f32 q, k, v; in bf16 at d = 72 and 80, non-causal, K2 and K4 launch the
-  persistent Hopper kernel of ``csrc/flash_fwd_sm90.cu`` (K4 with its key
-  mask packed into bit words as ``_mask_words`` does); in f32 at d = 128
+  f32 q, k, v; in bf16, non-causal, K2 at d = 64, 72 and 80 (at 64 an
+  odd head count: the UNet's 5-head level) and K4 at d = 72 and 80 launch
+  the persistent Hopper kernel of ``csrc/flash_fwd_sm90.cu`` (K4 with its
+  key mask packed into bit words as ``_mask_words`` does); in f32 at d = 128
   without a key mask (LLaMA's causal K2) ``csrc/flash_fwd_f32_sm90.cu``
   (split key ranges, a cp.async ring, three bf16 products a product);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
@@ -79,7 +80,7 @@ _KERNELS = {
           "flash_fwd route K1, csrc/flash_fwd_sm90.cu (persistent) in bf16, "
           "else csrc/flash_fwd.cu",
     "K2": "generic online-softmax flash forward (flash_attention): "
-          "csrc/flash_fwd_sm90.cu at d=72 and 80 in bf16 (non-causal), "
+          "csrc/flash_fwd_sm90.cu at d=64, 72 and 80 in bf16 (non-causal), "
           "csrc/flash_fwd_f32_sm90.cu in f32 at d=128 (LLaMA, causal), "
           "else csrc/flash_fwd.cu",
     "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
@@ -281,9 +282,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else "K2"; ``flash_attention`` passes "K1" (d=64, even heads) and "K6"
     (``pack2=True``) and "K3" for its fixed-max route at d ≤ 128, the
     training forward "K1" or "K5".  The calls ``_fwd_design`` names "sm90"
-    (bf16, non-causal: K1 and K6 at d = 64; K2, K3, K5 and the masked K4 at
-    d = 72 or 80; K3 at d = 64 without the LSE; K3 and K5 at d = 128 under
-    the fixed max, with or without the LSE) launch
+    (bf16, non-causal: K1, K2 and K6 at d = 64; K2, K3, K5 and the masked
+    K4 at d = 72 or 80; K3 at d = 64 without the LSE; K3 and K5 at d = 128
+    under the fixed max, with or without the LSE) launch
     ``csrc/flash_fwd_sm90.cu`` and add one to
     ``flash_fwd.launches_sm90[route]``, at d = 128 (K3's kernel) also to
     ``flash_fwd.launches_d128[route]``; q, k or v that TMA cannot read in
@@ -410,7 +411,7 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
                 static_max: Optional[float]) -> str:
     """Which forward kernel a CUDA call launches, from its route, dtype,
     width and options alone: "sm90" (``csrc/flash_fwd_sm90.cu``: TMA,
-    wgmma, warp-specialised) for bf16 non-causal calls of K1 and K6 at
+    wgmma, warp-specialised) for bf16 non-causal calls of K1, K2 and K6 at
     d = 64, of K2, K3, K5 and the masked K4 at d = 72 or 80 (the persistent
     kernel: online or fixed max, with or without the LSE), of the
     fixed-max route K3 without the LSE at d = 64 (the persistent kernel),
@@ -426,7 +427,7 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
         return "mma"
     if kv_valid is not None:
         return "sm90" if route == "K4" and d in (72, 80) else "mma"
-    if d == 64 and route in ("K1", "K6"):
+    if d == 64 and route in ("K1", "K2", "K6"):
         return "sm90"
     if d in (72, 80) and route in ("K2", "K3", "K5"):
         return "sm90"

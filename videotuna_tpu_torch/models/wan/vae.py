@@ -163,7 +163,10 @@ class WanResample(nn.Module):
             return self.resample_conv(x)
         x = self.resample_conv(F.pad(x, (0, 1, 0, 1)))
         if self.mode == "downsample3d":
-            x = torch.cat([x[:, :, :1], self.time_conv(x)], dim=2)
+            # fewer than 3 frames (a single image's) have no stride-2 window:
+            # frame 0 alone, as the JAX package's VALID conv gives
+            y = self.time_conv(x) if x.shape[2] >= 3 else x[:, :, :0]
+            x = torch.cat([x[:, :, :1], y], dim=2)
         return x
 
 

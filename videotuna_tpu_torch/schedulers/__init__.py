@@ -12,7 +12,8 @@ from videotuna_tpu_torch.schedulers.ddpm import DDPMSchedule
 from videotuna_tpu_torch.schedulers.cogvideox_dpm import (
     CogVideoXDPMSchedule, build_cogvideox_ddim)
 from videotuna_tpu_torch.schedulers.ddim import (DDIMSchedule, cfg_denoise,
-                                                 dynamic_cfg_denoise)
+                                                 dynamic_cfg_denoise,
+                                                 multicond_cfg_denoise)
 from videotuna_tpu_torch.schedulers.flow_match import (FlowMatchSchedule,
                                                        flow_interpolate,
                                                        flow_target,
@@ -29,6 +30,7 @@ __all__ = [
     "space_timesteps", "flow_interpolate", "flow_target",
     "sample_sigmas", "shift_sigmas",
     "build_cogvideox_ddim", "cfg_denoise", "dynamic_cfg_denoise",
+    "multicond_cfg_denoise",
     "extract_into", "make_beta_schedule", "make_ddim_timesteps",
     "rescale_noise_cfg", "rescale_zero_terminal_snr",
 ]

@@ -107,6 +107,22 @@ def cfg_denoise(model_fn: Callable[..., torch.Tensor], cond: Dict,
     return fn
 
 
+def multicond_cfg_denoise(model_fn: Callable[..., torch.Tensor], cond: Dict,
+                          uncond: Dict, img_uncond: Dict, text_scale: float,
+                          img_scale: float) -> DenoiseFn:
+    """DynamiCrafter's separate image and text guidance: three model calls
+    a step (cond, text-uncond, image-uncond), e_iu + s_img·(e_u − e_iu) +
+    s_text·(e_c − e_u)."""
+
+    def fn(x, t):
+        e_c = model_fn(x, t, cond)
+        e_u = model_fn(x, t, uncond)
+        e_iu = model_fn(x, t, img_uncond)
+        return e_iu + img_scale * (e_u - e_iu) + text_scale * (e_c - e_u)
+
+    return fn
+
+
 def dynamic_cfg_denoise(model_fn: Callable[..., torch.Tensor], cond: Dict,
                         uncond: Optional[Dict], scale: float,
                         num_inference_steps: int,
