@@ -5,6 +5,7 @@
     python3 chip_smoke.py --wan
     python3 chip_smoke.py --cogvideox
     python3 chip_smoke.py --videocrafter
+    python3 chip_smoke.py --vc-train [kernels|train]
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
@@ -13,7 +14,9 @@ is chosen from such runs.  The third runs only the Wan 2.1 phases (23–27)
 and prints their figures as a JSON line.  The fourth runs only the
 CogVideoX I2V and 1.5 phases (28–33) and prints their figures as a JSON
 line before the result line.  The fifth runs only the VideoCrafter,
-DynamiCrafter and Wan I2V phases (34–40), likewise.
+DynamiCrafter and Wan I2V phases (34–40), likewise.  The sixth runs only
+the VideoCrafter2 training phases (41–44; "kernels": 41 and 42, "train":
+43 and 44), likewise.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -242,9 +245,9 @@ without a result line:
                 torch.profiler: device time of K3, the GEMMs and the rest,
                 the busy share.
 27. e2e-wan1.3b — Wan 2.1 T2V 1.3B through the registry's
-                ``inference-wanvideo-t2v-1-3B``, the shipped configuration
-                whole: dim 1536, 30 layers, 12 heads of d=128, 81×480×832
-                (32,760 tokens), all 50 UniPC steps with CFG 5, all 81
+                ``inference-wanvideo-t2v-1-3B`` at full width and depth:
+                dim 1536, 30 layers, 12 heads of d=128, 81×480×832 (32,760
+                tokens), 10 of the 50 UniPC steps with CFG 5, all 81
                 frames decoded.  Asserts K3 = 60 a step on K3's Hopper
                 kernel, no other launch, an (81, 480, 832, 3) video and
                 finite values.
@@ -331,7 +334,7 @@ without a result line:
                 decode and the peak memory.
 37. e2e-dc    — DynamiCrafter I2V through ``inference-dc-i2v-576x1024``
                 from one seeded 1024×576 PNG (``inference.input_dir``):
-                16×576×1024, all 50 DDIM steps, CFG 7.5, every frame
+                16×576×1024, 10 of the 50 DDIM steps, CFG 7.5, every frame
                 decoded; K2 = 15 and K1 = 33 a step (the image
                 cross-attention, the middle at 144 tokens), the CLIP image
                 encoder's 32 f32 K2 on flash_fwd.cu; logs the image
@@ -349,19 +352,51 @@ without a result line:
                 from one seeded 1280×720 PNG: 81×720×1280, 2 of 50 steps,
                 all frames by the streamed decode; K3 = 3·40 a step on K3's
                 kernel, the CLIP encoder's 32 f32 K2 on flash_fwd.cu.
+41. K-vct     — the attention of a VideoCrafter2 training step (B = 16
+                frames, d = 64, bf16): K5 with the LSE at level 1's
+                2,560² (5 heads) and over 77 text keys at 2,560, 640 and
+                160 queries, K1 with the LSE at 640² and 160² (10 and 20
+                heads), each one's backward on its output and LSE (K8 at 5
+                heads, K7 at 10 and 20: flash_bwd_sm90, or over 77 keys
+                flash_bwd_rows_sm90, with flash_bwd_sm90 beside it as the
+                rule's A/B), against the plain versions (forward 2e-2 of
+                max|o| and 1e-3 LSE, backward 2e-2 of max|grad|), counted
+                per route, design and kernel; timed beside the bound, the
+                plain version, SDPA and the old design (flash_fwd.cu,
+                flash_bwd.cu).
+42. train-reference-vc — one full fine-tune step of a narrow VideoCrafter2
+                UNet (64 channels, two levels, bf16: 1 head at level 1, 2
+                at level 2) on the card against the same weights as an f32
+                UNet on the CPU, TF32 off: loss within 2e-2, every
+                gradient within 3e-2 of its max or twice the CPU's own
+                bf16 UNet's error on it, whichever is larger; every launch
+                on the Hopper designs at d=64.
+                Then its control: every card attention output scaled by
+                1.05 must fail it.
+43. train-vc2 — VideoCrafter2's full fine-tune through the registry's
+                ``train-videocrafter-v2`` at full width and depth (UNet3D
+                1.41B, f32 masters, AdamW, EMA), 16×320×512, batch 1, 3
+                steps on dummy video: per step K5 = 20, K1 = 10, K8 = 10,
+                K7 = 20, all on the Hopper designs at d = 64 (the 15
+                backwards over 77 keys on flash_bwd_rows_sm90), seconds and
+                peak memory, one more step taken apart; then
+                ``save_pretrained`` of the trained UNet.
+44. train-vc2-lora — ``train-videocrafter-lora`` (rank 16 on the config's
+                targets) from ``flow.pretrained`` = phase 43's step dir,
+                whose UNet it must hold exactly, 3 steps as phase 43.
 
 They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
-33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 20, 22.
+33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 41–44, 20, 22.
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18, 25, 32, 35) turn TF32 off inside ``tf32_off`` and restore
+(7, 9, 15, 18, 25, 32, 35, 42) turn TF32 off inside ``tf32_off`` and restore
 the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the thirteen sampling runs and the three training runs) and read just
+(the thirteen sampling runs and the five training runs) and read just
 after;
 in each, no launch splits its keys but LLaMA's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those sixteen runs, per design and, for the Hopper
+launches summed over those eighteen runs, per design and, for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
 training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
 width 128) apart from STDiT's d=72 K5 and K8, and one for the case of a
@@ -496,7 +531,9 @@ WAN_K3_CASES = {
 }
 WAN14_STEPS = 2              # of the config's 50: every step costs the same
 WAN14_DEPTH = 40             # layers: a self- and a cross-attention each
-WAN13_STEPS = 50             # the 1.3B config whole: every step
+# of the 1.3B config's 50 (every step costs the same): cut from 50 to keep
+# the script's time while VideoCrafter2's fine-tunes joined it
+WAN13_STEPS = 10
 WAN13_DEPTH = 30
 WAN_REF_STEPS = 3            # narrow Wan card-vs-CPU trajectory (UniPC 1, 2, 1)
 
@@ -530,11 +567,17 @@ def tf32_off():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+_T0 = time.perf_counter()
+
+
 def timed_phase(phase: str, fn, *args):
-    """Run a timed phase after a log line of the TF32 flags it runs
-    under."""
-    log(phase, tf32=tf32_flags())
-    return fn(*args)
+    """Run a timed phase after a log line of the TF32 flags it runs under
+    and the script's seconds so far; log its own seconds after it."""
+    t0 = time.perf_counter()
+    log(phase, tf32=tf32_flags(), script_sec=f"{t0 - _T0:.1f}")
+    out = fn(*args)
+    log(phase, phase_sec=f"{time.perf_counter() - t0:.1f}")
+    return out
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -1203,6 +1246,7 @@ def zero_counts(A) -> None:
     A.flash_bwd.launches_sm90 = dict(A.flash_bwd.launches)
     A.flash_fwd.launches_d128 = dict(A.flash_fwd.launches)
     A.flash_bwd.launches_d128 = dict(A.flash_bwd.launches)
+    A.flash_bwd.launches_rows = dict(A.flash_bwd.launches)
     A.flash_fwd.launches_f32 = dict(A.flash_fwd.launches)
     A.flash_fwd.launches_split = dict(A.flash_fwd.launches)
     A.flash_fwd.tma_copies = 0
@@ -1220,13 +1264,16 @@ def read_sm90_counts(A) -> dict:
     flash_bwd_rows_sm90 for K8 and K9 at d = 72 and 80), of those the
     launches at d = 128 as ``<route>_d128`` (K3's kernel for K3 and K5,
     flash_bwd_sm90 for K8 and K9), the f32 design's (flash_fwd_f32_sm90)
-    as ``<route>_f32``, the forward launches whose plan split the keys as
+    as ``<route>_f32``, the backward launches of flash_bwd_rows_sm90 as
+    ``<route>_rows``, the forward launches whose plan split the keys as
     ``<route>_split``, and the alignment copies of the forward
     (``tma_copies``) and of the backward (``bwd_tma_copies``), read with
     ``read_counts``."""
     d128 = dict(A.flash_fwd.launches_d128, **A.flash_bwd.launches_d128)
     return dict(A.flash_fwd.launches_sm90, **A.flash_bwd.launches_sm90,
                 **{f"{k}_d128": n for k, n in d128.items()},
+                **{f"{k}_rows": n
+                   for k, n in A.flash_bwd.launches_rows.items()},
                 **{f"{k}_f32": n for k, n in A.flash_fwd.launches_f32.items()},
                 **{f"{k}_split": n
                    for k, n in A.flash_fwd.launches_split.items()},
@@ -1722,8 +1769,9 @@ def _check_bwd_case(A, label, route, q, k, v, g, single_pass=True,
         and A.flash_bwd.launches_sm90 == dict(
             before[1], **{route: before[1][route] + (design == "sm90")})
     b, sq, h, d = q.shape
-    kernel = {"mma": "flash_bwd", "sm90": "flash_bwd_sm90" if d in (64, 128)
-              else "flash_bwd_rows_sm90"}[design]
+    kernel = {"mma": "flash_bwd", "sm90": {
+        "sm90": "flash_bwd_sm90", "rows": "flash_bwd_rows_sm90"}[
+        A._bwd_kernel(d, k.shape[1])]}[design]
     log(route, case=label, shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}",
         kernel=kernel, causal=kw.get("causal", False),
         single_pass=single_pass, dq=rows[0], dk=rows[1], dv=rows[2], ok=ok)
@@ -2155,19 +2203,24 @@ def _dummy_data(frames: int, height: int, width: int) -> str:
 
 
 def _train_run(A, tag: str, argv, per_step: dict, lora: bool,
-               resume: bool = True) -> dict:
+               resume: bool = True, on_built=None, on_fit=None,
+               saves: bool = True) -> dict:
     """``TRAIN_STEPS`` steps through the training CLI's trainer: loss,
     grad-norm and seconds per step, peak memory, launches per step (checked
     against ``per_step``), the trainable count, the checkpoint, that a LoRA
     run's b matrices (or a full fine-tune's EMA) moved; then, with
     ``resume``, a ``--resume`` run of ``run_train`` that must restore the
-    last step."""
+    last step.  ``on_built`` and ``on_fit`` are called with the trainer
+    once it is built and once its steps are checked; without ``saves``
+    the run's checkpoint is not required (its trainer writes none)."""
     import shutil
     from videotuna_tpu_torch.cli.train import build_trainer, run_train
     workdir = argv[argv.index("--workdir") + 1]
     shutil.rmtree(workdir, ignore_errors=True)
     trainer, loader, _ = build_trainer(argv)
     log(tag, weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
+    if on_built is not None:
+        on_built(trainer)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state()
     n_trainable = trainer.num_trainable(state)
@@ -2220,13 +2273,16 @@ def _train_run(A, tag: str, argv, per_step: dict, lora: bool,
     if got != per_step:
         raise AssertionError(f"{tag}: launches per step {got}, expected "
                              f"{per_step}")
-    if "state.pt" not in files or (lora and "lora.pt" not in files):
+    if saves and ("state.pt" not in files
+                  or (lora and "lora.pt" not in files)):
         raise AssertionError(f"{tag}: checkpoint files {files}")
     if lora and not moved > 0:
         raise AssertionError(f"{tag}: the LoRA b matrices did not move")
     if ema_moved is not None and not ema_moved > 0:
         raise AssertionError(f"{tag}: the EMA did not move")
     del ema0, p0
+    if on_fit is not None:
+        on_fit(trainer)
     _step_breakdown(trainer, loader, state, tag)
     del trainer, loader, state
     _free()
@@ -2570,10 +2626,13 @@ def check_train_reference(A) -> None:
         rel = abs(losses[1] - losses[0]) / abs(losses[0])
         worst, worst_name, worst_rel = _grads_close(
             f"train-reference {name}", grads[1], grads[0])
-        # every launch on a Hopper design; HunyuanVideo's at d=128
+        # every launch on a Hopper design; HunyuanVideo's at d=128, STDiT's
+        # K8 (d=72) on flash_bwd_rows_sm90
         expect_hopper = dict(expect, **({f"{k}_d128": n
                                          for k, n in expect.items()}
-                                        if name == "hunyuan_d128" else {}))
+                                        if name == "hunyuan_d128" else {}),
+                             **({"K8_rows": expect["K8"]}
+                                if name == "stdit" else {}))
         ok = (math.isfinite(rel) and rel <= TRAIN_LOSS_TOL
               and launches == expect and hopper == expect_hopper
               and set(grads[0]) == set(grads[1]))
@@ -3027,13 +3086,15 @@ def run_e2e_wan14b(A) -> dict:
 
 def run_e2e_wan1_3b(A) -> dict:
     """Wan 2.1 T2V 1.3B through the registry's ``inference-wanvideo-t2v-1-3B``
-    (configs/008_wanvideo/wan2_1_t2v_1_3B.yaml), the shipped configuration
-    whole: dim 1536, 30 layers, 12 heads of d=128, bf16, T5-XXL, 81×480×832
-    (21×60×104 latents, 32,760 tokens), all 50 UniPC steps with CFG 5, all
-    81 frames decoded; nothing cut."""
+    (configs/008_wanvideo/wan2_1_t2v_1_3B.yaml) at full width and depth:
+    dim 1536, 30 layers, 12 heads of d=128, bf16, T5-XXL, 81×480×832
+    (21×60×104 latents, 32,760 tokens), CFG 5, all 81 frames decoded.
+    Cut: ``WAN13_STEPS`` of the 50 UniPC steps."""
     return _run_wan(A, "e2e-wan1.3b", WAN13_COMMAND, "e2e_wan1_3b",
                     WAN13_STEPS, WAN13_DEPTH, 81, (480, 832),
-                    SHAPE_WAN13["s"])
+                    SHAPE_WAN13["s"],
+                    [f"flow.params.scheduler_config.params.num_steps="
+                     f"{WAN13_STEPS}"])
 
 
 def profile_wan14b_call() -> dict:
@@ -3463,7 +3524,9 @@ WAN_I2V_COMMAND = "inference-wanvideo-i2v-720p"
 VC_PROMPT = "a corgi running on a beach at sunset, waves in the background"
 VC_FRAMES = 16
 VC2_STEPS = 50       # the config's every DDIM step
-DC_STEPS = 50        # the config's every DDIM step
+# of the config's 50 DDIM steps (every step costs the same): cut from 50 to
+# keep the script's time while VideoCrafter2's fine-tunes joined it
+DC_STEPS = 10
 VC1_DDIM_STEPS = 3   # ddim_steps=3: the uniform grid 1000 // 3 gives 4 steps
 WAN_I2V_STEPS = 2    # of the config's 50: every step costs the same
 CLIP_LAYERS = 32     # ViT-H/14: one f32 K2 (256 tokens, d=80) a layer
@@ -3937,6 +4000,476 @@ _UNET_GROUPS = (("conv", ("conv", "fprop", "implicit_convolve", "winograd")),
                                 "computefusedparams", "moments")))
 
 
+# ---------------------------------------------------------------- VC2 training
+# VideoCrafter2 fine-tuning through the registry's commands at the config's
+# 16×320×512, batch 1 (B = 16 frames in the spatial attention), dummy video
+VC2_TRAIN_COMMAND = "train-videocrafter-v2"
+VC2_LORA_COMMAND = "train-videocrafter-lora"
+VC2_TRAIN_FRAMES = 16
+VC2_TRAIN_SIZE = (320, 512)
+# the attention of one training step, as the JAX package's `_fa_fwd` routes
+# it (:1939): K1 with the LSE where the heads pair and both sides are ≥ 128
+# tokens, else K5; the backward K7 for an even head count (the JAX
+# `flash_attention_bwd`'s packed pair, :1737), else K8.  Level 1 (5 heads):
+# 5 self-attentions (K5, K8) and 5 over the 77 text keys (K5, K8); levels 2
+# and 4 (10, 20 heads): 10 self (K1, K7), 10 cross (K5, K7); the middle's
+# 40 tokens and the temporal attention's 16 frames take the plain math
+VC2_TRAIN_PER_STEP = {"K5": 20, "K1": 10, "K8": 10, "K7": 20, "K2": 0,
+                      "K3": 0, "K4": 0, "K6": 0, "K9": 0, "K10": 0}
+# of those backwards, the cross-attentions' over 77 keys (one key tile) run
+# flash_bwd_rows_sm90 (``_bwd_kernel``): 5 K8 and 10 K7 a step
+VC2_TRAIN_ROWS_PER_STEP = {"K8": 5, "K7": 10}
+# K-vct: (label, forward route, Sq, Sk, H) at B = 16, d = 64, bf16
+VCT_CASES = [
+    ("self", "K5", 2560, 2560, 5),
+    ("cross", "K5", 2560, 77, 5),
+    ("ds2 self", "K1", 640, 640, 10),
+    ("ds2 cross", "K5", 640, 77, 10),
+    ("ds4 self", "K1", 160, 160, 20),
+    ("ds4 cross", "K5", 160, 77, 20),
+]
+VCT_B = 16
+# train-reference-vc's control: every card attention output of the narrow
+# training step scaled by 1 + this must fail the check
+VCT_CONTROL = 5e-2
+
+
+def _fwd_vct(A, label, route, q, k, v, rec_out) -> tuple:
+    """One training forward (``flash_fwd`` with the LSE on ``route``)
+    against the plain version, counted on the route and the Hopper design,
+    timed beside its bound, the plain version, SDPA and the old design
+    (flash_fwd.cu); returns (o, lse)."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    sm = d ** -0.5
+
+    def fwd():
+        return A.flash_fwd(q, k, v, sm_scale=sm, emit_lse=True, route=route)
+
+    def counts():
+        return (A.flash_fwd.launches[route], A.flash_fwd.launches_sm90[route],
+                A.flash_fwd.launches_split[route], A.flash_fwd.tma_copies)
+
+    design = A._fwd_design(route, q.dtype, d, False, None, True, None)
+    before = counts()
+    out, lse = fwd()
+    torch.cuda.synchronize()
+    launched = counts()
+    t0 = time.perf_counter()
+    ref, ref_lse = _plain_chunked(A, q, k, v, None)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = FWD_TOL * ref.float().abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    expected = (before[0] + 1, before[1] + 1, before[2], before[3])
+    ok = (design == "sm90" and err <= tol and lse_err <= LSE_TOL
+          and launched == expected)
+    del ref, ref_lse
+    flops = 4.0 * b * h * sq * sk * d
+    io_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+    bound_ms, bound_by = _bound(flops, io_bytes,
+                                _exp2_floor_ms(b * h * sq * sk))
+    old = lambda: A._flash_fwd_mma(q, k, v, sm, False, None, None, True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    rec = dict(max_abs_err=err, lse_err=lse_err, ms=cuda_time_ms(fwd, 20),
+               device_ms=device_ms(fwd, 10), plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               old_design_ms=cuda_time_ms(old, 20),
+               old_design_device_ms=device_ms(old, 10))
+    rec["library_ms"], backend = sdpa_ms((qt, kt, vt), {}, reps=20)
+    rec["library_device_ms"], _ = sdpa_device_ms((qt, kt, vt), {}, 10)
+    del qt, kt, vt
+    log("K-vct", case=f"{route} {label}",
+        shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd{d}", kernel="flash_fwd_sm90"
+        if design == "sm90" else "flash_fwd", emit_lse=True,
+        max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}", lse_err=f"{lse_err:.3e}",
+        lse_tol=LSE_TOL, ms=f"{rec['ms']:.4f}",
+        device_ms=f"{rec['device_ms']:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        of_bound=f"{bound_ms / rec['device_ms']:.3f}",
+        plain_ms=f"{plain_ms:.1f}",
+        library=f"scaled_dot_product_attention[{backend}]",
+        library_ms=f"{rec['library_ms']:.4f}",
+        library_device_ms=f"{rec['library_device_ms']:.4f}",
+        old_design="flash_fwd.cu", old_design_ms=f"{rec['old_design_ms']:.4f}",
+        old_design_device_ms=f"{rec['old_design_device_ms']:.4f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"K-vct {route} {label}: disagrees with its "
+                             f"plain version, or launched {launched} on "
+                             f"{design} (expected {expected} on sm90)")
+    rec_out[f"{route} {label}"] = rec
+    return out, lse
+
+
+def _bwd_vct(A, label, q, k, v, out, lse, g, rec_out) -> None:
+    """The backward of a training forward (``flash_bwd``: K7 for an even
+    head count, else K8) against the plain backward, counted on the route,
+    the Hopper design and the kernel ``_bwd_kernel`` names, timed beside
+    its bound, the plain version, SDPA's backward (forward plus backward
+    minus forward) and the old design (flash_bwd.cu); over one key tile,
+    where the short-row kernel (flash_bwd_rows_sm90.cu, its 16-column box
+    past d = 64) runs, also flash_bwd_sm90 as the other Hopper design, held
+    to the same plain backward: the rule's A/B."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    sm = d ** -0.5
+    route = "K7" if h % 2 == 0 else "K8"
+    rows = A._bwd_kernel(d, sk) == "rows"
+
+    def bwd():
+        return A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm)
+
+    def counts():
+        return (A.flash_bwd.launches[route], A.flash_bwd.launches_sm90[route],
+                A.flash_bwd.launches_d128[route],
+                A.flash_bwd.launches_rows[route])
+
+    design = A._bwd_design(route, q.dtype, d, False, False)
+    before = counts()
+    got = bwd()
+    torch.cuda.synchronize()
+    launched = counts()
+    t0 = time.perf_counter()
+    ref = _bwd_plain_chunked(A, q, k, v, out, g, lse, sm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, ok, errs = _bwd_errs(got, ref)
+    _, old_ok, old_errs = _bwd_errs(
+        A._flash_bwd_mma(q, k, v, out, g, lse, sm), ref)
+    other = (lambda: A._flash_bwd_sm90(q, k, v, out, g, lse, sm)) \
+        if rows else None
+    other_errs = None
+    if other is not None:
+        _, other_ok, other_errs = _bwd_errs(other(), ref)
+        old_ok = old_ok and other_ok
+    expected = (before[0] + 1, before[1] + 1, before[2], before[3] + rows)
+    ok = ok and design == "sm90" and launched == expected
+    del got, ref
+    flops = 10.0 * b * h * sq * sk * d
+    io_bytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    bound_ms, bound_by = _bound(flops, io_bytes,
+                                _exp2_floor_ms(b * h * sq * sk))
+    old = lambda: A._flash_bwd_mma(q, k, v, out, g, lse, sm)
+    kernel = "flash_bwd_rows_sm90" if rows else "flash_bwd_sm90"
+    rec = dict(max_abs_err=err, kernel=kernel, ms=cuda_time_ms(bwd, 20),
+               device_ms=device_ms(bwd, 10), plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               old_design_ms=cuda_time_ms(old, 20),
+               old_design_device_ms=device_ms(old, 10))
+    extra = {}
+    if other is not None:
+        rec.update(other_design_ms=cuda_time_ms(other, 20),
+                   other_design_device_ms=device_ms(other, 10),
+                   ms_again=cuda_time_ms(bwd, 20))
+        extra = dict(other_design="flash_bwd_sm90",
+                     other_design_errs=",".join(other_errs),
+                     other_design_ms=f"{rec['other_design_ms']:.4f}",
+                     other_design_device_ms=(
+                         f"{rec['other_design_device_ms']:.4f}"),
+                     ms_again=f"{rec['ms_again']:.4f}")
+    rec["library_ms"], backend = sdpa_bwd_ms(q, k, v, g, reps=20)
+    rec["library_device_ms"], dev_backend = sdpa_bwd_device_ms(q, k, v, g,
+                                                               10)
+    log("K-vct", case=f"{route} {label}",
+        shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd{d}",
+        kernel=kernel if design == "sm90" else "flash_bwd",
+        dq=errs[0], dk=errs[1], dv=errs[2], ms=f"{rec['ms']:.4f}",
+        device_ms=f"{rec['device_ms']:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, of_bound=f"{bound_ms / rec['device_ms']:.3f}",
+        plain_ms=f"{plain_ms:.1f}",
+        library=f"sdpa backward[{backend}], device [{dev_backend}]",
+        library_ms=f"{rec['library_ms']:.4f}",
+        library_device_ms=f"{rec['library_device_ms']:.4f}",
+        old_design="flash_bwd.cu", old_design_ms=f"{rec['old_design_ms']:.4f}",
+        old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
+        old_design_errs=",".join(old_errs), **extra, ok=ok and old_ok)
+    if not ok:
+        raise AssertionError(f"K-vct {route} {label}: disagrees with the "
+                             f"plain backward, or launched {launched} on "
+                             f"{design} (expected {expected} on {kernel})")
+    if not old_ok:
+        raise AssertionError(f"K-vct {route} {label}: an A/B design "
+                             "disagrees with the plain backward")
+    rec_out[f"{route} {label}"] = rec
+
+
+def check_k_vct(A) -> dict:
+    """The attention of a VideoCrafter2 training step (``VCT_CASES``: B =
+    16 frames, d = 64, bf16): each training forward with its LSE and its
+    backward on that forward's output, as the custom VJP runs them, against
+    their plain versions (forward ``FWD_TOL`` of max|o| and ``LSE_TOL``;
+    backward ``BWD_TOL`` of each gradient's max), counted per route and
+    design; each timed by CUDA events and device time beside its bound, its
+    plain version, SDPA and the old design."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    recs = {}
+    for label, route, sq, sk, h in VCT_CASES:
+        q = torch.randn((VCT_B, sq, h, 64), generator=gen, device="cuda")
+        k, v = (torch.randn((VCT_B, sk, h, 64), generator=gen,
+                            device="cuda") for _ in range(2))
+        g = torch.randn((VCT_B, sq, h, 64), generator=gen, device="cuda")
+        q, k, v, g = (x.bfloat16() for x in (q, k, v, g))
+        out, lse = _fwd_vct(A, label, route, q, k, v, recs)
+        _bwd_vct(A, label, q, k, v, out, lse, g, recs)
+        del q, k, v, g, out, lse
+        _free()
+    return recs
+
+
+def _vc2_train_argv(command: str, tag: str, extra=()):
+    """The registry's ``command`` line with this run's: dummy video at
+    16×320×512, ``TRAIN_STEPS`` steps, a log line each."""
+    from videotuna_tpu_torch.cli.commands import COMMANDS
+    cmd = COMMANDS[command]
+    argv = []
+    for cfg in cmd.configs:
+        argv += ["--config", cfg]
+    return argv + [
+        "--device", "cuda", "--quiet", "--max_steps", str(TRAIN_STEPS),
+        "--workdir", os.path.join(OUT_DIR, tag)] + cmd.overrides + [
+        _dummy_data(VC2_TRAIN_FRAMES, *VC2_TRAIN_SIZE),
+        f"train.ckpt_every={TRAIN_STEPS}", "train.log_every=1", *extra]
+
+
+def _fingerprint(module) -> dict:
+    """Each parameter's f32 sum, on the card: equal for equal weights."""
+    with torch.no_grad():
+        return {n: p.float().sum().item() for n, p in
+                module.named_parameters()}
+
+
+def _check_vc2_sm90(tag: str, out: dict) -> None:
+    """Every launch of a VideoCrafter2 training run on a Hopper design at
+    d = 64: K1 and K5 on flash_fwd_sm90, K7 and K8 on flash_bwd_sm90 but
+    the cross-attentions' on flash_bwd_rows_sm90; no forward alignment
+    copy, no split."""
+    sm90 = out["sm90"]
+    hopper = {k: sm90[k] for k in ("K1", "K5", "K7", "K8", "K7_rows",
+                                   "K8_rows")}
+    want = dict({k: VC2_TRAIN_PER_STEP[k] * TRAIN_STEPS
+                 for k in ("K1", "K5", "K7", "K8")},
+                **{f"{k}_rows": n * TRAIN_STEPS
+                   for k, n in VC2_TRAIN_ROWS_PER_STEP.items()})
+    log(tag, bwd_tma_copies=sm90["bwd_tma_copies"])
+    if hopper != want or sm90["K5_d128"] or sm90["K8_d128"] \
+            or sm90["tma_copies"]:
+        raise AssertionError(f"{tag}: {sm90}: every K1 and K5 launch must "
+                             "run flash_fwd_sm90 and every K7 and K8 launch "
+                             "flash_bwd_sm90, or over 77 keys "
+                             f"flash_bwd_rows_sm90, at d=64 ({want}), with "
+                             "no forward alignment copy")
+    check_split_counts(tag, sm90)
+
+
+def run_train_vc2(A) -> dict:
+    """VideoCrafter2's full fine-tune (UNet3D 1.41B, bf16 weights with f32
+    masters, AdamW, EMA 0.9999, clip 1) through the registry's
+    ``train-videocrafter-v2``, 3 steps on dummy video at 16×320×512; then
+    ``save_pretrained`` of the trained UNet, which the LoRA run loads.
+    The trainer's own checkpoint, the 22.6 GB train state (f32 masters,
+    both Adam moments, the EMA), is not written: the card's machine takes
+    45 GiB of disk writes a run, which the earlier phases' checkpoints
+    nearly fill (a full fine-tune's save and resume run in train-stdit).
+    Its save still binds the masters into the module, as ``Trainer.save``
+    does."""
+    pretrained = {}
+
+    def bind_only(trainer):
+        def save(state, step):
+            trainer._bind(state.params)
+        trainer.save = save
+
+    def save(trainer):
+        t0 = time.perf_counter()
+        step_dir = trainer.flow.save_pretrained(
+            os.path.join(OUT_DIR, "vc2_pretrained"), step=TRAIN_STEPS,
+            only_trained=True)
+        pretrained.update(dir=step_dir,
+                          fingerprint=_fingerprint(trainer.flow.denoiser))
+        log("train-vc2", save_pretrained=step_dir,
+            files=",".join(sorted(os.listdir(step_dir))),
+            seconds=f"{time.perf_counter() - t0:.1f}")
+
+    _free()
+    log("train-vc2", command=VC2_TRAIN_COMMAND, frames=VC2_TRAIN_FRAMES,
+        height=VC2_TRAIN_SIZE[0], width=VC2_TRAIN_SIZE[1], batch=1,
+        remat=False, cut="none (full width, depth and frames)")
+    out = _train_run(A, "train-vc2",
+                     _vc2_train_argv(VC2_TRAIN_COMMAND, "train_vc2"),
+                     VC2_TRAIN_PER_STEP, lora=False, resume=False,
+                     on_built=bind_only, on_fit=save, saves=False)
+    _check_vc2_sm90("train-vc2", out)
+    return dict(out, **pretrained)
+
+
+def run_train_vc2_lora(A, pretrained: dict) -> dict:
+    """VideoCrafter2 LoRA (rank 16 on the kernels ``vc2_t2v_lora.yaml``'s
+    targets match: attn1, attn2, and by substring the time and fps
+    embeddings' fc1, fc2) through the registry's
+    ``train-videocrafter-lora``, from ``flow.pretrained`` = the full
+    fine-tune's ``save_pretrained`` step dir, 3 steps at 16×320×512."""
+    def loaded(trainer):
+        got = _fingerprint(trainer.flow.denoiser)
+        same = got == pretrained["fingerprint"]
+        log("train-vc2-lora", from_pretrained=pretrained["dir"],
+            unet_matches_saved=same)
+        if not same:
+            raise AssertionError("train-vc2-lora: the UNet is not the one "
+                                 "save_pretrained wrote")
+
+    _free()
+    log("train-vc2-lora", command=VC2_LORA_COMMAND,
+        frames=VC2_TRAIN_FRAMES, height=VC2_TRAIN_SIZE[0],
+        width=VC2_TRAIN_SIZE[1], batch=1, lora_rank=16,
+        pretrained=pretrained["dir"])
+    out = _train_run(A, "train-vc2-lora", _vc2_train_argv(
+        VC2_LORA_COMMAND, "train_vc2_lora",
+        [f"flow.pretrained={pretrained['dir']}"]), VC2_TRAIN_PER_STEP,
+        lora=True, resume=False, on_built=loaded)
+    _check_vc2_sm90("train-vc2-lora", out)
+    return out
+
+
+def _narrow_vc_train():
+    """VideoCrafter2 at narrow width for one training step, 64-wide heads
+    and bf16 kept (the Hopper kernels' dtype; the port's backward takes
+    bf16 only on the card): the UNet at model_channels 64, one res block a
+    level, two levels ([1, 2], attention at both), a 2-layer CLIP of dim
+    64, the VAE at ch 32."""
+    u = "flow.params.denoiser_config.params"
+    c = "flow.params.cond_stage_config.params"
+    return [f"{u}.model_channels=64", f"{u}.num_res_blocks=1",
+            f"{u}.channel_mult=[1, 2]", f"{u}.attention_resolutions=[1, 2]",
+            f"{u}.context_dim=64", f"{c}.dim=64", f"{c}.heads=2",
+            f"{c}.num_layers=2", "flow.params.first_stage_config.params.ch=32",
+            "flow.params.first_stage_config.params.num_res_blocks=1"]
+
+
+@tf32_off()
+def check_train_reference_vc(A, control: float = 0.0) -> None:
+    """One VideoCrafter2 full fine-tune step at narrow width
+    (``_narrow_vc_train``), TF32 off: the card's bf16 UNet against the same
+    weights as an f32 UNet on the CPU (the reference), with the same
+    latents, text states, fps, t and noise.  2×16×32 latents give 512
+    tokens at level 1 (1 head: K5 and K8, self and over 77 keys) and 128 at
+    level 2 and in the middle (2 heads: K1 and K7 self, K5 and K7 over 77
+    keys), each on a Hopper design at d=64 on the card.  The loss within
+    ``TRAIN_LOSS_TOL`` and every UNet gradient within ``TRAIN_GRAD_TOL``
+    of the f32 reference, as ``check_train_reference`` holds its flows,
+    or within twice the CPU's own bf16 UNet's error on that gradient where
+    that is larger: bf16 rounding alone moves the convolutions' gradients
+    by about 3e-2 of their max (the CPU's bf16 UNet against the reference,
+    and the card against the CPU, read 3.0e-2 to 3.3e-2 on the H100,
+    PERF.md).  The bf16 model stays on the card because there is no f32
+    backward kernel (``flash_bwd`` takes bf16 on CUDA).  With ``control``
+    > 0 every card attention output is scaled by 1 + ``control`` and the
+    check must fail."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    diff = A.flash_attention_diff
+
+    def scaled(*args, **kwargs):
+        out = diff(*args, **kwargs)
+        return out * (1 + control) if out.is_cuda else out
+
+    narrow = _narrow_vc_train()
+    cfg = load_configs([CONFIG_VC2], narrow)
+    cpu = instantiate(cfg["flow"], device="cpu")
+    cpu.init_params(seed=1)
+    ref = instantiate(load_configs([CONFIG_VC2], narrow + [
+        "flow.params.denoiser_config.params.dtype=float32"])["flow"],
+        device="cpu")
+    ref.denoiser.load_state_dict({k: v.float() for k, v in
+                                  cpu.denoiser.state_dict().items()})
+    gpu = instantiate(cfg["flow"], device="cuda")
+    gpu.denoiser.load_state_dict(cpu.denoiser.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    batch = {"latents": torch.randn((1, 2, 16, 32, 4), generator=gen),
+             "text_states": torch.randn((1, 77, 64), generator=gen),
+             "fps": torch.tensor([28.0])}
+    draw = {"t": torch.tensor([417]),
+            "noise": torch.randn((1, 2, 16, 32, 4), generator=gen),
+            "drop": torch.tensor([False])}
+    losses, grads = [], []
+    if control:
+        A.flash_attention_diff = scaled
+    try:
+        for flow, dev in ((ref, "cpu"), (cpu, "cpu"), (gpu, "cuda")):
+            flow.denoiser.requires_grad_(True)
+            zero_counts(A)
+            loss, _ = flow.training_loss(
+                {k: v.to(dev) for k, v in batch.items()},
+                **{k: v.to(dev) for k, v in draw.items()})
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in read_counts(A).items() if v}
+                hopper = {k: v for k, v in read_sm90_counts(A).items()
+                          if v and k.startswith("K")}
+            losses.append(loss.item())
+            grads.append({n: p.grad.float().cpu() for n, p in
+                          flow.denoiser.named_parameters()
+                          if p.grad is not None})
+    finally:
+        A.flash_attention_diff = diff
+    # level 1's 3 spatial transformers (1 down, 2 up), 4 at level 2 (1
+    # down, 2 up, the middle); every backward over one key tile on
+    # flash_bwd_rows_sm90: level 1's cross-attentions (77 keys) and all of
+    # level 2's (77 and 128 keys)
+    expect = {"K5": 10, "K1": 4, "K8": 6, "K7": 8}
+    expect_hopper = dict(expect, K8_rows=3, K7_rows=8)
+
+    def calibrated(named_card, named_cpu, named_ref):
+        """Each gradient's error against the f32 reference within
+        TRAIN_GRAD_TOL of its own max|g| plus TRAIN_GRAD_TOL/100 of the
+        largest, or within twice the CPU's own bf16 error on it, whichever
+        is larger; (worst err/tol, its name, how many took the second)."""
+        gmax = max(g.abs().max().item() for g in named_ref.values())
+        worst, name, calib = 0.0, "", 0
+        for n, ref_g in named_ref.items():
+            err = (named_card[n].float() - ref_g).abs().max().item()
+            cpu_err = (named_cpu[n].float() - ref_g).abs().max().item()
+            fixed = TRAIN_GRAD_TOL * (ref_g.abs().max().item() + gmax / 100)
+            tol = max(fixed, 2 * cpu_err)
+            calib += tol > fixed
+            ratio = err / tol if math.isfinite(err) else float("inf")
+            if ratio > worst:
+                worst, name = ratio, n
+        return worst, name, calib
+
+    rel = abs(losses[2] - losses[0]) / abs(losses[0])
+    cpu_rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    worst, worst_name, calib = calibrated(grads[2], grads[1], grads[0])
+    ok = (math.isfinite(rel) and rel <= TRAIN_LOSS_TOL and worst <= 1.0
+          and launches == expect and hopper == expect_hopper
+          and set(grads[0]) == set(grads[1]) == set(grads[2]))
+    log("train-reference-vc", flow="narrow vc2_t2v_320x512, one full "
+        "fine-tune step, card bf16 vs cpu f32", control=control,
+        loss_ref=f"{losses[0]:.6f}", loss_card=f"{losses[2]:.6f}",
+        loss_rel_err=f"{rel:.3e}", loss_tol=TRAIN_LOSS_TOL,
+        cpu_bf16_loss_rel_err=f"{cpu_rel:.3e}", grads=len(grads[0]),
+        worst_grad_err_over_tol=f"{worst:.3f}", worst_grad=worst_name,
+        grad_tol=f"max({TRAIN_GRAD_TOL}*(own+max/100),2*cpu_bf16_err)",
+        grads_on_cpu_bf16_tol=calib, card_launches=launches,
+        hopper_launches=hopper, tf32=tf32_flags(), ok=ok)
+    if control and ok:
+        raise AssertionError(f"train-reference-vc passed with every card "
+                             f"attention output scaled by 1 + {control}")
+    if not control and not ok:
+        raise AssertionError("train-reference-vc: card and CPU disagree")
+    del cpu, gpu, ref
+    _free()
+
+
+def _prefixed(recs: dict, labels: dict) -> dict:
+    """{f"{prefix}_{key}": value} of each ``labels`` prefix's record."""
+    return {f"{p}_{k}": v for p, lab in labels.items()
+            for k, v in recs[lab].items()}
+
+
 def print_result() -> None:
     """The last line: the device the run took place on."""
     print(json.dumps({"ok": True, "device": {
@@ -4024,6 +4557,27 @@ def main(argv=None) -> None:
         print_result()
         return
 
+    if argv[:1] == ["--vc-train"]:
+        # the VideoCrafter2 training phases alone: the kernels at a training
+        # step's shapes, the narrow card-vs-CPU step and its control, and
+        # the full and LoRA fine-tunes ("kernels" or "train" after the flag:
+        # the first two or the last alone)
+        kvct, out = {}, {}
+        if argv[1:2] != ["train"]:
+            kvct = timed_phase("K-vct", check_k_vct, A)
+            check_train_reference_vc(A)
+            check_train_reference_vc(A, control=VCT_CONTROL)
+        if argv[1:2] != ["kernels"]:
+            out["train-vc2"] = timed_phase("train-vc2", run_train_vc2, A)
+            out["train-vc2-lora"] = timed_phase(
+                "train-vc2-lora", run_train_vc2_lora, A, out["train-vc2"])
+        print(json.dumps({"vc_train": {"k_vct": kvct, **{
+            tag: {k: v for k, v in r.items()
+                  if k not in ("launches", "sm90", "fingerprint")}
+            for tag, r in out.items()}}}), flush=True)
+        print_result()
+        return
+
     if argv[:1] == ["--videocrafter"]:
         # the VideoCrafter, DynamiCrafter and Wan I2V phases alone (the
         # kernels at their shapes, the narrow card-vs-CPU checks, the
@@ -4088,8 +4642,15 @@ def main(argv=None) -> None:
     timed_phase("profile-dc", profile_dc_call)
     wan_i2v = timed_phase("e2e-wan-i2v", run_e2e_wan_i2v, A)
     runs += vc_runs + [wan_i2v]
+    kvct = timed_phase("K-vct", check_k_vct, A)
+    check_train_reference_vc(A)
+    check_train_reference_vc(A, control=VCT_CONTROL)
+    vc2_train = timed_phase("train-vc2", run_train_vc2, A)
+    vct_runs = [vc2_train, timed_phase("train-vc2-lora", run_train_vc2_lora,
+                                       A, vc2_train)]
+    runs += vct_runs
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the eleven main-path runs
+    # each kernel's launches over the eighteen main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
@@ -4112,6 +4673,10 @@ def main(argv=None) -> None:
     clip_k2 = sum(r["launches"]["K2"] - r["sm90"]["K2"] - r["sm90"]["K2_f32"]
                   for r in vc_runs + [wan_i2v])
     wan_i2v_k3 = wan_i2v["sm90"]["K3_d128"]
+    # VideoCrafter2 training's launches (K5 and K8 at d = 64 on the Hopper
+    # designs, K1 with the LSE and K7), apart from the other runs'
+    vct = {k: sum(r["sm90"][k] for r in vct_runs)
+           for k in ("K1", "K5", "K7", "K8", "K7_rows", "K8_rows")}
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
@@ -4125,16 +4690,17 @@ def main(argv=None) -> None:
         "K4": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
               "key mask, d=72/80 bf16), checked",
         "K5": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
-              "LSE, d=72/80 bf16; K3's kernel with the LSE at d=128 under "
-              "the fixed max, HunyuanVideo training), checked",
+              "LSE, d=64/72/80 bf16, d=64 the UNet's training; K3's kernel "
+              "with the LSE at d=128 under the fixed max, HunyuanVideo "
+              "training), checked",
         "K6": "redesigned for Hopper (flash_fwd_sm90 persistent with a "
               "key-range split and the combine, online), checked",
         "K7": "redesigned for Hopper (flash_bwd_sm90: single pass, wgmma), "
               "checked",
         "K8": "redesigned for Hopper (flash_bwd_rows_sm90: single pass, "
               "persistent, d=72/80 bf16, key mask as bit words; "
-              "flash_bwd_sm90 at d=128 unmasked, HunyuanVideo training), "
-              "checked",
+              "flash_bwd_sm90 at d=64 and d=128 unmasked, the UNet's and "
+              "HunyuanVideo's training), checked",
         "K9": "mapped onto K8's kernels (flash_bwd_rows_sm90 at d=72/80, "
               "flash_bwd_sm90 at d=128), checked",
         "K10": "mapped onto K7's kernel (flash_bwd_sm90), checked"}
@@ -4148,7 +4714,8 @@ def main(argv=None) -> None:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
-    extra_keys = ("old_design_ms", "device_ms", "old_design_device_ms",
+    extra_keys = ("other_design_ms", "other_design_device_ms", "lse_err",
+                  "old_design_ms", "device_ms", "old_design_device_ms",
                   "library_device_ms", "lse_device_ms",
                   "lse_old_design_device_ms", "train_lse_ms", "host_ms",
                   "old_design_host_ms", "unsplit_ms", "unsplit_device_ms",
@@ -4175,7 +4742,7 @@ def main(argv=None) -> None:
                   "old_design_ms", "old_design_device_ms", "ms_again"))
 
     def entry(name, source, replaces, kernel, rec, design="sm90",
-              status=None, launches_n=None):
+              status=None, launches_n=None, extra=None):
         # a redesigned kernel adds the old design's ms on the same tensors
         # (K2, K4, K5: and the device times of both designs and the
         # library; K1: its time at the training shape with the LSE; K6 and
@@ -4191,7 +4758,7 @@ def main(argv=None) -> None:
         n = n if launches_n is None else launches_n
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": f"{tpu}:{replaces}", "launches": n,
-                **{k: rec[k] for k in keys}, **old,
+                **{k: rec[k] for k in keys}, **old, **(extra or {}),
                 "status": status or statuses[kernel]}
 
     def fields(rec, prefix):
@@ -4202,7 +4769,8 @@ def main(argv=None) -> None:
 
     print(json.dumps({"kernels": [
         entry("flash_fwd_sm90 persistent, d=64 (K1)", fwd90, 268, "K1", k1,
-              launches_n=sm90["K1"] - d128["K1"] - cog15_k1 - vc_k1),
+              launches_n=sm90["K1"] - d128["K1"] - cog15_k1 - vc_k1
+              - vct["K1"]),
         # CogVideoX 1.5's joint attention on the same kernel (9,674 tokens)
         entry("flash_fwd_sm90 persistent, d=64, CogVideoX 1.5 (K1)", fwd90,
               268, "K1", k1c, launches_n=cog15_k1),
@@ -4256,13 +4824,15 @@ def main(argv=None) -> None:
         entry("flash_fwd_sm90 persistent, key mask (K4)", fwd90, 970, "K4",
               k4),
         entry("flash_fwd_sm90 persistent with the LSE, training forward "
-              "(K5)", fwd90, 867, "K5", bwd["K5"]),
+              "(K5)", fwd90, 867, "K5", bwd["K5"],
+              launches_n=sm90["K5"] - d128["K5"] - vct["K5"]),
         entry("flash_fwd_sm90 persistent online with a key-range split and "
               "the combine, pack2=True (K6)", fwd90, 163, "K6", k6),
         entry("flash_bwd_sm90 d=64 single pass (K7)", bwd90, 1424, "K7",
-              bwd["K7"]),
+              bwd["K7"], launches_n=sm90["K7"] - d128["K7"] - vct["K7"]),
         entry("flash_bwd_rows_sm90 single pass, spatial and key-masked "
-              "cross (K8)", rows90, 1148, "K8", bwd["K8"]),
+              "cross (K8)", rows90, 1148, "K8", bwd["K8"],
+              launches_n=sm90["K8"] - d128["K8"] - vct["K8"]),
         entry("flash_bwd_rows_sm90 single_pass=False, generic (K9)", rows90,
               1107, "K9", bwd["K9"]),
         entry("flash_bwd_sm90 single_pass=False, d=64 (K10)", bwd90, 1260,
@@ -4274,6 +4844,37 @@ def main(argv=None) -> None:
               design="d128"),
         entry("flash_bwd_sm90 d=128 single pass, HunyuanVideo training (K8)",
               bwd90, 1148, "K8", fields(bwd["K8"], "d128"), design="d128"),
+        # VideoCrafter2 training's attention (B = 16 frames, d = 64): K5
+        # at level 1 (5 heads; the self-attention's figures, the 77-key
+        # cross-attention's as cross_*, K5 over 77 keys at levels 2 and 4
+        # as ds2_cross_*, ds4_cross_*), K8 at level 1, K1 with the LSE and
+        # K7 at levels 2 and 4 (640², and 160² as ds4_*); each backward
+        # over 77 keys on flash_bwd_rows_sm90, with flash_bwd_sm90's time
+        # on the same tensors as other_design_*
+        entry("flash_fwd_sm90 persistent with the LSE, d=64, UNet3D "
+              "training level 1 and the text cross-attention (K5)", fwd90,
+              867, "K5", kvct["K5 self"], launches_n=vct["K5"],
+              extra=_prefixed(kvct, {"cross": "K5 cross",
+                                     "ds2_cross": "K5 ds2 cross",
+                                     "ds4_cross": "K5 ds4 cross"})),
+        entry("flash_bwd_sm90 d=64 single pass, UNet3D training level 1 "
+              "self-attention (K8)", bwd90, 1148, "K8", kvct["K8 self"],
+              launches_n=vct["K8"] - vct["K8_rows"]),
+        entry("flash_bwd_rows_sm90 d=64 single pass, UNet3D training level "
+              "1 over 77 text keys (K8)", rows90, 1148, "K8",
+              kvct["K8 cross"], launches_n=vct["K8_rows"]),
+        entry("flash_fwd_sm90 persistent with the LSE, d=64, UNet3D "
+              "training levels 2 and 4 (K1)", fwd90, 268, "K1",
+              kvct["K1 ds2 self"], launches_n=vct["K1"],
+              extra=_prefixed(kvct, {"ds4_self": "K1 ds4 self"})),
+        entry("flash_bwd_sm90 d=64 single pass, UNet3D training levels 2 "
+              "and 4 self-attention (K7)", bwd90, 1424, "K7",
+              kvct["K7 ds2 self"], launches_n=vct["K7"] - vct["K7_rows"],
+              extra=_prefixed(kvct, {"ds4_self": "K7 ds4 self"})),
+        entry("flash_bwd_rows_sm90 d=64 single pass, UNet3D training levels "
+              "2 and 4 over 77 text keys (K7)", rows90, 1424, "K7",
+              kvct["K7 ds2 cross"], launches_n=vct["K7_rows"],
+              extra=_prefixed(kvct, {"ds4_cross": "K7 ds4 cross"})),
         # LLaMA's f32 causal K2 on the f32 design
         entry("flash_fwd_f32_sm90 f32 causal, split key ranges, LLaMA (K2)",
               fwd32, 78, "K2", fields(k2, "llama"), design="f32",

@@ -594,6 +594,12 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K2", _BF, 64, False, False, True, False, "sm90"),
     ("K2", _BF, 64, True, False, False, False, "mma"),
     ("K2", _F32, 64, False, False, False, False, "mma"),
+    # K5 at d=64 (the UNet's training forward at its 5-head level and over
+    # 77 text keys): the same persistent kernel with the LSE
+    ("K5", _BF, 64, False, False, True, False, "sm90"),
+    ("K5", _BF, 64, False, False, True, True, "sm90"),
+    ("K5", _BF, 64, True, False, True, False, "mma"),
+    ("K5", _F32, 64, False, False, True, False, "mma"),
 ])
 def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
@@ -633,7 +639,10 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
     ("K9", _BF, 72, True, False, "mma"),
     ("K8", _F32, 72, False, False, "mma"),
     ("K8", _F32, 80, False, True, "mma"),
-    ("K8", _BF, 64, False, False, "mma"),
+    # K8 and K9 at d = 64 (the UNet's 5-head level), unmasked and
+    # non-causal: the Hopper backward since the UNet trains on the card
+    ("K8", _BF, 64, False, False, "sm90"),
+    ("K9", _BF, 64, False, False, "sm90"),
     ("K8", _BF, 64, True, False, "mma"),
     ("K8", _BF, 64, False, True, "mma"),
     ("K8", _BF, 128, False, False, "sm90"),
@@ -652,10 +661,24 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
 def test_bwd_design_is_a_function_of_route(route, dtype, d, causal, masked,
                                            design):
     """The Hopper backwards serve bf16 non-causal calls only: K7 and K10
-    at d=64 and K8 and K9 at d = 128 unmasked (flash_bwd_sm90.cu), K8 and
-    K9 at d = 72 and 80, masked or not (flash_bwd_rows_sm90.cu); causal,
-    f32, masked d = 128 and every other width keep flash_bwd.cu."""
+    at d=64 and K8 and K9 at d = 64 and 128 unmasked, K8 and K9 at d = 72
+    and 80, masked or not; causal, f32, masked d = 64 and 128 and every
+    other width keep flash_bwd.cu."""
     assert P._bwd_design(route, dtype, d, causal, masked) == design
+
+
+@pytest.mark.parametrize("d,sk,kernel", [
+    # the short-row kernel at STDiT's widths, whatever the key length
+    (72, 256, "rows"), (80, 4096, "rows"), (72, 120, "rows"),
+    # at d = 64 over keys that fit one 128-key tile (the UNet's 77 text
+    # keys), where it beat flash_bwd_sm90 over a training step's calls
+    (64, 77, "rows"), (64, 128, "rows"), (64, 1, "rows"),
+    # flash_bwd_sm90 at d = 64 over longer keys and at d = 128
+    (64, 129, "sm90"), (64, 2560, "sm90"), (128, 77, "sm90"),
+    (128, 7456, "sm90"),
+])
+def test_bwd_kernel_is_a_function_of_width_and_keys(d, sk, kernel):
+    assert P._bwd_kernel(d, sk) == kernel
 
 
 @pytest.mark.parametrize("bh,sq,sk,plan", [

@@ -86,7 +86,7 @@ def test_hunyuan_lora_command_resolves_like_jax():
 
 @pytest.mark.parametrize("name,queue", [
     ("inference-mochi", "queue 1, item 8"),
-    ("train-videocrafter-v2", "queue 1, item 8"),
+    ("train-dynamicrafter", "queue 3"),
     ("inference-hunyuan-i2v-720p", "queue 1, item 4"),
     ("train-cogvideox-i2v-lora", "queue 1, item 3"),
     ("serve", "item 10.2"), ("eval", "item 10.5")])
@@ -145,12 +145,13 @@ def test_main_lists_trains_and_needs_cuda_unless_asked(tmp_path, capsys):
     assert pcommands.main(["list"]) == 0
     listed = capsys.readouterr().out
     assert all(name in listed for name in jcommands.COMMANDS)
-    # the Wan T2V and I2V commands run the port (no waiting mark); the
-    # UNet's training waits
+    # the Wan T2V and I2V commands and VideoCrafter2's training run the
+    # port (no waiting mark); DynamiCrafter's training waits
     for name in ("inference-wanvideo-t2v-720p", "inference-wanvideo-t2v-1-3B",
-                 "inference-wanvideo-i2v-720p"):
+                 "inference-wanvideo-i2v-720p", "train-videocrafter-v2",
+                 "train-videocrafter-lora"):
         assert f"  {name}" in listed and f"*{name}" not in listed
-    assert "*train-videocrafter-v2" in listed
+    assert "*train-dynamicrafter" in listed
     assert pcommands.main(["no-such-command"]) == 2
     assert pcommands.main(["install-flash-attn"]) == 0
     assert "CUDA kernels" in capsys.readouterr().out

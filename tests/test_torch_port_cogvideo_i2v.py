@@ -77,10 +77,13 @@ def _jax_flow(overrides):
     model = _model(overrides)
     if model != overrides:
         return jflow, _jax_flow(model)[1]
+    # the port's flow, whose components give the trees' shapes untraced
+    pflow = pregistry.instantiate(
+        pconfig.load_configs([TINY], list(overrides))["flow"], device="cpu")
     if overrides == _I2V:
-        return jflow, _jax_params(jflow)
+        return jflow, _jax_params(jflow, pflow=pflow)
     return jflow, dict(_jax_flow(_I2V)[1], denoiser=jax_params(
-        jflow.denoiser, *jflow.example_inputs()["denoiser"]))
+        jflow.denoiser, like=pflow.denoiser))
 
 
 @functools.cache

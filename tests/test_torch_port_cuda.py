@@ -678,8 +678,9 @@ def test_grads_reach_q_k_v_on_cuda(d, masked):
 @pytest.mark.parametrize("static_max", [0.0, None], ids=["fixed", "online"])
 @pytest.mark.parametrize("s,h", [(128, 2), (200, 2), (4112, 30), (200, 30)])
 def test_sm90_backward_matches_plain(static_max, s, h):
-    """The single-pass Hopper backward (flash_bwd_sm90.cu, route K7) on the
-    LSE of K1 under both softmax modes, against ``flash_bwd_plain``,
+    """The single-pass Hopper backward (flash_bwd_sm90.cu, route K7; at
+    128 keys, one key tile, the short-row kernel ``_bwd_kernel`` names) on
+    the LSE of K1 under both softmax modes, against ``flash_bwd_plain``,
     counted per route and per design."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -1316,3 +1317,90 @@ def test_k1_online_over_77_keys(sq, h):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     q, k, v = _qkv(2, sq, 77, h, seed=sq)
     _check_k1(q, k, v, None, emit_lse=False)
+
+
+# -------------------------- d = 64: UNet3D training (K5, K8, K1, K7)
+# (b, sq, sk, h): a VideoCrafter2 training step's attention at batch 1
+# (B = 16 frames): level 1's self-attention and its 77-key cross-attention
+# (5 heads: K5, K8), levels 2 and 4 (10 and 20 heads: K1 with the LSE and
+# K7 self, K5 and K7 over 77 keys)
+_UNET_TRAIN = [(16, 2560, 2560, 5), (16, 2560, 77, 5), (16, 640, 640, 10),
+               (16, 640, 77, 10), (16, 160, 160, 20), (16, 160, 77, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h", _UNET_TRAIN)
+def test_unet_training_attention_on_hopper_designs(b, sq, sk, h):
+    """The custom VJP's kernels at a VideoCrafter2 training step's shapes,
+    routed as ``flash_attention_diff`` routes them: the forward with its
+    LSE on flash_fwd_sm90 (K1 where the heads pair and both sides are ≥ 128
+    tokens, else K5) against ``flash_fwd_plain``, the backward (K7 for an
+    even head count, else K8) on the kernel ``_bwd_kernel`` names
+    (flash_bwd_rows_sm90 over the 77 keys, flash_bwd_sm90 otherwise)
+    against ``flash_bwd_plain``, each counted per route, design and
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(sq + sk + h)
+    q, k, v, g = (torch.randn(shape, generator=gen).cuda().bfloat16()
+                  for shape in ((b, sq, h, 64), (b, sk, h, 64),
+                                (b, sk, h, 64), (b, sq, h, 64)))
+    fwd = "K1" if h % 2 == 0 and min(sq, sk) >= 128 else "K5"
+    bwd = "K7" if h % 2 == 0 else "K8"
+    assert P._fwd_design(fwd, q.dtype, 64, False, None, True, None) == "sm90"
+    assert P._bwd_design(bwd, q.dtype, 64, False, False) == "sm90"
+    rows = P._bwd_kernel(64, sk) == "rows"
+    assert rows == (sk <= 128)
+    before = (P.flash_fwd.launches[fwd], P.flash_fwd.launches_sm90[fwd],
+              P.flash_fwd.tma_copies)
+    out, lse = P.flash_fwd(q, k, v, sm_scale=0.125, emit_lse=True,
+                           route=fwd)
+    torch.cuda.synchronize()
+    assert (P.flash_fwd.launches[fwd], P.flash_fwd.launches_sm90[fwd],
+            P.flash_fwd.tma_copies) == (before[0] + 1, before[1] + 1,
+                                        before[2])
+    ref, ref_lse = _plain_by_heads(P.flash_fwd_plain, q, k, v,
+                                   sm_scale=0.125, emit_lse=True, heads=1)
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+    assert (lse - ref_lse).abs().max() <= 1e-3
+    before = (P.flash_bwd.launches[bwd], P.flash_bwd.launches_sm90[bwd],
+              P.flash_bwd.launches_rows[bwd], P.flash_bwd.launches_d128[bwd])
+    got = P.flash_bwd(q, k, v, out, g, lse, sm_scale=0.125)
+    torch.cuda.synchronize()
+    assert (P.flash_bwd.launches[bwd], P.flash_bwd.launches_sm90[bwd],
+            P.flash_bwd.launches_rows[bwd],
+            P.flash_bwd.launches_d128[bwd]) == (
+        before[0] + 1, before[1] + 1, before[2] + rows, before[3])
+    ref = _plain_by_heads(P.flash_bwd_plain, q, k, v, out, g, lse,
+                          sm_scale=0.125, heads=1)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.bfloat16
+        assert torch.isfinite(x.float()).all()
+        # p and ds are bf16 operands, gradients bf16: 2e-2 of max|grad|
+        assert (x.float() - r.float()).abs().max() \
+            <= 2e-2 * r.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [13, 77, 128])
+def test_both_hopper_backwards_agree_over_one_key_tile(sk):
+    """Over keys that fit one tile at d = 64 both Hopper backwards take the
+    call: the short-row kernel the rule picks (its 16-column box past d)
+    and flash_bwd_sm90, each against ``flash_bwd_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(sk)
+    q, k, v, g = (torch.randn(shape, generator=gen).cuda().bfloat16()
+                  for shape in ((2, 700, 3, 64), (2, sk, 3, 64),
+                                (2, sk, 3, 64), (2, 700, 3, 64)))
+    out, lse = P.flash_fwd(q, k, v, sm_scale=0.125, emit_lse=True,
+                           route="K5")
+    ref = P.flash_bwd_plain(q, k, v, out, g, lse, sm_scale=0.125)
+    for fn in (P._flash_bwd_rows, P._flash_bwd_sm90):
+        got = fn(q, k, v, out, g, lse, 0.125)
+        torch.cuda.synchronize()
+        for x, r in zip(got, ref):
+            assert torch.isfinite(x.float()).all()
+            assert (x.float() - r.float()).abs().max() \
+                <= 2e-2 * r.float().abs().max()

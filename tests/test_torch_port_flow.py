@@ -26,7 +26,8 @@ from videotuna_tpu_torch.core import config as pconfig
 from videotuna_tpu_torch.core import registry as pregistry
 from videotuna_tpu_torch.tools.from_jax import load_flow_params
 
-from tests.test_torch_port_models import torch_one_thread  # noqa: F401
+from tests.test_torch_port_models import (  # noqa: F401
+    flax_shapes, flax_tree, torch_one_thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(ROOT, "configs", "000_tiny", "tiny_cogvideox.yaml")
@@ -55,15 +56,18 @@ def _close(out, ref, tol):
                                atol=tol * float(np.abs(ref).max()))
 
 
-def _jax_params(jflow, seed=0):
+def _jax_params(jflow, seed=0, pflow=None):
     """The JAX flow's parameter tree with seeded numpy values (shapes from
-    ``init`` under ``eval_shape``, no compile)."""
+    ``init`` under ``eval_shape``, no compile; or read off the port flow
+    ``pflow``'s components, ``flax_shapes``, the same tree untraced)."""
     rng = np.random.default_rng(seed)
     ex = jflow.example_inputs()
     params = {}
     for comp in ("denoiser", "first_stage", "cond_stage"):
         module = getattr(jflow, comp)
-        shapes = jax.eval_shape(module.init, jax.random.key(0), *ex[comp])
+        shapes = ({"params": flax_tree(flax_shapes(getattr(pflow, comp)))}
+                  if pflow is not None else
+                  jax.eval_shape(module.init, jax.random.key(0), *ex[comp]))
 
         def fill(path, leaf):
             name = str(path[-1].key)
@@ -86,7 +90,7 @@ def test_tiny_cogvideox_end_to_end_matches_jax(overrides):
     jregistry.populate()
     jflow = jregistry.instantiate(jcfg["flow"])
     pflow = pregistry.instantiate(pcfg["flow"], device="cpu")
-    params = _jax_params(jflow)
+    params = _jax_params(jflow, pflow=pflow)
     load_flow_params(pflow, params)
 
     inf = jcfg["inference"]
@@ -148,11 +152,13 @@ def test_run_inference_needs_cuda_unless_cpu_is_asked_for(tmp_path):
     (["--lora", "{tmp}/step_4"], "LoRA"),     # a JAX (orbax) LoRA dir
     (["inference.quantize=int8"], "int8"),
     (["inference.mesh.dp=2"], "parallelism"),
-    (["--ckpt", "x"], "checkpoint"),
+    # a JAX (orbax) checkpoint dir: the port reads its own and ckpt_tools'
+    (["--ckpt", "{tmp}/step_4"], "checkpoint"),
 ])
 def test_unported_inference_options_raise(argv, what, tmp_path):
     from videotuna_tpu_torch.cli.inference import run_inference
     (tmp_path / "step_4" / "lora").mkdir(parents=True)
+    (tmp_path / "step_4" / "denoiser").mkdir()
     argv = [a.format(tmp=tmp_path) for a in argv]
     with pytest.raises(NotImplementedError, match=what):
         run_inference(["--config", TINY, "--device", "cpu", "--quiet",

@@ -173,10 +173,10 @@ def test_llama_gqa_through_k2_matches():
     mask = np.ones((2, 160), bool)
     mask[1, 97:] = False
     jm = JLlama(**cfg)
-    params = jax_params(jm, jnp.asarray(ids), jnp.asarray(mask))
+    pm = PLlama(**cfg)
+    params = jax_params(jm, like=pm)
     with _fixed_max():
         ref = _apply(jm, params, ids, mask)
-    pm = PLlama(**cfg)
     load_jax_params(pm, params)
     with torch.no_grad():
         _close(pm(_t(ids).long(), _t(mask)), ref, KERNEL_MODEL_TOL)
@@ -203,9 +203,8 @@ def test_token_refiner_ragged_mask_matches():
     mask = np.ones((2, 12), bool)
     mask[0, 5:] = False
     jm = JRefiner(64, heads=2)
-    params = jax_params(jm, jnp.asarray(txt), jnp.asarray(t),
-                        jnp.asarray(mask))
     pm = PRefiner(64, 24, heads=2)
+    params = jax_params(jm, like=pm)
     load_jax_params(pm, params)
     with torch.no_grad():
         _close(pm(_t(txt), _t(t), _t(mask)),
@@ -245,13 +244,13 @@ def test_hyvideo_dit_matches(dim, heads, scan, riflex):
         assert PL.split_rope_dims(hd)[0] == dt_jax
     jm = JDiT(**cfg)
     args = (x, t, y, pooled, mask, g)
-    params = jax_params(jm, *map(jnp.asarray, args))
+    pm = PDiT(**cfg)
+    params = jax_params(jm, like=pm)
     assert ("double_blocks" in params) == scan
     with _fixed_max():
         ref = jax.jit(lambda p, *a: jm.apply({"params": p}, *a,
                                              temporal_rope_scale=scale))(
             params, *map(jnp.asarray, args))
-        pm = PDiT(**cfg)
         load_jax_params(pm, params)
         with torch.no_grad():
             out = pm(*map(_t, args), temporal_rope_scale=None if scale is None
@@ -298,8 +297,8 @@ def test_hunyuan_vae_matches():
     video = np.random.default_rng(6).uniform(
         -1, 1, (1, 5, 32, 32, 3)).astype(np.float32)
     jm = JVAE(**cfg)
-    params = jax_params(jm, jnp.asarray(video))
     pm = PVAE(**cfg)
+    params = jax_params(jm, like=pm)
     load_jax_params(pm, params)
     jmoments = _apply(jm, params, video, method="encode")
     z = np.asarray(jmoments)[..., :16]
@@ -324,9 +323,12 @@ NARROW_D128 = [
 ]
 
 
-def _flow_params(jflow, seed=0):
+def _flow_params(jflow, seed=0, pflow=None):
+    """Seeded weights for each component (``jax_params``), their shapes
+    read off the port flow ``pflow`` when given."""
     ex = jflow.example_inputs()
-    return {c: jax_params(getattr(jflow, c), *ex[c], seed=seed + i)
+    return {c: jax_params(getattr(jflow, c), *ex[c], seed=seed + i,
+                          like=getattr(pflow, c) if pflow else None)
             for i, c in enumerate(("denoiser", "first_stage", "cond_stage",
                                    "cond_stage_2"))}
 
@@ -343,7 +345,7 @@ def test_hunyuan_flow_end_to_end_matches_jax(overrides):
     jregistry.populate()
     jflow = jregistry.instantiate(jcfg["flow"])
     pflow = pregistry.instantiate(pcfg["flow"], device="cpu")
-    params = _flow_params(jflow)
+    params = _flow_params(jflow, pflow=pflow)
     load_flow_params(pflow, params)
     inf = jcfg["inference"]
     shape = jflow.latent_shape(1, inf["frames"], inf["height"], inf["width"])

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 import videotuna_tpu.kernels.attention as JA
 import videotuna_tpu_torch.kernels.attention as PA
@@ -31,7 +32,8 @@ from videotuna_tpu_torch.models.cogvideo.vae import CogVideoXVAE as PCogVAE
 from videotuna_tpu_torch.models.text_encoders import T5Encoder as PT5
 from videotuna_tpu_torch.models.text_encoders import t5_relative_bucket
 from videotuna_tpu_torch.models.vae3d import CausalVAE3D as PVAE3D
-from videotuna_tpu_torch.tools.from_jax import load_jax_params
+from videotuna_tpu_torch.tools.from_jax import (_NORMS, _STACKS,
+                                                load_jax_params)
 
 MODULE_TOL = 1e-5
 PIXEL_TOL = 1e-3
@@ -59,14 +61,82 @@ def _close(out, ref, tol=MODULE_TOL):
                                atol=tol * float(np.abs(ref).max()))
 
 
-def jax_params(jmodule, *inputs, seed=0, **kwargs):
+_FLAX_LIST = {v: k for k, v in _STACKS.items()}
+
+
+def flax_shapes(module: nn.Module):
+    """{flax path: shape} of the parameter tree ``tools/from_jax`` copies
+    into ``module``: its parameters' names with ``blocks.<i>`` read as
+    ``block_<i>`` (``pairs``, ``double_blocks`` and ``single_blocks``
+    alike; in a module that scans them, one stack of the blocks' leaves
+    under ``blocks``, depth first), each leaf in the flax layout (a
+    ``Dense`` kernel (in, out), a ``DenseGeneral`` one (in, heads,
+    head_dim), a conv kernel (*k, in, out), a norm's ``scale``, an
+    ``embedding``)."""
+    out = {}
+    scanned = {n for n, m in module.named_modules()
+               if getattr(m, "scan_blocks", False)}
+    for mname, m in module.named_modules():
+        parts, path, depth = mname.split(".") if mname else [], [], None
+        while parts:
+            p = parts.pop(0)
+            if p in _FLAX_LIST and parts and parts[0].isdigit():
+                owner = ".".join(path)
+                if owner in scanned or (not owner and "" in scanned):
+                    if parts.pop(0) != "0":
+                        break   # a stack's leaves come from its block 0
+                    depth = len(module.get_submodule(
+                        ".".join(path + [p]) if path else p))
+                else:
+                    p = f"{_FLAX_LIST[p]}_{parts.pop(0)}"
+            path.append(p)
+        else:
+            for pname, prm in m.named_parameters(recurse=False):
+                leaf, shape = pname, tuple(prm.shape)
+                if isinstance(m, nn.Linear):
+                    feats = tuple(getattr(m, "flax_features",
+                                          (m.out_features,)))
+                    leaf = "kernel" if pname == "weight" else "bias"
+                    shape = (m.in_features,) + feats if pname == "weight" \
+                        else feats
+                elif isinstance(m, (nn.Conv2d, nn.Conv3d)) \
+                        and pname == "weight":
+                    leaf, shape = "kernel", shape[2:] + (shape[1], shape[0])
+                elif isinstance(m, _NORMS):
+                    leaf = {"weight": "scale", "bias": "bias"}[pname]
+                elif isinstance(m, nn.Embedding):
+                    leaf = "embedding"
+                if depth is not None:
+                    shape = (depth,) + shape
+                out["/".join(path + [leaf])] = shape
+    return out
+
+
+def flax_tree(shapes, dtype=np.float32):
+    """``flax_shapes``' paths as the nested tree of ``jax.ShapeDtypeStruct``
+    leaves that the JAX package's ``init`` would give."""
+    tree = {}
+    for path, shape in shapes.items():
+        *head, leaf = path.split("/")
+        node = tree
+        for h in head:
+            node = node.setdefault(h, {})
+        node[leaf] = jax.ShapeDtypeStruct(shape, dtype)
+    return tree
+
+
+def jax_params(jmodule, *inputs, seed=0, like=None, **kwargs):
     """The flax tree of ``jmodule`` with seeded numpy values: kernels
     N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), everything else N(0, 0.1²).
     ``eval_shape`` traces ``init`` (given ``inputs`` and ``kwargs``) without
-    compiling it."""
+    compiling it; given the port's counterpart ``like``, the tree is read
+    off it instead (``flax_shapes``: the same paths and shapes as the
+    traced tree, so the same values in the same order) and nothing is
+    traced."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(functools.partial(jmodule.init, **kwargs),
-                            jax.random.key(0), *inputs)
+    shapes = ({"params": flax_tree(flax_shapes(like))} if like is not None
+              else jax.eval_shape(functools.partial(jmodule.init, **kwargs),
+                                  jax.random.key(0), *inputs))
 
     def fill(path, leaf):
         name = str(path[-1].key)
@@ -207,8 +277,9 @@ def test_causal_vae3d_matches():
     video = rng.uniform(-1, 1, (1, 9, 32, 32, 3)).astype(np.float32)
     z = rng.standard_normal((1, 3, 8, 8, 16), dtype=np.float32)
     jm = JVAE3D(**cfg)
-    params = _params(jm, jnp.asarray(video))
-    pm = _port(PVAE3D(**cfg), params)
+    pm = PVAE3D(**cfg)
+    params = _params(jm, like=pm)
+    pm = _port(pm, params)
     with torch.no_grad():
         _close(pm.encode(_t(video)),
                _apply(jm, params, video, method=jm.encode))
@@ -224,8 +295,9 @@ def test_cogvideox_vae_matches():
     rng = np.random.default_rng(6)
     video = rng.uniform(-1, 1, (1, 9, 32, 32, 3)).astype(np.float32)
     jm = JCogVAE(**cfg)
-    params = _params(jm, jnp.asarray(video))
-    pm = _port(PCogVAE(**cfg), params)
+    pm = PCogVAE(**cfg)
+    params = _params(jm, like=pm)
+    pm = _port(pm, params)
     moments = _apply(jm, params, video, method=jm.encode)
     with torch.no_grad():
         _close(pm.encode(_t(video)), moments)

@@ -100,14 +100,14 @@ def test_stdit_through_k2_k4_matches(scan):
                scan_blocks=scan)
     x, ts, y, mask = _stdit_inputs(0, 2, 2, 32, 16, 32, 11)
     jm = JSTDiT(**cfg)
-    params = jax_params(jm, *map(jnp.asarray, (x, ts, y, mask)))
+    pm = PSTDiT(**cfg)
+    params = jax_params(jm, like=pm)
     old = JA._FA_INTERPRET
     JA._FA_INTERPRET = not scan
     try:
         ref = _apply(jm, params, x, ts, y, mask)
     finally:
         JA._FA_INTERPRET = old
-    pm = PSTDiT(**cfg)
     load_jax_params(pm, params)
     with torch.no_grad():
         out = pm(_t(x), _t(ts), _t(y), _t(mask))
@@ -137,9 +137,9 @@ def test_stdit_variants_match(name):
     x_mask = np.array([[True, False, True, True], [False] * 2 + [True] * 2])
     jm = JSTDiT(**cfg)
     kw = {"x_mask": jnp.asarray(x_mask)} if with_x_mask else {}
-    params = jax_params(jm, *map(jnp.asarray, (x, ts, y, mask)), **kw)
-    ref = _apply(jm, params, x, ts, y, mask, **kw)
     pm = PSTDiT(**cfg)
+    params = jax_params(jm, like=pm)
+    ref = _apply(jm, params, x, ts, y, mask, **kw)
     load_jax_params(pm, params)
     with torch.no_grad():
         out = pm(_t(x), _t(ts), _t(y), _t(mask),
@@ -163,8 +163,8 @@ def test_autoencoder_kl2d_matches():
     rng = np.random.default_rng(2)
     video = rng.uniform(-1, 1, (1, 4, 32, 32, 3)).astype(np.float32)
     jm = JVAE2D(**cfg)
-    params = jax_params(jm, jnp.asarray(video))
     pm = PVAE2D(**cfg)
+    params = jax_params(jm, like=pm)
     load_jax_params(pm, params)
     moments = _apply(jm, params, video, method=jm.encode)
     z = np.asarray(moments)[..., :4]
@@ -262,7 +262,8 @@ def test_tiny_t2v_end_to_end_matches_jax():
     jflow = jregistry.instantiate(jcfg["flow"])
     pflow = pregistry.instantiate(pcfg["flow"], device="cpu")
     ex = jflow.example_inputs()
-    params = {c: jax_params(getattr(jflow, c), *ex[c], seed=i)
+    params = {c: jax_params(getattr(jflow, c), *ex[c], seed=i,
+                            like=getattr(pflow, c))
               for i, c in enumerate(("denoiser", "first_stage",
                                      "cond_stage"))}
     load_flow_params(pflow, params)

@@ -81,12 +81,16 @@ def _jax_flow(path, overrides, denoiser_only):
     jcfg = jconfig.load_configs([path], list(overrides))
     jregistry.populate()
     jflow = jregistry.instantiate(jcfg["flow"])
+    # the port's flow, whose components give the trees' shapes untraced
+    pflow = pregistry.instantiate(
+        pconfig.load_configs([path], list(overrides))["flow"], device="cpu")
     if denoiser_only:
-        params = {"denoiser": jax_params(
-            jflow.denoiser, *jflow.example_inputs()["denoiser"])}
+        params = {"denoiser": jax_params(jflow.denoiser,
+                                         like=pflow.denoiser)}
     else:
-        params = (_flow_params(jflow) if jflow.cond_stage_2 is not None
-                  else _jax_params(jflow))
+        params = (_flow_params(jflow, pflow=pflow)
+                  if jflow.cond_stage_2 is not None
+                  else _jax_params(jflow, pflow=pflow))
     return jcfg, jflow, params
 
 

@@ -151,14 +151,14 @@ def test_wan_model_matches(monkeypatch, scan, img):
                scan_blocks=scan)
     args = _dit_inputs(7 + int(scan), img=img)
     jm = JWan(**cfg)
-    params = jax_params(jm, *map(jnp.asarray, args))
+    pm = PWan(**cfg)
+    params = jax_params(jm, like=pm)
     assert ("blocks" in params) == scan
     seen = _count_t128(monkeypatch)
     with _fixed_max():
         ref = _apply(jm, params, *args)
         assert set(seen) == {(192, 192), (192, 512)} | (
             {(192, 160)} if img else set())
-        pm = PWan(**cfg)
         load_jax_params(pm, params)
         with torch.no_grad():
             out = pm(*map(_t, args))
@@ -182,8 +182,8 @@ def wan_vae():
     video = np.random.default_rng(3).uniform(
         -1, 1, (1, 9, 32, 32, 3)).astype(np.float32)
     jm = jwanvae.WanVAE(**cfg)
-    params = jax_params(jm, jnp.asarray(video))
     pm = pwanvae.WanVAE(**cfg)
+    params = jax_params(jm, like=pm)
     load_jax_params(pm, params)
     return jm, params, pm, video
 
@@ -280,7 +280,8 @@ def narrow_flows():
     jflow = jregistry.instantiate(jcfg["flow"])
     pflow = pregistry.instantiate(pcfg["flow"], device="cpu")
     ex = jflow.example_inputs()
-    params = {c: jax_params(getattr(jflow, c), *ex[c], seed=i)
+    params = {c: jax_params(getattr(jflow, c), *ex[c], seed=i,
+                            like=getattr(pflow, c))
               for i, c in enumerate(("denoiser", "first_stage",
                                      "cond_stage"))}
     load_flow_params(pflow, params)

@@ -65,7 +65,8 @@ def i2v_flows():
     jflow = jregistry.instantiate(jcfg["flow"])
     pflow = pregistry.instantiate(jcfg["flow"], device="cpu")
     ex = jflow.example_inputs()
-    params = {c: jax_params(getattr(jflow, c), *ex[c], seed=i)
+    params = {c: jax_params(getattr(jflow, c), *ex[c], seed=i,
+                            like=getattr(pflow, c))
               for i, c in enumerate(("denoiser", "first_stage", "cond_stage",
                                      "cond_stage_2"))}
     load_flow_params(pflow, params)

@@ -154,13 +154,12 @@ _SLICE_E = "ROADMAP.md queue 1, item 8 (slice E: the other families)"
 _COGVIDEOX_I2V_TRAIN = ("ROADMAP.md queue 1, item 3 (CogVideoX i2v "
                         "training), and queue 3's i2v-training fault: no "
                         "dataset or trainer fills batch['image_latents']")
-_UNET_TRAIN = ("ROADMAP.md queue 1, item 8 (UNet3D training: the d=64 "
-               "backward, K7 at the even-head levels and K8 at the 5-head "
-               "level)")
+_DC_TRAIN = ("ROADMAP.md queue 3's DynamiCrafter training fault: the JAX "
+             "package's training_loss builds no image latents, so its "
+             "8-channel UNet gets the 4 latent channels (and no image "
+             "tokens), and no dataset fills them")
 WAITING: Dict[str, str] = {
-    "train-videocrafter-v2": _UNET_TRAIN,
-    "train-videocrafter-lora": _UNET_TRAIN,
-    "train-dynamicrafter": _UNET_TRAIN,
+    "train-dynamicrafter": _DC_TRAIN,
     "train-cogvideox-i2v-lora": _COGVIDEOX_I2V_TRAIN,
     "train-cogvideox-i2v-fullft": _COGVIDEOX_I2V_TRAIN
     + "; its mesh {dp: 1, fsdp: 4} waits for queue 1, item 10.1",

@@ -1,5 +1,6 @@
 """Inference CLI of the port: YAML + CLI merge → flow on the chosen device →
-seeded random weights → monitored ``flow.inference(config)``.
+seeded random weights, then the checkpoint's (``--ckpt`` or
+``flow.pretrained``) → monitored ``flow.inference(config)``.
 
 Usage:
     python -m videotuna_tpu_torch.cli.inference --config configs/.../x.yaml \
@@ -29,7 +30,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu must be asked for)")
     p.add_argument("--ckpt", default=None,
-                   help="checkpoint dir (not ported yet)")
+                   help="checkpoint of the port (a step dir, or a root whose "
+                        "newest step dir is taken; overrides "
+                        "flow.pretrained)")
     p.add_argument("--lora", default=None, metavar="PATH",
                    help="LoRA-only checkpoint of the port's trainer (a "
                         "step_<n> dir or its lora.pt) to merge into the "
@@ -86,10 +89,6 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
         v = getattr(args, k)
         if v is not None:
             inf[k] = v
-    if args.ckpt or config["flow"].get("pretrained"):
-        raise NotImplementedError(
-            "checkpoint loading is not ported yet: weights are random from "
-            "the seed, or carried across with tools/from_jax.py")
     if str(inf.get("quantize", "")) == "int8":
         raise NotImplementedError(
             "int8 serving waits for the quantization slice")
@@ -106,9 +105,14 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
 
     populate()
     flow = instantiate(config["flow"], device=args.device)
-    print("[videotuna-tpu-torch] no checkpoint given — using random init",
-          file=sys.stderr)
+    # seeded weights first: a component the checkpoint lacks keeps them
     flow.init_params(seed=int(inf.get("seed", 0)))
+    ckpt = args.ckpt or config["flow"].get("pretrained")
+    if ckpt:
+        flow.from_pretrained(ckpt)
+    else:
+        print("[videotuna-tpu-torch] no checkpoint given — using random "
+              "init", file=sys.stderr)
     if args.lora:
         merge_lora_checkpoint(flow, args.lora, args.lora_alpha, config)
     result, metrics = monitor_resources()(flow.inference)(config)

@@ -1,6 +1,7 @@
 """Training CLI of the port: YAML + CLI merge → flow on the chosen device
-with seeded random weights → dataset and loader → ``Trainer.fit`` with
-auto-resume, the counterpart of ``videotuna_tpu/cli/train.py``.
+with seeded random weights, then ``flow.pretrained``'s → dataset and
+loader → ``Trainer.fit`` with auto-resume, the counterpart of
+``videotuna_tpu/cli/train.py``.
 
 Usage:
     python -m videotuna_tpu_torch.cli.train --config configs/.../x.yaml \
@@ -46,11 +47,6 @@ def build_trainer(argv: Optional[List[str]] = None):
     check_required(config, ["flow.target", "train"])
     if not args.quiet:
         print(format_config(config, "train config"))
-    if config["flow"].get("pretrained"):
-        raise NotImplementedError(
-            "flow.pretrained: the port reads no JAX (orbax) checkpoint; "
-            "weights are random from the seed, or carried across with "
-            "tools/from_jax.py")
 
     tcfg_raw = dict(config.get("train", {}))
     mesh_cfg = tcfg_raw.pop("mesh", None) or {}
@@ -67,6 +63,9 @@ def build_trainer(argv: Optional[List[str]] = None):
     populate()
     flow = instantiate(config["flow"], device=args.device)
     flow.init_params(seed=seed)
+    if config["flow"].get("pretrained"):
+        # a checkpoint of the port: save_pretrained's or ckpt_tools'
+        flow.from_pretrained(config["flow"]["pretrained"])
 
     data_cfg = config.get("data", {})
     if "dataset" not in data_cfg:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from videotuna_tpu_torch.core import checkpoint as ckpt_lib
 from videotuna_tpu_torch.core.config import resolve_device, resolve_dtype
 from videotuna_tpu_torch.core.monitor import save_metrics
 from videotuna_tpu_torch.core.prng import KeyChain
@@ -108,6 +109,47 @@ class GenerationFlow:
         keys = KeyChain(seed, self.device)
         for name, module in self.components().items():
             init_weights_(module, keys(f"init_{name}"))
+
+    # ----------------------------------------------------------- checkpoints
+    def save_pretrained(self, path: str, step: int = 0,
+                        only_trained: bool = False) -> str:
+        """Each component's ``state_dict`` (only the trainable ones with
+        ``only_trained``) as ``path/step_<step>/<component>.pt``; returns
+        the step dir."""
+        comps = {name: module.state_dict()
+                 for name, module in self.components().items()
+                 if not only_trained or name in self.trainable_components}
+        return ckpt_lib.save_components(path, step, comps)
+
+    def from_pretrained(self, path: str) -> "GenerationFlow":
+        """Load the components saved under ``path``, a step dir or a root
+        whose newest ``step_<n>`` dir is taken (as
+        ``ckpt_tools convert`` and ``save_pretrained`` write them), each
+        strictly into its module; a component without a file keeps its
+        weights.  A JAX (orbax) step dir cannot be read: orbax needs
+        JAX."""
+        def holds(d):
+            return any(os.path.isfile(os.path.join(d, f"{c}.pt"))
+                       for c in COMPONENT_NAMES)
+
+        step_dir = path
+        if not holds(path):
+            step_dir = ckpt_lib.latest_step_dir(path)
+            if step_dir is None or not holds(step_dir):
+                if any(os.path.isdir(os.path.join(d, c))
+                       for d in {path, step_dir or path}
+                       for c in COMPONENT_NAMES):
+                    raise NotImplementedError(
+                        f"{path} holds an orbax checkpoint of the JAX "
+                        "package; convert the upstream checkpoint with "
+                        "videotuna_tpu_torch.tools.ckpt_tools instead")
+                raise FileNotFoundError(f"No checkpoint under {path}")
+        comps = self.components()
+        restored = ckpt_lib.restore_components(step_dir, comps,
+                                               map_location=self.device)
+        for name, state in restored.items():
+            comps[name].load_state_dict(state)
+        return self
 
     # ------------------------------------------------------------ components
     @torch.no_grad()

@@ -107,7 +107,18 @@ class VideocrafterFlow(GenerationFlow):
         v), the text states zeroed for the samples ``drop`` (B,) bool marks
         (drawn at ``uncond_prob``), a NaN sample counted as 0.  ``batch``:
         "video" or "latents", "text_states", optionally "fps"; ``t``,
-        ``noise``, ``posterior_noise`` and ``drop`` replace the draws."""
+        ``noise``, ``posterior_noise`` and ``drop`` replace the draws.
+
+        A UNet with more input channels than the latents (DynamiCrafter's
+        8) raises a ``ValueError``: the JAX package's loss passes it no
+        image latents and fails on the shape (ROADMAP.md queue 3); the port
+        invents no image path."""
+        if self.denoiser.in_channels > self.latent_channels:
+            raise ValueError(
+                f"training_loss: the UNet takes {self.denoiser.in_channels} "
+                f"input channels but the loss builds {self.latent_channels} "
+                "(no image latents): DynamiCrafter training is a fault of "
+                "the JAX package, ROADMAP.md queue 3")
         z = batch.get("latents")
         if z is None:
             z = self.encode_video(batch["video"], generator,

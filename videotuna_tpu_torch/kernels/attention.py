@@ -26,17 +26,21 @@ math path.  The kernels it can reach, and where each is in the port:
   without a key mask (LLaMA's causal K2) ``csrc/flash_fwd_f32_sm90.cu``
   (split key ranges, a cp.async ring, three bf16 products a product);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
-  on the same two kernels as K2, and in bf16 at d = 128 under the fixed max
-  on K3's Hopper kernel, which writes the LSE too;
+  on the same two kernels as K2 (in bf16 at d = 64 the persistent kernel:
+  the UNet's 5-head level and its short cross-attention), and in bf16 at
+  d = 128 under the fixed max on K3's Hopper kernel, which writes the LSE
+  too;
 - K7 (d=64 single-pass backward) and its two-kernel baseline K10:
   ``flash_bwd``, launching in bf16 the Hopper kernel
-  ``csrc/flash_bwd_sm90.cu`` (single pass, TMA, wgmma);
+  ``csrc/flash_bwd_sm90.cu`` (single pass, TMA, wgmma), over keys that fit
+  one tile the short-row kernel below;
 - K8 (generic and masked single-pass backward, d ≤ 256) and its two-kernel
   baseline K9: ``flash_bwd``, launching in bf16 at d = 72 and 80,
   non-causal, the short-row Hopper kernel ``csrc/flash_bwd_rows_sm90.cu``
-  (single pass, persistent, the key mask as bit words), in bf16 at d = 128,
-  non-causal and unmasked, K7's kernel ``csrc/flash_bwd_sm90.cu`` at its
-  width 128, else ``csrc/flash_bwd.cu``;
+  (single pass, persistent, the key mask as bit words), in bf16 at d = 64
+  and 128, non-causal and unmasked, K7's kernel ``csrc/flash_bwd_sm90.cu``
+  at that width (at d = 64 over keys that fit one tile the short-row
+  kernel: ``_bwd_kernel``), else ``csrc/flash_bwd.cu``;
 - K3 (d ≤ 128 non-causal fixed max, the qk-normed denoisers' sampling
   forward): ``flash_fwd`` with ``static_max``, counted as K3; at d = 64,
   72, 80 and 128 in bf16 it launches ``csrc/flash_fwd_sm90.cu`` (TMA,
@@ -90,18 +94,20 @@ _KERNELS = {
           "csrc/flash_fwd_sm90.cu (persistent, key mask) at d=72 and 80 in "
           "bf16, else csrc/flash_fwd.cu",
     "K5": "generic flash forward with the LSE (_flash_forward_lse): "
-          "flash_fwd with emit_lse, csrc/flash_fwd_sm90.cu at d=72 and 80 "
-          "in bf16 (non-causal) and at d=128 under the fixed max (K3's "
+          "flash_fwd with emit_lse, csrc/flash_fwd_sm90.cu at d=64, 72 and "
+          "80 in bf16 (non-causal) and at d=128 under the fixed max (K3's "
           "kernel), else csrc/flash_fwd.cu",
     "K6": "d=64 natural-layout packed forward (_flash_packed2): "
           "flash_fwd route K6, K1's kernel in online mode, its keys split "
           "into ranges at short query sides",
     "K7": "single-pass d=64 flash backward (_flash_bwd_packed2): "
-          "csrc/flash_bwd_sm90.cu",
+          "csrc/flash_bwd_sm90.cu, csrc/flash_bwd_rows_sm90.cu over keys "
+          "that fit one tile",
     "K8": "single-pass generic and kv_valid-masked flash backward "
           "(flash_attention_bwd): csrc/flash_bwd_rows_sm90.cu at d=72 and "
-          "80 in bf16 (non-causal), csrc/flash_bwd_sm90.cu at d=128 in "
-          "bf16 (non-causal, unmasked), else csrc/flash_bwd.cu",
+          "80 in bf16 (non-causal) and at d=64 over keys that fit one "
+          "tile, csrc/flash_bwd_sm90.cu at d=64 and 128 in bf16 "
+          "(non-causal, unmasked), else csrc/flash_bwd.cu",
     "K9": "two-kernel generic flash backward (flash_attention_bwd, "
           "single_pass=False): mapped onto K8's kernels",
     "K10": "two-kernel d=64 flash backward (_flash_bwd_packed2, "
@@ -282,9 +288,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else "K2"; ``flash_attention`` passes "K1" (d=64, even heads) and "K6"
     (``pack2=True``) and "K3" for its fixed-max route at d ≤ 128, the
     training forward "K1" or "K5".  The calls ``_fwd_design`` names "sm90"
-    (bf16, non-causal: K1, K2 and K6 at d = 64; K2, K3, K5 and the masked
-    K4 at d = 72 or 80; K3 at d = 64 without the LSE; K3 and K5 at d = 128
-    under the fixed max, with or without the LSE) launch
+    (bf16, non-causal: K1, K2, K5 and K6 at d = 64; K2, K3, K5 and the
+    masked K4 at d = 72 or 80; K3 at d = 64 without the LSE; K3 and K5 at
+    d = 128 under the fixed max, with or without the LSE) launch
     ``csrc/flash_fwd_sm90.cu`` and add one to
     ``flash_fwd.launches_sm90[route]``, at d = 128 (K3's kernel) also to
     ``flash_fwd.launches_d128[route]``; q, k or v that TMA cannot read in
@@ -411,9 +417,10 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
                 static_max: Optional[float]) -> str:
     """Which forward kernel a CUDA call launches, from its route, dtype,
     width and options alone: "sm90" (``csrc/flash_fwd_sm90.cu``: TMA,
-    wgmma, warp-specialised) for bf16 non-causal calls of K1, K2 and K6 at
-    d = 64, of K2, K3, K5 and the masked K4 at d = 72 or 80 (the persistent
-    kernel: online or fixed max, with or without the LSE), of the
+    wgmma, warp-specialised) for bf16 non-causal calls of K1, K2, K5 and
+    K6 at d = 64, of K2, K3, K5 and the masked K4 at d = 72 or 80 (the
+    persistent kernel: online or fixed max, with or without the LSE), of
+    the
     fixed-max route K3 without the LSE at d = 64 (the persistent kernel),
     and of the fixed-max routes K3 and K5 at d = 128, with or without the
     LSE (K3's kernel); "f32" (``csrc/flash_fwd_f32_sm90.cu``: split key
@@ -427,7 +434,7 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
         return "mma"
     if kv_valid is not None:
         return "sm90" if route == "K4" and d in (72, 80) else "mma"
-    if d == 64 and route in ("K1", "K2", "K6"):
+    if d == 64 and route in ("K1", "K2", "K5", "K6"):
         return "sm90"
     if d in (72, 80) and route in ("K2", "K3", "K5"):
         return "sm90"
@@ -692,11 +699,15 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and unmasked, "K8" otherwise, and under ``single_pass=False`` "K10" and
     "K9" for the same two cases, whose two-kernel TPU baselines compute the
     same function.  The calls ``_bwd_design`` names "sm90" add one to
-    ``flash_bwd.launches_sm90[route]``: K7 and K10 run the single-pass
-    ``csrc/flash_bwd_sm90.cu``, and so do K8 and K9 in bf16 at d = 128,
-    non-causal and unmasked (counted in ``flash_bwd.launches_d128`` too);
-    K8 and K9 in bf16 at d = 72 or 80, non-causal, with or without
-    ``kv_valid``, run the short-row ``csrc/flash_bwd_rows_sm90.cu``, which
+    ``flash_bwd.launches_sm90[route]``, and run the Hopper kernel that
+    ``_bwd_kernel`` names from the width and key length: K7 and K10 run
+    the single-pass ``csrc/flash_bwd_sm90.cu``, and so do K8 and K9 in bf16
+    at d = 64 and 128, non-causal and unmasked (at 128 counted in
+    ``flash_bwd.launches_d128`` too), but at d = 64 over keys that fit one
+    128-key tile; those, and K8 and K9 in bf16 at d = 72 or 80, non-causal,
+    with or without ``kv_valid``, run the short-row
+    ``csrc/flash_bwd_rows_sm90.cu`` (counted in
+    ``flash_bwd.launches_rows`` too), which
     reads the key mask as ``mask_words`` (``_pack_mask_words`` of
     ``kv_valid``, as the masked training forward packed them) or packs it
     first.  On both Hopper designs tensors TMA cannot read in place are
@@ -729,7 +740,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             == "mma":
         res = _flash_bwd_mma(q, k, v, out, dout, lse, sm_scale, causal,
                              kv_valid)
-    elif d in (64, 128):
+    elif _bwd_kernel(d, sk) == "sm90":
         res = _flash_bwd_sm90(q, k, v, out, dout, lse, sm_scale)
         flash_bwd.launches_sm90[route] += 1
         if d == 128:
@@ -739,6 +750,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask_words = _pack_mask_words(kv_valid, b, sk)
         res = _flash_bwd_rows(q, k, v, out, dout, lse, sm_scale, mask_words)
         flash_bwd.launches_sm90[route] += 1
+        flash_bwd.launches_rows[route] += 1
     flash_bwd.launches[route] += 1
     return res
 
@@ -751,6 +763,9 @@ flash_bwd.launches_sm90 = {"K7": 0, "K8": 0, "K9": 0, "K10": 0}
 # of those, the launches at d = 128 (flash_bwd_sm90.cu's width 128), per
 # route
 flash_bwd.launches_d128 = dict(flash_bwd.launches_sm90)
+# of those, the launches of the short-row kernel (flash_bwd_rows_sm90.cu),
+# per route
+flash_bwd.launches_rows = dict(flash_bwd.launches_sm90)
 # q, k, v, out or dout copied because TMA could not read it in place
 flash_bwd.tma_copies = 0
 
@@ -761,15 +776,30 @@ def _bwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     width and options alone: "sm90" for bf16 non-causal calls of K7 and
     K10 (d=64, unmasked: ``csrc/flash_bwd_sm90.cu``), of K8 and K9 at
     d = 72 or 80, masked or not (``csrc/flash_bwd_rows_sm90.cu``), and of
-    K8 and K9 at d = 128, unmasked (``csrc/flash_bwd_sm90.cu``); "mma"
-    (``csrc/flash_bwd.cu``) for everything else."""
+    K8 and K9 at d = 64 or 128, unmasked (``csrc/flash_bwd_sm90.cu``: at
+    64 the UNet's 5-head level), a d = 64 call over one key tile on the
+    short-row kernel (``_bwd_kernel``); "mma" (``csrc/flash_bwd.cu``) for
+    everything else."""
     if dtype != torch.bfloat16 or causal:
         return "mma"
     if route in ("K7", "K10"):
         return "sm90" if d == 64 and not masked else "mma"
-    if d == 128:
+    if d in (64, 128):
         return "mma" if masked else "sm90"
     return "sm90" if d in (72, 80) else "mma"
+
+
+def _bwd_kernel(d: int, sk: int) -> str:
+    """Which Hopper backward a call that ``_bwd_design`` names "sm90"
+    launches, from its width and key length alone: the short-row
+    ``csrc/flash_bwd_rows_sm90.cu`` ("rows") at d = 72 and 80, and at
+    d = 64 when the keys fit one 128-key tile (the UNet's cross-attention
+    over 77 text keys, where it beat ``flash_bwd_sm90`` at two of the
+    three shapes and over a training step's calls together, PERF.md);
+    ``csrc/flash_bwd_sm90.cu`` ("sm90") otherwise."""
+    if d in (72, 80) or (d == 64 and sk <= 128):
+        return "rows"
+    return "sm90"
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
@@ -821,9 +851,10 @@ _BWD_SM90_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
 def _flash_bwd_sm90(q, k, v, out, dout, lse, sm_scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_bwd_sm90.cu`` (bf16, non-causal, unmasked: K7
-    and K10 at d = 64, K8 and K9 at d = 128) → dq, dk, dv, with its f32
-    scratch: lse2 and delta rows padded to 64 queries, and the zeroed dq
-    accumulator (B·H, Sq_pad, d): 92 MB at HunyuanVideo's training shape,
+    and K10 at d = 64, K8 and K9 at d = 64 and 128) → dq, dk, dv, with
+    its f32 scratch: lse2 and delta rows padded to 64 queries, and the
+    zeroed dq accumulator (B·H, Sq_pad, d): 92 MB at HunyuanVideo's
+    training shape,
     freed when the call returns.  q, k, v, out or dout that TMA (or the
     prep kernel's 16-byte loads) cannot read in place is copied first."""
     q, k, v, out, dout = (_tma_ready(x, flash_bwd)
@@ -1047,7 +1078,8 @@ def _flash_bwd_rows(q, k, v, out, dout, lse, sm_scale: float,
                     words: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_bwd_rows_sm90.cu`` (K8 and K9: bf16, d = 72 or
-    80, non-causal, the key mask as its ``words`` or none) → dq, dk, dv,
+    80, non-causal, the key mask as its ``words`` or none; K7 and K8 at
+    d = 64, unmasked, over one key tile) → dq, dk, dv,
     on the plan of ``_bwd_rows_plan``.  Scratch only for the atomic mode
     (a zeroed f32 dq accumulator) and for a head split into several units
     (their f32 dK, dV partials, which a second launch sums: 10 MB at STDiT's

@@ -1,5 +1,6 @@
 // Single-pass flash-attention backward for Hopper (sm_90a) at the short
-// rows of Open-Sora STDiT: bf16, head width 72 or 80, non-causal, with or
+// rows of Open-Sora STDiT: bf16, head width 72 or 80 (or 64, the UNet's
+// short cross-attention, through the same boxes), non-causal, with or
 // without a key mask.  TMA loads, wgmma products, a producer warpgroup and
 // two consumer warpgroups, a persistent grid.
 //
@@ -662,8 +663,9 @@ int launch(const CUtensorMap* m, const Params& p, cudaStream_t stream) {
 
 // Returns the CUDA error of the launches (0 on success);
 // cudaErrorInvalidValue for what the kernel does not take: a head width
-// other than 72 or 80, a tensor TMA cannot read in place, or a plan it
-// cannot run.  The caller's plan: `atomic` 1 for the atomic mode, whose
+// other than 64, 72 or 80 (at 64 the 16-column box lies wholly past d and
+// TMA fills it with zeros, as it does columns 72-79 at 72), a tensor TMA
+// cannot read in place, or a plan it cannot run.  The caller's plan: `atomic` 1 for the atomic mode, whose
 // `scratch` is B*H*ceil(Sq/64)*64*80 f32 zeros; else rows mode with units
 // of `unit_m` query tiles, which must hold every query tile of a head
 // whose keys span several key tiles (at most 4), and over one key tile may
@@ -682,7 +684,8 @@ extern "C" int flash_bwd_rows_sm90_bf16(
     long long dk_sh, long long dv_sb, long long dv_ss, long long dv_sh,
     float sm_scale, int atomic, int unit_m, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if ((d != 72 && d != 80) || B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0)
+  if ((d != 64 && d != 72 && d != 80) || B <= 0 || H <= 0 || Sq <= 0 ||
+      Sk <= 0)
     return invalid;
   Params p;
   p.lse = static_cast<const float*>(lse);
