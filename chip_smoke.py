@@ -6,6 +6,8 @@
     python3 chip_smoke.py --cogvideox
     python3 chip_smoke.py --videocrafter
     python3 chip_smoke.py --vc-train [kernels|train]
+    python3 chip_smoke.py --stepvideo
+    python3 chip_smoke.py --mochi
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
@@ -16,7 +18,8 @@ CogVideoX I2V and 1.5 phases (28–33) and prints their figures as a JSON
 line before the result line.  The fifth runs only the VideoCrafter,
 DynamiCrafter and Wan I2V phases (34–40), likewise.  The sixth runs only
 the VideoCrafter2 training phases (41–44; "kernels": 41 and 42, "train":
-43 and 44), likewise.
+43 and 44), likewise.  The seventh and the eighth run only phase 45 and
+the StepVideo phases (46, 47, 49) or the Mochi ones (48, 50), likewise.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -384,19 +387,49 @@ without a result line:
 44. train-vc2-lora — ``train-videocrafter-lora`` (rank 16 on the config's
                 targets) from ``flow.pretrained`` = phase 43's step dir,
                 whose UNet it must hold exactly, 3 steps as phase 43.
+45. K-step    — StepVideo's and Mochi's d=128 attention on K3's Hopper
+                kernel at the sampling shapes (B=2, bf16): the self-
+                attention with the online max (K2, 12,648², H=48), the
+                cross-attention online with the key mask (K4, 12,648 × 77
+                CLIP + 320 caption keys, H=48) and Mochi's joint attention
+                under the fixed max 0 with the key mask (K4, 22,516²,
+                H=24), each mask as all keys valid, a caption prefix, and
+                the two batch rows padded apart, against the plain version
+                (2e-2 of max|o|); timed beside flash_fwd.cu on the same
+                tensors (in turns), the plain version, SDPA (with the
+                boolean mask) and the bound of the kept keys; StepLLM's f32
+                causal K2 at 320 tokens (48 heads) on the f32 design.
+46. reference-step — StepVideo's DiT narrow (dim 256, 2 heads of d=128, 2
+                layers) in bf16 on the card against f32 on the CPU, one
+                call at B=2 over 256 tokens with a ragged caption (3e-2).
+47. e2e-stepvideo — ``inference-stepvideo-t2v-544x992`` at 51×544×992
+                (12,648 tokens), the DiT at full width and depth in bf16,
+                with ``inference.mesh.tp=1``, 2 of 50 steps, StepLLM (f32)
+                cut to 4 of 48 layers to fit one card; every self-attention
+                on K2 and every cross-attention on K4 at d=128 on K3's
+                kernel, every StepLLM attention on the f32 design.
+48. reference-mochi — Mochi's DiT narrow (dim 256 / 64, 3 blocks) likewise
+                over 128 video and 16 caption tokens (K4, fixed max 0).
+49. dit-stepvideo-48 — one denoiser call of the 48-layer DiT alone (58 GB
+                bf16), B=2: step time and peak memory.
+50. e2e-mochi — ``inference-mochi`` at 84×480×848 (22,516 tokens) at full
+                width and depth, 2 of 64 steps, 4 of 14 latent frames
+                decoded; every joint attention on K4 at d=128.
 
 They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
-33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 41–44, 20, 22.
+33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 41–44, 45–47, 49, 50,
+20, 22 (48 runs after 46).
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18, 25, 32, 35, 42) turn TF32 off inside ``tf32_off`` and restore
-the flags.
+(7, 9, 15, 18, 25, 32, 35, 42, 46, 48) turn TF32 off inside ``tf32_off``
+and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the thirteen sampling runs and the five training runs) and read just
+(the fifteen sampling runs and the five training runs) and read just
 after;
-in each, no launch splits its keys but LLaMA's f32 K2;
+in each, no launch splits its keys but LLaMA's and StepLLM's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those eighteen runs, per design and, for the Hopper
+launches summed over those twenty runs (and phase 49's), per design and,
+for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
 training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
 width 128) apart from STDiT's d=72 K5 and K8, and one for the case of a
@@ -2706,13 +2739,12 @@ def check_k3(A) -> dict:
             raise AssertionError(f"K3 disagrees with its plain version "
                                  f"({label}), or did not launch "
                                  f"flash_fwd_sm90 in place")
-        # the old design (flash_fwd.cu, reached through route K2) on the same
-        # tensors
-        old = A.flash_fwd(q, k, v, sm_scale=d ** -0.5, static_max=0.0)
+        # the old design (flash_fwd.cu) on the same tensors
+        old = A._flash_fwd_mma(q, k, v, d ** -0.5, False, None, 0.0, False)
         torch.cuda.synchronize()
         old_err = (old.float() - ref.float()).abs().max().item()
-        log("K3", case=label, compare="flash_fwd (the mma.sync design, "
-            "route K2) on the same tensors", max_abs_err=f"{old_err:.3e}",
+        log("K3", case=label, compare="flash_fwd.cu (the mma.sync design) "
+            "on the same tensors", max_abs_err=f"{old_err:.3e}",
             tol=f"{FWD_TOL * scale:.3e}", ok=old_err <= FWD_TOL * scale)
         if old_err > FWD_TOL * scale:
             raise AssertionError(f"flash_fwd disagrees at K3's shape "
@@ -2722,8 +2754,8 @@ def check_k3(A) -> dict:
     bound_ms, bound_by = _bound(flops, 4 * q.numel() * q.element_size())
     ms = cuda_time_ms(lambda: A.flash_attention(q, k, v, static_max=0.0),
                       reps=3)
-    old_ms = cuda_time_ms(lambda: A.flash_fwd(q, k, v, sm_scale=d ** -0.5,
-                                              static_max=0.0), reps=3)
+    old_ms = cuda_time_ms(lambda: A._flash_fwd_mma(
+        q, k, v, d ** -0.5, False, None, 0.0, False), reps=3)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=3)
     log("K3", case="hunyuan 13B joint timing", kernel="flash_fwd_sm90",
@@ -4464,6 +4496,464 @@ def check_train_reference_vc(A, control: float = 0.0) -> None:
     _free()
 
 
+# ------------------------------------------------------ StepVideo and Mochi
+CONFIG_STEP = os.path.join(ROOT, "configs", "009_stepvideo",
+                           "stepvideo_t2v.yaml")
+CONFIG_MOCHI = os.path.join(ROOT, "configs", "010_mochi", "mochi_t2v.yaml")
+STEP_COMMAND = "inference-stepvideo-t2v-544x992"
+MOCHI_COMMAND = "inference-mochi"
+STEP_PROMPT = "a koi pond at dusk, ripples spreading under lanterns"
+MOCHI_PROMPT = "a paper boat drifting down a rain gutter after a storm"
+# StepVideo at 51×544×992: 6×34×62 latents, 12,648 tokens at patch
+# (1, 1, 1); 48 heads of d = 128; its cross-attention's keys are the CLIP's
+# 77 tokens (always valid) before the 320 caption tokens.  B=2 under CFG
+STEP_TOKENS = 6 * 34 * 62
+STEP_CLIP, STEP_CAPTION = 77, 320
+STEP_HEADS = 48
+STEP_STEPS = 2               # of the config's 50: every step costs the same
+STEP_DEPTH = 48              # DiT layers: a self- and a cross-attention each
+# StepLLM in the config's f32 at 4 of its 48 layers (1.56 GB a layer), so
+# that the 58 GB bf16 DiT at full depth, the CLIP and the VAE fit beside it
+STEP_LLM_LAYERS = 4
+# Mochi at 84×480×848: 14×60×106 latents, 14×30×53 = 22,260 video tokens
+# after the 2×2 patch, + 256 caption keys; 24 heads of d = 128.  B=2
+MOCHI_VIDEO, MOCHI_TEXT = 14 * 30 * 53, 256
+MOCHI_HEADS = 24
+MOCHI_STEPS = 2              # of the config's 64
+MOCHI_DEPTH = 48
+# latent frames decoded (of 14): 19 pixel frames at 480×848, as many as
+# leave the f32 decode room beside the DiT's and the T5's weights
+MOCHI_DECODE_LATENT_FRAMES = 4
+# K-step's key masks: (name, valid keys after the always-valid lead, row 0
+# and row 1): all valid, a caption prefix in both rows, rows padded apart
+STEP_MASKS = (("all_valid", None, None), ("caption_prefix", 30, 30),
+              ("ragged_rows", 120, 9))
+MOCHI_MASKS = (("all_valid", None, None), ("caption_prefix", 40, 40),
+               ("ragged_rows", 200, 5))
+
+
+def _lead_mask(b, lead, caption, rows):
+    """(B, lead + caption) bool: the lead keys valid, then row i's first
+    rows[i] caption keys (all where None)."""
+    m = torch.zeros((b, lead + caption), dtype=torch.bool, device="cuda")
+    m[:, :lead] = True
+    for i, n in enumerate(rows):
+        m[i, lead:lead + (caption if n is None else n)] = True
+    return m
+
+
+def _plain_masked_chunked(A, q, k, v, kv_valid, static_max, rows=256):
+    """The plain version over all query rows, a block of rows at a time."""
+    return torch.cat([A.flash_fwd_plain(
+        q[:, i:i + rows], k, v, sm_scale=q.shape[-1] ** -0.5,
+        kv_valid=kv_valid, static_max=static_max)
+        for i in range(0, q.shape[1], rows)], dim=1)
+
+
+def _step_case(A, label, q, k, v, masks, lead, caption, static_max, rec):
+    """K2 (no mask) or K4 (each of ``masks``) at d = 128 through
+    ``flash_attention`` against its plain version, counted on the route, on
+    flash_fwd_sm90 and at d = 128 once a call; then timed on the last
+    mask's tensors beside flash_fwd.cu (in turns: new, old, old, new), the
+    plain version, SDPA (with the boolean mask where there is one) and the
+    bound of the keys that the mask keeps."""
+    route = "K2" if masks is None else "K4"
+    b, sq, h, d = q.shape
+    kw = {} if static_max is None else {"static_max": static_max}
+    mask = None
+    for name, r0, r1 in masks or (("no_mask", None, None),):
+        mask = None if masks is None else _lead_mask(b, lead, caption,
+                                                     (r0, r1))
+        counts = lambda: (A.flash_fwd.launches[route],
+                          A.flash_fwd.launches_sm90[route],
+                          A.flash_fwd.launches_d128[route])
+        before = counts()
+        out = A.flash_attention(q, k, v, kv_valid=mask, **kw)
+        torch.cuda.synchronize()
+        launched = counts()
+        t0 = time.perf_counter()
+        ref = _plain_masked_chunked(A, q, k, v, mask, static_max)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        ok = (err <= FWD_TOL * scale and bool(torch.isfinite(out).all())
+              and launched == tuple(n + 1 for n in before))
+        log("K-step", case=f"{label} {name}",
+            shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}", route=route,
+            kernel="flash_fwd_sm90 (K3's kernel, d=128)",
+            softmax="online" if static_max is None else f"fixed {static_max}",
+            valid_keys=(None if mask is None
+                        else mask.sum(1).tolist()),
+            key_tail=k.shape[1] % 128, max_abs_err=f"{err:.3e}",
+            tol=f"{FWD_TOL * scale:.3e}", plain_ms=f"{plain_ms:.1f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"{route} at d=128 disagrees with its plain "
+                                 f"version ({label}, {name}) or did not "
+                                 "launch K3's kernel")
+        rec.setdefault("max_abs_err", 0.0)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del out, ref
+    valid = (torch.full((b,), k.shape[1], device="cuda") if mask is None
+             else mask.sum(1)).sum().item()
+    flops = 4.0 * h * sq * valid * d
+    io_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = _bound(flops, io_bytes,
+                                _exp2_floor_ms(h * sq * valid))
+    new = lambda: A.flash_attention(q, k, v, kv_valid=mask, **kw)
+    old = lambda: A._flash_fwd_mma(q, k, v, d ** -0.5, False, mask,
+                                   static_max, False)
+    t = [cuda_time_ms(fn, reps=10) for fn in (new, old, old, new)]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_kw = {} if mask is None else {"attn_mask": mask[:, None, None, :]}
+    library_ms, backend = sdpa_ms((qt, kt, vt), lib_kw, reps=10)
+    del qt, kt, vt
+    rec.update(ms=min(t[0], t[3]), old_design_ms=min(t[1], t[2]),
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms)
+    log("K-step", case=f"{label} timing", ms=f"{rec['ms']:.3f}",
+        turns="/".join(f"{x:.3f}" for x in t),
+        old_design="flash_fwd.cu", old_design_ms=f"{rec['old_design_ms']:.3f}",
+        vs_old_design=f"{rec['old_design_ms'] / rec['ms']:.3f}",
+        bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        tflops=f"{flops / rec['ms'] / 1e9:.1f}",
+        of_bound=f"{bound_ms / rec['ms']:.3f}", plain_ms=f"{plain_ms:.1f}",
+        library=f"scaled_dot_product_attention[{backend}]"
+                + ("(attn_mask)" if mask is not None else ""),
+        library_ms=f"{library_ms:.3f}",
+        vs_library=f"{library_ms / rec['ms']:.3f}")
+    return rec
+
+
+def check_k_step(A) -> dict:
+    """The d = 128 kernels of StepVideo and Mochi at their sampling shapes
+    (B=2 under CFG), bf16, each against its plain version and timed beside
+    flash_fwd.cu, SDPA and its bound: StepVideo's self-attention (K2,
+    online: 12,648², H=48), its cross-attention (K4, online, 12,648 queries
+    over 77 CLIP + 320 caption keys, H=48) and Mochi's joint attention (K4
+    under the fixed max 0, 22,516² with the caption padding masked, H=24),
+    each key mask in three patterns; and StepLLM's f32 causal K2 at 320
+    tokens (48 heads over 8 repeated key/value groups) on the f32 design."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    recs = {}
+    s, h = STEP_TOKENS, STEP_HEADS
+    q, k, v = (_rand((2, n, h, 128), gen, normed=True)
+               for n in (s, s, s))
+    recs["step self"] = _step_case(A, "stepvideo self", q, k, v, None, 0, 0,
+                                   None, {})
+    del k, v
+    _free()
+    k, v = (_rand((2, STEP_CLIP + STEP_CAPTION, h, 128), gen, normed=True)
+            for _ in range(2))
+    recs["step cross"] = _step_case(A, "stepvideo cross", q, k, v,
+                                    STEP_MASKS, STEP_CLIP, STEP_CAPTION,
+                                    None, {})
+    del q, k, v
+    _free()
+    n = MOCHI_VIDEO + MOCHI_TEXT
+    q, k, v = (_rand((2, n, MOCHI_HEADS, 128), gen, normed=True)
+               for _ in range(3))
+    recs["mochi joint"] = _step_case(A, "mochi joint", q, k, v, MOCHI_MASKS,
+                                     MOCHI_VIDEO, MOCHI_TEXT, 0.0, {})
+    del q, k, v
+    _free()
+    # StepLLM: f32, causal, 320 tokens, 48 heads of d = 128
+    s, h = STEP_CAPTION, STEP_HEADS
+    q, k, v = (torch.randn((1, s, h, 128), generator=gen, device="cuda")
+               for _ in range(3))
+    kw = dict(sm_scale=128 ** -0.5, causal=True)
+    before = (A.flash_fwd.launches_f32["K2"], A.flash_fwd.launches_sm90["K2"])
+    out = A.flash_fwd(q, k, v, **kw)
+    ref = A.flash_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = F32_TOL * ref.abs().max().item()
+    ok = err <= tol and (A.flash_fwd.launches_f32["K2"],
+                         A.flash_fwd.launches_sm90["K2"]) == (
+        before[0] + 1, before[1])
+    new = lambda: A.flash_fwd(q, k, v, **kw)
+    old = lambda: A._flash_fwd_mma(q, k, v, kw["sm_scale"], True, None, None,
+                                   False)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms, backend = sdpa_ms((qt, kt, vt), {"is_causal": True}, reps=50)
+    bound_ms, bound_by = _bound(3 * 4.0 * h * 128 * s * (s + 1) / 2,
+                                4 * q.numel() * q.element_size())
+    dev = [device_ms(fn, reps=50) for fn in (new, old, old, new)]
+    rec = dict(max_abs_err=err, ms=cuda_time_ms(new, reps=50),
+               device_ms=min(dev[0], dev[3]),
+               old_design_ms=cuda_time_ms(old, reps=50),
+               old_design_device_ms=min(dev[1], dev[2]),
+               plain_ms=cuda_time_ms(lambda: A.flash_fwd_plain(q, k, v, **kw),
+                                     reps=5),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    log("K-step", case="stepllm f32 causal", shape=f"B1xS{s}xH{h}xd128",
+        kernel="flash_fwd_f32_sm90",
+        splits=A._fwd_plan("f32", q, k, True, False).splits,
+        max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+        **{k_: (f"{v_:.4f}" if isinstance(v_, float) else v_)
+           for k_, v_ in rec.items() if k_ != "max_abs_err"},
+        library=f"scaled_dot_product_attention[{backend}](is_causal)", ok=ok)
+    if not ok:
+        raise AssertionError("StepLLM's f32 causal K2 disagrees with its "
+                             "plain version or left the f32 design")
+    recs["stepllm"] = rec
+    return recs
+
+
+def _check_narrow_dit(A, phase, make, inputs, static_max, expected):
+    """A narrow DiT in bf16 on the card against the same weights in f32 on
+    the CPU, one call on the same inputs (TF32 off): the launches on the
+    card (``expected``, every one on flash_fwd_sm90 at d = 128) and the
+    relative error within REF_TOL_CALL."""
+    from videotuna_tpu_torch.models.layers import init_weights_
+    cpu = make(torch.float32)
+    init_weights_(cpu, torch.Generator().manual_seed(1))
+    gpu = make(torch.bfloat16).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        zero_counts(A)
+        with torch.inference_mode(), A.attention_options(
+                static_max=static_max):
+            outs.append(model(*[None if x is None else x.to(dev)
+                                for x in inputs]).float().cpu())
+        launches = {k: n for k, n in read_counts(A).items() if n}
+    sm90 = read_sm90_counts(A)
+    err = ((outs[1] - outs[0]).abs().max() / outs[0].abs().max()).item()
+    ok = (math.isfinite(err) and err <= REF_TOL_CALL
+          and launches == expected
+          and all(sm90[k] == sm90[f"{k}_d128"] == n
+                  for k, n in expected.items()))
+    log(phase, what="narrow DiT, bf16 on the card vs f32 on the cpu",
+        card_launches=launches, rel_err=f"{err:.3e}", tol=REF_TOL_CALL,
+        ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase}: the card's narrow DiT disagrees with "
+                             f"the CPU's or launched {launches}")
+    del cpu, gpu
+    _free()
+
+
+@tf32_off()
+def check_small_reference_stepvideo(A) -> None:
+    """StepVideo's DiT at dim 256 (2 heads of d = 128), 2 layers, on 2×8×16
+    latents (256 tokens, B=2), the CLIP's 77 states before 20 caption
+    tokens with row 1 keeping 7: two self-attentions (K2, online) and two
+    cross-attentions (K4, online, the key mask) on the card."""
+    from videotuna_tpu_torch.models.stepvideo.dit import StepVideoModel
+    gen = torch.Generator().manual_seed(2)
+    mask = torch.ones((2, 20), dtype=torch.bool)
+    mask[1, 7:] = False
+    inputs = [torch.randn((2, 2, 8, 16, 64), generator=gen),
+              torch.tensor([999.0, 500.0]),
+              torch.randn((2, 20, 64), generator=gen),
+              torch.randn((2, 77, 32), generator=gen), mask]
+    _check_narrow_dit(
+        A, "reference-step", lambda dt: StepVideoModel(
+            dim=256, ffn_dim=512, num_layers=2, heads=2, text_dim=64,
+            clip_dim=32, dtype=dt), inputs, None, {"K2": 2, "K4": 2})
+
+
+@tf32_off()
+def check_small_reference_mochi(A) -> None:
+    """Mochi's DiT at dim 256 / 64 (2 heads of d = 128), 3 blocks, on
+    2×16×16 latents (128 video tokens, B=2) and 16 caption tokens with
+    row 1 keeping 5: three joint attentions (K4 under the fixed max 0)."""
+    from videotuna_tpu_torch.models.mochi.dit import MochiDiT
+    gen = torch.Generator().manual_seed(3)
+    mask = torch.ones((2, 16), dtype=torch.bool)
+    mask[1, 5:] = False
+    inputs = [torch.randn((2, 2, 16, 16, 12), generator=gen),
+              torch.tensor([999.0, 500.0]),
+              torch.randn((2, 16, 64), generator=gen), mask]
+    _check_narrow_dit(
+        A, "reference-mochi", lambda dt: MochiDiT(
+            dim=256, dim_y=64, depth=3, heads=2, caption_channels=64,
+            dtype=dt), inputs, 0.0, {"K4": 3})
+
+
+def _run_command(A, phase, argv, tag):
+    """``argv`` through the registry with every count zeroed before and
+    read after; returns (launches, Hopper launches, metric.json, the
+    video, seconds, peak bytes)."""
+    from videotuna_tpu_torch.cli.commands import main as command
+    savedir = os.path.join(OUT_DIR, tag)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(A)
+    t0 = time.perf_counter()
+    rc = command([*argv[:1], "--device", "cuda", "--quiet", "--savedir",
+                  savedir, *argv[1:]])
+    wall = time.perf_counter() - t0
+    launches, sm90 = read_counts(A), read_sm90_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(savedir, "metric.json")) as f:
+        m = json.load(f)
+    videos = sorted(p for p in os.listdir(savedir)
+                    if p.endswith((".mp4", ".npy")))
+    video = _read_video(os.path.join(savedir, videos[0]))
+    if rc != 0 or len(videos) != 1 or m["nonfinite_latents"] \
+            or m["nonfinite_pixels"]:
+        raise AssertionError(f"{phase}: rc {rc}, videos {videos}, "
+                             f"non-finite {m['nonfinite_latents']}, "
+                             f"{m['nonfinite_pixels']}")
+    return launches, sm90, m, video, wall, peak
+
+
+def run_e2e_stepvideo(A) -> dict:
+    """StepVideo T2V 30B through the registry's
+    ``inference-stepvideo-t2v-544x992`` (configs/009_stepvideo) on one card:
+    the one-device mesh (``inference.mesh.tp=1``), the DiT at full width
+    and depth (dim 6144, 48 layers, 48 heads of d = 128, bf16), the CLIP-L
+    and the VAE as configured, random weights from the seed, one prompt at
+    51×544×992 (6×34×62 latents, 12,648 tokens) with CFG 9.  Cuts: 2 of the
+    50 Euler steps; StepLLM (f32, dim 6144) at ``STEP_LLM_LAYERS`` of 48
+    layers.  Every self-attention launches K2 and every cross-attention K4
+    on K3's Hopper kernel at d = 128 (online max; the caption mask), every
+    StepLLM attention the f32 design; no other launch."""
+    cuts = ["inference.mesh.tp=1",
+            f"flow.params.scheduler_config.params.num_steps={STEP_STEPS}",
+            f"flow.params.cond_stage_config.params.num_layers="
+            f"{STEP_LLM_LAYERS}"]
+    launches, sm90, m, video, wall, peak = _run_command(
+        A, "e2e-stepvideo", [STEP_COMMAND, "--prompt", STEP_PROMPT, *cuts],
+        "e2e_stepvideo")
+    per = STEP_DEPTH * STEP_STEPS
+    llm = 2 * STEP_LLM_LAYERS        # the prompt's and the negative's
+    log("e2e-stepvideo", command=STEP_COMMAND, cuts=" ".join(cuts),
+        frames=51, height=544, width=992, tokens=STEP_TOKENS,
+        cross_keys=STEP_CLIP + STEP_CAPTION, batch="2 (CFG)",
+        steps=m["denoise_steps"],
+        sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}", latent_shape=m["latent_shape"],
+        launches=launches, sm90_launches=sm90,
+        video_shape="x".join(map(str, video.shape)))
+    expected = dict({k: 0 for k in launches}, K2=per + llm, K4=per)
+    if m["denoise_steps"] != STEP_STEPS or launches != expected \
+            or (sm90["K2"], sm90["K2_d128"], sm90["K4"], sm90["K4_d128"],
+                sm90["K2_f32"], sm90["tma_copies"]) != (per, per, per, per,
+                                                        llm, 0) \
+            or sum(n for k, n in sm90.items() if k.endswith("_split")) \
+            > llm:
+        raise AssertionError(f"e2e-stepvideo: launches {launches}, {sm90}: "
+                             f"expected K2 {per} and K4 {per} on K3's "
+                             f"kernel at d=128, {llm} StepLLM K2 on the f32 "
+                             "design, no other, no copy")
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                sec_per_step=m["sample_sec"] / m["denoise_steps"],
+                text_encode_sec=m["encode_sec"], decode_sec=m["decode_sec"])
+
+
+def run_dit_stepvideo_48(A) -> dict:
+    """StepVideo's DiT alone at full width and depth (48 layers, bf16, 58 GB
+    of weights made on the card from the seed): one denoiser call with CFG
+    (B=2, 12,648 tokens, StepLLM-shaped states over 320 tokens with a
+    caption of 12 valid, the CLIP's 77), the work of one sampling step,
+    after one warm-up call; CUDA-event time and peak memory."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.models.layers import init_weights_
+    _free()
+    cfg = load_configs([CONFIG_STEP])["flow"]["params"]["denoiser_config"]
+    with torch.device("meta"):
+        model = instantiate(cfg)
+    model = model.to_empty(device="cuda").eval()
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    weights = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((2, 6, 34, 62, 64), generator=gen, device="cuda")
+    y = torch.randn((2, STEP_CAPTION, 6144), generator=gen, device="cuda")
+    y2 = torch.randn((2, STEP_CLIP, 1024), generator=gen, device="cuda")
+    mask = _lead_mask(2, 0, STEP_CAPTION, (12, 12))
+    t = torch.tensor([999.0, 999.0], device="cuda")
+    with torch.inference_mode():
+        model(x, t, y, y2, mask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(A)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model(x, t, y, y2, mask)
+        end.record()
+        torch.cuda.synchronize()
+    launches, sm90 = read_counts(A), read_sm90_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    step_sec = start.elapsed_time(end) / 1e3
+    ok = (bool(torch.isfinite(out).all())
+          and launches == dict({k: 0 for k in launches}, K2=STEP_DEPTH,
+                               K4=STEP_DEPTH)
+          and sm90["K2_d128"] == sm90["K4_d128"] == STEP_DEPTH)
+    log("dit-stepvideo-48", layers=STEP_DEPTH, dim=6144, heads=STEP_HEADS,
+        tokens=STEP_TOKENS, batch="2 (CFG)", weights_gb=f"{weights / 1e9:.2f}",
+        step_sec=f"{step_sec:.3f}", peak_mem_gb=f"{peak / 1e9:.2f}",
+        launches=launches, ok=ok)
+    if not ok:
+        raise AssertionError("dit-stepvideo-48: non-finite output or "
+                             f"launches {launches}")
+    del model, out
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                step_sec=step_sec, weights_gb=weights / 1e9)
+
+
+def run_e2e_mochi(A) -> dict:
+    """Mochi-1 T2V through the registry's ``inference-mochi``
+    (configs/010_mochi) at full width and depth (the AsymmDiT: dim 3072 /
+    1536, 48 blocks, 24 heads of d = 128, bf16; T5-XXL in f32 over 256
+    tokens; the Mochi VAE in f32), random weights from the seed, one prompt
+    at 84×480×848 (14×60×106 latents, 22,260 video tokens + 256 caption
+    keys) with CFG 4.5.  Cuts: 2 of the 64 Euler steps; the first
+    ``MOCHI_DECODE_LATENT_FRAMES`` latent frames decoded.  Every joint
+    attention launches K4 on K3's Hopper kernel at d = 128 (the fixed max
+    0, the caption mask); no other launch."""
+    cuts = [f"flow.params.scheduler_config.params.num_steps={MOCHI_STEPS}",
+            f"inference.decode_latent_frames={MOCHI_DECODE_LATENT_FRAMES}"]
+    launches, sm90, m, video, wall, peak = _run_command(
+        A, "e2e-mochi", [MOCHI_COMMAND, "--prompt", MOCHI_PROMPT, *cuts],
+        "e2e_mochi")
+    per = MOCHI_DEPTH * MOCHI_STEPS
+    frames = (MOCHI_DECODE_LATENT_FRAMES - 1) * 6 + 1
+    log("e2e-mochi", command=MOCHI_COMMAND, cuts=" ".join(cuts), frames=84,
+        height=480, width=848, tokens=MOCHI_VIDEO + MOCHI_TEXT,
+        batch="2 (CFG)", steps=m["denoise_steps"],
+        sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}", latent_shape=m["latent_shape"],
+        decoded_latent_shape=m["decoded_latent_shape"], launches=launches,
+        sm90_launches=sm90, video_shape="x".join(map(str, video.shape)))
+    if m["denoise_steps"] != MOCHI_STEPS \
+            or launches != dict({k: 0 for k in launches}, K4=per) \
+            or (sm90["K4"], sm90["K4_d128"], sm90["tma_copies"]) \
+            != (per, per, 0) \
+            or tuple(video.shape) != (frames, 480, 848, 3):
+        raise AssertionError(f"e2e-mochi: launches {launches}, {sm90}, "
+                             f"video {video.shape}: expected K4 {per} on "
+                             "K3's kernel at d=128 and no other")
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                sec_per_step=m["sample_sec"] / m["denoise_steps"],
+                text_encode_sec=m["encode_sec"], decode_sec=m["decode_sec"],
+                decoded_frames=frames)
+
+
+def run_stepvideo_mochi(A) -> tuple:
+    """The StepVideo and Mochi phases in order: (K-step's records, the
+    e2e runs, the 48-layer DiT step)."""
+    kstep = timed_phase("K-step", check_k_step, A)
+    check_small_reference_stepvideo(A)
+    check_small_reference_mochi(A)
+    step = timed_phase("e2e-stepvideo", run_e2e_stepvideo, A)
+    dit48 = timed_phase("dit-stepvideo-48", run_dit_stepvideo_48, A)
+    mochi = timed_phase("e2e-mochi", run_e2e_mochi, A)
+    return kstep, [step, mochi], dit48
+
+
 def _prefixed(recs: dict, labels: dict) -> dict:
     """{f"{prefix}_{key}": value} of each ``labels`` prefix's record."""
     return {f"{p}_{k}": v for p, lab in labels.items()
@@ -4578,6 +5068,28 @@ def main(argv=None) -> None:
         print_result()
         return
 
+    if argv[:1] in (["--stepvideo"], ["--mochi"]):
+        # the StepVideo or the Mochi phases alone: K-step (both families'
+        # d = 128 kernels), the family's narrow card-vs-CPU DiT, its
+        # sampling run (StepVideo's also the 48-layer DiT step)
+        kstep = timed_phase("K-step", check_k_step, A)
+        out = {}
+        if argv[0] == "--stepvideo":
+            check_small_reference_stepvideo(A)
+            out["e2e-stepvideo"] = timed_phase("e2e-stepvideo",
+                                               run_e2e_stepvideo, A)
+            out["dit-stepvideo-48"] = timed_phase(
+                "dit-stepvideo-48", run_dit_stepvideo_48, A)
+        else:
+            check_small_reference_mochi(A)
+            out["e2e-mochi"] = timed_phase("e2e-mochi", run_e2e_mochi, A)
+        print(json.dumps({argv[0][2:]: {"k_step": kstep, **{
+            tag: {k: v for k, v in r.items() if k not in ("launches",
+                                                         "sm90")}
+            for tag, r in out.items()}}}), flush=True)
+        print_result()
+        return
+
     if argv[:1] == ["--videocrafter"]:
         # the VideoCrafter, DynamiCrafter and Wan I2V phases alone (the
         # kernels at their shapes, the narrow card-vs-CPU checks, the
@@ -4649,8 +5161,10 @@ def main(argv=None) -> None:
     vct_runs = [vc2_train, timed_phase("train-vc2-lora", run_train_vc2_lora,
                                        A, vc2_train)]
     runs += vct_runs
+    kstep, step_runs, dit48 = run_stepvideo_mochi(A)
+    runs += step_runs
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the eighteen main-path runs
+    # each kernel's launches over the twenty main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
@@ -4677,18 +5191,27 @@ def main(argv=None) -> None:
     # designs, K1 with the LSE and K7), apart from the other runs'
     vct = {k: sum(r["sm90"][k] for r in vct_runs)
            for k in ("K1", "K5", "K7", "K8", "K7_rows", "K8_rows")}
+    # StepVideo's K2 and K4 and Mochi's K4 on K3's kernel at d = 128 (and
+    # the 48-layer DiT step's, run apart), StepLLM's f32 K2
+    step, mochi = step_runs
+    step_k2 = step["sm90"]["K2_d128"] + dit48["sm90"]["K2_d128"]
+    step_k4 = step["sm90"]["K4_d128"] + dit48["sm90"]["K4_d128"]
+    mochi_k4 = mochi["sm90"]["K4_d128"]
+    stepllm_k2 = step["sm90"]["K2_f32"]
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
               "bf16, fixed max or online, optional LSE), checked",
         "K2": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64/72/80 "
-              "bf16), checked; f32 at d=128 (LLaMA's causal K2) redesigned "
+              "bf16; K3's kernel with the online max at d=128 bf16), "
+              "checked; f32 at d=128 (LLaMA's causal K2) redesigned "
               "for Hopper (flash_fwd_f32_sm90: split key ranges, a cp.async "
               "ring, the combine), checked",
         "K3": "redesigned for Hopper (flash_fwd_sm90: TMA, wgmma, "
               "warp-specialised), checked",
         "K4": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
-              "key mask, d=72/80 bf16), checked",
+              "key mask, d=72/80 bf16; K3's kernel with the key mask, online "
+              "or fixed max, d=128 bf16), checked",
         "K5": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
               "LSE, d=64/72/80 bf16, d=64 the UNet's training; K3's kernel "
               "with the LSE at d=128 under the fixed max, HunyuanVideo "
@@ -4822,7 +5345,25 @@ def main(argv=None) -> None:
                       for k, v in k3w["self 1.3B"].items()}),
               design="d128", launches_n=wan_k3),
         entry("flash_fwd_sm90 persistent, key mask (K4)", fwd90, 970, "K4",
-              k4),
+              k4, launches_n=sm90["K4"] - d128["K4"]),
+        # StepVideo's and Mochi's attention on K3's kernel at d = 128: the
+        # self-attention with the online max (K2), the cross-attention
+        # over the CLIP and caption keys with the mask (K4, online), Mochi's
+        # joint attention with the caption mask under the fixed max (K4);
+        # flash_fwd.cu's time on the same tensors as old_design_ms
+        entry("flash_fwd_sm90 K3's kernel, online, d = 128, StepVideo "
+              "self-attention (K2)", fwd90, 78, "K2", kstep["step self"],
+              design="d128", launches_n=step_k2),
+        entry("flash_fwd_sm90 K3's kernel, key mask, online, d = 128, "
+              "StepVideo cross-attention (K4)", fwd90, 970, "K4",
+              kstep["step cross"], design="d128", launches_n=step_k4),
+        entry("flash_fwd_sm90 K3's kernel, key mask, fixed max, d = 128, "
+              "Mochi joint attention (K4)", fwd90, 970, "K4",
+              kstep["mochi joint"], design="d128", launches_n=mochi_k4),
+        entry("flash_fwd_f32_sm90 f32 causal, StepLLM (K2)", fwd32, 78,
+              "K2", kstep["stepllm"], design="f32", launches_n=stepllm_k2,
+              status="redesigned for Hopper (flash_fwd_f32_sm90), "
+                     "checked"),
         entry("flash_fwd_sm90 persistent with the LSE, training forward "
               "(K5)", fwd90, 867, "K5", bwd["K5"],
               launches_n=sm90["K5"] - d128["K5"] - vct["K5"]),
@@ -4878,6 +5419,7 @@ def main(argv=None) -> None:
         # LLaMA's f32 causal K2 on the f32 design
         entry("flash_fwd_f32_sm90 f32 causal, split key ranges, LLaMA (K2)",
               fwd32, 78, "K2", fields(k2, "llama"), design="f32",
+              launches_n=f32["K2"] - stepllm_k2,
               status="redesigned for Hopper (flash_fwd_f32_sm90: split key "
                      "ranges, a cp.async ring, three bf16 products a "
                      "product, the combine), checked"),

@@ -524,8 +524,16 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K3", _BF, 128, True, False, False, True, "mma"),
     ("K3", _BF, 128, False, True, False, True, "mma"),
     ("K3", _BF, 128, False, False, True, True, "sm90"),
-    ("K2", _BF, 128, False, False, False, False, "mma"),
-    ("K4", _BF, 128, False, True, False, False, "mma"),
+    # K2 and the masked K4 at d = 128 in bf16 without the LSE (StepVideo's
+    # self- and cross-attention, Mochi's joint attention): K3's kernel with
+    # the online max and the key mask
+    ("K2", _BF, 128, False, False, False, False, "sm90"),
+    ("K4", _BF, 128, False, True, False, False, "sm90"),
+    ("K4", _BF, 128, False, True, False, True, "sm90"),
+    ("K2", _BF, 128, False, False, False, True, "sm90"),
+    ("K2", _BF, 128, True, False, False, False, "mma"),
+    ("K2", _BF, 128, False, False, True, False, "mma"),
+    ("K4", _BF, 128, True, True, False, True, "mma"),
     ("K5", _BF, 128, False, False, True, False, "mma"),
     # K2 and K5 at d = 72 and 80 in bf16: the persistent Hopper kernel in
     # either softmax mode, with or without the LSE
@@ -606,7 +614,8 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        fixed, design):
     """The Hopper forward (flash_fwd_sm90.cu) serves the fixed-max route K3
     in bf16 at d = 64 without the LSE, the fixed-max routes K3 and K5 in
-    bf16 at d = 128 with or without the LSE, K1, K2 and K6 in bf16 at
+    bf16 at d = 128 with or without the LSE, K2 and the masked K4 in bf16
+    at d = 128 without the LSE under either max, K1, K2 and K6 in bf16 at
     d = 64,
     and K2, K3, K5 and the masked K4 in bf16 at d = 72 or 80, in either
     softmax mode, with or without the LSE, all non-causal and unmasked but

@@ -270,9 +270,7 @@ def test_map_reports_a_mismatched_leaf(family):
 
 
 def test_unported_maps_raise_naming_their_queue():
-    for name, item in (("mochi_map", "item 8.4"), ("flux_map", "item 8.5"),
-                       ("stepvideo_map", "item 8.3"),
-                       ("stepllm_map", "item 8.3"),
+    for name, item in (("flux_map", "item 8.5"),
                        ("clip_vision_map", "10.4"),
                        ("aesthetic_map", "10.4"),
                        ("llava_projector_map", "item 4")):

@@ -296,6 +296,86 @@ def test_k4_sm90_units_of_several_query_tiles(b, pattern, static_max,
                    seed=b)
 
 
+# StepVideo's cross-attention and Mochi's joint attention at d = 128, cut
+# to a test size: (queries, keys always valid, caption keys) — StepVideo's
+# 77 CLIP keys before its 320 caption keys (397: a last key tile of 13),
+# Mochi's video keys (2,260 of its 22,260) before its 256 caption keys
+# (2,516: a last tile of 84)
+_D128_MASKED = {"stepvideo_cross": (1000, 77, 320),
+                "mochi_joint": (2516, 2260, 256)}
+# the caption keys each batch row keeps: all, a prefix in both rows, rows
+# padded apart; "strided" keeps every 9th key of row 0 (no prefix), and
+# "empty_row" none of it
+_D128_PATTERNS = {"all_valid": (None, None), "caption_prefix": (30, 30),
+                  "ragged_rows": (120, 9), "strided": None,
+                  "empty_row": None}
+
+
+def _lead_mask(b, lead, caption, pattern):
+    """(B, lead + caption) bool, rows 5 keys longer apart (read in place
+    through the batch stride)."""
+    m = torch.zeros((b, lead + caption + 5), dtype=torch.bool,
+                    device="cuda")[:, :lead + caption]
+    m[:, :lead] = True
+    rows = _D128_PATTERNS[pattern]
+    for i in range(b):
+        m[i, lead:lead + (caption if rows is None or rows[i] is None
+                          else rows[i])] = True
+    if pattern == "strided":
+        m[0] = False
+        m[0, ::9] = True
+    elif pattern == "empty_row":
+        m[0] = False
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+@pytest.mark.parametrize("pattern", sorted(_D128_PATTERNS))
+@pytest.mark.parametrize("case", sorted(_D128_MASKED))
+def test_k4_d128_matches_plain(case, pattern, static_max):
+    """K4 at d = 128 (bf16, without the LSE) on K3's Hopper kernel with the
+    key mask, under the online max (StepVideo's cross-attention) and the
+    fixed max 0 (Mochi's joint attention), against ``flash_fwd_plain``;
+    key lengths that are not a multiple of the key tile; a row with no
+    valid key gives o = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    sq, lead, caption = _D128_MASKED[case]
+    q, k, v = _rms_qkv(2, sq, lead + caption, 3, seed=sq + len(pattern))
+    kv_valid = _lead_mask(2, lead, caption, pattern)
+    assert P._fwd_design("K4", q.dtype, 128, False, kv_valid, False,
+                         static_max) == "sm90"
+    before = P.flash_fwd.launches_d128["K4"]
+    out, _ = _check_fwd(q, k, v, "K4", emit_lse=False,
+                        sm_scale=128 ** -0.5, kv_valid=kv_valid,
+                        static_max=static_max)
+    assert P.flash_fwd.launches_d128["K4"] == before + 1
+    if pattern == "empty_row":
+        assert out[0].abs().max() == 0 and out[1].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h", [(2, 1265, 1265, 3), (1, 300, 4322, 2),
+                                       (2, 128, 397, 4), (2, 1, 130, 2),
+                                       (1, 4112, 300, 2)])
+def test_k2_d128_online_matches_plain(b, sq, sk, h):
+    """K2 at d = 128 (bf16, without the LSE) on K3's Hopper kernel with the
+    online max, StepVideo's self-attention cut to a test size (1,265
+    tokens, a tenth of its 12,648), against ``flash_fwd_plain``; scores of
+    unnormed q and k, so the running max moves from key tile to key
+    tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(b, sq, sk, h, 128, seed=sq + sk)
+    q = q * 3   # scores up to ~±30: the running max moves between tiles
+    assert P._fwd_design("K2", q.dtype, 128, False, None, False,
+                         None) == "sm90"
+    before = P.flash_fwd.launches_d128["K2"]
+    _check_fwd(q, k, v, "K2", emit_lse=False, sm_scale=128 ** -0.5)
+    assert P.flash_fwd.launches_d128["K2"] == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [72, 128])
 def test_k3_route_matches_plain(d):

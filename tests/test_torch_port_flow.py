@@ -101,21 +101,24 @@ def test_tiny_cogvideox_end_to_end_matches_jax(overrides):
     x_T = rng.standard_normal(shape, dtype=np.float32)
     noises = rng.standard_normal((steps, *shape), dtype=np.float32)
 
-    # JAX: encode_text → CFG → scheduler.sample(x_T=, noises=) → decode
-    jcond = jflow.encode_text(params, [inf["prompt"]])
-    juncond = jflow.encode_text(params, [""])
-    model_fn = lambda x, t, c: jflow.denoise_apply(params, x, t, c)  # noqa
+    # JAX: encode_text → CFG → scheduler.sample(x_T=, noises=) → decode,
+    # each under one jit (op by op, every primitive compiles for its shape)
+    jcond, juncond = jax.jit(lambda p: (jflow.encode_text(p, [inf["prompt"]]),
+                                        jflow.encode_text(p, [""])))(params)
     from videotuna_tpu.schedulers import cfg_denoise, dynamic_cfg_denoise
-    if jflow.use_dynamic_cfg:
-        denoise = dynamic_cfg_denoise(model_fn, jcond, juncond, scale, steps,
-                                      timesteps=jflow.scheduler.timesteps)
-        jz = jflow.scheduler.sample(denoise, shape, jax.random.key(0),
-                                    x_T=jnp.asarray(x_T),
-                                    noises=jnp.asarray(noises))
-    else:
-        denoise = cfg_denoise(model_fn, jcond, juncond, scale)
-        jz = jflow.scheduler.sample(denoise, shape, jax.random.key(0),
-                                    x_T=jnp.asarray(x_T))
+
+    def jsample(p, c, u, x, n):
+        model_fn = lambda x, t, cc: jflow.denoise_apply(p, x, t, cc)  # noqa
+        if jflow.use_dynamic_cfg:
+            denoise = dynamic_cfg_denoise(model_fn, c, u, scale, steps,
+                                          timesteps=jflow.scheduler.timesteps)
+            return jflow.scheduler.sample(denoise, shape, jax.random.key(0),
+                                          x_T=x, noises=n)
+        return jflow.scheduler.sample(cfg_denoise(model_fn, c, u, scale),
+                                      shape, jax.random.key(0), x_T=x)
+
+    jz = jax.jit(jsample)(params, jcond, juncond, jnp.asarray(x_T),
+                          jnp.asarray(noises))
     jvideo = jax.jit(jflow.decode_latents)(params, jz)
 
     pcond = pflow.encode_text([inf["prompt"]])

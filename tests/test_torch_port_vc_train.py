@@ -38,6 +38,13 @@ from tests.test_torch_port_models import torch_one_thread  # noqa: F401
 from tests.test_torch_port_videocrafter import (DC, NARROW, NARROW_DC,
                                                 PROMPT, ROOT, VC2)
 
+# the narrow UNet with attention at both levels: the UNet of the synthetic
+# upstream checkpoint (``_case("lvdm")``), which these tests convert, load
+# and train
+_LEVELS = ["flow.params.denoiser_config.params.attention_resolutions=[1, 2]"]
+NARROW = NARROW + _LEVELS
+NARROW_DC = NARROW_DC + _LEVELS
+
 TOY_CSV = os.path.join(ROOT, "configs", "000_tiny", "toy_anno.csv")
 DUMMY = ("data.dataset={target: videotuna_tpu.data.DatasetFromCSV, params: "
          f"{{csv_path: {TOY_CSV}, dummy: true, num_frames: 2, "

@@ -68,14 +68,14 @@ _T5 = "flow.params.cond_stage_config.params"
 _VAE = "flow.params.first_stage_config.params"
 # the 1.3B config at narrow width, heads of d = 128 kept: the DiT at dim 256
 # (2 heads, 2 layers), a 2-layer T5 of dim 64 over the config's 512 tokens,
-# the VAE at dim 16; 9×128×128 gives 3×16×16 latents, 192 tokens a frame
+# the VAE at dim 16; 5×128×128 gives 2×16×16 latents, 128 tokens a frame
 # stack after the (1, 2, 2) patch
 NARROW = [f"{_DEN}.dim=256", f"{_DEN}.heads=2", f"{_DEN}.num_layers=2",
           f"{_DEN}.ffn_dim=512", f"{_DEN}.text_dim=64",
           f"{_DEN}.dtype=float32", f"{_T5}.dim=64", f"{_T5}.heads=2",
           f"{_T5}.head_dim=32", f"{_T5}.ff_dim=128", f"{_T5}.num_layers=2",
           f"{_VAE}.dim=16", "flow.params.scheduler_config.params.num_steps=3",
-          "inference.height=128", "inference.width=128", "inference.frames=9"]
+          "inference.height=128", "inference.width=128", "inference.frames=5"]
 
 
 @contextlib.contextmanager
@@ -297,7 +297,7 @@ def test_wan_flow_samples_with_cfg_like_jax(narrow_flows, monkeypatch):
     jflow, pflow, params, inf = narrow_flows
     shape = jflow.latent_shape(1, inf["frames"], inf["height"],
                                inf["width"])
-    assert shape == (1, 3, 16, 16, 16)
+    assert shape == (1, 2, 16, 16, 16)
     x_T = np.random.default_rng(1).standard_normal(shape, dtype=np.float32)
     neg = pwan.DEFAULT_NEGATIVE
     seen = _count_t128(monkeypatch)
@@ -309,7 +309,7 @@ def test_wan_flow_samples_with_cfg_like_jax(narrow_flows, monkeypatch):
             juncond, 5.0)
         jz = jax.jit(lambda x: jflow.scheduler.sample(
             denoise, shape, jax.random.key(0), x_T=x))(jnp.asarray(x_T))
-    assert set(seen) == {(192, 192), (192, 512)}
+    assert set(seen) == {(128, 128), (128, 512)}
     jvideo = jax.jit(jflow.decode_latents)(params, jz)
 
     pcond, puncond = (pflow.encode_text([s]) for s in (PROMPT, neg))
@@ -317,7 +317,7 @@ def test_wan_flow_samples_with_cfg_like_jax(narrow_flows, monkeypatch):
     pz = pflow.sample(pcond, puncond, shape, None, 5.0, x_T=_t(x_T))
     _close(pz, jz, TRAJ_TOL)
     video = pflow.decode_latents(pz)
-    assert video.shape == (1, 9, 128, 128, 3)
+    assert video.shape == (1, 5, 128, 128, 3)
     _close(video, jvideo, PIXEL_TOL)
 
 
@@ -347,7 +347,7 @@ def test_wan_training_loss_matches_jax(narrow_flows):
 
 def test_run_inference_wan_1_3b_command_on_cpu(tmp_path):
     """The registry's ``inference-wanvideo-t2v-1-3B`` with ``--device cpu``
-    and the narrowing overrides writes an mp4 of 9 frames and
+    and the narrowing overrides writes an mp4 of 5 frames and
     metric.json."""
     out = tmp_path / "wan"
     assert pcommands.main(["inference-wanvideo-t2v-1-3B", "--device", "cpu",

@@ -175,7 +175,7 @@ def test_wan_i2v_command_shipped_config_and_i2v_layout(tmp_path):
             "--savedir", str(out), *NARROW, *extra,
             f"inference.input_dir={inputs}"]) == 0
         m = json.loads((out / "metric.json").read_text())
-        assert m["num_videos"] == 1 and m["latent_shape"] == [1, 3, 16, 16,
+        assert m["num_videos"] == 1 and m["latent_shape"] == [1, 2, 16, 16,
                                                               16]
         assert m["nonfinite_latents"] == 0 == m["nonfinite_pixels"]
     i2v = pregistry.instantiate(pconfig.load_configs(

@@ -165,8 +165,6 @@ WAITING: Dict[str, str] = {
     + "; its mesh {dp: 1, fsdp: 4} waits for queue 1, item 10.1",
     "inference-hunyuan-i2v-720p": "ROADMAP.md queue 1, item 4 "
                                   "(HunyuanVideo i2v)",
-    "inference-stepvideo-t2v-544x992": _SLICE_E,
-    "inference-mochi": _SLICE_E,
     "inference-v2v-ms": _SLICE_E,
     "inference-flux-dev": _SLICE_E,
     "inference-flux-schnell": _SLICE_E,

@@ -12,6 +12,7 @@ Runs on ``cuda`` unless ``--device`` says otherwise.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 from typing import List, Optional
@@ -92,9 +93,14 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
     if str(inf.get("quantize", "")) == "int8":
         raise NotImplementedError(
             "int8 serving waits for the quantization slice")
-    if inf.get("mesh"):
+    # a mesh of one device (or none) is what the JAX package runs on one chip
+    mesh = inf.get("mesh") or {}
+    devices = math.prod(int(n) for n in mesh.values())
+    if devices != 1:
         raise NotImplementedError(
-            "multi-device inference waits for the parallelism slice")
+            f"multi-device inference (a mesh of {devices} devices, "
+            f"{dict(mesh)}) waits for the parallelism slice, ROADMAP.md "
+            "queue 1, item 10.1; on one card set each of its axes to 1")
     if args.shard:
         i, _, n = args.shard.partition("/")
         from videotuna_tpu_torch.flows.generation import load_prompts

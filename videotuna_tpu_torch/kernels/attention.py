@@ -22,7 +22,9 @@ math path.  The kernels it can reach, and where each is in the port:
   f32 q, k, v; in bf16, non-causal, K2 at d = 64, 72 and 80 (at 64 an
   odd head count: the UNet's 5-head level) and K4 at d = 72 and 80 launch
   the persistent Hopper kernel of ``csrc/flash_fwd_sm90.cu`` (K4 with its
-  key mask packed into bit words as ``_mask_words`` does); in f32 at d = 128
+  key mask packed into bit words as ``_mask_words`` does), and K2 and K4
+  at d = 128 without the LSE launch K3's kernel there, with its online max
+  and the key mask (StepVideo, Mochi); in f32 at d = 128
   without a key mask (LLaMA's causal K2) ``csrc/flash_fwd_f32_sm90.cu``
   (split key ranges, a cp.async ring, three bf16 products a product);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
@@ -84,7 +86,8 @@ _KERNELS = {
           "flash_fwd route K1, csrc/flash_fwd_sm90.cu (persistent) in bf16, "
           "else csrc/flash_fwd.cu",
     "K2": "generic online-softmax flash forward (flash_attention): "
-          "csrc/flash_fwd_sm90.cu at d=64, 72 and 80 in bf16 (non-causal), "
+          "csrc/flash_fwd_sm90.cu at d=64, 72, 80 and 128 in bf16 "
+          "(non-causal), "
           "csrc/flash_fwd_f32_sm90.cu in f32 at d=128 (LLaMA, causal), "
           "else csrc/flash_fwd.cu",
     "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
@@ -92,7 +95,8 @@ _KERNELS = {
           "csrc/flash_fwd.cu (flash_fwd with static_max)",
     "K4": "kv_valid-masked flash forward (_flash_dynpad): "
           "csrc/flash_fwd_sm90.cu (persistent, key mask) at d=72 and 80 in "
-          "bf16, else csrc/flash_fwd.cu",
+          "bf16, K3's kernel with the key mask at d=128 in bf16 without the "
+          "LSE, else csrc/flash_fwd.cu",
     "K5": "generic flash forward with the LSE (_flash_forward_lse): "
           "flash_fwd with emit_lse, csrc/flash_fwd_sm90.cu at d=64, 72 and "
           "80 in bf16 (non-causal) and at d=128 under the fixed max (K3's "
@@ -290,7 +294,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     training forward "K1" or "K5".  The calls ``_fwd_design`` names "sm90"
     (bf16, non-causal: K1, K2, K5 and K6 at d = 64; K2, K3, K5 and the
     masked K4 at d = 72 or 80; K3 at d = 64 without the LSE; K3 and K5 at
-    d = 128 under the fixed max, with or without the LSE) launch
+    d = 128 under the fixed max, with or without the LSE; K2 and the
+    masked K4 at d = 128 without the LSE) launch
     ``csrc/flash_fwd_sm90.cu`` and add one to
     ``flash_fwd.launches_sm90[route]``, at d = 128 (K3's kernel) also to
     ``flash_fwd.launches_d128[route]``; q, k or v that TMA cannot read in
@@ -420,11 +425,13 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     wgmma, warp-specialised) for bf16 non-causal calls of K1, K2, K5 and
     K6 at d = 64, of K2, K3, K5 and the masked K4 at d = 72 or 80 (the
     persistent kernel: online or fixed max, with or without the LSE), of
-    the
-    fixed-max route K3 without the LSE at d = 64 (the persistent kernel),
-    and of the fixed-max routes K3 and K5 at d = 128, with or without the
-    LSE (K3's kernel); "f32" (``csrc/flash_fwd_f32_sm90.cu``: split key
-    ranges, a cp.async ring, three bf16 products a product) for f32 calls
+    the fixed-max route K3 without the LSE at d = 64 (the persistent
+    kernel), and at d = 128 (K3's kernel) of the fixed-max routes K3 and K5
+    with or without the LSE, of K2 without the LSE (the online max:
+    StepVideo's self-attention) and of the masked K4 without the LSE under
+    either max (StepVideo's cross-attention, Mochi's joint attention);
+    "f32" (``csrc/flash_fwd_f32_sm90.cu``: split key ranges, a cp.async
+    ring, three bf16 products a product) for f32 calls
     at d = 128 without a key mask, causal or not, online or fixed max,
     with or without the LSE (LLaMA's K2); "mma" (``csrc/flash_fwd.cu``)
     for everything else."""
@@ -433,10 +440,14 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     if dtype != torch.bfloat16 or causal:
         return "mma"
     if kv_valid is not None:
-        return "sm90" if route == "K4" and d in (72, 80) else "mma"
+        return ("sm90" if route == "K4" and (d in (72, 80)
+                                             or d == 128 and not emit_lse)
+                else "mma")
     if d == 64 and route in ("K1", "K2", "K5", "K6"):
         return "sm90"
     if d in (72, 80) and route in ("K2", "K3", "K5"):
+        return "sm90"
+    if d == 128 and route == "K2" and not emit_lse:
         return "sm90"
     if static_max is None:
         return "mma"
@@ -538,8 +549,9 @@ def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal: the persistent
     kernel (online or fixed max, with or without the LSE) at d = 64, 72 or
     80 (at 72 and 80 with the key mask ``kv_valid`` too: its ``words`` when
-    given, else packed by the same call); K3's fixed-max kernel, with or
-    without the LSE, at d = 128.  ``splits``, the key ranges of each query
+    given, else packed by the same call); K3's kernel at d = 128: the fixed
+    max with or without the LSE, the online max, the key mask under either
+    max.  ``splits``, the key ranges of each query
     tile, defaults to ``_fwd_split_plan``'s; above 1 the persistent kernel
     writes f32 partials (B·H·⌈Sq/128⌉·splits·128·(D + 2) floats, D = 64 or
     80) that the same call combines (1 is the unsplit walk)."""

@@ -106,8 +106,9 @@ _NO_DQ_ADDS = [('''          atomicAdd(reinterpret_cast<float2*>(acc + row * D +
                     make_float2(dqa[nb * 4 + 2 * r], dqa[nb * 4 + 2 * r + 1]));''',
                 '          if (dqa[nb * 4 + 2 * r] == 12345.f) acc[row * D + col] = 0.f;')]
 
-_K3_LAUNCH = '''  return launch<128, false>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss,
-                            k_sh, v_sb, v_ss, v_sh, s);'''
+_K3_LAUNCH = '''  return launch<128, false, false, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                                          s);'''
 
 # the products of flash_bwd_rows_sm90.cu: columns 64-79 (the 16-column
 # boxes), dQ, and the rest
@@ -128,7 +129,7 @@ VARIANTS = {
     ("K1", "flash_fwd_sm90.cu", "k3_kernel"): [
         ("  if (wide || d == 64) {",
          "  if (wide || (d == 64 && (online || lse))) {"),
-        ("  if (d != 128 || online", "  if ((d != 128 && d != 64) || online"),
+        ("  if (d != 128 || splits", "  if ((d != 128 && d != 64) || splits"),
         (_K3_LAUNCH, "  if (d == 64)\n" + _K3_LAUNCH.replace("128", "64")
          + "\n" + _K3_LAUNCH)],
     ("K1", "flash_fwd_sm90.cu", "base_again"): [],

@@ -1,15 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a), bf16, non-causal: TMA
 // loads, wgmma products, a producer warpgroup and two consumer warpgroups
 // that take turns on the tensor cores.  Two kernels share that design:
-// `flash_fwd_sm90_kernel<D, LSE>` (fixed max, built at D = 128, one block
-// per query tile, optional LSE; K3 at d = 128, and with the LSE K5 at
-// d = 128, described first) and
+// `flash_fwd_sm90_kernel<D, LSE, ONLINE, MASK>` (built at D = 128, one
+// block per query tile: the fixed max, with or without the LSE, K3 and K5
+// at d = 128; the online max, K2 at d = 128; the key mask under either
+// max, K4 at d = 128; described first) and
 // `flash_fwd_sm90_persistent` (d = 64, 72 or 80, online or fixed max,
 // optional LSE and key mask, a persistent grid; K1, K2, K4, K5 and K6, and
-// K3 at those widths, described below).  K3's kernel is left as it was
-// measured (238 ms at HunyuanVideo's shape): the persistent walk and the
-// online softmax would only add instructions to its long-row loop.  At
-// d = 64 the persistent kernel took the fixed max from it
+// K3 at those widths, described below).  K3's kernel keeps its block per
+// query tile (238 ms at HunyuanVideo's shape): the persistent walk would
+// only add instructions to its long-row loop, and the online max and the
+// mask are template flags, compiled out of the fixed-max instantiations.
+// At d = 64 the persistent kernel took the fixed max from it
 // (kernels/attribution.py K1, variant k3_kernel, times the two).
 //
 // ------------------------------------------------------------------- K3
@@ -24,7 +26,14 @@
 // with use_static=1, not the TPU kernel's blocks: the transposed scores and
 // the row sum folded into the PV product answer the TPU's matrix unit and
 // are not copied, and keys past Sk score -inf where the TPU kernel removes
-// their share of the row sum in closed form (the same function).
+// their share of the row sum in closed form (the same function).  With
+// ONLINE it also replaces K2 at d = 128, `_flash_kernel` launched by
+// `flash_attention` (:78, :812), bf16, non-causal: StepVideo's
+// self-attention (B = 2, 12,648 tokens, H = 48), whose flow sets no fixed
+// max.  With MASK it replaces K4 at d = 128, `_flash_kernel_dynpad`
+// launched by `_flash_dynpad` (:970, :1059): StepVideo's cross-attention
+// over the caption (12,648 queries over 397 keys, online) and Mochi's
+// joint attention (22,516 tokens, the caption padding masked, M = 0).
 //
 // Function.  q (B,Sq,H,d), k and v (B,Sk,H,d), read in place through their
 // strides by TMA (16-byte aligned start, strides multiples of 16 bytes; the
@@ -47,6 +56,20 @@
 // there is no running max and no rescale: one FMA, one exp2 and the row sum
 // a score.
 //
+// Online max and key mask (compile time, as in the persistent kernel
+// below).  ONLINE: a running row max m, a key tile's max reduced over the 4
+// threads of an accumulator row, p = exp2(s - m), l rescaled by
+// exp2(m_old - m) in the softmax and O once PV(t) has completed (needs
+// sm_scale > 0); at d = 128 a score costs 512 FLOP of products, so the max
+// and the rescale (a compare a score, 64 multiplies a row a tile) stay
+// under the other consumer's products.  MASK: the (B, Sk) key mask as 32-bit
+// words, four a key tile (`pack_mask_kernel`, in the same call), loaded by
+// each consumer thread as it starts a tile; a masked column of S gets -inf
+// before the max and the exp2, and the words' zeros past Sk replace the last
+// tile's test (so Sk need not be a multiple of the key tile, and the valid
+// keys need not be a prefix).  A row with no valid key gives o = 0.  The
+// LSE is instantiated under the fixed max without the mask alone (K5).
+//
 // Layout.  One block per (128-query tile, b*h), the query tiles of one head
 // adjacent in launch order so that co-resident blocks share K and V in L2;
 // 384 threads:
@@ -67,7 +90,8 @@
 // layout of the persistent kernel's LSE, from the row sum l it already
 // has (summed over the row's quad), by the thread of the row with
 // tig = 0: 4 bytes a row, nothing added inside the loop.  A row whose l is
-// 0 gets -inf.  The LSE = false instantiation is K3's kernel as it was.
+// 0 gets -inf.  The instantiation without the LSE, the online max and the
+// mask is K3's kernel as it was.
 //
 // ------------------------------------------------------ K1, K2, K4-K6
 // `flash_fwd_sm90_persistent<D, ONLINE, LSE, MASK, SPLIT>` replaces the TPU
@@ -205,13 +229,14 @@ struct Cfg {
 struct Params {
   __nv_bfloat16* o;
   float* lse;        // (B, H, Sq) f32 (LSE), natural log
+  const uint4* mask; // (B, key tiles) x 4 words of the key mask (MASK)
   int H, Sq, Sk;
   long long o_sb, o_ss, o_sh;
   float scale_log2;  // sm_scale * log2(e)
   float static_max;  // M, log2 domain
 };
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool ONLINE, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -287,6 +312,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     float sacc[64];
     uint32_t pf[8][4];  // P as A fragments, 8 steps of 16 keys
     float row_l[2] = {0.f, 0.f};
+    float row_m[2] = {-INFINITY, -INFINITY};  // ONLINE: the running max
+    float alpha[2];     // ONLINE: the factor of the earlier tiles
+    uint4 mw = make_uint4(0u, 0u, 0u, 0u);  // the key tile's mask words
+    // the mask words of key tile t (MASK)
+    auto mask_words = [&](int t) {
+      if constexpr (MASK)
+        mw = __ldg(p.mask + static_cast<long long>(b) * n_tiles + t);
+    };
 
     // O += P V(t) with V of stage s
     auto pv = [&](int s) {
@@ -311,11 +344,58 @@ __global__ void __launch_bounds__(THREADS, 1)
             sacc, desc_add(dq, (ks >> 2) * C::BOX_Q + (ks & 3) * 32),
             desc_add(dk, (ks >> 2) * C::BOX_KV + (ks & 3) * 32), ks > 0);
     };
-    // P = exp2(s * scale - M) of tile t in place, and its row sums; keys
-    // past Sk (last tile only) give 0
+    // P = exp2(s * scale - m) of tile t in place, and its row sums, m the
+    // running max (ONLINE, alpha the factor of the earlier tiles) or M;
+    // masked keys (MASK) and keys past Sk (last tile only) give 0
     auto softmax = [&](int t) {
       const int valid = p.Sk - t * BLOCK_N;
-      if (valid < BLOCK_N) {
+      if constexpr (MASK) {
+        // column nb * 8 + tig * 2 + (i & 1) is bit (nb & 3) * 8 + (i & 1)
+        // of the word nb / 4 shifted to this thread's columns; masked
+        // keys score -inf before the max and the exp2 (sm_scale > 0), the
+        // words' zeros past Sk taking the place of the last tile's test
+        const uint32_t mk[4] = {mw.x >> (tig * 2), mw.y >> (tig * 2),
+                                mw.z >> (tig * 2), mw.w >> (tig * 2)};
+        #pragma unroll
+        for (int nb = 0; nb < 16; ++nb)
+          #pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (!((mk[nb >> 2] >> ((nb & 3) * 8 + (i & 1))) & 1u))
+              sacc[nb * 4 + i] = -INFINITY;
+      }
+      if constexpr (ONLINE) {
+        if (!MASK && valid < BLOCK_N) {
+          #pragma unroll
+          for (int nb = 0; nb < 16; ++nb)
+            #pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (nb * 8 + tig * 2 + (i & 1) >= valid)
+                sacc[nb * 4 + i] = -INFINITY;
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+        #pragma unroll
+        for (int i = 0; i < 64; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+        float m_exp[2];  // the max the exponents are taken against
+        #pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffff, mx[r], 2));
+          const float m_new = fmaxf(row_m[r], mx[r] * p.scale_log2);
+          // a row with no valid key so far (MASK) counts its max as 0
+          m_exp[r] = MASK && m_new == -INFINITY ? 0.f : m_new;
+          alpha[r] = fast_exp2(row_m[r] - m_exp[r]);
+          row_m[r] = m_new;
+          row_l[r] *= alpha[r];
+        }
+        #pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float e = fast_exp2(
+              fmaf(sacc[i], p.scale_log2, -m_exp[(i >> 1) & 1]));
+          sacc[i] = e;
+          row_l[(i >> 1) & 1] += e;
+        }
+      } else if (!MASK && valid < BLOCK_N) {
         #pragma unroll
         for (int nb = 0; nb < 16; ++nb)
           #pragma unroll
@@ -353,6 +433,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     };
 
     if (c == 1) named_arrive(BAR_TURN0, 256);  // warpgroup 1 goes first
+    mask_words(0);
     mbar_wait(bar_q, 0);
     mbar_wait(k_full(0), 0);
     named_sync(my_turn, 256);
@@ -378,11 +459,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       pv(s);
       wgmma_commit();
       named_arrive(their_turn, 256);
+      mask_words(t + 1);
       wgmma_wait<1>();
       release(k_empty(s1));
       softmax(t + 1);
       wgmma_wait<0>();
       release(v_empty(s));
+      if constexpr (ONLINE) {
+        // O of tiles up to t, now complete, onto tile t+1's max
+        #pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      }
       pack();
     }
     // the last tile's PV product
@@ -415,7 +502,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         if constexpr (LSE) {
           if (tig == 0)
             p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + row] =
-                (p.static_max + log2f(l)) * 0.69314718055994531f;
+                ((ONLINE ? row_m[r] : p.static_max) + log2f(l)) *
+                0.69314718055994531f;
         }
       }
     }
@@ -840,7 +928,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool ONLINE, bool MASK>
 int launch(const void* q, const void* k, const void* v, const Params& p,
            int B, long long q_sb, long long q_ss, long long q_sh,
            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
@@ -855,7 +943,7 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
     err = sm90_host::make_map(&tv, v, B, p.Sk, p.H, D, v_sb, v_ss, v_sh,
                               BLOCK_N);
   if (err != 0) return err;
-  auto kernel = flash_fwd_sm90_kernel<D, LSE>;
+  auto kernel = flash_fwd_sm90_kernel<D, LSE, ONLINE, MASK>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1015,9 +1103,9 @@ extern "C" int pack_mask_words(const void* mask, long long mask_sb,
 
 // Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
 // for what no kernel takes: a head width other than 64, 72, 80 or 128; a
-// key mask at a width other than 72 or 80; at 128 (K3's kernel) the online
-// softmax, a key mask or B*H above 65535; or a tensor TMA cannot read in
-// place.  d = 64, 72 and 80 take the persistent kernel.  `lse` is null
+// key mask at d = 64; at 128 (K3's kernel) the LSE with the online softmax
+// or a key mask, a split, or B*H above 65535; or a tensor TMA cannot read
+// in place.  d = 64, 72 and 80 take the persistent kernel.  `lse` is null
 // without the LSE; `online` 0 takes the fixed max `static_max`.  `words`
 // is null without a key mask, else the mask's (B, ceil(Sk / 128) * 4)
 // 32-bit words (16-byte aligned) that the persistent kernel reads: packed
@@ -1080,12 +1168,19 @@ extern "C" int flash_fwd_sm90_bf16(
                       : launch_persistent_modes<80, false, false>(
                             q, k, v, p, B, st, online, l, s);
   }
-  if (d != 128 || online || words || splits != 1 ||
+  // K3's kernel: the LSE under the fixed max alone, never split
+  if (d != 128 || splits != 1 || (lse && (online || words)) ||
       (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mask) {
+    if (!words) return static_cast<int>(cudaErrorInvalidValue);
+    const int e = pack_mask(mask, mask_sb, words, B, Sk, s);
+    if (e != 0) return e;
+  }
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
+  p.mask = static_cast<const uint4*>(words);
   p.H = H;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -1095,8 +1190,22 @@ extern "C" int flash_fwd_sm90_bf16(
   p.scale_log2 = scale_log2;
   p.static_max = static_max;
   if (lse)
-    return launch<128, true>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss,
-                             k_sh, v_sb, v_ss, v_sh, s);
-  return launch<128, false>(q, k, v, p, B, q_sb, q_ss, q_sh, k_sb, k_ss,
-                            k_sh, v_sb, v_ss, v_sh, s);
+    return launch<128, true, false, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                           k_sb, k_ss, k_sh, v_sb, v_ss,
+                                           v_sh, s);
+  if (words && online)
+    return launch<128, false, true, true>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                          k_sb, k_ss, k_sh, v_sb, v_ss,
+                                          v_sh, s);
+  if (words)
+    return launch<128, false, false, true>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                           k_sb, k_ss, k_sh, v_sb, v_ss,
+                                           v_sh, s);
+  if (online)
+    return launch<128, false, true, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                           k_sb, k_ss, k_sh, v_sb, v_ss,
+                                           v_sh, s);
+  return launch<128, false, false, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                                          s);
 }

@@ -1,7 +1,7 @@
 """Shared building blocks (torch): the subset of the JAX package's
 ``models/layers.py`` that the CogVideoX MMDiT, the Open-Sora STDiT, the
-HunyuanVideo and Wan DiTs and the LLaMA text encoder use, plus the norms and the
-random initialiser every module of the port shares.
+HunyuanVideo, Wan and StepVideo DiTs and the LLaMA text encoder use, plus the
+norms and the random initialiser every module of the port shares.
 
 Parameter names follow the flax modules (``fc1``, ``q_norm``, …) so that
 ``tools/from_jax.py`` maps a flax tree onto these modules by name.
@@ -228,8 +228,27 @@ def apply_rope_half(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def apply_rope_3d_grouped(x: torch.Tensor,
+                          tables: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                          dims: Sequence[int],
+                          interleaved: bool = False) -> torch.Tensor:
+    """Per-axis RoPE on channel groups of x (StepVideo's RoPE3D): the
+    channels split by ``dims``, each group rotated with its own axis's
+    table, rotate-half by default.  x: (..., N, H, D), D = sum(dims);
+    tables[i]: (cos, sin) each (N, dims[i]/2)."""
+    fn = apply_rope if interleaved else apply_rope_half
+    parts, off = [], 0
+    for (c, s), d in zip(tables, dims):
+        parts.append(fn(x[..., off:off + d], c, s))
+        off += d
+    return torch.cat(parts, dim=-1)
+
+
 # HunyuanVideo's rope_dim_list at head_dim 128 (t, h, w), interleaved pairs
 HUNYUAN_ROPE_DIMS: Tuple[int, int, int] = (16, 56, 56)
+
+# StepVideo's rope_ch_split at head_dim 128 (t, h, w), rotate-half per group
+STEPVIDEO_ROPE_DIMS: Tuple[int, int, int] = (64, 32, 32)
 
 
 def split_rope_dims(head_dim: int) -> Tuple[int, int, int]:
@@ -277,6 +296,31 @@ def rope_3d(dim_t: int, dim_h: int, dim_w: int, t: int, h: int, w: int,
         ], dim=-1).reshape(t * h * w, -1)
 
     return grid(ct, ch, cw), grid(st, sh, sw)
+
+
+def rope_3d_axis_tables(dims: Sequence[int], grid: Tuple[int, int, int],
+                        theta: float = 10000.0,
+                        temporal_scale: Optional[torch.Tensor] = None,
+                        device: Optional[torch.device] = None
+                        ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """Per-axis cos/sin tables broadcast to the flattened (t·h·w) grid, for
+    the grouped RoPE (StepVideo): ((cos_t, sin_t), (cos_h, sin_h), (cos_w,
+    sin_w)), each (t·h·w, dims[i]/2), f32."""
+    t, h, w = grid
+    out = []
+    for axis, (dim, n) in enumerate(zip(dims, grid)):
+        inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                            device=device) / dim))
+        if axis == 0 and temporal_scale is not None:
+            inv = inv * temporal_scale
+        freqs = torch.arange(n, dtype=torch.float32,
+                             device=device)[:, None] * inv[None]
+        shape = [1, 1, 1, dim // 2]
+        shape[axis] = n
+        tabs = tuple(f(freqs).reshape(shape).expand(t, h, w, dim // 2)
+                     .reshape(t * h * w, -1) for f in (torch.cos, torch.sin))
+        out.append(tabs)
+    return tuple(out)
 
 
 def unpatchify_3d(x: torch.Tensor, grid: Tuple[int, int, int],

@@ -1,12 +1,12 @@
-"""Text encoders (torch): the T5 encoder (CogVideoX, Open-Sora), the CLIP
-text transformer and the LLaMA decoder used as an encoder (HunyuanVideo),
-and host-side tokenisation, counterparts of
+"""Text encoders (torch): the T5 encoder (CogVideoX, Open-Sora, Mochi), the
+CLIP text transformer, the LLaMA decoder used as an encoder (HunyuanVideo),
+StepVideo's Step-1 LLM, and host-side tokenisation, counterparts of
 ``videotuna_tpu/models/text_encoders.py``.
 
 T5 attention carries a relative-position bias, so it runs on the math path
 of ``dot_product_attention``, as in the JAX package.  CLIP and LLaMA are
-causal: LLaMA at ≥ 128 tokens takes the flash kernel (K2), CLIP at its 77
-tokens the math path.
+causal: LLaMA and StepLLM at ≥ 128 tokens take the flash kernel (K2), CLIP
+at its 77 tokens the math path.
 """
 
 from __future__ import annotations
@@ -285,6 +285,79 @@ class LlamaTextEncoder(nn.Module):
         x = self.final_norm(x)
         if self.lm_head is not None:
             x = self.lm_head(x)
+        if mask is not None:
+            x = x * mask[..., None].to(x.dtype)
+        return x
+
+
+# ---------------------------------------------------------------------------
+# StepLLM: StepVideo's Step-1 text encoder (multi-query attention, SwiGLU,
+# no positional encoding, no final norm)
+# ---------------------------------------------------------------------------
+
+class StepLLMBlock(nn.Module):
+    """RMSNorm → causal attention over ``groups`` shared key/value heads
+    (the fused ``wqkv``: q, then each group's [k | v]) → RMSNorm → SwiGLU
+    (the fused ``w1``: silu(first half) · second half); no biases."""
+
+    def __init__(self, dim: int, heads: int, groups: int, ff_hidden: int,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.heads, self.groups = dim, heads, groups
+        self.head_dim = dim // heads
+        self.attn_norm = RMSNorm(dim, eps=eps, dtype=dtype)
+        self.wqkv = nn.Linear(dim, dim + 2 * groups * self.head_dim,
+                              bias=False, dtype=dtype)
+        self.wo = nn.Linear(dim, dim, bias=False, dtype=dtype)
+        self.ffn_norm = RMSNorm(dim, eps=eps, dtype=dtype)
+        self.w1 = nn.Linear(dim, 2 * ff_hidden, bias=False, dtype=dtype)
+        self.w2 = nn.Linear(ff_hidden, dim, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q, kv = self.wqkv(self.attn_norm(x)).split(
+            [self.dim, 2 * self.groups * self.head_dim], dim=-1)
+        q = q.unflatten(-1, (self.heads, self.head_dim))
+        k, v = kv.unflatten(-1, (self.groups, 2 * self.head_dim)).chunk(
+            2, dim=-1)
+        # dot_product_attention repeats each group over heads // groups
+        # adjacent query heads, as the JAX package's jnp.repeat
+        o = dot_product_attention(q, k, v, causal=True)
+        x = x + self.wo(o.flatten(-2))
+        a, gate = self.w1(self.ffn_norm(x)).chunk(2, dim=-1)
+        return x + self.w2(F.silu(a) * gate)
+
+
+@register("videotuna_tpu_torch.models.StepLLMEncoder",
+          aliases=["videotuna.models.stepvideo.stepvideo.text_encoder."
+                   "stepllm.STEP1TextEncoder"])
+class StepLLMEncoder(nn.Module):
+    """Step-1 text encoder (30B config: dim 6144, 48 heads over 8 key/value
+    groups, 48 layers; SwiGLU hidden ⌈dim·8/3⌉ rounded up to 256): word
+    embeddings, the blocks, the states zeroed where ``mask`` is False.
+    Every attention is causal at d = dim / heads; in f32 at d = 128 it takes
+    the f32 Hopper design (route K2)."""
+
+    def __init__(self, vocab_size: int = 65536, dim: int = 6144,
+                 heads: int = 48, groups: int = 8,
+                 ff_hidden: Optional[int] = None, num_layers: int = 48,
+                 eps: float = 1e-5,
+                 dtype: Union[str, torch.dtype] = torch.float32):
+        super().__init__()
+        dtype = resolve_dtype(dtype)
+        if ff_hidden is None:
+            ff_hidden = 256 * ((int(dim * 8 / 3) + 255) // 256)
+        self.dim = dim
+        self.tok_embeddings = nn.Embedding(vocab_size, dim, dtype=dtype)
+        self.blocks = nn.ModuleList(
+            StepLLMBlock(dim, heads, groups, ff_hidden, eps, dtype)
+            for _ in range(num_layers))
+
+    def forward(self, input_ids: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """input_ids (B, N) int, mask (B, N) bool → (B, N, dim)."""
+        x = self.tok_embeddings(input_ids)
+        for block in self.blocks:
+            x = block(x)
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
         return x

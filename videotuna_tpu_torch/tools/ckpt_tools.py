@@ -59,6 +59,29 @@ def _stdit_preprocess(sd):
                                      "kv_linear", ("k_linear", "v_linear"))
 
 
+def _stepvideo_preprocess(sd):
+    """The DiT's per-head-interleaved fused projections split, the heads
+    read off the checkpoint (a q_norm weight's length is the head width),
+    as the JAX tool derives them: a wrong head count would reshape cleanly
+    and scramble the interleave."""
+    qn = next((v for k, v in sd.items()
+               if k.endswith("attn1.q_norm.weight")), None)
+    wq = next((v for k, v in sd.items() if k.endswith("attn1.wqkv.weight")),
+              None)
+    if qn is None or wq is None:
+        return sd   # nothing fused to split
+    heads = wq.shape[0] // (3 * int(qn.shape[0]))
+    sd = cw.preprocess_split_headwise(sd, r"attn1\.wqkv", "wqkv",
+                                      ("wq", "wk", "wv"), heads=heads)
+    return cw.preprocess_split_headwise(sd, r"attn2\.wkv", "wkv",
+                                        ("wk", "wv"), heads=heads)
+
+
+def _mochi_vae_map():
+    from videotuna_tpu_torch.models.mochi_vae import mochi_vae_map
+    return mochi_vae_map()
+
+
 # family → (the map made from args and the component's config params,
 # state-dict preprocessor or None): the JAX package's families whose
 # target module the port has.  Preprocessors split the upstream
@@ -86,14 +109,17 @@ FAMILIES = {
         "addition_attention", True)), None),
     "lvdm_vc1": (lambda a, p: _lvdm(a, p, use_relative_position=True),
                  None),
+    "stepllm": (lambda a, p: cw.stepllm_map(), None),
+    "stepvideo": (lambda a, p: cw.stepvideo_map(heads=_heads(a, p)),
+                  _stepvideo_preprocess),
+    "mochi": (lambda a, p: cw.mochi_map(heads=_heads(a, p)), None),
+    "mochi_vae": (lambda a, p: _mochi_vae_map(), None),
 }
 
 # the JAX package's families whose target module the port does not have
 # yet, with the ROADMAP.md item each waits for
 WAITING = {
-    "mochi": "item 8.4 (Mochi)", "mochi_vae": "item 8.4 (Mochi)",
-    "flux": "item 8.5 (Flux)", "stepvideo": "item 8.3 (StepVideo)",
-    "stepllm": "item 8.3 (StepVideo)",
+    "flux": "item 8.5 (Flux)",
     "clip_vision": "items 10.4 and 10.5 (models/clip_vision.py)",
     "aesthetic": "items 10.4 and 10.5 (the aesthetic scorer)",
     "llava_projector": "item 4 (HunyuanVideo i2v)",

@@ -21,7 +21,9 @@ Pieces:
 - the maps of the families the port runs: ``stdit_map``, ``stdit8_map``,
   ``wan_map``, ``hunyuan_map``, ``cogvideox_map``, ``wan_vae_map``,
   ``hunyuan_vae_map``, ``cogvideox_vae_map``, ``t5_map``,
-  ``clip_text_map``, ``llama_map``, ``lvdm_map``.  The maps of the
+  ``clip_text_map``, ``llama_map``, ``lvdm_map``, ``stepllm_map``,
+  ``stepvideo_map`` (after ``preprocess_split_headwise``), ``mochi_map``
+  (the Mochi VAE's is ``models/mochi_vae.py:mochi_vae_map``).  The maps of the
   families the port does not run yet raise ``NotImplementedError`` naming
   their ROADMAP.md item.
 """
@@ -1371,6 +1373,210 @@ def lvdm_map(model_channels: int = 320,
 
 
 # ---------------------------------------------------------------------------
+# StepVideo (the DiT and the Step-1 LLM) and Mochi
+# ---------------------------------------------------------------------------
+
+def stepllm_map() -> ConversionMap:
+    """StepVideo Step1Model state_dict (stepllm.py: tok_embeddings +
+    transformer.layers.N.{attention.wqkv/wo, feed_forward.w1/w2,
+    attention_norm, ffn_norm}) → the StepLLMEncoder tree."""
+    lyr = r"transformer\.layers\.(\d+)"
+    return ConversionMap([
+        (r"tok_embeddings\.word_embeddings\.weight",
+         r"tok_embeddings/embedding", _identity),
+        (rf"{lyr}\.attention\.wqkv\.weight", r"block_\1/wqkv/kernel",
+         t_linear),
+        (rf"{lyr}\.attention\.wo\.weight", r"block_\1/wo/kernel",
+         t_linear),
+        (rf"{lyr}\.attention_norm\.weight", r"block_\1/attn_norm/scale",
+         None),
+        (rf"{lyr}\.ffn_norm\.weight", r"block_\1/ffn_norm/scale", None),
+        (rf"{lyr}\.feed_forward\.w1\.weight", r"block_\1/w1/kernel",
+         t_linear),
+        (rf"{lyr}\.feed_forward\.w2\.weight", r"block_\1/w2/kernel",
+         t_linear),
+    ])
+
+
+def preprocess_split_headwise(sd: Dict[str, np.ndarray],
+                              pattern: str, token: str,
+                              names: Sequence[str],
+                              heads: int) -> Dict[str, np.ndarray]:
+    """Split PER-HEAD-INTERLEAVED fused projections (StepVideo model.py
+    :485-495 / :536-539: ``view(..., heads, n·hd)`` then ``split(hd)`` —
+    output rows ordered head-major as [q|k|v] chunks within each head,
+    unlike the block layout preprocess_split_fused handles)."""
+    rx = re.compile(pattern)
+    n = len(names)
+    out: Dict[str, np.ndarray] = {}
+    for key, val in sd.items():
+        if rx.search(key) and token in key:
+            if val.shape[0] % (heads * n):
+                raise ValueError(
+                    f"{key}: {val.shape[0]} output rows not divisible by "
+                    f"heads({heads})×{n} — wrong --heads? (StepVideo-30B "
+                    f"uses 48)")
+            hd = val.shape[0] // (heads * n)
+            if hd % 2:
+                raise ValueError(
+                    f"{key}: implied head_dim {hd} is odd — wrong --heads "
+                    f"(StepVideo-30B uses 48, head_dim 128)")
+            parts = val.reshape(heads, n, hd, *val.shape[1:])
+            for i, name in enumerate(names):
+                out[key.replace(token, name)] = np.ascontiguousarray(
+                    parts[:, i].reshape(heads * hd, *val.shape[1:]))
+        else:
+            out[key] = val
+    return out
+
+
+def _t_conv2d_to_patch3d(w: np.ndarray) -> np.ndarray:
+    """torch Conv2d (out, in, kh, kw) → flax 3D patch kernel
+    (1, kh, kw, in, out) (StepVideo patchfy runs the 2D PatchEmbed per
+    frame, model.py:816-819 — temporally a 1-kernel)."""
+    return t_conv(w)[None]
+
+
+def stepvideo_map(heads: int = 48) -> ConversionMap:
+    """StepVideoModel (modules/model.py:738-920) torch names → our
+    StepVideoModel tree. Run :func:`preprocess_split_headwise` on
+    ``attn1.wqkv`` → (wq, wk, wv) and ``attn2.wkv`` → (wk, wv) first."""
+    dg = t_dense_general(heads)
+    blk = r"transformer_blocks\.(\d+)\."
+    return ConversionMap([
+        (r"pos_embed\.proj\.weight", r"patch_embed/kernel",
+         _t_conv2d_to_patch3d),
+        (r"pos_embed\.proj\.bias", r"patch_embed/bias", None),
+        (r"adaln_single\.emb\.timestep_embedder\.linear_1\.weight",
+         r"t_embedder/fc1/kernel", t_linear),
+        (r"adaln_single\.emb\.timestep_embedder\.linear_1\.bias",
+         r"t_embedder/fc1/bias", None),
+        (r"adaln_single\.emb\.timestep_embedder\.linear_2\.weight",
+         r"t_embedder/fc2/kernel", t_linear),
+        (r"adaln_single\.emb\.timestep_embedder\.linear_2\.bias",
+         r"t_embedder/fc2/bias", None),
+        (r"adaln_single\.linear\.weight", r"t_block/kernel", t_linear),
+        (r"adaln_single\.linear\.bias", r"t_block/bias", None),
+        (r"caption_projection\.linear_1\.weight", r"caption_fc1/kernel",
+         t_linear),
+        (r"caption_projection\.linear_1\.bias", r"caption_fc1/bias", None),
+        (r"caption_projection\.linear_2\.weight", r"caption_fc2/kernel",
+         t_linear),
+        (r"caption_projection\.linear_2\.bias", r"caption_fc2/bias", None),
+        (r"clip_projection\.weight", r"clip_proj/kernel", t_linear),
+        (r"clip_projection\.bias", r"clip_proj/bias", None),
+        (rf"{blk}norm1\.weight", r"block_\1/norm1/scale", None),
+        (rf"{blk}norm1\.bias", r"block_\1/norm1/bias", None),
+        (rf"{blk}norm2\.weight", r"block_\1/norm2/scale", None),
+        (rf"{blk}norm2\.bias", r"block_\1/norm2/bias", None),
+        (rf"{blk}attn1\.wq\.weight", r"block_\1/self_q/kernel", dg),
+        (rf"{blk}attn1\.wk\.weight", r"block_\1/self_k/kernel", dg),
+        (rf"{blk}attn1\.wv\.weight", r"block_\1/self_v/kernel", dg),
+        (rf"{blk}attn1\.wo\.weight", r"block_\1/self_out/kernel",
+         t_linear),
+        (rf"{blk}attn1\.q_norm\.weight", r"block_\1/q_norm/scale", None),
+        (rf"{blk}attn1\.k_norm\.weight", r"block_\1/k_norm/scale", None),
+        (rf"{blk}attn2\.wq\.weight", r"block_\1/cross_q/kernel", dg),
+        (rf"{blk}attn2\.wk\.weight", r"block_\1/cross_k/kernel", dg),
+        (rf"{blk}attn2\.wv\.weight", r"block_\1/cross_v/kernel", dg),
+        (rf"{blk}attn2\.wo\.weight", r"block_\1/cross_out/kernel",
+         t_linear),
+        (rf"{blk}attn2\.q_norm\.weight", r"block_\1/cross_q_norm/scale",
+         None),
+        (rf"{blk}attn2\.k_norm\.weight", r"block_\1/cross_k_norm/scale",
+         None),
+        (rf"{blk}ff\.net\.0\.proj\.weight", r"block_\1/ffn1/kernel",
+         t_linear),
+        (rf"{blk}ff\.net\.2\.weight", r"block_\1/ffn2/kernel", t_linear),
+        (rf"{blk}scale_shift_table", r"block_\1/scale_shift_table",
+         _identity),
+        (r"^scale_shift_table$", r"final_scale_shift_table", _identity),
+        (r"proj_out\.weight", r"final_proj/kernel", t_linear),
+        (r"proj_out\.bias", r"final_proj/bias", None),
+    ])
+
+
+def _patch_conv2d_to_dense(w: np.ndarray) -> np.ndarray:
+    """Patch-embed Conv2d (out, in, kh, kw) with stride == kernel → Dense
+    kernel over tokens flattened (kh, kw, in) → out."""
+    out = w.shape[0]
+    return np.ascontiguousarray(w.transpose(2, 3, 1, 0).reshape(-1, out))
+
+
+def mochi_map(heads: int = 24) -> ConversionMap:
+    """diffusers ``MochiTransformer3DModel`` names (genmo/mochi-1-preview,
+    the backbone of diffusers' MochiPipeline) → the ``MochiDiT`` tree. The last transformer block has no
+    to_add_out/ff_context/norm1_context gates (update_y=False) — its
+    norm1_context.linear maps onto the scale-only ``mod_y``."""
+    dg = t_dense_general(heads)
+    blk = r"transformer_blocks\.(\d+)\."
+    return ConversionMap([
+        (r"patch_embed\.proj\.weight", r"patch_embed/kernel",
+         _patch_conv2d_to_dense),
+        (r"patch_embed\.proj\.bias", r"patch_embed/bias", None),
+        (r"time_embed\.timestep_embedder\.linear_1\.weight",
+         r"t_embedder/fc1/kernel", t_linear),
+        (r"time_embed\.timestep_embedder\.linear_1\.bias",
+         r"t_embedder/fc1/bias", None),
+        (r"time_embed\.timestep_embedder\.linear_2\.weight",
+         r"t_embedder/fc2/kernel", t_linear),
+        (r"time_embed\.timestep_embedder\.linear_2\.bias",
+         r"t_embedder/fc2/bias", None),
+        (r"time_embed\.pooler\.to_kv\.weight", r"t5_pool/to_kv/kernel",
+         t_linear),
+        (r"time_embed\.pooler\.to_kv\.bias", r"t5_pool/to_kv/bias", None),
+        (r"time_embed\.pooler\.to_q\.weight", r"t5_pool/to_q/kernel",
+         t_linear),
+        (r"time_embed\.pooler\.to_q\.bias", r"t5_pool/to_q/bias", None),
+        (r"time_embed\.pooler\.to_out\.weight", r"t5_pool/to_out/kernel",
+         t_linear),
+        (r"time_embed\.pooler\.to_out\.bias", r"t5_pool/to_out/bias", None),
+        (r"time_embed\.caption_proj\.weight", r"caption_proj/kernel",
+         t_linear),
+        (r"time_embed\.caption_proj\.bias", r"caption_proj/bias", None),
+        (r"pos_frequencies", r"pos_frequencies", _identity),
+        (blk + r"norm1\.linear\.weight", r"block_\1/mod_x/kernel",
+         t_linear),
+        (blk + r"norm1\.linear\.bias", r"block_\1/mod_x/bias", None),
+        (blk + r"norm1_context\.linear\.weight", r"block_\1/mod_y/kernel",
+         t_linear),
+        (blk + r"norm1_context\.linear\.bias", r"block_\1/mod_y/bias",
+         None),
+        (blk + r"attn1\.to_q\.weight", r"block_\1/q_x/kernel", dg),
+        (blk + r"attn1\.to_k\.weight", r"block_\1/k_x/kernel", dg),
+        (blk + r"attn1\.to_v\.weight", r"block_\1/v_x/kernel", dg),
+        (blk + r"attn1\.norm_q\.weight", r"block_\1/norm_q_x/scale", None),
+        (blk + r"attn1\.norm_k\.weight", r"block_\1/norm_k_x/scale", None),
+        (blk + r"attn1\.add_q_proj\.weight", r"block_\1/q_y/kernel", dg),
+        (blk + r"attn1\.add_k_proj\.weight", r"block_\1/k_y/kernel", dg),
+        (blk + r"attn1\.add_v_proj\.weight", r"block_\1/v_y/kernel", dg),
+        (blk + r"attn1\.norm_added_q\.weight", r"block_\1/norm_q_y/scale",
+         None),
+        (blk + r"attn1\.norm_added_k\.weight", r"block_\1/norm_k_y/scale",
+         None),
+        (blk + r"attn1\.to_out\.0\.weight", r"block_\1/proj_x/kernel",
+         t_linear),
+        (blk + r"attn1\.to_out\.0\.bias", r"block_\1/proj_x/bias", None),
+        (blk + r"attn1\.to_add_out\.weight", r"block_\1/proj_y/kernel",
+         t_linear),
+        (blk + r"attn1\.to_add_out\.bias", r"block_\1/proj_y/bias", None),
+        (blk + r"ff\.net\.0\.proj\.weight", r"block_\1/ff_x_in/kernel",
+         t_linear),
+        (blk + r"ff\.net\.2\.weight", r"block_\1/ff_x_out/kernel",
+         t_linear),
+        (blk + r"ff_context\.net\.0\.proj\.weight",
+         r"block_\1/ff_y_in/kernel", t_linear),
+        (blk + r"ff_context\.net\.2\.weight", r"block_\1/ff_y_out/kernel",
+         t_linear),
+        (r"norm_out\.linear\.weight", r"final_mod/kernel", t_linear),
+        (r"norm_out\.linear\.bias", r"final_mod/bias", None),
+        (r"proj_out\.weight", r"final_proj/kernel", t_linear),
+        (r"proj_out\.bias", r"final_proj/bias", None),
+    ])
+
+
+
+# ---------------------------------------------------------------------------
 # Maps of the families the port does not run yet: each raises, naming the
 # ROADMAP.md item its target module waits for
 # ---------------------------------------------------------------------------
@@ -1384,9 +1590,6 @@ def _waits(name: str, item: str):
     return waiting_map
 
 
-stepllm_map = _waits("stepllm_map", "item 8.3 (StepVideo)")
-stepvideo_map = _waits("stepvideo_map", "item 8.3 (StepVideo)")
-mochi_map = _waits("mochi_map", "item 8.4 (Mochi)")
 flux_map = _waits("flux_map", "item 8.5 (Flux)")
 clip_vision_map = _waits("clip_vision_map",
                          "items 10.4 and 10.5 (models/clip_vision.py)")
