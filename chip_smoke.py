@@ -8,6 +8,8 @@
     python3 chip_smoke.py --vc-train [kernels|train]
     python3 chip_smoke.py --stepvideo
     python3 chip_smoke.py --mochi
+    python3 chip_smoke.py --flux
+    python3 chip_smoke.py --v2v
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
@@ -19,7 +21,9 @@ line before the result line.  The fifth runs only the VideoCrafter,
 DynamiCrafter and Wan I2V phases (34–40), likewise.  The sixth runs only
 the VideoCrafter2 training phases (41–44; "kernels": 41 and 42, "train":
 43 and 44), likewise.  The seventh and the eighth run only phase 45 and
-the StepVideo phases (46, 47, 49) or the Mochi ones (48, 50), likewise.
+the StepVideo phases (46, 47, 49) or the Mochi ones (48, 50), likewise;
+the ninth and the tenth the Flux phases (51–54) or the V2V ones (55–57),
+likewise.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -415,20 +419,51 @@ without a result line:
 50. e2e-mochi — ``inference-mochi`` at 84×480×848 (22,516 tokens) at full
                 width and depth, 2 of 64 steps, 4 of 14 latent frames
                 decoded; every joint attention on K4 at d=128.
+51. K-flux    — Flux's d=128 attention on the Hopper designs against the
+                plain versions, by CUDA events and device time beside
+                flash_fwd.cu / flash_bwd.cu, SDPA and the bound: K2 online
+                at sampling's 4,592 tokens (B=1, H=24: 4,080 image + 512
+                T5), K5 online with the LSE (K3's kernel) and K8 at LoRA
+                training's 2,816 (768×768).
+52. reference-flux — the Flux-dev flow narrow (dim 256, 2 heads of d=128,
+                1 double and 2 single blocks), card vs CPU, the DiT in
+                bf16 (K2 on K3's kernel) and in f32 (K2 on the f32
+                design): one DiT call over 128 image + 32 text tokens, 2
+                steps, the decode; then one narrow bf16 LoRA step (K5
+                online, K8) card vs CPU.
+53. e2e-flux-dev, e2e-flux-schnell — ``inference-flux-dev`` (28 steps,
+                embedded guidance) and ``inference-flux-schnell`` (4 steps)
+                at 768×1360, full width and depth (dim 3072, 19 double and
+                38 single blocks, bf16; T5-XXL, CLIP-L, the 2D VAE): 57 K2
+                a step on K3's kernel, none on flash_fwd.cu.
+54. train-flux-lora — ``flux_lora.yaml`` at full width, LoRA rank 16,
+                768×768, batch 1, 3 steps through the trainer on batches of
+                packed latents (the port's VAE encode of a seeded image)
+                and the caption: K5 and K8 57 a step at d=128.
+55. e2e-v2v   — a seeded 16-frame 320×512 mp4 through ``inference-v2v-ms``
+                (VideoCrafter2, DDIM from strength 0.4: 20 of 50 steps,
+                CFG 7.5) and the enhancement model (``V2VEnhanceFlow``,
+                v2v_enhance_unet.yaml, all 50 steps) through ``cli/v2v``:
+                the UNet's K2 and K1 on the persistent kernel.
+56. reference-v2v — the enhancement model narrow (the UNet in f32), card vs
+                CPU: conditioning latents, one UNet call, the enhanced
+                pixels; 57. its control (every card attention output
+                scaled by 1 + 1e-3), which must fail.
 
 They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
 33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 41–44, 45–47, 49, 50,
-20, 22 (48 runs after 46).
+51–57, 20, 22 (48 runs after 46).
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18, 25, 32, 35, 42, 46, 48) turn TF32 off inside ``tf32_off``
-and restore the flags.
+(7, 9, 15, 18, 25, 32, 35, 42, 46, 48, 52, 56) turn TF32 off inside
+``tf32_off`` and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the fifteen sampling runs and the five training runs) and read just
+(the nineteen sampling runs and the six training runs) and read just
 after;
 in each, no launch splits its keys but LLaMA's and StepLLM's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those twenty runs (and phase 49's), per design and,
+launches summed over those twenty-five runs (and phase 49's), per design
+and,
 for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
 training's d=128 K5 (K3's kernel with the LSE) and K8 (flash_bwd_sm90 at
@@ -2076,15 +2111,28 @@ def check_bwd(A) -> dict:
 
 def check_bwd_hunyuan(A, gen, rec) -> None:
     """HunyuanVideo's training attention (B=1, the LoRA run's tokens, H=24,
-    d=128, bf16, RMSNormed q and k): K5, the forward under the fixed max 0
-    with the LSE, on K3's Hopper kernel, against the plain chunked forward;
-    K8, unmasked, on that forward's output and LSE, on flash_bwd_sm90 at
-    its width 128, against the plain chunked backward.  Each counted per
-    route, per design and at d=128, and timed beside the bound, the plain
-    version, SDPA (forward; backward as forward plus backward minus
-    forward) and the old design on the same tensors (flash_fwd.cu,
-    flash_bwd.cu).  Into ``rec["K5"]`` and ``rec["K8"]`` as ``d128_*``."""
-    b, s, h, d = 1, HY_TRAIN_TOKENS, SHAPE_HY["h"], 128
+    d=128, bf16, RMSNormed q and k) under the fixed max 0
+    (``_train_attention``).  Into ``rec["K5"]`` and ``rec["K8"]`` as
+    ``d128_*``."""
+    k5, k8 = _train_attention(A, gen, HY_TRAIN_TOKENS, 0.0, "hunyuan")
+    rec["K5"].update({f"d128_{key}": val for key, val in k5.items()})
+    rec["K8"].update({f"d128_{key}": val for key, val in k8.items()})
+
+
+def _train_attention(A, gen, s, static_max, what, phase=None,
+                     device=False):
+    """A training step's joint attention at d=128 (B=1, ``s`` tokens, H=24,
+    bf16, RMSNormed q and k): K5, the forward with the LSE under the fixed
+    max ``static_max`` or online (None), on K3's Hopper kernel, against the
+    plain chunked forward; K8, unmasked, on that forward's output and LSE,
+    on flash_bwd_sm90 at its width 128, against the plain chunked backward.
+    Each counted per route, per design and at d=128, and timed beside the
+    bound (the online forward's with its exp2 floor), the plain version,
+    SDPA (forward; backward as forward plus backward minus forward) and
+    the old design on the same tensors (flash_fwd.cu, flash_bwd.cu); with
+    ``device`` also by device time.  Logged under ``phase`` (else "K5" and
+    "K8"); returns their records."""
+    b, h, d = 1, SHAPE_HY["h"], 128
     sm = d ** -0.5
     q, k = (_rms(torch.randn((b, s, h, d), generator=gen,
                              device="cuda")).bfloat16() for _ in range(2))
@@ -2093,7 +2141,7 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
     shape = f"B{b}xS{s}xH{h}xd{d}"
 
     def fwd():
-        return A.flash_fwd(q, k, v, sm_scale=sm, static_max=0.0,
+        return A.flash_fwd(q, k, v, sm_scale=sm, static_max=static_max,
                            emit_lse=True, route="K5")
 
     def fwd_counts():
@@ -2104,7 +2152,7 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
     out, lse = fwd()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref, ref_lse = _plain_chunked(A, q, k, v, 0.0)
+    ref, ref_lse = _plain_chunked(A, q, k, v, static_max)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = (out.float() - ref.float()).abs().max().item()
@@ -2115,16 +2163,29 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
     del ref, ref_lse
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms, backend = sdpa_ms((qt, kt, vt), {}, reps=10)
-    del qt, kt, vt
     flops = 4.0 * b * h * s * s * d
-    bound_ms, bound_by = _bound(flops, 4 * q.numel() * q.element_size()
-                                + lse.numel() * 4)
+    bound_ms, bound_by = _bound(
+        flops, 4 * q.numel() * q.element_size() + lse.numel() * 4,
+        _exp2_floor_ms(h * s * s) if static_max is None else 0.0)
+
+    def old():
+        return A._flash_fwd_mma(q, k, v, sm, False, None, static_max, True)
+
     ms = cuda_time_ms(fwd, reps=10)
-    old_ms = cuda_time_ms(lambda: A._flash_fwd_mma(
-        q, k, v, sm, False, None, 0.0, True), reps=10)
+    old_ms = cuda_time_ms(old, reps=10)
     k5 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, library_ms=library_ms, old_design_ms=old_ms)
-    log("K5", case="hunyuan training joint, static_max=0, emit_lse",
+    if device:
+        from videotuna_tpu_torch.kernels.attribution import device_ms
+        dev = [device_ms(fn, reps=5) for fn in (fwd, old, old, fwd)]
+        k5.update(device_ms=min(dev[0], dev[3]),
+                  old_design_device_ms=min(dev[1], dev[2]),
+                  library_device_ms=sdpa_device_ms((qt, kt, vt), {},
+                                                   reps=5)[0])
+    del qt, kt, vt
+    softmax = ("online" if static_max is None
+               else f"static_max={static_max:g}")
+    log(phase or "K5", case=f"{what} training joint, {softmax}, emit_lse",
         shape=shape, kernel="flash_fwd_sm90 (K3's kernel with the LSE)",
         max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
         lse_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
@@ -2134,12 +2195,15 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
         library=f"scaled_dot_product_attention[{backend}]",
         library_ms=f"{library_ms:.3f}",
         old_design="flash_fwd.cu", old_design_ms=f"{old_ms:.3f}",
-        old_tflops=f"{flops / old_ms / 1e9:.1f}", ok=ok)
+        old_tflops=f"{flops / old_ms / 1e9:.1f}",
+        **{key: f"{k5[key]:.4f}" for key in ("device_ms",
+                                             "old_design_device_ms",
+                                             "library_device_ms")
+           if key in k5}, ok=ok)
     if not ok:
-        raise AssertionError("K5 at HunyuanVideo's training shape disagrees "
+        raise AssertionError(f"K5 at {what}'s training shape disagrees "
                              "with its plain version, or did not launch "
                              "flash_fwd_sm90 at d=128")
-    rec["K5"].update({f"d128_{key}": val for key, val in k5.items()})
 
     def bwd():
         return A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm)
@@ -2163,13 +2227,21 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
     flops = 10.0 * b * h * s * s * d
     bound_ms, bound_by = _bound(flops, 8 * q.numel() * q.element_size()
                                 + lse.numel() * 4)
+    def old_bwd():
+        return A._flash_bwd_mma(q, k, v, out, g, lse, sm)
+
     ms = cuda_time_ms(bwd, reps=5)
-    old_ms = cuda_time_ms(lambda: A._flash_bwd_mma(q, k, v, out, g, lse, sm),
-                          reps=5)
+    old_ms = cuda_time_ms(old_bwd, reps=5)
     library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=5)
     k8 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, library_ms=library_ms, old_design_ms=old_ms)
-    log("K8", case="hunyuan training joint, unmasked", shape=shape,
+    if device:
+        dev = [device_ms(fn, reps=3) for fn in (bwd, old_bwd, old_bwd, bwd)]
+        k8.update(device_ms=min(dev[0], dev[3]),
+                  old_design_device_ms=min(dev[1], dev[2]),
+                  library_device_ms=sdpa_bwd_device_ms(q, k, v, g,
+                                                       reps=3)[0])
+    log(phase or "K8", case=f"{what} training joint, unmasked", shape=shape,
         kernel="flash_bwd_sm90 d=128", dq=rows[0], dk=rows[1], dv=rows[2],
         ms=f"{ms:.3f}", tflops=f"{flops / ms / 1e9:.1f}",
         bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
@@ -2177,16 +2249,20 @@ def check_bwd_hunyuan(A, gen, rec) -> None:
         library_ms=f"{library_ms:.3f}", old_design="flash_bwd.cu",
         old_design_ms=f"{old_ms:.3f}",
         old_tflops=f"{flops / old_ms / 1e9:.1f}",
-        old_design_errs=",".join(old_rows), ok=ok and old_ok)
+        old_design_errs=",".join(old_rows),
+        **{key: f"{k8[key]:.4f}" for key in ("device_ms",
+                                             "old_design_device_ms",
+                                             "library_device_ms")
+           if key in k8}, ok=ok and old_ok)
     if not ok:
-        raise AssertionError("K8 at HunyuanVideo's training shape disagrees "
+        raise AssertionError(f"K8 at {what}'s training shape disagrees "
                              "with the plain backward, or did not launch "
                              "flash_bwd_sm90 at d=128")
     if not old_ok:
         raise AssertionError("flash_bwd.cu disagrees with the plain backward "
-                             "at HunyuanVideo's training shape")
-    rec["K8"].update({f"d128_{key}": val for key, val in k8.items()})
+                             f"at {what}'s training shape")
     del q, k, v, g, out, lse
+    return k5, k8
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2237,7 +2313,7 @@ def _dummy_data(frames: int, height: int, width: int) -> str:
 
 def _train_run(A, tag: str, argv, per_step: dict, lora: bool,
                resume: bool = True, on_built=None, on_fit=None,
-               saves: bool = True) -> dict:
+               saves: bool = True, loader_of=None) -> dict:
     """``TRAIN_STEPS`` steps through the training CLI's trainer: loss,
     grad-norm and seconds per step, peak memory, launches per step (checked
     against ``per_step``), the trainable count, the checkpoint, that a LoRA
@@ -2245,12 +2321,16 @@ def _train_run(A, tag: str, argv, per_step: dict, lora: bool,
     ``resume``, a ``--resume`` run of ``run_train`` that must restore the
     last step.  ``on_built`` and ``on_fit`` are called with the trainer
     once it is built and once its steps are checked; without ``saves``
-    the run's checkpoint is not required (its trainer writes none)."""
+    the run's checkpoint is not required (its trainer writes none).
+    ``loader_of``, given the trainer, returns the batches to train on in
+    place of the config's loader."""
     import shutil
     from videotuna_tpu_torch.cli.train import build_trainer, run_train
     workdir = argv[argv.index("--workdir") + 1]
     shutil.rmtree(workdir, ignore_errors=True)
     trainer, loader, _ = build_trainer(argv)
+    if loader_of is not None:
+        loader = loader_of(trainer)
     log(tag, weights_gb=f"{torch.cuda.memory_allocated() / 1e9:.2f}")
     if on_built is not None:
         on_built(trainer)
@@ -2357,9 +2437,11 @@ def _step_breakdown(trainer, loader, state, tag: str) -> None:
     batch, t_data = timed(lambda: next(iter(loader)))
     batch, t_text = timed(lambda: to_device(trainer.prepare_batch(batch),
                                             "cuda"))
-    z, t_vae = timed(lambda: trainer.flow.encode_video(batch.pop("video"),
-                                                       gen), "vae_encode")
-    batch["latents"] = z
+    t_vae = 0.0    # a batch that carries its latents has no encode
+    if "video" in batch:
+        z, t_vae = timed(lambda: trainer.flow.encode_video(
+            batch.pop("video"), gen), "vae_encode")
+        batch["latents"] = z
 
     def fwd_bwd():
         if trainer.lora is None:
@@ -2553,7 +2635,7 @@ def _grads_close(tag, named_gpu, named_cpu):
 
 
 @tf32_off()
-def check_train_reference(A) -> None:
+def check_train_reference(A, only=None) -> None:
     """One training step of each flow at narrow width, on the card and on
     the CPU, with the same weights, batch, t, noise and LoRA tree, TF32 off:
     CogVideoX (2 layers, 2 heads of d=64, LoRA rank 8, 128 video + 226 text
@@ -2561,10 +2643,13 @@ def check_train_reference(A) -> None:
     256 spatial tokens and a 13-of-120 caption: K5, K4, K8) and
     HunyuanVideo (dim 256, 2 heads of d=128, 1 double and 2 single blocks,
     LoRA rank 8, 192 image + 160 text tokens, σ = 0.417, pooled text: K5 and
-    K8 under the fixed max, on the Hopper designs at d=128).  Every card
-    launch must be on a Hopper design.  Loss within TRAIN_LOSS_TOL
-    relative, gradients within TRAIN_GRAD_TOL (bf16 models on both sides,
-    summed in other orders)."""
+    K8 under the fixed max, on the Hopper designs at d=128); with ``only``
+    ("flux_d128"), Flux-dev (``_narrow_flux``: 2 heads of d=128, 1 double
+    and 2 single blocks, LoRA rank 8, 8×16 packed latents: 128 image + 32
+    text tokens, σ = 0.417, pooled text, final_proj drawn: K5 online and
+    K8 on the Hopper designs at d=128).  Every card launch must be on a
+    Hopper design.  Loss within TRAIN_LOSS_TOL relative, gradients within
+    TRAIN_GRAD_TOL (bf16 models on both sides, summed in other orders)."""
     from videotuna_tpu_torch.core.config import load_configs
     from videotuna_tpu_torch.core.registry import instantiate
     from videotuna_tpu_torch.training.lora import (flatten_tree, init_lora,
@@ -2596,13 +2681,18 @@ def check_train_reference(A) -> None:
                          _narrow_hunyuan(),
                          (1, 3, 16, 16, 16), (1, 160, 256), 13,
                          {"K5": 3, "K8": 3}),
+        "flux_d128": (CONFIG_FLUX_LORA, _narrow_flux(), (1, 8, 16, 64),
+                      (1, 32, 64), None, {"K5": 3, "K8": 3}),
     }
+    only = only or [c for c in cases if c != "flux_d128"]
     for name, (config, overrides, zshape, yshape, n_valid, expect) \
-            in cases.items():
+            in ((c, cases[c]) for c in only):
         cfg = load_configs([config], overrides)
         cpu = instantiate(cfg["flow"], device="cpu")
         gpu = instantiate(cfg["flow"], device="cuda")
         cpu.init_params(seed=1)
+        if name == "flux_d128":
+            _draw_final_proj(cpu, 5)
         for comp, module in cpu.components().items():
             gpu.components()[comp].load_state_dict(module.state_dict())
         gen = torch.Generator().manual_seed(2)
@@ -2610,7 +2700,7 @@ def check_train_reference(A) -> None:
         noise = torch.randn(zshape, generator=gen)
         y = torch.randn(yshape, generator=gen)
         batch = {"latents": z, "text_states": y}
-        if name == "hunyuan_d128":   # CLIP's vector; σ instead of t
+        if name.endswith("_d128"):   # CLIP's vector; σ instead of t
             batch["pooled_text"] = torch.randn((1, 64), generator=gen)
             draw = {"sigma": torch.tensor([0.417])}
         else:
@@ -2663,7 +2753,8 @@ def check_train_reference(A) -> None:
         # K8 (d=72) on flash_bwd_rows_sm90
         expect_hopper = dict(expect, **({f"{k}_d128": n
                                          for k, n in expect.items()}
-                                        if name == "hunyuan_d128" else {}),
+                                        if name.endswith("_d128")
+                                        else {}),
                              **({"K8_rows": expect["K8"]}
                                 if name == "stdit" else {}))
         ok = (math.isfinite(rel) and rel <= TRAIN_LOSS_TOL
@@ -2906,48 +2997,67 @@ def check_small_reference_hunyuan() -> None:
     so K3 and the f32 K2 are on the card's path.  One denoiser call, the
     latents after 2 steps and the decode of the same latents must agree."""
     from videotuna_tpu_torch.core.config import load_configs
-    from videotuna_tpu_torch.core.registry import instantiate
     import videotuna_tpu_torch.kernels.attention as A
     cfg = load_configs([CONFIG_HY], _narrow_hunyuan() + [
         f"flow.params.scheduler_config.params.num_steps={HY_REF_STEPS}"])
+    _flow_card_vs_cpu(
+        A, "reference-hunyuan", cfg, (9, 128, 128),
+        lambda flow: flow.scheduler.timesteps[1].reshape(1),
+        "a panda playing guitar by a lake",
+        {"K3": 3 * (1 + HY_REF_STEPS), "K2": 2}, {},
+        (REF_TOL_CALL, REF_TOL_TRAJ, REF_TOL_DECODE))
+
+
+def _flow_card_vs_cpu(A, phase, cfg, size, t_of, prompt, expected, designs,
+                      tols, prepare=None):
+    """A narrow flow built from ``cfg`` on the card and on the CPU with the
+    same seeded weights (``prepare`` may change the CPU flow's first), the
+    same prompt and x_T of the latents of ``size`` (frames, H, W): one
+    denoiser call at ``t_of(flow)``, the latents after the flow's steps
+    (no CFG) and the decode of the CPU's latents must agree within
+    ``tols``; the card's launches must be ``expected``, and each of
+    ``designs`` (a ``read_sm90_counts`` key) its count."""
+    from videotuna_tpu_torch.core.registry import instantiate
     cpu = instantiate(cfg["flow"], device="cpu")
     gpu = instantiate(cfg["flow"], device="cuda")
     cpu.init_params(seed=1)
+    if prepare is not None:
+        prepare(cpu)
     for name, module in cpu.components().items():
         gpu.components()[name].load_state_dict(module.state_dict())
-    shape = cpu.latent_shape(1, 9, 128, 128)      # 3×16×16 latents
+    shape = cpu.latent_shape(1, *size)
     x_T = torch.randn(shape, generator=torch.Generator().manual_seed(2))
-    t = cpu.scheduler.timesteps[1].reshape(1)
-    outs, z_cpu = [], None
+    t = t_of(cpu)
+    outs, z_cpu, launches, sm90 = [], None, {}, {}
     for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
         zero_counts(A)
-        cond = flow.encode_text(["a panda playing guitar by a lake"])
+        cond = flow.encode_text([prompt])
         with torch.inference_mode(), flow._attn_scope():
             call = flow.denoise_apply(x_T.to(dev), t.to(dev), cond)
         z = flow.sample(cond, None, shape, None, 1.0, x_T=x_T.to(dev))
         launches = {k: v for k, v in read_counts(A).items() if v}
+        sm90 = read_sm90_counts(A)
         z_cpu = z if z_cpu is None else z_cpu
         video = flow.decode_latents(z_cpu.to(dev))
         outs.append([x.float().cpu() for x in (call, z, video)])
-    expected = {"K3": 3 * (1 + HY_REF_STEPS), "K2": 2}
-    if launches != expected:
-        raise AssertionError(f"narrow HunyuanVideo flow on the card "
-                             f"launched {launches}, expected {expected}")
+    if launches != expected or any(sm90[k] != n for k, n in designs.items()):
+        raise AssertionError(f"{phase}: the narrow flow on the card launched "
+                             f"{launches}, {sm90}; expected {expected}, "
+                             f"{designs}")
 
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
 
     errs = [rel(a, b) for a, b in zip(outs[1], outs[0])]
-    tols = (REF_TOL_CALL, REF_TOL_TRAJ, REF_TOL_DECODE)
     ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
-    log("reference-hunyuan", what="narrow hunyuanvideo_t2v flow, cuda vs cpu",
-        steps=HY_REF_STEPS, card_launches=launches,
-        denoiser_call_rel_err=f"{errs[0]:.3e}", call_tol=REF_TOL_CALL,
-        latent_rel_err=f"{errs[1]:.3e}", latent_tol=REF_TOL_TRAJ,
-        decode_rel_err=f"{errs[2]:.3e}", decode_tol=REF_TOL_DECODE, ok=ok)
+    log(phase, what="narrow flow, cuda vs cpu", latent_shape=list(shape),
+        steps=gpu.scheduler.num_steps, card_launches=launches,
+        denoiser_call_rel_err=f"{errs[0]:.3e}", call_tol=tols[0],
+        latent_rel_err=f"{errs[1]:.3e}", latent_tol=tols[1],
+        decode_rel_err=f"{errs[2]:.3e}", decode_tol=tols[2], ok=ok)
     if not ok:
-        raise AssertionError("GPU HunyuanVideo flow disagrees with the CPU "
-                             "flow")
+        raise AssertionError(f"{phase}: the card's flow disagrees with the "
+                             "CPU's")
     del cpu, gpu
     _free()
 
@@ -4550,13 +4660,15 @@ def _plain_masked_chunked(A, q, k, v, kv_valid, static_max, rows=256):
         for i in range(0, q.shape[1], rows)], dim=1)
 
 
-def _step_case(A, label, q, k, v, masks, lead, caption, static_max, rec):
+def _step_case(A, label, q, k, v, masks, lead, caption, static_max, rec,
+               phase="K-step", device=False):
     """K2 (no mask) or K4 (each of ``masks``) at d = 128 through
     ``flash_attention`` against its plain version, counted on the route, on
     flash_fwd_sm90 and at d = 128 once a call; then timed on the last
     mask's tensors beside flash_fwd.cu (in turns: new, old, old, new), the
     plain version, SDPA (with the boolean mask where there is one) and the
-    bound of the keys that the mask keeps."""
+    bound of the keys that the mask keeps; with ``device`` also by device
+    time (CUDA-graph replay), in the same turns, SDPA's too."""
     route = "K2" if masks is None else "K4"
     b, sq, h, d = q.shape
     kw = {} if static_max is None else {"static_max": static_max}
@@ -4579,7 +4691,7 @@ def _step_case(A, label, q, k, v, masks, lead, caption, static_max, rec):
         scale = ref.float().abs().max().item()
         ok = (err <= FWD_TOL * scale and bool(torch.isfinite(out).all())
               and launched == tuple(n + 1 for n in before))
-        log("K-step", case=f"{label} {name}",
+        log(phase, case=f"{label} {name}",
             shape=f"B{b}xSq{sq}xSk{k.shape[1]}xH{h}xd{d}", route=route,
             kernel="flash_fwd_sm90 (K3's kernel, d=128)",
             softmax="online" if static_max is None else f"fixed {static_max}",
@@ -4611,7 +4723,21 @@ def _step_case(A, label, q, k, v, masks, lead, caption, static_max, rec):
     rec.update(ms=min(t[0], t[3]), old_design_ms=min(t[1], t[2]),
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                library_ms=library_ms)
-    log("K-step", case=f"{label} timing", ms=f"{rec['ms']:.3f}",
+    if device:
+        from videotuna_tpu_torch.kernels.attribution import device_ms
+        dev = [device_ms(fn, reps=5) for fn in (new, old, old, new)]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        rec.update(device_ms=min(dev[0], dev[3]),
+                   old_design_device_ms=min(dev[1], dev[2]),
+                   library_device_ms=sdpa_device_ms((qt, kt, vt), lib_kw,
+                                                    reps=5)[0])
+        del qt, kt, vt
+        log(phase, case=f"{label} device time",
+            device_ms=f"{rec['device_ms']:.3f}",
+            turns="/".join(f"{x:.3f}" for x in dev),
+            old_design_device_ms=f"{rec['old_design_device_ms']:.3f}",
+            library_device_ms=f"{rec['library_device_ms']:.3f}")
+    log(phase, case=f"{label} timing", ms=f"{rec['ms']:.3f}",
         turns="/".join(f"{x:.3f}" for x in t),
         old_design="flash_fwd.cu", old_design_ms=f"{rec['old_design_ms']:.3f}",
         vs_old_design=f"{rec['old_design_ms'] / rec['ms']:.3f}",
@@ -4954,6 +5080,389 @@ def run_stepvideo_mochi(A) -> tuple:
     return kstep, [step, mochi], dit48
 
 
+# ---------------------------------------------------------------- phases 51-57
+CONFIG_FLUX_DEV = os.path.join(ROOT, "configs", "006_flux", "flux_dev.yaml")
+CONFIG_FLUX_LORA = os.path.join(ROOT, "configs", "006_flux",
+                                "flux_lora.yaml")
+CONFIG_V2V_UNET = os.path.join(ROOT, "configs", "011_v2v",
+                               "v2v_enhance_unet.yaml")
+FLUX_DEV_COMMAND = "inference-flux-dev"
+FLUX_SCHNELL_COMMAND = "inference-flux-schnell"
+V2V_COMMAND = "inference-v2v-ms"
+FLUX_PROMPT = "a photo of a forest with mist swirling around the tree trunks"
+V2V_PROMPT = "a koi pond with lily pads, sharp and detailed"
+# Flux at 768×1360: 48×85 packed latents, 4,080 image + 512 T5 tokens in
+# each joint attention; 24 heads of d = 128; one K2 a block: 19 double +
+# 38 single
+FLUX_SIZE = (768, 1360)
+FLUX_TOKENS = (768 // 16) * (1360 // 16) + 512
+FLUX_HEADS = 24
+FLUX_DEPTH = 19 + 38
+FLUX_DEV_STEPS = 28          # the config's every step
+FLUX_SCHNELL_STEPS = 4
+# Flux LoRA training at 768×768: 48×48 packed latents, 2,304 + 512 tokens
+FLUX_TRAIN_SIZE = (768, 768)
+FLUX_TRAIN_TOKENS = (768 // 16) ** 2 + 512
+# inference-v2v-ms: VideoCrafter2 at 16×320×512, DDIM from strength 0.4 of
+# its 50 steps (20), CFG 7.5; the enhancement model's every step (50)
+V2V_FRAMES, V2V_SIZE = 16, (320, 512)
+V2V_SDEDIT_STEPS = 20
+V2V_ENHANCE_STEPS = 50
+
+
+def check_k_flux(A) -> dict:
+    """Flux's d = 128 kernels at its shapes, bf16, each against its plain
+    version and timed by CUDA events and device time beside flash_fwd.cu
+    (or flash_bwd.cu), SDPA and its bound: K2 online at sampling's 4,592
+    tokens (B=1, H=24: dev and schnell at 768×1360) on K3's kernel; K5
+    online with the LSE and K8 unmasked at LoRA training's 2,816 tokens
+    (768×768) on K3's kernel and flash_bwd_sm90."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (_rand((1, FLUX_TOKENS, FLUX_HEADS, 128), gen, normed=True)
+               for _ in range(3))
+    k2 = _step_case(A, "flux sampling joint", q, k, v, None, 0, 0, None, {},
+                    phase="K-flux", device=True)
+    del q, k, v
+    _free()
+    k5, k8 = _train_attention(A, gen, FLUX_TRAIN_TOKENS, None, "flux",
+                              phase="K-flux", device=True)
+    _free()
+    return {"K2": k2, "K5": k5, "K8": k8}
+
+
+def _narrow_flux():
+    """Flux at narrow width, d = 128 kept: the DiT at dim 256 (2 heads, 1
+    double and 2 single blocks, bf16 as configured), a one-layer T5 of dim
+    64, a 2-layer CLIP of dim 64, the VAE at ch 32, 32 T5 tokens, 2
+    steps."""
+    d = "flow.params.denoiser_config.params"
+    t5 = "flow.params.cond_stage_config.params"
+    clip = "flow.params.cond_stage_2_config.params"
+    vae = "flow.params.first_stage_config.params"
+    return [f"{d}.dim=256", f"{d}.heads=2", f"{d}.double_blocks=1",
+            f"{d}.single_blocks=2", f"{d}.text_dim=64", f"{d}.pooled_dim=64",
+            f"{d}.scan_blocks=false", f"{t5}.dim=64", f"{t5}.heads=2",
+            f"{t5}.head_dim=32", f"{t5}.ff_dim=128", f"{t5}.num_layers=1",
+            f"{clip}.dim=64", f"{clip}.heads=2", f"{clip}.num_layers=2",
+            f"{vae}.ch=32", f"{vae}.num_res_blocks=1",
+            "flow.params.model_max_length=32",
+            "flow.params.num_inference_steps=2"]
+
+
+def _draw_final_proj(flow, seed: int) -> None:
+    """Flux's final_proj is zero-initialised (flax's zeros): a card-vs-CPU
+    check draws it, so that the DiT's output and gradients depend on every
+    block."""
+    with torch.no_grad():
+        flow.denoiser.final_proj.weight.normal_(
+            0.0, 0.05, generator=torch.Generator().manual_seed(seed))
+
+
+@tf32_off()
+def check_small_reference_flux(A) -> None:
+    """The narrow Flux-dev flow (``_narrow_flux``) on the card and on the
+    CPU with the same weights, prompt and x_T, TF32 off: 8×16 packed
+    latents (a 128×256 image) give 128 image + 32 text tokens in each
+    joint attention (3 a call).  Twice: with the DiT in bf16 as configured
+    (K2 online on K3's Hopper kernel at d = 128; tolerances of the bf16
+    checks) and in f32 (K2 on the f32 design; the f32 tolerances).  One DiT
+    call, the latents after 2 steps and the decode of the same latents must
+    agree; then a narrow bf16 LoRA step (``check_train_reference``'s
+    flux_d128 case: K5 online and K8)."""
+    for dtype in ("bfloat16", "float32"):
+        _reference_flux(A, dtype)
+    check_train_reference(A, only=("flux_d128",))
+
+
+def _reference_flux(A, dtype: str) -> None:
+    from videotuna_tpu_torch.core.config import load_configs
+    cfg = load_configs([CONFIG_FLUX_DEV], _narrow_flux() + [
+        f"flow.params.denoiser_config.params.dtype={dtype}"])
+    n = 3 * (1 + 2)   # 3 joint attentions a call: one call and 2 steps
+    design = "K2_d128" if dtype == "bfloat16" else "K2_f32"
+    _flow_card_vs_cpu(
+        A, f"reference-flux {dtype}", cfg, (1, 128, 256),
+        lambda flow: torch.tensor([0.7]), FLUX_PROMPT, {"K2": n},
+        {design: n},
+        (REF_TOL_CALL, REF_TOL_TRAJ, REF_TOL_DECODE) if dtype == "bfloat16"
+        else (REF_VC_TOL_CALL, REF_VC_TOL_TRAJ, REF_TOL_DECODE),
+        prepare=lambda flow: _draw_final_proj(flow, 4))
+
+
+def run_e2e_flux(A, name: str, steps: int) -> dict:
+    """Flux T2I through the registry's ``name`` (configs/006_flux) at full
+    width and depth (dim 3072, 19 double and 38 single blocks, 24 heads of
+    d = 128, bf16; T5-XXL (f32, 512 tokens), CLIP-L, the 2D VAE), random
+    weights from the seed, one prompt at 768×1360 (48×85 packed latents,
+    4,080 + 512 tokens), B=1 (no CFG), the config's every step (dev 28 with
+    the embedded guidance, schnell 4).  Every joint attention launches K2
+    online on K3's Hopper kernel at d = 128 (57 a step), none on
+    flash_fwd.cu; no other launch."""
+    tag = name.replace("inference-", "e2e-")
+    launches, sm90, m, video, wall, peak = _run_command(
+        A, tag, [name, "--prompt", FLUX_PROMPT], tag.replace("-", "_"))
+    per = FLUX_DEPTH * m["denoise_steps"]
+    h, w = FLUX_SIZE
+    log(tag, command=name, height=h, width=w, tokens=FLUX_TOKENS, batch=1,
+        steps=m["denoise_steps"],
+        sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.4f}",
+        sample_sec=f"{m['sample_sec']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}", latent_shape=m["latent_shape"],
+        launches=launches, sm90_launches=sm90,
+        video_shape="x".join(map(str, video.shape)))
+    if m["denoise_steps"] != steps \
+            or launches != dict({k: 0 for k in launches}, K2=per) \
+            or (sm90["K2"], sm90["K2_d128"], sm90["tma_copies"]) \
+            != (per, per, 0) \
+            or tuple(video.shape) != (1, h, w, 3) \
+            or m["latent_shape"] != [1, h // 16, w // 16, 64]:
+        raise AssertionError(f"{tag}: {m['denoise_steps']} steps, launches "
+                             f"{launches}, {sm90}, video {video.shape}: "
+                             f"expected K2 {per} on K3's kernel at d=128 and "
+                             "no other")
+    check_split_counts(tag, sm90)
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                steps=m["denoise_steps"],
+                sec_per_step=m["sample_sec"] / m["denoise_steps"],
+                text_encode_sec=m["encode_sec"], decode_sec=m["decode_sec"])
+
+
+def run_train_flux(A) -> dict:
+    """Flux-dev LoRA (configs/006_flux/flux_lora.yaml: rank 16 on the
+    DiT's matched projections) at full width and depth, 3 optimizer steps
+    at 768×768 (48×48 packed latents, 2,304 + 512 tokens), batch 1, through
+    the training CLI's ``Trainer``.  Its dataset (data/anno/images.csv) is
+    not in the repository and no JAX dataset fills the packed latents that
+    the loss reads (ROADMAP.md queue 3), so each batch carries the packed
+    latents of the port's VAE encode of a seeded synthetic image and the
+    caption, which the trainer encodes (T5-XXL, CLIP-L).  Per step: K5 = 57
+    (each block's joint attention forward, online, with the LSE) and K8 =
+    57 (its backward), on K3's kernel and flash_bwd_sm90 at d = 128; no
+    other launch."""
+    from videotuna_tpu_torch.flows.flux import FluxFlow
+    h, w = FLUX_TRAIN_SIZE
+    per_step = {"K5": FLUX_DEPTH, "K8": FLUX_DEPTH, "K1": 0, "K2": 0,
+                "K3": 0, "K4": 0, "K6": 0, "K7": 0, "K9": 0, "K10": 0}
+    argv = ["--config", CONFIG_FLUX_LORA, "--device", "cuda", "--quiet",
+            "--max_steps", str(TRAIN_STEPS), "--workdir",
+            os.path.join(OUT_DIR, "train_flux_lora"),
+            _dummy_data(1, h, w), f"train.ckpt_every={TRAIN_STEPS}",
+            "train.log_every=1"]
+    batches = []
+
+    def latent_batches(trainer):
+        # the packed latents of a seeded image through the flow's VAE
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        img = torch.rand((1, 1, h, w, 3), generator=gen,
+                         device="cuda") * 2 - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = FluxFlow.pack_latents(trainer.flow.encode_video(img, gen))
+        torch.cuda.synchronize()
+        log("train-flux-lora",
+            vae_encode_sec=f"{time.perf_counter() - t0:.3f}",
+            packed_latents="x".join(map(str, z.shape)))
+        batches.extend({"latents": z.cpu(), "caption": [FLUX_PROMPT]}
+                       for _ in range(TRAIN_STEPS))
+        return batches
+
+    log("train-flux-lora", config=os.path.relpath(CONFIG_FLUX_LORA, ROOT),
+        height=h, width=w, tokens_per_attention=FLUX_TRAIN_TOKENS,
+        lora_rank=16, remat=False, steps=TRAIN_STEPS,
+        data="packed latents of the port's VAE encode of a seeded image "
+             "(queue 3: no dataset fills them)")
+    out = _train_run(A, "train-flux-lora", argv, per_step, lora=True,
+                     resume=False, loader_of=latent_batches)
+    sm90 = out["sm90"]
+    n = FLUX_DEPTH * TRAIN_STEPS
+    if (sm90["K5"], sm90["K5_d128"], sm90["K8"], sm90["K8_d128"]) \
+            != (n, n, n, n):
+        raise AssertionError(f"train-flux-lora: {sm90}: every K5 and K8 "
+                             "must run the Hopper designs at d=128 (K3's "
+                             "kernel online with the LSE, flash_bwd_sm90)")
+    check_split_counts("train-flux-lora", sm90)
+    return out
+
+
+def _v2v_inputs() -> str:
+    """A directory with one seeded 16-frame 320×512 mp4 (a drifting colour
+    ramp with noise, written by cv2) and its prompt sidecar."""
+    import cv2
+    import numpy as np
+    d = os.path.join(OUT_DIR, "v2v_inputs")
+    os.makedirs(d, exist_ok=True)
+    h, w = V2V_SIZE
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:h, 0:w]
+    writer = cv2.VideoWriter(os.path.join(d, "clip.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 8, (w, h))
+    for f in range(V2V_FRAMES):
+        ramp = np.stack([(xx + 8 * f) % 256, (yy + 4 * f) % 256,
+                         (xx + yy) % 256], -1)
+        noise = rng.integers(-20, 20, (h, w, 3))
+        writer.write(np.clip(ramp + noise, 0, 255).astype(np.uint8))
+    writer.release()
+    with open(os.path.join(d, "clip.txt"), "w") as f:
+        f.write(V2V_PROMPT + "\n")
+    return d
+
+
+def _run_v2v(A, phase: str, argv, steps: int, run) -> dict:
+    """One enhancement run of the 16-frame 320×512 clip (``run(argv)``)
+    with every count zeroed before and read after: VideoCrafter2's UNet3D
+    with CFG (B = 2·16) at ``steps`` steps, its K2 (level 1, 5 heads) and
+    K1 on the persistent kernel at d = 64, no other launch; the enhanced
+    mp4's frames."""
+    savedir = os.path.join(OUT_DIR, phase.replace("-", "_"))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(A)
+    t0 = time.perf_counter()
+    rc = run(argv + ["--device", "cuda", "--quiet", "--input-dir",
+                     _v2v_inputs(), "--output-dir", savedir])
+    wall = time.perf_counter() - t0
+    launches, sm90 = read_counts(A), read_sm90_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    video = _read_video(os.path.join(savedir, "clip.mp4"))
+    with open(os.path.join(savedir, "metric.json")) as f:
+        sec = json.load(f)["per_video_sec"]["clip.mp4"]
+    k2, k1 = _unet_launches(V2V_SIZE, False)
+    h, w = V2V_SIZE
+    log(phase, argv=" ".join(argv), frames=V2V_FRAMES, height=h, width=w,
+        steps=steps, batch="2x16 (CFG)", video_sec=f"{sec:.3f}",
+        sec_per_step_with_encode_decode=f"{sec / steps:.4f}",
+        run_sec=f"{wall:.1f}", peak_mem_gb=f"{peak / 1e9:.2f}",
+        launches=launches,
+        sm90_launches=sm90, video_shape="x".join(map(str, video.shape)))
+    expected = dict({k: 0 for k in launches}, K2=k2 * steps, K1=k1 * steps)
+    if rc != 0 or launches != expected \
+            or (sm90["K2"], sm90["K1"], sm90["tma_copies"]) \
+            != (k2 * steps, k1 * steps, 0) \
+            or tuple(video.shape) != (V2V_FRAMES, h, w, 3):
+        raise AssertionError(f"{phase}: rc {rc}, launches {launches}, "
+                             f"{sm90}, video {video.shape}: expected "
+                             f"{expected} on flash_fwd_sm90")
+    check_split_counts(phase, sm90)
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                steps=steps, video_sec=sec, run_sec=wall)
+
+
+def run_e2e_v2v(A) -> list:
+    """Video-to-video on the clip of ``_v2v_inputs``: the registry's
+    ``inference-v2v-ms`` (SDEdit over VideoCrafter2, configs/011_v2v/
+    v2v_ms.yaml: strength 0.4, so 20 of 50 DDIM steps, CFG 7.5) and the
+    enhancement model (``V2VEnhanceFlow``, configs/011_v2v/
+    v2v_enhance_unet.yaml: the UNet with 8 input channels, noise-augmented
+    conditioning latents, all 50 steps) through ``cli/v2v``, both at full
+    width and depth with random weights from the seed."""
+    from videotuna_tpu_torch.cli.commands import main as command
+    from videotuna_tpu_torch.cli.v2v import run_v2v
+    return [_run_v2v(A, "e2e-v2v-ms", [V2V_COMMAND], V2V_SDEDIT_STEPS,
+                     command),
+            _run_v2v(A, "e2e-v2v-enhance", ["--config", CONFIG_V2V_UNET],
+                     V2V_ENHANCE_STEPS,
+                     lambda argv: 0 if run_v2v(argv)["videos"] else 1)]
+
+
+@tf32_off()
+def check_small_reference_v2v(control: float = 0.0) -> None:
+    """The enhancement model (``V2VEnhanceFlow``) at narrow width
+    (``_narrow_vc``: the UNet in f32) on the card and on the CPU with the
+    same weights, clip, prompt, posterior and augmentation noise and x_T,
+    TF32 off: a 4×128×256 clip gives 16×32 latents, 512 tokens at level 1
+    (K2) and 128 at level 2 (K1) on flash_fwd.cu's f32 path.  The
+    conditioning latents, one UNet call on [x | z_cond] and the enhanced
+    pixels after the DDIM steps with CFG must agree.
+
+    With ``control`` > 0 every card attention output is scaled by 1 +
+    ``control``, and the check must then fail."""
+    import videotuna_tpu_torch.kernels.attention as A
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    flash = A.flash_attention
+
+    def scaled(*args, **kwargs):
+        out = flash(*args, **kwargs)
+        return out * (1 + control) if out.is_cuda else out
+
+    cfg = load_configs([CONFIG_V2V_UNET], _narrow_vc(False))
+    cpu = instantiate(cfg["flow"], device="cpu")
+    gpu = instantiate(cfg["flow"], device="cuda")
+    cpu.init_params(seed=1)
+    for name, module in cpu.components().items():
+        gpu.components()[name].load_state_dict(module.state_dict())
+    frames, height, width = 4, 128, 256
+    shape = cpu.latent_shape(1, frames, height, width)
+    gen = torch.Generator().manual_seed(3)
+    video = torch.rand((1, frames, height, width, 3), generator=gen) * 2 - 1
+    post, aug, x_T = (torch.randn(shape, generator=gen) for _ in range(3))
+    t = torch.tensor([int(cpu.scheduler.timesteps[1])])
+    outs, launches = [], {}
+    if control:
+        A.flash_attention = scaled
+    try:
+        for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            cond = flow.encode_text([V2V_PROMPT])
+            uncond = flow.encode_text([""])
+            z_cond = flow._prepare_cond_latents(
+                video.to(dev), None, 0.4, post.to(dev), aug.to(dev))
+            zero_counts(A)
+            with torch.inference_mode():
+                call = flow.denoise_apply(x_T.to(dev), t.to(dev),
+                                          dict(cond, z_cond=z_cond))
+            launches = {k: v for k, v in read_counts(A).items() if v}
+            out = flow.enhance(video.to(dev), cond, None, 0.4, 7.5, uncond,
+                               posterior_noise=post.to(dev),
+                               noise=aug.to(dev), x_T=x_T.to(dev))
+            outs.append([x.float().cpu() for x in (z_cond, call, out)])
+    finally:
+        A.flash_attention = flash
+    # one UNet call (B = 4 frames): level 1's 3 spatial transformers on K2,
+    # level 2's on K1, each a self- and a text cross-attention
+    if launches != {"K2": 6, "K1": 6}:
+        raise AssertionError(f"narrow V2V UNet call on the card launched "
+                             f"{launches}")
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errs = [rel(a, b) for a, b in zip(outs[1], outs[0])]
+    tols = (REF_TOL_DECODE, REF_VC_TOL_CALL, REF_TOL_DECODE)
+    ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
+    log("reference-v2v", what="narrow v2v_enhance_unet flow, cuda vs cpu",
+        control=control, latent_shape=list(shape),
+        steps=gpu.scheduler.num_steps, cfg=7.5, card_launches=launches,
+        rel_errs=[f"{e:.3e}" for e in errs], tols=list(tols), ok=ok)
+    if control and ok:
+        raise AssertionError(f"reference-v2v passed with every card "
+                             f"attention output scaled by 1 + {control}")
+    if not control and not ok:
+        raise AssertionError("GPU V2V enhancement flow disagrees with the "
+                             "CPU flow")
+    del cpu, gpu
+    _free()
+
+
+def run_flux_v2v(A) -> tuple:
+    """The Flux and V2V phases in order: (K-flux's records, the Flux
+    sampling runs, the LoRA training run, the V2V runs)."""
+    kflux = timed_phase("K-flux", check_k_flux, A)
+    check_small_reference_flux(A)
+    flux = [timed_phase("e2e-flux-dev", run_e2e_flux, A, FLUX_DEV_COMMAND,
+                        FLUX_DEV_STEPS),
+            timed_phase("e2e-flux-schnell", run_e2e_flux, A,
+                        FLUX_SCHNELL_COMMAND, FLUX_SCHNELL_STEPS)]
+    train = timed_phase("train-flux-lora", run_train_flux, A)
+    v2v = timed_phase("e2e-v2v", run_e2e_v2v, A)
+    check_small_reference_v2v()
+    check_small_reference_v2v(control=REF_VC_CONTROL)
+    return kflux, flux, train, v2v
+
+
 def _prefixed(recs: dict, labels: dict) -> dict:
     """{f"{prefix}_{key}": value} of each ``labels`` prefix's record."""
     return {f"{p}_{k}": v for p, lab in labels.items()
@@ -5090,6 +5599,34 @@ def main(argv=None) -> None:
         print_result()
         return
 
+    if argv[:1] in (["--flux"], ["--v2v"]):
+        # the Flux or the V2V phases alone: K-flux, the narrow card-vs-CPU
+        # flow and LoRA step, both sampling runs and the LoRA training; or
+        # both V2V runs and the narrow card-vs-CPU check with its control
+        out = {}
+        if argv[0] == "--flux":
+            out["k_flux"] = timed_phase("K-flux", check_k_flux, A)
+            check_small_reference_flux(A)
+            out["e2e-flux-dev"] = timed_phase(
+                "e2e-flux-dev", run_e2e_flux, A, FLUX_DEV_COMMAND,
+                FLUX_DEV_STEPS)
+            out["e2e-flux-schnell"] = timed_phase(
+                "e2e-flux-schnell", run_e2e_flux, A, FLUX_SCHNELL_COMMAND,
+                FLUX_SCHNELL_STEPS)
+            out["train-flux-lora"] = timed_phase("train-flux-lora",
+                                                 run_train_flux, A)
+        else:
+            out.update(zip(("e2e-v2v-ms", "e2e-v2v-enhance"),
+                           timed_phase("e2e-v2v", run_e2e_v2v, A)))
+            check_small_reference_v2v()
+            check_small_reference_v2v(control=REF_VC_CONTROL)
+        print(json.dumps({argv[0][2:]: {
+            tag: {k: v for k, v in r.items() if k not in ("launches",
+                                                         "sm90")}
+            for tag, r in out.items()}}), flush=True)
+        print_result()
+        return
+
     if argv[:1] == ["--videocrafter"]:
         # the VideoCrafter, DynamiCrafter and Wan I2V phases alone (the
         # kernels at their shapes, the narrow card-vs-CPU checks, the
@@ -5163,8 +5700,10 @@ def main(argv=None) -> None:
     runs += vct_runs
     kstep, step_runs, dit48 = run_stepvideo_mochi(A)
     runs += step_runs
+    kflux, flux_runs, flux_train, v2v_runs = run_flux_v2v(A)
+    runs += flux_runs + [flux_train] + v2v_runs
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the twenty main-path runs
+    # each kernel's launches over the twenty-five main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
@@ -5182,8 +5721,8 @@ def main(argv=None) -> None:
     # the UNet's K2 (d = 64, 5 heads) and K1 launches, apart from STDiT's
     # and CogVideoX's; the CLIP image encoder's f32 K2 on flash_fwd.cu; Wan
     # I2V's K3 launches
-    vc_k2 = sum(r["sm90"]["K2"] for r in vc_runs)
-    vc_k1 = sum(r["sm90"]["K1"] for r in vc_runs)
+    vc_k2 = sum(r["sm90"]["K2"] for r in vc_runs + v2v_runs)
+    vc_k1 = sum(r["sm90"]["K1"] for r in vc_runs + v2v_runs)
     clip_k2 = sum(r["launches"]["K2"] - r["sm90"]["K2"] - r["sm90"]["K2_f32"]
                   for r in vc_runs + [wan_i2v])
     wan_i2v_k3 = wan_i2v["sm90"]["K3_d128"]
@@ -5198,6 +5737,11 @@ def main(argv=None) -> None:
     step_k4 = step["sm90"]["K4_d128"] + dit48["sm90"]["K4_d128"]
     mochi_k4 = mochi["sm90"]["K4_d128"]
     stepllm_k2 = step["sm90"]["K2_f32"]
+    # Flux's K2 (dev and schnell sampling) on K3's kernel at d = 128 with
+    # the online max; its training's K5 (online, with the LSE) and K8 there
+    flux_k2 = sum(r["sm90"]["K2_d128"] for r in flux_runs)
+    flux_k5 = flux_train["sm90"]["K5_d128"]
+    flux_k8 = flux_train["sm90"]["K8_d128"]
 
     statuses = {
         "K1": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64 "
@@ -5215,7 +5759,7 @@ def main(argv=None) -> None:
         "K5": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
               "LSE, d=64/72/80 bf16, d=64 the UNet's training; K3's kernel "
               "with the LSE at d=128 under the fixed max, HunyuanVideo "
-              "training), checked",
+              "training, and online, Flux training), checked",
         "K6": "redesigned for Hopper (flash_fwd_sm90 persistent with a "
               "key-range split and the combine, online), checked",
         "K7": "redesigned for Hopper (flash_bwd_sm90: single pass, wgmma), "
@@ -5382,9 +5926,21 @@ def main(argv=None) -> None:
         # designs, with the old design's ms on the same tensors
         entry("flash_fwd_sm90 K3's kernel with the LSE, d=128, HunyuanVideo "
               "training (K5)", fwd90, 867, "K5", fields(bwd["K5"], "d128"),
-              design="d128"),
+              design="d128", launches_n=d128["K5"] - flux_k5),
         entry("flash_bwd_sm90 d=128 single pass, HunyuanVideo training (K8)",
-              bwd90, 1148, "K8", fields(bwd["K8"], "d128"), design="d128"),
+              bwd90, 1148, "K8", fields(bwd["K8"], "d128"), design="d128",
+              launches_n=d128["K8"] - flux_k8),
+        # Flux: sampling's joint attention (K2, online, 4,592 tokens) and
+        # LoRA training's (K5 online with the LSE, K8; 2,816 tokens), with
+        # the old designs' and SDPA's device times
+        entry("flash_fwd_sm90 K3's kernel, online, d = 128, Flux sampling "
+              "joint attention (K2)", fwd90, 78, "K2", kflux["K2"],
+              design="d128", launches_n=flux_k2),
+        entry("flash_fwd_sm90 K3's kernel, online with the LSE, d = 128, "
+              "Flux training (K5)", fwd90, 867, "K5", kflux["K5"],
+              design="d128", launches_n=flux_k5),
+        entry("flash_bwd_sm90 d=128 single pass, Flux training (K8)", bwd90,
+              1148, "K8", kflux["K8"], design="d128", launches_n=flux_k8),
         # VideoCrafter2 training's attention (B = 16 frames, d = 64): K5
         # at level 1 (5 heads; the self-attention's figures, the 77-key
         # cross-attention's as cross_*, K5 over 77 keys at levels 2 and 4

@@ -534,7 +534,10 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K2", _BF, 128, True, False, False, False, "mma"),
     ("K2", _BF, 128, False, False, True, False, "mma"),
     ("K4", _BF, 128, True, True, False, True, "mma"),
-    ("K5", _BF, 128, False, False, True, False, "mma"),
+    # K5 at d = 128 online in bf16 (Flux's training forward): K3's kernel
+    # with the online max and the LSE
+    ("K5", _BF, 128, False, False, True, False, "sm90"),
+    ("K5", _BF, 128, False, False, False, False, "sm90"),
     # K2 and K5 at d = 72 and 80 in bf16: the persistent Hopper kernel in
     # either softmax mode, with or without the LSE
     ("K2", _BF, 72, False, False, False, False, "sm90"),
@@ -547,7 +550,6 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _BF, 72, False, False, False, False, "sm90"),
     ("K5", _BF, 80, False, False, True, False, "sm90"),
     ("K5", _BF, 80, False, False, True, True, "sm90"),
-    # everything else keeps flash_fwd.cu (K5 online at d = 128 above)
     # K1 and K6 at d=64 in bf16: the persistent kernel in either softmax
     # mode, with or without the LSE; f32 keeps flash_fwd.cu
     ("K1", _BF, 64, False, False, False, True, "sm90"),
@@ -576,7 +578,7 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K2", _BF, 96, False, False, False, False, "mma"),
     ("K2", _BF, 256, False, False, False, False, "mma"),
     # K5 at d = 128 under the fixed max (HunyuanVideo's training forward):
-    # K3's kernel with its LSE; online, causal or f32 keep flash_fwd.cu
+    # K3's kernel with its LSE; causal, masked or f32 leave it
     ("K5", _BF, 128, False, False, True, True, "sm90"),
     ("K5", _BF, 128, False, False, False, True, "sm90"),
     ("K5", _BF, 128, True, False, True, True, "mma"),
@@ -613,9 +615,10 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
                                                        fixed, design):
     """The Hopper forward (flash_fwd_sm90.cu) serves the fixed-max route K3
-    in bf16 at d = 64 without the LSE, the fixed-max routes K3 and K5 in
-    bf16 at d = 128 with or without the LSE, K2 and the masked K4 in bf16
-    at d = 128 without the LSE under either max, K1, K2 and K6 in bf16 at
+    in bf16 at d = 64 without the LSE, the fixed-max route K3 and K5 under
+    either max in bf16 at d = 128 with or without the LSE, K2 and the
+    masked K4 in bf16 at d = 128 without the LSE under either max, K1, K2
+    and K6 in bf16 at
     d = 64,
     and K2, K3, K5 and the masked K4 in bf16 at d = 72 or 80, in either
     softmax mode, with or without the LSE, all non-causal and unmasked but

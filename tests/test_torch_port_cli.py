@@ -85,7 +85,7 @@ def test_hunyuan_lora_command_resolves_like_jax():
 
 
 @pytest.mark.parametrize("name,queue", [
-    ("inference-flux-dev", "queue 1, item 8"),
+    ("train-flux-lora", "queue 3"),
     ("train-dynamicrafter", "queue 3"),
     ("inference-hunyuan-i2v-720p", "queue 1, item 4"),
     ("train-cogvideox-i2v-lora", "queue 1, item 3"),

@@ -252,7 +252,9 @@ def test_cogvideox15_pads_the_temporal_patch_where_jax_fails():
     assert odd[1] == 3
     key = jax.random.key(2)
     with pytest.raises(TypeError, match="incompatible shapes"):
-        jflow.sample(params, jcond, juncond, odd, key, 6.0)
+        # traced, not run: the shapes fail while JAX traces the sampler
+        jax.eval_shape(lambda p, c, u: jflow.sample(p, c, u, odd, key, 6.0),
+                       params, jcond, juncond)
 
     shape = pflow.latent_shape(1, FRAMES, HEIGHT, WIDTH)
     assert shape == (1, 4, *odd[2:]) and pflow.front_pad(3) == 1
@@ -316,7 +318,7 @@ def test_i2v_without_images_or_image_latents_raises(tmp_path):
     # JAX's i2v training without image latents feeds 16 channels to the
     # 32-channel patch embedding
     with pytest.raises(Exception, match="patch_embed"):
-        jflow.training_loss(params, {k: jnp.asarray(v)
-                                     for k, v in batch.items()},
-                            jax.random.key(0))
+        jax.eval_shape(lambda p, b: jflow.training_loss(
+            p, b, jax.random.key(0)), params,
+            {k: jnp.asarray(v) for k, v in batch.items()})
     assert not os.listdir(tmp_path)

@@ -100,6 +100,11 @@ CASES = {
               "cond_stage",
               lambda cw, p: cw.llama_map(heads=p["heads"],
                                          kv_heads=p.get("kv_heads"))),
+    "flux": (_cfg("006_flux", "flux_dev.yaml"),
+             [f"{_D}.dim=256", f"{_D}.heads=2", f"{_D}.double_blocks=2",
+              f"{_D}.single_blocks=2", f"{_D}.text_dim=32",
+              f"{_D}.pooled_dim=32", f"{_D}.scan_blocks=false"],
+             "denoiser", lambda cw, p: cw.flux_map(heads=p["heads"])),
     "lvdm": (_cfg("001_videocrafter2", "vc2_t2v_320x512.yaml"),
              _UNET_NARROW, "denoiser",
              lambda cw, p: cw.lvdm_map(
@@ -270,8 +275,7 @@ def test_map_reports_a_mismatched_leaf(family):
 
 
 def test_unported_maps_raise_naming_their_queue():
-    for name, item in (("flux_map", "item 8.5"),
-                       ("clip_vision_map", "10.4"),
+    for name, item in (("clip_vision_map", "10.4"),
                        ("aesthetic_map", "10.4"),
                        ("llava_projector_map", "item 4")):
         assert hasattr(jcw, name)

@@ -1071,6 +1071,39 @@ def test_d128_forward_with_lse_matches_plain(sq, sk, h, route):
     assert (lse - ref_lse).abs().max() <= 1e-3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h", [(1, 2816, 2816, 2), (1, 129, 129, 24),
+                                       (2, 300, 4322, 2), (1, 4112, 300, 3),
+                                       (1, 1, 130, 2)])
+def test_k5_d128_online_matches_plain(b, sq, sk, h):
+    """K5 at d = 128 (bf16, with the LSE) on K3's Hopper kernel with the
+    online max: Flux's training forward (2,816 tokens; its 24 heads cut to
+    a test size) and ragged lengths, against ``flash_fwd_plain``; scores of
+    unnormed q and k, so the running max moves from key tile to key tile
+    and the LSE takes the row's final max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(b, sq, sk, h, 128, seed=sq + sk + h)
+    q = q * 3
+    assert P._fwd_design("K5", q.dtype, 128, False, None, True,
+                         None) == "sm90"
+    before = (P.flash_fwd.launches_sm90["K5"],
+              P.flash_fwd.launches_d128["K5"])
+    out, lse = P.flash_fwd(q, k, v, sm_scale=128 ** -0.5, emit_lse=True,
+                           route="K5")
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, sm_scale=128 ** -0.5,
+                                     emit_lse=True)
+    torch.cuda.synchronize()
+    assert (P.flash_fwd.launches_sm90["K5"],
+            P.flash_fwd.launches_d128["K5"]) == (before[0] + 1,
+                                                 before[1] + 1)
+    assert lse.shape == ref_lse.shape == (b, h, sq)
+    assert (out.float() - ref.float()).abs().max() \
+        <= 2e-2 * ref.float().abs().max()
+    assert torch.isfinite(lse).all()
+    assert (lse - ref_lse).abs().max() <= 1e-3
+
+
 def _check_bwd128(q, k, v, g, route="K8", copies=0):
     """flash_bwd at d=128 against ``flash_bwd_plain`` on the LSE of K5's
     Hopper forward: counted per route, per design and at d=128, with

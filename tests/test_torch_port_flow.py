@@ -8,6 +8,7 @@ JAX ``encode_text`` → CFG → ``scheduler.sample(x_T=, noises=)`` →
 ``decode_latents`` and the port's ``sample`` → ``decode_latents``.  f32;
 latents atol 1e-4·max|ref| (a whole trajectory), pixels 1e-3·max|ref|."""
 
+import functools
 import glob
 import json
 import os
@@ -83,15 +84,39 @@ def _jax_params(jflow, seed=0, pflow=None):
     return params
 
 
-@pytest.mark.parametrize("overrides", [[], _DPM], ids=["ddim", "dpm"])
-def test_tiny_cogvideox_end_to_end_matches_jax(overrides):
-    jcfg = jconfig.load_configs([TINY], overrides)
-    pcfg = pconfig.load_configs([TINY], overrides)
+@functools.cache
+def _jax_tiny(overrides):
+    """The tiny CogVideoX JAX flow and its seeded parameters, once a
+    module."""
+    jcfg = jconfig.load_configs([TINY], list(overrides))
     jregistry.populate()
     jflow = jregistry.instantiate(jcfg["flow"])
-    pflow = pregistry.instantiate(pcfg["flow"], device="cpu")
-    params = _jax_params(jflow, pflow=pflow)
+    pflow = pregistry.instantiate(
+        pconfig.load_configs([TINY], list(overrides))["flow"], device="cpu")
+    return jcfg, jflow, _jax_params(jflow, pflow=pflow)
+
+
+@functools.cache
+def _jax_text(overrides):
+    """The JAX flow's encode of the config's prompt and of the empty prompt
+    under one jit, once a module."""
+    jcfg, jflow, params = _jax_tiny(overrides)
+    prompt = jcfg["inference"]["prompt"]
+    return jax.jit(lambda p: (jflow.encode_text(p, [prompt]),
+                              jflow.encode_text(p, [""])))(params)
+
+
+def _tiny_flows(overrides):
+    jcfg, jflow, params = _jax_tiny(tuple(overrides))
+    pflow = pregistry.instantiate(
+        pconfig.load_configs([TINY], list(overrides))["flow"], device="cpu")
     load_flow_params(pflow, params)
+    return jcfg, jflow, pflow, params
+
+
+@pytest.mark.parametrize("overrides", [[], _DPM], ids=["ddim", "dpm"])
+def test_tiny_cogvideox_end_to_end_matches_jax(overrides):
+    jcfg, jflow, pflow, params = _tiny_flows(overrides)
 
     inf = jcfg["inference"]
     shape = jflow.latent_shape(1, inf["frames"], inf["height"], inf["width"])
@@ -103,8 +128,7 @@ def test_tiny_cogvideox_end_to_end_matches_jax(overrides):
 
     # JAX: encode_text → CFG → scheduler.sample(x_T=, noises=) → decode,
     # each under one jit (op by op, every primitive compiles for its shape)
-    jcond, juncond = jax.jit(lambda p: (jflow.encode_text(p, [inf["prompt"]]),
-                                        jflow.encode_text(p, [""])))(params)
+    jcond, juncond = _jax_text(tuple(overrides))
     from videotuna_tpu.schedulers import cfg_denoise, dynamic_cfg_denoise
 
     def jsample(p, c, u, x, n):
@@ -130,6 +154,38 @@ def test_tiny_cogvideox_end_to_end_matches_jax(overrides):
                               if pflow.use_dynamic_cfg else None))
     _close(pz, jz, TRAJ_TOL)
     _close(pflow.decode_latents(pz), jvideo, PIXEL_TOL)
+
+
+def test_tiny_cogvideox_enhance_dpm_matches_jax():
+    """``GenerationFlow.enhance``'s SDE-DPM++(2M) branch (SDEdit): a 9-frame
+    clip encoded, entering the 4-step trailing grid at index 1 (strength
+    0.75) by q_sample, the entry step first order, then second order and
+    the final step, with CFG; the JAX key's draws (the encode's, the
+    renoise and the walk's ξ) handed to the port."""
+    jcfg, jflow, pflow, params = _tiny_flows(_DPM)
+    inf = jcfg["inference"]
+    scale = inf["unconditional_guidance_scale"]
+    video = np.random.default_rng(2).uniform(
+        -1, 1, (1, inf["frames"], inf["height"], inf["width"], 3)
+    ).astype(np.float32)
+    key = jax.random.key(4)
+    jcond, juncond = _jax_text(tuple(_DPM))
+    jout = jax.jit(lambda p, v, c, u: jflow.enhance(
+        p, v, c, key, strength=0.75, cfg_scale=scale, uncond=u))(
+        params, jnp.asarray(video), jcond, juncond)
+    with torch.no_grad():   # the encode's latent shape (its own ratios)
+        moments = pflow.first_stage.encode(torch.from_numpy(video))
+    shape = (*moments.shape[:-1], moments.shape[-1] // 2)
+    k_enc, k_noise, k_samp = jax.random.split(key, 3)
+    draws = [np.array(jax.random.normal(k, shape))
+             for k in (k_enc, k_noise, *jax.random.split(k_samp, 3))]
+    out = pflow.enhance(
+        torch.from_numpy(video), pflow.encode_text([inf["prompt"]]), None,
+        0.75, scale, pflow.encode_text([""]),
+        posterior_noise=torch.from_numpy(draws[0]),
+        noise=torch.from_numpy(draws[1]),
+        noises=torch.from_numpy(np.stack(draws[2:])))
+    _close(out, jout, PIXEL_TOL)
 
 
 def test_run_inference_writes_video_and_metrics(tmp_path):

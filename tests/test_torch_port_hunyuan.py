@@ -14,6 +14,7 @@ versions sum in their own orders), 1e-3 for decoded pixels (deep conv
 stacks)."""
 
 import contextlib
+import functools
 import glob
 import json
 import os
@@ -333,6 +334,26 @@ def _flow_params(jflow, seed=0, pflow=None):
                                    "cond_stage_2"))}
 
 
+@functools.cache
+def _jax_flow(overrides):
+    """(config, JAX flow, seeded parameters) of ``tiny_hunyuan.yaml`` under
+    ``overrides``, once a module."""
+    jcfg = jconfig.load_configs([TINY], list(overrides))
+    jregistry.populate()
+    jflow = jregistry.instantiate(jcfg["flow"])
+    pflow = pregistry.instantiate(
+        pconfig.load_configs([TINY], list(overrides))["flow"], device="cpu")
+    return jcfg, jflow, _flow_params(jflow, pflow=pflow)
+
+
+def _flows(overrides):
+    jcfg, jflow, params = _jax_flow(tuple(overrides))
+    pflow = pregistry.instantiate(
+        pconfig.load_configs([TINY], list(overrides))["flow"], device="cpu")
+    load_flow_params(pflow, params)
+    return jcfg, jflow, pflow, params
+
+
 @pytest.mark.parametrize("overrides", [[], NARROW_D128],
                          ids=["tiny", "narrow_d128"])
 def test_hunyuan_flow_end_to_end_matches_jax(overrides):
@@ -340,13 +361,7 @@ def test_hunyuan_flow_end_to_end_matches_jax(overrides):
     trajectory, then the VAE.  The narrow d=128 flow has 3×16×16 latents
     (192 video tokens) and 160 LLaMA tokens: its trajectory runs K3 and K2
     on the JAX side."""
-    jcfg = jconfig.load_configs([TINY], overrides)
-    pcfg = pconfig.load_configs([TINY], overrides)
-    jregistry.populate()
-    jflow = jregistry.instantiate(jcfg["flow"])
-    pflow = pregistry.instantiate(pcfg["flow"], device="cpu")
-    params = _flow_params(jflow, pflow=pflow)
-    load_flow_params(pflow, params)
+    jcfg, jflow, pflow, params = _flows(overrides)
     inf = jcfg["inference"]
     shape = jflow.latent_shape(1, inf["frames"], inf["height"], inf["width"])
     x_T = np.random.default_rng(1).standard_normal(shape, dtype=np.float32)
@@ -365,6 +380,33 @@ def test_hunyuan_flow_end_to_end_matches_jax(overrides):
     pz = pflow.sample(pcond, None, shape, None, 1.0, x_T=_t(x_T))
     _close(pz, jz, TRAJ_TOL)
     _close(pflow.decode_latents(pz), jvideo, PIXEL_TOL)
+
+
+def test_hunyuan_enhance_flow_match_matches_jax():
+    """``GenerationFlow.enhance``'s flow-matching branch (SDEdit): a 9-frame
+    clip encoded, entered at (1 − σ0)·z + σ0·ε with σ0 = sigmas[S − n] (4
+    steps, strength 0.5: the last 2), then the Euler steps and the decode;
+    the JAX key's draws handed to the port.  Both sides take their
+    reference attention (no interpret mode here)."""
+    jcfg, jflow, pflow, params = _flows([])
+    inf = jcfg["inference"]
+    video = np.random.default_rng(3).uniform(
+        -1, 1, (1, inf["frames"], inf["height"], inf["width"], 3)
+    ).astype(np.float32)
+    key = jax.random.key(6)
+    jcond = jax.jit(lambda p: jflow.encode_text(p, [inf["prompt"]]))(params)
+    jout = jax.jit(lambda p, v, c: jflow.enhance(
+        p, v, c, key, strength=0.5, cfg_scale=1.0))(params,
+                                                     jnp.asarray(video), jcond)
+    with torch.no_grad():   # the encode's latent shape (its own ratios)
+        moments = pflow.first_stage.encode(torch.from_numpy(video))
+    shape = (*moments.shape[:-1], moments.shape[-1] // 2)
+    k_enc, k_noise, _ = jax.random.split(key, 3)
+    post, noise = (_t(np.asarray(jax.random.normal(k, shape)))
+                   for k in (k_enc, k_noise))
+    out = pflow.enhance(_t(video), pflow.encode_text([inf["prompt"]]), None,
+                        0.5, 1.0, posterior_noise=post, noise=noise)
+    _close(out, jout, PIXEL_TOL)
 
 
 def test_run_inference_tiny_hunyuan(tmp_path):

@@ -60,7 +60,9 @@ def test_train_step_matches_optax(accumulate):
     def jloss(p, batch, key):
         return sum(jnp.sum(p[k] * batch[k]) for k in p), {}
 
-    jstep = jtrainer.make_train_step(jloss, tx, jcfg.ema_decay)
+    # under one jit, as the JAX trainer runs it (op by op, MultiSteps'
+    # lax.cond would compile again on every call)
+    jstep = jax.jit(jtrainer.make_train_step(jloss, tx, jcfg.ema_decay))
     jp = {k: jnp.asarray(v) for k, v in init.items()}
     jstate = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=jp,
                                  opt_state=tx.init(jp), ema_params=jp)

@@ -212,7 +212,8 @@ def test_clip_image_embedder_resizes_where_jax_fails():
     jmod = JI.CLIPImageEmbedder(**kw)
     params = jax_params(jmod, small)
     with pytest.raises(Exception, match="pos_embed"):
-        jmod.apply({"params": params}, images)
+        jax.eval_shape(lambda p, a: jmod.apply({"params": p}, a), params,
+                       images)
     ref = jax.jit(lambda p, a: jmod.apply({"params": p}, a))(params, small)
     pmod = PI.CLIPImageEmbedder(**kw)
     load_jax_params(pmod, params)
@@ -382,6 +383,30 @@ def test_vc2_t2v_sampling_and_decode_match_jax():
     video = pflow.decode_latents(pz)
     assert video.shape == (1, FRAMES, HEIGHT, WIDTH, 3)
     _close(video, jvideo, PIXEL_TOL)
+
+
+def test_vc2_enhance_ddim_matches_jax():
+    """``GenerationFlow.enhance``'s DDIM branch (SDEdit, ``inference-v2v-
+    ms``'s path): a 2-frame clip encoded, entered at timesteps[1] by
+    q_sample (strength 1: both steps), then the DDIM walk with CFG 7.5 and
+    the decode; the JAX key's draws (the encode's and the renoise) handed
+    to the port (η = 0 draws nothing more)."""
+    jflow, pflow, params = _flows(VC2, NARROW)
+    jcond, juncond = _jax_text(VC2, tuple(NARROW))
+    video = _image(9)[:, None].repeat(FRAMES, axis=1)
+    video[:, 1] *= 0.5
+    key = jax.random.key(8)
+    jout = jax.jit(lambda p, v, c, u: jflow.enhance(
+        p, v, c, key, strength=1.0, cfg_scale=7.5, uncond=u))(
+        params, jnp.asarray(video), jcond, juncond)
+    shape = jflow.latent_shape(1, FRAMES, HEIGHT, WIDTH)
+    k_enc, k_noise, _ = jax.random.split(key, 3)
+    post, noise = (_t(np.asarray(jax.random.normal(k, shape)))
+                   for k in (k_enc, k_noise))
+    out = pflow.enhance(_t(video), pflow.encode_text([PROMPT]), None, 1.0,
+                        7.5, pflow.encode_text([""]), posterior_noise=post,
+                        noise=noise)
+    _close(out, jout, PIXEL_TOL)
 
 
 def test_videocrafter_training_loss_and_grads_match_jax():

@@ -85,7 +85,7 @@ def _jax_image_cond(jflow, params, monkeypatch):
     port's embedder resizes first."""
     image = jnp.asarray(_image())
     with pytest.raises(Exception, match="pos_embed"):
-        jflow.prepare_image_features(params, image)
+        jax.eval_shape(jflow.prepare_image_features, params, image)
     resized = jax.image.resize(image, (1, 28, 28, 3), "bilinear")
     monkeypatch.setattr(jflow, "prepare_image_features",
                         lambda p, im: JWanFlow.prepare_image_features(

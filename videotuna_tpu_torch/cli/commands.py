@@ -6,13 +6,13 @@ config and a mode, and the same aliases and dev commands.
     python -m videotuna_tpu_torch train-tiny-t2v --device cpu --workdir DIR
     python -m videotuna_tpu_torch train-hunyuan-t2v-lora train.mesh.fsdp=1
 
-A train or inference command whose flow the port builds runs the port's
-``run_train`` / ``run_inference`` with the command's config, its overrides
-and the rest of the command line (``--device``, dotlist overrides); the
-device is ``cuda`` unless the line asks for another.  Every other command,
-and ``serve``, ``eval`` and the v2v command, prints the queue of
-``ROADMAP.md`` it waits for and returns 2: the port never hands a command to
-the JAX package.
+A train, inference or v2v command whose flow the port builds runs the port's
+``run_train`` / ``run_inference`` / ``run_v2v`` with the command's config,
+its overrides and the rest of the command line (``--device``,
+``--input-dir``, dotlist overrides); the device is ``cuda`` unless the line
+asks for another.  Every other command, and ``serve`` and ``eval``, prints
+the queue of ``ROADMAP.md`` it waits for and returns 2: the port never hands
+a command to the JAX package.
 """
 
 from __future__ import annotations
@@ -150,7 +150,6 @@ ALIASES: Dict[str, str] = {
 
 # The commands the port does not run yet, with the queue of ROADMAP.md each
 # waits for; every other command of COMMANDS runs the port's own CLI.
-_SLICE_E = "ROADMAP.md queue 1, item 8 (slice E: the other families)"
 _COGVIDEOX_I2V_TRAIN = ("ROADMAP.md queue 1, item 3 (CogVideoX i2v "
                         "training), and queue 3's i2v-training fault: no "
                         "dataset or trainer fills batch['image_latents']")
@@ -165,11 +164,10 @@ WAITING: Dict[str, str] = {
     + "; its mesh {dp: 1, fsdp: 4} waits for queue 1, item 10.1",
     "inference-hunyuan-i2v-720p": "ROADMAP.md queue 1, item 4 "
                                   "(HunyuanVideo i2v)",
-    "inference-v2v-ms": _SLICE_E,
-    "inference-flux-dev": _SLICE_E,
-    "inference-flux-schnell": _SLICE_E,
-    "inference-flux-lora": _SLICE_E,
-    "train-flux-lora": _SLICE_E,
+    "train-flux-lora": "ROADMAP.md queue 3's Flux-training fault: the JAX "
+                       "package's FluxFlow.training_loss reads "
+                       "batch['latents'], which no dataset or trainer fills "
+                       "(a dataset batch raises KeyError 'latents')",
     "serve": "ROADMAP.md queue 1, item 10.2 (slice F: serving)",
     "eval": "ROADMAP.md queue 1, item 10.5 (slice F: the evalkit)",
 }
@@ -253,6 +251,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if cmd.mode == "inference":
         from videotuna_tpu_torch.cli.inference import run_inference
         run_inference(args)
+    elif cmd.mode == "v2v":
+        from videotuna_tpu_torch.cli.v2v import run_v2v
+        run_v2v(args)
     else:
         from videotuna_tpu_torch.cli.train import run_train
         run_train(args)

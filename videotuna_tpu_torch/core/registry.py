@@ -38,6 +38,8 @@ _MODULES = (
     "videotuna_tpu_torch.models.stepvideo.dit",
     "videotuna_tpu_torch.models.mochi.dit",
     "videotuna_tpu_torch.models.mochi_vae",
+    "videotuna_tpu_torch.models.flux.dit",
+    "videotuna_tpu_torch.models.vq",
     "videotuna_tpu_torch.schedulers",
     "videotuna_tpu_torch.flows",
     "videotuna_tpu_torch.data.datasets",

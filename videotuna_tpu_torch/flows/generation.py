@@ -33,7 +33,9 @@ from videotuna_tpu_torch.data.video_io import save_video
 from videotuna_tpu_torch.models.layers import init_weights_
 from videotuna_tpu_torch.models.text_encoders import tokenize
 from videotuna_tpu_torch.models.vae2d import DiagonalGaussian
-from videotuna_tpu_torch.schedulers import cfg_denoise
+from videotuna_tpu_torch.schedulers import (CogVideoXDPMSchedule,
+                                            DDIMSchedule, FlowMatchSchedule,
+                                            cfg_denoise)
 from videotuna_tpu_torch.schedulers.common import randn
 
 Cond = Dict[str, torch.Tensor]
@@ -253,6 +255,68 @@ class GenerationFlow:
         ``noises`` replace the generator's draws."""
         denoise = cfg_denoise(self.denoise_apply, cond, uncond, cfg_scale)
         return self._run_sampler(denoise, shape, generator, x_T, noises)
+
+    @torch.inference_mode()
+    def enhance(self, video: torch.Tensor, cond: Cond,
+                generator: Optional[torch.Generator] = None,
+                strength: float = 0.4, cfg_scale: float = 7.5,
+                uncond: Optional[Cond] = None, *,
+                posterior_noise: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
+                noises: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Video-to-video enhancement (SDEdit): encode ``video`` (B, T, H,
+        W, 3) in [−1, 1], renoise to ``strength`` of the schedule, denoise
+        back with CFG, decode.  The entry point follows the scheduler: DDIM
+        enters at ``timesteps[n − 1]`` by q_sample and walks n steps down;
+        CogVideoX's SDE-DPM++(2M) (timesteps descend) enters at grid index S
+        − n by q_sample, first order on the entry step; flow matching
+        enters at (1 − σ0)·z + σ0·ε, σ0 = sigmas[S − n]; n = max(⌊S ·
+        strength⌋, 1).  Any other scheduler raises a ``TypeError``.
+        ``posterior_noise`` (the encode's), ``noise`` (the renoise) and
+        ``noises`` (n, *latent shape: the per-step draws of DDIM with η > 0
+        and of the DPM walk) replace the draws from ``generator``."""
+        sched = self.scheduler
+        if not isinstance(sched, (DDIMSchedule, CogVideoXDPMSchedule,
+                                  FlowMatchSchedule)):
+            raise TypeError(f"enhance unsupported for {type(sched)}")
+        z = self.encode_video(video, generator, noise=posterior_noise)
+        noise = randn(z.shape, generator, z.device) if noise is None \
+            else noise.to(z)
+        denoise = cfg_denoise(self.denoise_apply, cond, uncond, cfg_scale)
+        n_start = max(int(sched.num_steps * strength), 1)
+
+        def draw(j, x):
+            return noises[j].to(x) if noises is not None \
+                else randn(x.shape, generator, x.device)
+
+        def entered(t0):
+            return sched.base.q_sample(
+                z, torch.full((z.shape[0],), int(t0), dtype=torch.int64,
+                              device=z.device), noise)
+
+        with self._attn_scope():
+            if isinstance(sched, DDIMSchedule):
+                x = entered(sched.timesteps[n_start - 1])
+                for j, i in enumerate(range(n_start - 1, -1, -1)):
+                    xi = (draw(j, x).to(x.dtype)
+                          if float(sched.sigmas[i]) != 0.0 else None)
+                    x = sched.step(denoise, x, i, xi)
+            elif isinstance(sched, CogVideoXDPMSchedule):
+                i0 = sched.num_steps - n_start
+                x = entered(sched.timesteps[i0])
+                old_x0 = torch.zeros(x.shape, dtype=torch.float32,
+                                     device=x.device)
+                for j, i in enumerate(range(i0, sched.num_steps)):
+                    x, old_x0 = sched.step(denoise, x, old_x0, i,
+                                           draw(j, x), force_first=i == i0)
+            else:
+                i0 = sched.num_steps - n_start
+                sigma0 = sched.sigmas[i0]
+                x = (1.0 - sigma0) * z + sigma0 * noise
+                for i in range(i0, sched.num_steps):
+                    t = sched.timesteps[i].expand(z.shape[0])
+                    x = sched.step(x, denoise(x, t), i)
+        return self.decode_latents(x)
 
     def _run_sampler(self, denoise, shape, generator, x_T, noises):
         # only the stochastic samplers take per-step noise

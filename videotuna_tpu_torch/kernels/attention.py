@@ -426,10 +426,12 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     K6 at d = 64, of K2, K3, K5 and the masked K4 at d = 72 or 80 (the
     persistent kernel: online or fixed max, with or without the LSE), of
     the fixed-max route K3 without the LSE at d = 64 (the persistent
-    kernel), and at d = 128 (K3's kernel) of the fixed-max routes K3 and K5
-    with or without the LSE, of K2 without the LSE (the online max:
-    StepVideo's self-attention) and of the masked K4 without the LSE under
-    either max (StepVideo's cross-attention, Mochi's joint attention);
+    kernel), and at d = 128 (K3's kernel) of the fixed-max route K3 with
+    or without the LSE, of K5 under either max (HunyuanVideo's training
+    forward under the fixed max, Flux's online), of K2 without the LSE (the
+    online max: StepVideo's self-attention, Flux's sampling) and of the
+    masked K4 without the LSE under either max (StepVideo's
+    cross-attention, Mochi's joint attention);
     "f32" (``csrc/flash_fwd_f32_sm90.cu``: split key ranges, a cp.async
     ring, three bf16 products a product) for f32 calls
     at d = 128 without a key mask, causal or not, online or fixed max,
@@ -447,11 +449,11 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
         return "sm90"
     if d in (72, 80) and route in ("K2", "K3", "K5"):
         return "sm90"
-    if d == 128 and route == "K2" and not emit_lse:
+    if d == 128 and (route == "K5" or route == "K2" and not emit_lse):
         return "sm90"
     if static_max is None:
         return "mma"
-    if d == 128 and route in ("K3", "K5"):
+    if d == 128 and route == "K3":
         return "sm90"
     if d == 64 and route == "K3" and not emit_lse:
         return "sm90"
@@ -549,9 +551,9 @@ def _flash_fwd_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch ``csrc/flash_fwd_sm90.cu``, bf16, non-causal: the persistent
     kernel (online or fixed max, with or without the LSE) at d = 64, 72 or
     80 (at 72 and 80 with the key mask ``kv_valid`` too: its ``words`` when
-    given, else packed by the same call); K3's kernel at d = 128: the fixed
-    max with or without the LSE, the online max, the key mask under either
-    max.  ``splits``, the key ranges of each query
+    given, else packed by the same call); K3's kernel at d = 128: either
+    max with or without the LSE, the key mask under either max without
+    it.  ``splits``, the key ranges of each query
     tile, defaults to ``_fwd_split_plan``'s; above 1 the persistent kernel
     writes f32 partials (B·H·⌈Sq/128⌉·splits·128·(D + 2) floats, D = 64 or
     80) that the same call combines (1 is the unsplit walk)."""

@@ -20,10 +20,11 @@
 // the d <= 128 fixed-max forward of the qk-normed denoisers (HunyuanVideo's
 // joint attention), and with the LSE (LSE = true) K5 at d = 128,
 // `_flash_fwd_lse_kernel` launched by `_flash_forward_lse` (:867, :933;
-// `pallas_call` at :943) under the fixed max, the training forward of that
-// attention in HunyuanVideo's LoRA fine-tune (B=1, 7,456 tokens, H=24,
-// M = 0).  It computes the function of `flash_fwd` (flash_fwd.cu)
-// with use_static=1, not the TPU kernel's blocks: the transposed scores and
+// `pallas_call` at :943), the training forward of that attention in
+// HunyuanVideo's LoRA fine-tune (B=1, 7,456 tokens, H=24, M = 0) and, with
+// the online max, in Flux's (B=1, 2,816 tokens, H=24).  It computes the
+// function of `flash_fwd` (flash_fwd.cu) with use_static=1 (or online),
+// not the TPU kernel's blocks: the transposed scores and
 // the row sum folded into the PV product answer the TPU's matrix unit and
 // are not copied, and keys past Sk score -inf where the TPU kernel removes
 // their share of the row sum in closed form (the same function).  With
@@ -68,7 +69,10 @@
 // before the max and the exp2, and the words' zeros past Sk replace the last
 // tile's test (so Sk need not be a multiple of the key tile, and the valid
 // keys need not be a prefix).  A row with no valid key gives o = 0.  The
-// LSE is instantiated under the fixed max without the mask alone (K5).
+// LSE is instantiated without the mask, under the fixed max (K5,
+// HunyuanVideo's training) and with the online max (K5, Flux's training:
+// B = 1, 2,816 tokens, H = 24): the epilogue takes the running max m in
+// place of M, lse = (m + log2 l) * ln 2, after the loop.
 //
 // Layout.  One block per (128-query tile, b*h), the query tiles of one head
 // adjacent in launch order so that co-resident blocks share K and V in L2;
@@ -1103,8 +1107,8 @@ extern "C" int pack_mask_words(const void* mask, long long mask_sb,
 
 // Returns the CUDA error of the launch (0 on success); cudaErrorInvalidValue
 // for what no kernel takes: a head width other than 64, 72, 80 or 128; a
-// key mask at d = 64; at 128 (K3's kernel) the LSE with the online softmax
-// or a key mask, a split, or B*H above 65535; or a tensor TMA cannot read
+// key mask at d = 64; at 128 (K3's kernel) the LSE with a key mask, a
+// split, or B*H above 65535; or a tensor TMA cannot read
 // in place.  d = 64, 72 and 80 take the persistent kernel.  `lse` is null
 // without the LSE; `online` 0 takes the fixed max `static_max`.  `words`
 // is null without a key mask, else the mask's (B, ceil(Sk / 128) * 4)
@@ -1168,8 +1172,8 @@ extern "C" int flash_fwd_sm90_bf16(
                       : launch_persistent_modes<80, false, false>(
                             q, k, v, p, B, st, online, l, s);
   }
-  // K3's kernel: the LSE under the fixed max alone, never split
-  if (d != 128 || splits != 1 || (lse && (online || words)) ||
+  // K3's kernel: the LSE without the mask alone, never split
+  if (d != 128 || splits != 1 || (lse && words) ||
       (long long)B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mask) {
@@ -1189,6 +1193,10 @@ extern "C" int flash_fwd_sm90_bf16(
   p.o_sh = o_sh;
   p.scale_log2 = scale_log2;
   p.static_max = static_max;
+  if (lse && online)
+    return launch<128, true, true, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
+                                          k_sb, k_ss, k_sh, v_sb, v_ss,
+                                          v_sh, s);
   if (lse)
     return launch<128, true, false, false>(q, k, v, p, B, q_sb, q_ss, q_sh,
                                            k_sb, k_ss, k_sh, v_sb, v_ss,

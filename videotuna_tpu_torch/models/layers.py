@@ -342,14 +342,18 @@ def unpatchify_3d(x: torch.Tensor, grid: Tuple[int, int, int],
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init in place, after flax's defaults: kernels
     N(0, 1/fan_in), zero biases, embeddings N(0, 1/dim), unit norm scales
-    (``weight``, or ``gamma`` of the Wan VAE's RMS norm),
+    (``weight``, or ``gamma`` of the Wan VAE's RMS norm), zero weights
+    where a module sets ``zero_init`` (flax's zeros initialiser),
     N(0, 0.02²) for free parameters (pos_embed, rel_bias).  Draws come from
     ``generator`` only, in module order, so a seed fixes every weight."""
     done = set()
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            if getattr(m, "zero_init", False):   # flax's zeros initialiser
+                m.weight.zero_()
+            else:
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):

@@ -114,12 +114,14 @@ FAMILIES = {
                   _stepvideo_preprocess),
     "mochi": (lambda a, p: cw.mochi_map(heads=_heads(a, p)), None),
     "mochi_vae": (lambda a, p: _mochi_vae_map(), None),
+    "flux": (lambda a, p: cw.flux_map(heads=_heads(a, p)),
+             lambda sd: cw.preprocess_split_fused_qkv(
+                 sd, r"(img|txt)_attn\.qkv")),
 }
 
 # the JAX package's families whose target module the port does not have
 # yet, with the ROADMAP.md item each waits for
 WAITING = {
-    "flux": "item 8.5 (Flux)",
     "clip_vision": "items 10.4 and 10.5 (models/clip_vision.py)",
     "aesthetic": "items 10.4 and 10.5 (the aesthetic scorer)",
     "llava_projector": "item 4 (HunyuanVideo i2v)",

@@ -1373,6 +1373,87 @@ def lvdm_map(model_channels: int = 320,
 
 
 # ---------------------------------------------------------------------------
+# Flux
+# ---------------------------------------------------------------------------
+
+def flux_map(heads: int = 24) -> ConversionMap:
+    """BFL Flux state dict (time_in / vector_in / guidance_in MLPEmbedders,
+    double_blocks.N.img_attn.*, single_blocks.N.linear1/2, final_layer) →
+    the FluxModel tree.  Run
+    ``preprocess_split_fused_qkv(sd, r"(img|txt)_attn\\.qkv")`` first (the
+    single-block linear1 stays fused: the block keeps BFL's fused
+    layout)."""
+    dg = t_dense_general(heads)
+    dgb = t_dense_general_bias(heads)
+    rules: List[Tuple[str, str, Optional[Transform]]] = [
+        (r"img_in\.weight", r"img_in/kernel", t_linear),
+        (r"img_in\.bias", r"img_in/bias", None),
+        (r"txt_in\.weight", r"txt_in/kernel", t_linear),
+        (r"txt_in\.bias", r"txt_in/bias", None),
+    ]
+    for emb in ("time_in", "vector_in", "guidance_in"):
+        rules += [
+            (rf"{emb}\.in_layer\.weight", rf"{emb}/fc1/kernel", t_linear),
+            (rf"{emb}\.in_layer\.bias", rf"{emb}/fc1/bias", None),
+            (rf"{emb}\.out_layer\.weight", rf"{emb}/fc2/kernel", t_linear),
+            (rf"{emb}\.out_layer\.bias", rf"{emb}/fc2/bias", None),
+        ]
+    for s in ("img", "txt"):
+        rules += [
+            (rf"double_blocks\.(\d+)\.{s}_mod\.lin\.weight",
+             rf"double_\1/{s}_mod/kernel", t_linear),
+            (rf"double_blocks\.(\d+)\.{s}_mod\.lin\.bias",
+             rf"double_\1/{s}_mod/bias", None),
+            (rf"double_blocks\.(\d+)\.{s}_attn\.(q|k|v)\.weight",
+             rf"double_\1/{s}_\2/kernel", dg),
+            (rf"double_blocks\.(\d+)\.{s}_attn\.(q|k|v)\.bias",
+             rf"double_\1/{s}_\2/bias", dgb),
+            (rf"double_blocks\.(\d+)\.{s}_attn\.norm\.query_norm\.scale",
+             rf"double_\1/{s}_q_norm/scale", None),
+            (rf"double_blocks\.(\d+)\.{s}_attn\.norm\.key_norm\.scale",
+             rf"double_\1/{s}_k_norm/scale", None),
+            (rf"double_blocks\.(\d+)\.{s}_attn\.proj\.weight",
+             rf"double_\1/{s}_attn_out/kernel", t_linear),
+            (rf"double_blocks\.(\d+)\.{s}_attn\.proj\.bias",
+             rf"double_\1/{s}_attn_out/bias", None),
+            (rf"double_blocks\.(\d+)\.{s}_mlp\.0\.weight",
+             rf"double_\1/{s}_mlp1/kernel", t_linear),
+            (rf"double_blocks\.(\d+)\.{s}_mlp\.0\.bias",
+             rf"double_\1/{s}_mlp1/bias", None),
+            (rf"double_blocks\.(\d+)\.{s}_mlp\.2\.weight",
+             rf"double_\1/{s}_mlp2/kernel", t_linear),
+            (rf"double_blocks\.(\d+)\.{s}_mlp\.2\.bias",
+             rf"double_\1/{s}_mlp2/bias", None),
+        ]
+    rules += [
+        (r"single_blocks\.(\d+)\.linear1\.weight",
+         r"single_\1/linear1/kernel", t_linear),
+        (r"single_blocks\.(\d+)\.linear1\.bias",
+         r"single_\1/linear1/bias", None),
+        (r"single_blocks\.(\d+)\.linear2\.weight",
+         r"single_\1/linear2/kernel", t_linear),
+        (r"single_blocks\.(\d+)\.linear2\.bias",
+         r"single_\1/linear2/bias", None),
+        (r"single_blocks\.(\d+)\.modulation\.lin\.weight",
+         r"single_\1/mod/kernel", t_linear),
+        (r"single_blocks\.(\d+)\.modulation\.lin\.bias",
+         r"single_\1/mod/bias", None),
+        (r"single_blocks\.(\d+)\.norm\.query_norm\.scale",
+         r"single_\1/q_norm/scale", None),
+        (r"single_blocks\.(\d+)\.norm\.key_norm\.scale",
+         r"single_\1/k_norm/scale", None),
+        (r"final_layer\.adaLN_modulation\.1\.weight",
+         r"final_mod/kernel", t_linear),
+        (r"final_layer\.adaLN_modulation\.1\.bias",
+         r"final_mod/bias", None),
+        # flux output stays in the BFL packed-latent channel order
+        (r"final_layer\.linear\.weight", r"final_proj/kernel", t_linear),
+        (r"final_layer\.linear\.bias", r"final_proj/bias", None),
+    ]
+    return ConversionMap(rules)
+
+
+# ---------------------------------------------------------------------------
 # StepVideo (the DiT and the Step-1 LLM) and Mochi
 # ---------------------------------------------------------------------------
 
@@ -1590,7 +1671,6 @@ def _waits(name: str, item: str):
     return waiting_map
 
 
-flux_map = _waits("flux_map", "item 8.5 (Flux)")
 clip_vision_map = _waits("clip_vision_map",
                          "items 10.4 and 10.5 (models/clip_vision.py)")
 aesthetic_map = _waits("aesthetic_map",
