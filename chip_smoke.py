@@ -10,6 +10,8 @@
     python3 chip_smoke.py --mochi
     python3 chip_smoke.py --flux
     python3 chip_smoke.py --v2v
+    python3 chip_smoke.py --hunyuan-i2v
+    python3 chip_smoke.py --opensora12 [STEPS]
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
@@ -23,6 +25,8 @@ the VideoCrafter2 training phases (41–44; "kernels": 41 and 42, "train":
 43 and 44), likewise.  The seventh and the eighth run only phase 45 and
 the StepVideo phases (46, 47, 49) or the Mochi ones (48, 50), likewise;
 the ninth and the tenth the Flux phases (51–54) or the V2V ones (55–57),
+likewise; the eleventh the HunyuanVideo I2V phases (58–61) and the
+twelfth the Open-Sora 1.2 ones (62–64, all 30 steps unless STEPS says),
 likewise.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
@@ -449,20 +453,55 @@ without a result line:
                 CPU: conditioning latents, one UNet call, the enhanced
                 pixels; 57. its control (every card attention output
                 scaled by 1 + 1e-3), which must fail.
+58. K-f32     — the f32 design (flash_fwd_f32_sm90.cu, templated on d =
+                64, 80, 128) at the LLaVA tower's 577², 16 heads of d=64
+                (route K1), the CLIP ViT-H/14 embedder's 256², d=80 (split
+                into 4 key ranges) and the LLaMA over the I2V prompt's 934
+                tokens (causal, d=128), against the f32 plain version with
+                the LSE; each timed by events, device and host time beside
+                flash_fwd.cu (in turns), SDPA and the bound.
+59. hunyuan-i2v-encode — the full I2V prompt chain at full width: the
+                ViT-L/14-336 tower (f32, 24 K1 on the f32 design),
+                LlavaProjector (1024 → 4096) and encode_text_i2v (LLaMA
+                4096×32 in f32 over 934 tokens) for token replace and
+                latent concat: shapes, seconds, launches.
+60. reference-hunyuan-i2v — the narrow I2V flow card vs CPU, its DiT in
+                bf16 and f32, with i2v_condition_type None and token
+                replace; 61a. its control (the card's DiT modulating the
+                first frame with vec in place of vec_tr), which must fail.
+61. e2e-hunyuan-i2v — ``inference-hunyuan-i2v-720p`` as shipped (32 input
+                channels) from one seeded PNG at 129×720×1280, full width
+                and depth, 2 of 50 steps, 2 latent frames decoded: K3 60 a
+                step on K3's kernel, the LLaMA's 32 f32 K2 split.
+62. K-os12    — Open-Sora 1.2's spatial K2 (B=60, 3,600², H=16, d=72)
+                and cross K4 (B=2, 108,000 × 300 T5 keys, masked) on the
+                persistent kernel against the plain version, timed beside
+                flash_fwd.cu, SDPA and the bound.
+63. reference-opensora12 — the narrow STDiT3 and STDiT8 flows card vs
+                CPU, and one narrow bf16 rectified-flow training step.
+64. e2e-opensora12 — ``run_inference`` on opensorav12_stdit3_720p.yaml at
+                its latent size, 30×720×1280 (overrides, the config having
+                no inference section), full width and depth, CFG, T5-XXL
+                over 300 tokens: 28 K2 and 28 K4 a step on the persistent
+                kernel, all 30 steps.
+                With --opensora12 alone, 65. profile-opensora12: one
+                traced full-width STDiT3 call (the work of a step).
 
 They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
 33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 41–44, 45–47, 49, 50,
-51–57, 20, 22 (48 runs after 46).
+51–57, 58–64, 20, 22 (48 runs after 46).
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18, 25, 32, 35, 42, 46, 48, 52, 56) turn TF32 off inside
+(7, 9, 15, 18, 25, 32, 35, 42, 46, 48, 52, 56, 60, 63) turn TF32 off
+inside
 ``tf32_off`` and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the nineteen sampling runs and the six training runs) and read just
-after;
-in each, no launch splits its keys but LLaMA's and StepLLM's f32 K2;
+(the twenty-one sampling runs, the I2V prompt chain and the six
+training runs) and read just after;
+in each, no launch splits its keys but LLaMA's and StepLLM's f32 K2 and
+the CLIP image embedder's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those twenty-five runs (and phase 49's), per design
+launches summed over those twenty-eight runs (and phase 49's), per design
 and,
 for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
@@ -1349,17 +1388,19 @@ def read_sm90_counts(A) -> dict:
                 bwd_tma_copies=A.flash_bwd.tma_copies)
 
 
-def check_split_counts(phase: str, sm90: dict, llama: int = 0) -> None:
+def check_split_counts(phase: str, sm90: dict, llama: int = 0,
+                       clip: int = 0) -> None:
     """A main-path run's split launches: none but LLaMA's ``llama`` f32 K2
-    (every one on the f32 design, split, and none on flash_fwd.cu): the
-    main paths' other shapes keep their unsplit plans."""
+    and the CLIP image embedder's ``clip`` (every one on the f32 design,
+    split, and none on flash_fwd.cu): the main paths' other shapes keep
+    their unsplit plans."""
     split = {k[:-6]: n for k, n in sm90.items() if k.endswith("_split")}
-    if split != dict({k: 0 for k in split}, K2=llama) \
-            or sm90["K2_f32"] != llama:
+    if split != dict({k: 0 for k in split}, K2=llama + clip) \
+            or sm90["K2_f32"] != llama + clip:
         raise AssertionError(f"{phase}: split launches {split}, f32 K2 "
                              f"{sm90['K2_f32']}: expected {llama} LLaMA "
-                             "launches on the split f32 design and no "
-                             "other split")
+                             f"and {clip} CLIP launches on the split f32 "
+                             "design and no other split")
 
 
 def _read_video(path: str):
@@ -2647,7 +2688,9 @@ def check_train_reference(A, only=None) -> None:
     ("flux_d128"), Flux-dev (``_narrow_flux``: 2 heads of d=128, 1 double
     and 2 single blocks, LoRA rank 8, 8×16 packed latents: 128 image + 32
     text tokens, σ = 0.417, pooled text, final_proj drawn: K5 online and
-    K8 on the Hopper designs at d=128).  Every card launch must be on a
+    K8 on the Hopper designs at d=128), or ("opensora12") Open-Sora 1.2's
+    STDiT3 under the rectified flow (2 layers, 2 heads of d=72, as STDiT's
+    case, σ = 0.417: K5, K4, K8).  Every card launch must be on a
     Hopper design.  Loss within TRAIN_LOSS_TOL relative, gradients within
     TRAIN_GRAD_TOL (bf16 models on both sides, summed in other orders)."""
     from videotuna_tpu_torch.core.config import load_configs
@@ -2683,8 +2726,17 @@ def check_train_reference(A, only=None) -> None:
                          {"K5": 3, "K8": 3}),
         "flux_d128": (CONFIG_FLUX_LORA, _narrow_flux(), (1, 8, 16, 64),
                       (1, 32, 64), None, {"K5": 3, "K8": 3}),
+        # Open-Sora 1.2's rectified flow (STDiT3: qk-norm, temporal RoPE),
+        # its remat off: the recompute would run each forward twice
+        "opensora12": (CONFIG_OS12,
+                       [f"{den}.hidden_size=144", f"{den}.num_heads=2",
+                        f"{den}.depth=2", f"{den}.caption_channels=64",
+                        f"{den}.remat=false"] + narrow_t5,
+                       (1, 4, 32, 32, 4), (1, 120, 64), 13,
+                       {"K5": 2, "K4": 2, "K8": 4}),
     }
-    only = only or [c for c in cases if c != "flux_d128"]
+    only = only or [c for c in cases if c not in ("flux_d128",
+                                                  "opensora12")]
     for name, (config, overrides, zshape, yshape, n_valid, expect) \
             in ((c, cases[c]) for c in only):
         cfg = load_configs([config], overrides)
@@ -2700,8 +2752,9 @@ def check_train_reference(A, only=None) -> None:
         noise = torch.randn(zshape, generator=gen)
         y = torch.randn(yshape, generator=gen)
         batch = {"latents": z, "text_states": y}
-        if name.endswith("_d128"):   # CLIP's vector; σ instead of t
+        if name.endswith("_d128"):   # CLIP's vector
             batch["pooled_text"] = torch.randn((1, 64), generator=gen)
+        if name.endswith("_d128") or name == "opensora12":   # σ, not t
             draw = {"sigma": torch.tensor([0.417])}
         else:
             draw = {"t": torch.tensor([417])}
@@ -2710,7 +2763,8 @@ def check_train_reference(A, only=None) -> None:
             mask[:, :n_valid] = True
             batch["text_mask"] = mask
         tree = None
-        if name != "stdit":    # LoRA: a from the init, b small random
+        if name not in ("stdit", "opensora12"):
+            # LoRA: a from the init, b small random
             tree = init_lora(cpu.denoiser, rank=8,
                              generator=torch.Generator().manual_seed(3))
             for path, leaf in flatten_tree(tree).items():
@@ -2756,7 +2810,8 @@ def check_train_reference(A, only=None) -> None:
                                         if name.endswith("_d128")
                                         else {}),
                              **({"K8_rows": expect["K8"]}
-                                if name == "stdit" else {}))
+                                if name in ("stdit", "opensora12")
+                                else {}))
         ok = (math.isfinite(rel) and rel <= TRAIN_LOSS_TOL
               and launches == expect and hopper == expect_hopper
               and set(grads[0]) == set(grads[1]))
@@ -3009,14 +3064,18 @@ def check_small_reference_hunyuan() -> None:
 
 
 def _flow_card_vs_cpu(A, phase, cfg, size, t_of, prompt, expected, designs,
-                      tols, prepare=None):
+                      tols, prepare=None, condition=None, card=None,
+                      control=False):
     """A narrow flow built from ``cfg`` on the card and on the CPU with the
     same seeded weights (``prepare`` may change the CPU flow's first), the
     same prompt and x_T of the latents of ``size`` (frames, H, W): one
     denoiser call at ``t_of(flow)``, the latents after the flow's steps
     (no CFG) and the decode of the CPU's latents must agree within
     ``tols``; the card's launches must be ``expected``, and each of
-    ``designs`` (a ``read_sm90_counts`` key) its count."""
+    ``designs`` (a ``read_sm90_counts`` key) its count.  ``condition(flow,
+    cond, device)`` replaces the text conditioning on both sides (the
+    image of an I2V flow); ``card(flow)`` changes the card's flow after
+    its weights are copied; a ``control`` must disagree."""
     from videotuna_tpu_torch.core.registry import instantiate
     cpu = instantiate(cfg["flow"], device="cpu")
     gpu = instantiate(cfg["flow"], device="cuda")
@@ -3025,6 +3084,8 @@ def _flow_card_vs_cpu(A, phase, cfg, size, t_of, prompt, expected, designs,
         prepare(cpu)
     for name, module in cpu.components().items():
         gpu.components()[name].load_state_dict(module.state_dict())
+    if card is not None:
+        card(gpu)
     shape = cpu.latent_shape(1, *size)
     x_T = torch.randn(shape, generator=torch.Generator().manual_seed(2))
     t = t_of(cpu)
@@ -3032,6 +3093,8 @@ def _flow_card_vs_cpu(A, phase, cfg, size, t_of, prompt, expected, designs,
     for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
         zero_counts(A)
         cond = flow.encode_text([prompt])
+        if condition is not None:
+            cond = condition(flow, cond, dev)
         with torch.inference_mode(), flow._attn_scope():
             call = flow.denoise_apply(x_T.to(dev), t.to(dev), cond)
         z = flow.sample(cond, None, shape, None, 1.0, x_T=x_T.to(dev))
@@ -3050,14 +3113,19 @@ def _flow_card_vs_cpu(A, phase, cfg, size, t_of, prompt, expected, designs,
 
     errs = [rel(a, b) for a, b in zip(outs[1], outs[0])]
     ok = all(math.isfinite(e) and e <= tol for e, tol in zip(errs, tols))
-    log(phase, what="narrow flow, cuda vs cpu", latent_shape=list(shape),
+    log(phase, what="narrow flow, cuda vs cpu"
+        + (" (control: must disagree)" if control else ""),
+        latent_shape=list(shape),
         steps=gpu.scheduler.num_steps, card_launches=launches,
         denoiser_call_rel_err=f"{errs[0]:.3e}", call_tol=tols[0],
         latent_rel_err=f"{errs[1]:.3e}", latent_tol=tols[1],
-        decode_rel_err=f"{errs[2]:.3e}", decode_tol=tols[2], ok=ok)
-    if not ok:
-        raise AssertionError(f"{phase}: the card's flow disagrees with the "
-                             "CPU's")
+        decode_rel_err=f"{errs[2]:.3e}", decode_tol=tols[2],
+        ok=ok != control)
+    if ok == control:
+        raise AssertionError(f"{phase}: the card's flow "
+                             + ("agrees with the CPU's: the control cannot "
+                                "fail" if control else
+                                "disagrees with the CPU's"))
     del cpu, gpu
     _free()
 
@@ -3151,7 +3219,8 @@ def _run_wan(A, phase: str, name: str, tag: str, steps: int, depth: int,
     launch counts (K3 = ``attn_per_layer``·depth a step: each block's self-
     and text cross-attention, and for I2V its image cross-attention, at
     B = 2 under CFG, all on K3's Hopper kernel in place; I2V's CLIP image
-    encoder's ``clip_k2`` f32 K2 on flash_fwd.cu; no other launch), finite
+    encoder's ``clip_k2`` f32 K2 on the split f32 design; no other
+    launch), finite
     latents and pixels, the mp4's frames and metric.json; logs seconds per
     step, the text (and image) encode, the decode and the peak memory."""
     from videotuna_tpu_torch.cli.commands import main as command
@@ -3197,8 +3266,8 @@ def _run_wan(A, phase: str, name: str, tag: str, steps: int, depth: int,
             != (k3, k3, 0, 0):
         raise AssertionError(f"{phase}: {sm90}: every K3 launch must run K3's "
                              "Hopper kernel at d=128, with no alignment "
-                             "copy, and the f32 K2 flash_fwd.cu")
-    check_split_counts(phase, sm90)
+                             "copy, and the f32 K2 the f32 design")
+    check_split_counts(phase, sm90, clip=clip_k2)
     if m["nonfinite_latents"] or m["nonfinite_pixels"]:
         raise AssertionError(f"{phase}: non-finite latents or pixels")
     if len(videos) != 1 or tuple(video.shape) != (frames, height, width, 3):
@@ -3744,6 +3813,8 @@ def check_k_vc(A) -> dict:
         def call():
             return A.flash_attention(q, k, v, static_max=static_max)
 
+        splits = (A._fwd_plan(design, q, k, False, False).splits
+                  if design != "mma" else 1)
         before = (A.flash_fwd.launches[route],
                   A.flash_fwd.launches_sm90[route],
                   A.flash_fwd.launches_split[route], A.flash_fwd.tma_copies)
@@ -3765,11 +3836,12 @@ def check_k_vc(A) -> dict:
         scale = ref.float().abs().max().item()
         tol = (F32_TOL if f32 else FWD_TOL) * scale
         expected = (before[0] + 1, before[1] + (design == "sm90"),
-                    before[2], before[3])
+                    before[2] + (splits > 1), before[3])
         ok = (err <= tol and bool(torch.isfinite(out).all())
               and launched == expected
-              and design == ("mma" if f32 else "sm90"))
-        kernel = "flash_fwd_sm90" if design == "sm90" else "flash_fwd"
+              and design == ("f32" if f32 else "sm90"))
+        kernel = ("flash_fwd_sm90" if design == "sm90"
+                  else "flash_fwd_f32_sm90")
         log("K-vc", case=label, shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd{d}",
             route=route, kernel=kernel, dtype=str(q.dtype)[6:],
             static_max=static_max, max_abs_err=f"{err:.3e}",
@@ -3851,7 +3923,8 @@ def _run_vc(A, phase: str, name: str, tag: str, steps: int, size,
     resampler), random weights from the seed, 16 frames with CFG, every
     frame decoded.  Asserts the launches per step (``_unet_launches``), all
     on flash_fwd_sm90 unsplit with no alignment copy, the CLIP image
-    encoder's 32 f32 K2 on flash_fwd.cu, no other launch, finite latents
+    encoder's 32 f32 K2 on the split f32 design, no other launch, finite
+    latents
     and pixels, the mp4's frames and metric.json; logs seconds per step,
     the text and image encodes, the decode and the peak memory."""
     from videotuna_tpu_torch.cli.commands import main as command
@@ -3898,8 +3971,9 @@ def _run_vc(A, phase: str, name: str, tag: str, steps: int, size,
     if (sm90["K2"], sm90["K1"], sm90["tma_copies"]) != (k2 * n, k1 * n, 0):
         raise AssertionError(f"{phase}: {sm90}: every UNet K2 and K1 launch "
                              "must run flash_fwd_sm90, with no alignment "
-                             "copy (the CLIP encoder's f32 K2 flash_fwd.cu)")
-    check_split_counts(phase, sm90)
+                             "copy (the CLIP encoder's f32 K2 the f32 "
+                             "design)")
+    check_split_counts(phase, sm90, clip=clip_k2)
     if m["latent_shape"] != [1, VC_FRAMES, h // 8, w // 8, 4]:
         raise AssertionError(f"{phase}: sampled {m['latent_shape']}")
     if i2v != (m["image_encode_sec"] > 0):
@@ -5463,6 +5537,615 @@ def run_flux_v2v(A) -> tuple:
     return kflux, flux, train, v2v
 
 
+# ---------------------------------------------------------------- phases 58-64
+CONFIG_HY_I2V = os.path.join(ROOT, "configs", "007_hunyuanvideo",
+                             "hunyuanvideo_i2v.yaml")
+HY_I2V_COMMAND = "inference-hunyuan-i2v-720p"
+HY_I2V_PROMPT = "a red panda climbing a snow-covered pine tree at dawn"
+LLAVA_LAYERS = 24            # ViT-L/14-336: one f32 K1 (577 tokens, d=64) each
+LLAVA_TOKENS = (336 // 14) ** 2 + 1
+# the I2V template's 359 ids (256 text + 103) with the <image> slot
+# spliced with 576 states
+I2V_LLAMA_TOKENS = 256 + 103 - 1 + 576
+CONFIG_OS12 = os.path.join(ROOT, "configs", "003_opensora",
+                           "opensorav12_stdit3_720p.yaml")
+CONFIG_OS12_PAIRED = os.path.join(ROOT, "configs", "003_opensora",
+                                  "opensorav12_stdit8_paired.yaml")
+OS12_PROMPT = "a lighthouse on a cliff above a stormy sea, waves breaking"
+OS12_STEPS = 30              # the config's every step
+OS12_DEPTH = 28
+OS12_FRAMES = 30             # the config's input_size: 30 × 90 × 160 latents
+OS12_SIZE = (720, 1280)
+OS12_TOKENS = (720 // 16) * (1280 // 16)     # 3,600 a frame
+OS12_TEXT = 300              # T5 tokens: the cross-attention's keys
+# the config has no inference section: the size and length its input_size
+# names, set by overrides
+OS12_OVERRIDES = [f"inference.frames={OS12_FRAMES}",
+                  f"inference.height={OS12_SIZE[0]}",
+                  f"inference.width={OS12_SIZE[1]}"]
+OS12_REF_STEPS = 3           # narrow Open-Sora 1.2 card-vs-CPU trajectory
+# K-f32: (label, route, B, Sq, Sk, H, d, causal): the LLaVA tower's and the
+# CLIP image embedder's f32 attention, and the LLaMA's over the I2V
+# prompt's spliced sequence
+F32_CASES = [
+    ("K1 f32 llava", "K1", 1, LLAVA_TOKENS, LLAVA_TOKENS, 16, 64, False),
+    ("K2 f32 clip", "K2", 1, 256, 256, 16, 80, False),
+    ("K2 f32 llama i2v", "K2", 1, I2V_LLAMA_TOKENS, I2V_LLAMA_TOKENS,
+     HY_LLAMA_HEADS, 128, True),
+]
+
+
+def check_k_f32(A) -> dict:
+    """The f32 design (flash_fwd_f32_sm90.cu) at the widths this slice's
+    paths reach it, as they call it (``flash_fwd`` on the route
+    ``flash_attention`` picks): the LLaVA tower (d = 64, 577², 16 heads,
+    route K1), the CLIP ViT-H/14 image embedder (d = 80, 256², 16 heads,
+    split into key ranges) and the LLaMA over the I2V prompt (d = 128,
+    causal, 934 tokens, 32 heads), against the f32 plain version (F32_TOL
+    of max|o|, the LSE absolute), counted on the f32 design; each timed by
+    CUDA events, device time (CUDA-graph replay) and host time beside the
+    old design (flash_fwd.cu on the same tensors, in turns: new, old, old,
+    new), SDPA's fastest backend and the bound, which counts each product
+    as three bf16 products."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    recs = {}
+    for label, route, b, sq, sk, h, d, causal in F32_CASES:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                   for s in (sq, sk, sk))
+        kw = dict(sm_scale=d ** -0.5, causal=causal)
+        plan = A._fwd_plan("f32", q, k, causal, False)
+        before = (A.flash_fwd.launches[route],
+                  A.flash_fwd.launches_f32[route],
+                  A.flash_fwd.launches_split[route])
+        out, lse = A.flash_fwd(q, k, v, emit_lse=True, route=route, **kw)
+        t0 = time.perf_counter()
+        ref, ref_lse = A.flash_fwd_plain(q, k, v, emit_lse=True, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        launched = (A.flash_fwd.launches[route],
+                    A.flash_fwd.launches_f32[route],
+                    A.flash_fwd.launches_split[route])
+        err = (out - ref).abs().max().item()
+        tol = F32_TOL * ref.abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        expected = (before[0] + 1, before[1] + 1,
+                    before[2] + (plan.splits > 1))
+        ok = (err <= tol and lse_err <= F32_TOL and launched == expected
+              and A._fwd_design(route, q.dtype, d, causal, None, True,
+                                None) == "f32")
+
+        def new():
+            return A.flash_fwd(q, k, v, route=route, **kw)
+
+        def old():
+            return A._flash_fwd_mma(q, k, v, kw["sm_scale"], causal, None,
+                                    None, False)
+
+        old_err = (old() - ref).abs().max().item()
+        log("K-f32", case=label, shape=f"B{b}xSq{sq}xSk{sk}xH{h}xd{d}",
+            route=route, kernel="flash_fwd_f32_sm90", causal=causal,
+            splits=plan.splits, max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+            lse_err=f"{lse_err:.3e}", lse_tol=F32_TOL,
+            old_design_max_abs_err=f"{old_err:.3e}", ok=ok)
+        if not ok or old_err > tol:
+            raise AssertionError(f"K-f32 {label}: disagrees with its plain "
+                                 f"version, or launched {launched} "
+                                 f"(expected {expected})")
+        del out, lse, ref, ref_lse
+        pairs = sq * (sk + 1) / 2 if causal else sq * sk
+        flops = 4.0 * b * h * pairs * d
+        bound_ms, bound_by = _bound(3 * flops, 4 * q.numel() * 4)
+        dev = [device_ms(fn, reps=50) for fn in (new, old, old, new)]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        skw = {"is_causal": True} if causal else {}
+        library_ms, backend = sdpa_ms((qt, kt, vt), skw, reps=50)
+        lib_dev, dev_backend = sdpa_device_ms((qt, kt, vt), skw, reps=50)
+        del qt, kt, vt
+        rec = dict(max_abs_err=err, lse_err=lse_err,
+                   ms=cuda_time_ms(new, reps=50),
+                   device_ms=min(dev[0], dev[3]), host_ms=host_ms(new, 200),
+                   old_design_ms=cuda_time_ms(old, reps=50),
+                   old_design_device_ms=min(dev[1], dev[2]),
+                   old_design_host_ms=host_ms(old, 200),
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, library_device_ms=lib_dev,
+                   splits=plan.splits)
+        log("K-f32", case=f"{label} timing", kernel="flash_fwd_f32_sm90",
+            ms=f"{rec['ms']:.4f}", device_ms=f"{rec['device_ms']:.4f}",
+            device_ms_turns="/".join(f"{x:.4f}" for x in dev),
+            host_ms=f"{rec['host_ms']:.4f}",
+            old_design_ms=f"{rec['old_design_ms']:.4f}",
+            old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
+            old_design_host_ms=f"{rec['old_design_host_ms']:.4f}",
+            beats_old_by_device=rec["device_ms"]
+            < rec["old_design_device_ms"],
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            plain_ms=f"{plain_ms:.3f}",
+            library=f"scaled_dot_product_attention[{backend}]",
+            library_ms=f"{library_ms:.4f}",
+            library_device=f"scaled_dot_product_attention[{dev_backend}]",
+            library_device_ms=f"{lib_dev:.4f}")
+        recs[label] = rec
+        del q, k, v
+        _free()
+    return recs
+
+
+def _flow_shell(cfg, device: str = "cuda"):
+    """A HunyuanVideoFlow holding only its text stages (the LLaMA and the
+    CLIP-L of ``cfg``, on ``device``, seeded): what ``encode_text_i2v``
+    reads, without the 13B DiT and the VAE."""
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.flows.hunyuan import HunyuanVideoFlow
+    from videotuna_tpu_torch.models.layers import init_weights_
+    params = cfg["flow"]["params"]
+    flow = HunyuanVideoFlow.__new__(HunyuanVideoFlow)
+    flow.device = torch.device(device)
+    flow.tokenizer = params.get("tokenizer")
+    flow.model_max_length = int(params.get("model_max_length", 256))
+    for i, name in enumerate(("cond_stage", "cond_stage_2")):
+        with torch.device("meta"):
+            module = instantiate(params[f"{name}_config"])
+        module = module.to_empty(device=device).eval()
+        init_weights_(module, torch.Generator(device=device).manual_seed(i))
+        setattr(flow, name, module)
+    return flow
+
+
+def run_hunyuan_i2v_encode(A) -> dict:
+    """The full I2V prompt chain at full width on a seeded 720×1280 image
+    and a prompt: the LLaVA tower (``CLIPVisionEncoder`` ViT-L/14 at 336
+    px, ``feature_layer=-2``, f32: 24 f32 attentions of d=64 over 577
+    tokens, route K1) and ``LlavaProjector`` (1024 → 4096) through
+    ``LlavaCaptioner.image_tokens`` (576 states), then the flow's
+    ``encode_text_i2v`` (the LLaMA 4096×32 in f32 over 934 tokens, 32 f32
+    K2, and CLIP-L's pooled state) for token replace and latent concat.
+    Asserts the shapes of y and mask (144 or 288 image rows before 252
+    text rows), finite states, and the launches: the tower's K1 and the
+    LLaMA's K2 all on the f32 design, unsplit, no other."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.models.clip_vision import CLIPVisionEncoder
+    from videotuna_tpu_torch.models.layers import init_weights_
+    from videotuna_tpu_torch.tools.captioner import (LlavaCaptioner,
+                                                     LlavaProjector)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    with torch.device("meta"):
+        tower = CLIPVisionEncoder(image_size=336, feature_layer=-2)
+        proj = LlavaProjector(1024, 4096)
+    tower = tower.to_empty(device="cuda").eval()
+    proj = proj.to_empty(device="cuda").eval()
+    init_weights_(tower, gen)
+    init_weights_(proj, gen)
+    flow = _flow_shell(load_configs([CONFIG_HY_I2V]))
+    image = torch.rand((1, *HY_TRAIN_SIZE, 3), generator=gen,
+                       device="cuda") * 2 - 1
+    zero_counts(A)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = LlavaCaptioner(tower, proj).image_tokens(image)[None]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tower_launches = read_counts(A)
+    out, secs = {}, {}
+    for kind in ("token_replace", "latent_concat"):
+        t = time.perf_counter()
+        out[kind] = flow.encode_text_i2v([HY_I2V_PROMPT], states, kind)
+        torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t
+    launches, sm90 = read_counts(A), read_sm90_counts(A)
+    peak = torch.cuda.max_memory_allocated()
+    shapes = {k: [list(c["y"].shape), list(c["mask"].shape),
+                  list(c["pooled"].shape)] for k, c in out.items()}
+    log("hunyuan-i2v-encode", image="1x720x1280", tower="ViT-L/14-336 f32",
+        tower_tokens=LLAVA_TOKENS, image_states=list(states.shape),
+        llama_tokens=I2V_LLAMA_TOKENS, shapes=shapes,
+        tower_and_projector_sec=f"{t1 - t0:.3f}",
+        encode_token_replace_sec=f"{secs['token_replace']:.3f}",
+        encode_latent_concat_sec=f"{secs['latent_concat']:.3f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}", tower_launches=tower_launches,
+        launches=launches, sm90_launches=sm90)
+    n = 2 * HY_LLAMA_LAYERS
+    split = sum(v for k, v in sm90.items() if k.endswith("_split"))
+    if tuple(states.shape) != (1, 576, 4096) \
+            or shapes["token_replace"][:2] != [[1, 144 + 252, 4096],
+                                               [1, 144 + 252]] \
+            or shapes["latent_concat"][:2] != [[1, 288 + 252, 4096],
+                                               [1, 288 + 252]] \
+            or not all(torch.isfinite(c["y"]).all() for c in out.values()):
+        raise AssertionError(f"hunyuan-i2v-encode: states {states.shape}, "
+                             f"shapes {shapes}")
+    if tower_launches != dict({k: 0 for k in launches}, K1=LLAVA_LAYERS) \
+            or launches != dict({k: 0 for k in launches}, K1=LLAVA_LAYERS,
+                                K2=n) \
+            or (sm90["K1_f32"], sm90["K2_f32"], split) \
+            != (LLAVA_LAYERS, n, 0):
+        raise AssertionError(f"hunyuan-i2v-encode: launches {launches}, "
+                             f"{sm90}: expected the tower's {LLAVA_LAYERS} "
+                             f"K1 and the LLaMA's {n} K2 on the f32 design, "
+                             "unsplit, no other")
+    del tower, proj, flow, out, states
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                tower_sec=t1 - t0, encode_sec=secs)
+
+
+def run_e2e_hunyuan_i2v(A) -> dict:
+    """HunyuanVideo I2V through the registry's ``inference-hunyuan-i2v-720p``
+    as shipped (``hunyuanvideo_i2v.yaml``: i2v_mode, latent concat; its
+    in_channels 33 read as the concat's 32, ROADMAP.md queue 3) at full
+    width and depth (dim 3072, 20 double and 40 single blocks, bf16; LLaMA
+    4096×32 and CLIP-L in f32; HunyuanVAE), random weights from the seed,
+    from one seeded 1280×720 PNG (``inference.input_dir``: the config's
+    prompt_dir does not exist) at 129×720×1280.  Cuts: 2 of the 50 steps,
+    the first 2 latent frames decoded (5 pixel frames), as ``e2e-hunyuan``.
+    Asserts K3 60 a step on K3's kernel at d = 128, the LLaMA's 32 f32 K2
+    on the split f32 design, no other launch (the VAE's attention is
+    512 wide: the math path), finite latents and pixels, the video and
+    metric.json."""
+    inputs = _i2v_inputs("e2e_hunyuan_i2v", HY_TRAIN_SIZE, HY_I2V_PROMPT)
+    cuts = [f"flow.params.scheduler_config.params.num_steps={HY_STEPS}",
+            f"inference.decode_latent_frames={HY_DECODE_LATENT_FRAMES}"]
+    launches, sm90, m, video, wall, peak = _run_command(
+        A, "e2e-hunyuan-i2v",
+        [HY_I2V_COMMAND, f"inference.input_dir={inputs}", *cuts],
+        "e2e_hunyuan_i2v")
+    frames = 1 + 4 * (HY_DECODE_LATENT_FRAMES - 1)
+    k3 = HY_DEPTH * HY_STEPS
+    log("e2e-hunyuan-i2v", command=HY_I2V_COMMAND, cuts=" ".join(cuts),
+        frames_sampled=129, height=720, width=1280, tokens=SHAPE_HY["s"],
+        in_channels=32, steps=m["denoise_steps"],
+        sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        image_encode_sec=f"{m['image_encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", decoded_frames=frames,
+        run_sec=f"{wall:.1f}", peak_mem_gb=f"{peak / 1e9:.2f}",
+        latent_shape=m["latent_shape"], launches=launches,
+        sm90_launches=sm90, video_shape="x".join(map(str, video.shape)))
+    expected = dict({k: 0 for k in launches}, K3=k3, K2=HY_LLAMA_LAYERS)
+    if m["denoise_steps"] != HY_STEPS or launches != expected \
+            or (sm90["K3"], sm90["K3_d128"], sm90["tma_copies"]) \
+            != (k3, k3, 0) \
+            or m["latent_shape"] != [1, 33, 90, 160, 16] \
+            or not m["image_encode_sec"] > 0 \
+            or tuple(video.shape) != (frames, 720, 1280, 3):
+        raise AssertionError(f"e2e-hunyuan-i2v: launches {launches}, {sm90}, "
+                             f"latents {m['latent_shape']}, video "
+                             f"{video.shape}: expected {expected}, K3 on "
+                             "K3's kernel, no copy")
+    check_split_counts("e2e-hunyuan-i2v", sm90, llama=HY_LLAMA_LAYERS)
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                sec_per_step=m["sample_sec"] / m["denoise_steps"],
+                text_encode_sec=m["encode_sec"],
+                image_encode_sec=m["image_encode_sec"],
+                decode_sec=m["decode_sec"])
+
+
+def _image_cond(size, frames):
+    """A ``_flow_card_vs_cpu`` condition: the I2V latent concat of one
+    seeded image at ``size`` (H, W) with a fixed posterior draw, the same
+    on both devices."""
+    h, w = size
+    image = torch.rand((1, h, w, 3), generator=torch.Generator()
+                       .manual_seed(3)) * 2 - 1
+
+    def condition(flow, cond, dev):
+        lat = flow.latent_shape(1, frames, h, w)
+        post = torch.randn((1, 1, *lat[2:]),
+                           generator=torch.Generator().manual_seed(4))
+        return flow.prepare_image_cond(cond, None, image.to(dev), frames, h,
+                                       w, posterior_noise=post.to(dev))[0]
+    return condition
+
+
+@tf32_off()
+def check_small_reference_hunyuan_i2v(A) -> None:
+    """The narrow HunyuanVideo I2V flow (``hunyuanvideo_i2v.yaml`` with
+    ``_narrow_hunyuan``'s widths: d = 128 kept) on the card and on the CPU
+    with the same weights, prompt, image latents and x_T, TF32 off: its DiT
+    in bf16 and in f32, with ``i2v_condition_type`` None and token
+    replace (9×128×128: 3×16×16 latents, 192 + 160 joint tokens: K3 and
+    the f32 K2 on the card's path); then a control that must fail: the
+    f32 token-replace flow with the card's DiT modulating the first frame
+    with vec in place of vec_tr."""
+    from videotuna_tpu_torch.core.config import load_configs
+    den = "flow.params.denoiser_config.params"
+    size = (9, 128, 128)
+    cases = [(dtype, kind) for kind in (None, "token_replace")
+             for dtype in ("bfloat16", "float32")]
+    for dtype, kind in cases + [("float32", "control")]:
+        cfg = load_configs([CONFIG_HY_I2V], _narrow_hunyuan() + [
+            f"flow.params.scheduler_config.params.num_steps={HY_REF_STEPS}",
+            f"{den}.dtype={dtype}",
+            f"{den}.i2v_condition_type="
+            f"{'null' if kind is None else 'token_replace'}"])
+        design = "K3_d128" if dtype == "bfloat16" else "K3_f32"
+        n = 3 * (1 + HY_REF_STEPS)
+        tols = ((REF_TOL_CALL, REF_TOL_TRAJ, REF_TOL_DECODE)
+                if dtype == "bfloat16" else
+                (REF_VC_TOL_CALL, REF_VC_TOL_TRAJ, REF_TOL_DECODE))
+        _flow_card_vs_cpu(
+            A, f"reference-hunyuan-i2v {dtype} {kind}", cfg, size,
+            lambda flow: flow.scheduler.timesteps[1].reshape(1),
+            "a panda playing guitar by a lake", {"K3": n, "K2": 2},
+            {design: n}, tols, condition=_image_cond(size[1:], size[0]),
+            card=(lambda flow: setattr(flow.denoiser, "token_replace",
+                                       False)) if kind == "control"
+            else None, control=kind == "control")
+
+
+def _os12_launches(paired: bool, depth: int = OS12_DEPTH) -> tuple:
+    """(K2, K4) launches of one Open-Sora 1.2 denoiser call of ``depth``
+    layers: a spatial self-attention a layer (K2; the temporal one is
+    under 128 frames: the math path) and a cross-attention a block (K4;
+    the paired layout's two blocks a layer each have one)."""
+    return depth, depth * (2 if paired else 1)
+
+
+def check_k_os12(A) -> dict:
+    """Open-Sora 1.2's attention at 720p as the sampling step calls it:
+    the spatial K2 (d = 72, online, B = 60: CFG 2 × 30 frames, 3,600
+    tokens, 16 heads) and the cross-attention K4 (B = 2, 108,000 queries
+    over T5's 300 keys with the prompts' masks: 13 and 1 valid keys), on
+    the persistent kernel of flash_fwd_sm90.cu, against the plain version
+    (a block of query rows at a time), counted on the Hopper design and
+    unsplit; each timed by CUDA events and device time beside its bound,
+    the old design (flash_fwd.cu) on the same tensors and SDPA's fastest
+    backend (with the boolean mask for K4)."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    recs = {}
+    b, s, h, d = 2 * OS12_FRAMES, OS12_TOKENS, 16, 72
+    spatial = [_rand((b, s, h, d), gen) for _ in range(3)]
+    q = _rand((2, OS12_FRAMES * s, h, d), gen)
+    k, v = (_rand((2, OS12_TEXT, h, d), gen) for _ in range(2))
+    mask = _lead_mask(2, 0, OS12_TEXT, (13, 1))
+    for label, route, (qq, kk, vv), kv_valid in (
+            ("K2 os12 spatial", "K2", spatial, None),
+            ("K4 os12 cross", "K4", (q, k, v), mask)):
+        kw = dict(sm_scale=d ** -0.5, kv_valid=kv_valid)
+
+        def new():
+            return A.flash_fwd(qq, kk, vv, route=route, **kw)
+
+        def old():
+            return A._flash_fwd_mma(qq, kk, vv, d ** -0.5, False, kv_valid,
+                                    None, False)
+
+        before = (A.flash_fwd.launches_sm90[route],
+                  A.flash_fwd.launches_split[route])
+        out = new()
+        torch.cuda.synchronize()
+        launched = (A.flash_fwd.launches_sm90[route],
+                    A.flash_fwd.launches_split[route])
+        t0 = time.perf_counter()
+        # the plain version a block of rows at a time (scores ≤ 4 GB)
+        rows = max(128, int(1e9 / (qq.shape[0] * h * kk.shape[1]))
+                   // 128 * 128)
+        ref = _plain_masked_chunked(A, qq, kk, vv, kv_valid, None, rows)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = FWD_TOL * ref.float().abs().max().item()
+        old_err = (old().float() - ref.float()).abs().max().item()
+        ok = (err <= tol and old_err <= tol
+              and launched == (before[0] + 1, before[1]))
+        log("K-os12", case=label, shape=f"B{qq.shape[0]}xSq{qq.shape[1]}x"
+            f"Sk{kk.shape[1]}xH{h}xd{d}", route=route,
+            kernel="flash_fwd_sm90 persistent", max_abs_err=f"{err:.3e}",
+            tol=f"{tol:.3e}", old_design_max_abs_err=f"{old_err:.3e}",
+            plain_ms=f"{plain_ms:.1f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"K-os12 {label}: disagrees with its plain "
+                                 f"version, or launched {launched} (from "
+                                 f"{before}: one Hopper launch, unsplit)")
+        del out, ref
+        _free()
+        if kv_valid is None:
+            scores = qq.shape[0] * h * qq.shape[1] * kk.shape[1]
+            io_bytes = 4 * qq.numel() * 2
+            exp2_ms = _exp2_floor_ms(scores)
+        else:   # the kept keys of each row only
+            scores = h * qq.shape[1] * int(kv_valid.sum())
+            io_bytes = (2 * qq.numel() + 2 * kk.numel()) * 2 \
+                + kv_valid.numel()
+            exp2_ms = _exp2_floor_ms(scores)
+        bound_ms, bound_by = _bound(4.0 * scores * d, io_bytes, exp2_ms)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+        skw = ({} if kv_valid is None
+               else {"attn_mask": kv_valid[:, None, None, :]})
+        library_ms, backend = sdpa_ms((qt, kt, vt), skw, reps=10)
+        lib_dev, dev_backend = sdpa_device_ms((qt, kt, vt), skw, 5)
+        del qt, kt, vt
+        _free()
+        rec = dict(max_abs_err=err, ms=cuda_time_ms(new, reps=10),
+                   device_ms=device_ms(new, 5),
+                   old_design_ms=cuda_time_ms(old, reps=10),
+                   old_design_device_ms=device_ms(old, 5),
+                   ms_again=cuda_time_ms(new, reps=10), plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, library_device_ms=lib_dev)
+        log("K-os12", case=f"{label} timing",
+            kernel="flash_fwd_sm90 persistent", ms=f"{rec['ms']:.4f}",
+            ms_again=f"{rec['ms_again']:.4f}",
+            device_ms=f"{rec['device_ms']:.4f}",
+            old_design_ms=f"{rec['old_design_ms']:.4f}",
+            old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
+            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+            exp2_floor_ms=f"{exp2_ms:.4f}",
+            tflops=f"{4.0 * scores * d / rec['ms'] / 1e9:.1f}",
+            of_bound=f"{bound_ms / rec['ms']:.3f}",
+            plain_ms=f"{plain_ms:.1f}",
+            library=f"scaled_dot_product_attention[{backend}]",
+            library_ms=f"{library_ms:.4f}",
+            library_device=f"scaled_dot_product_attention[{dev_backend}]",
+            library_device_ms=f"{lib_dev:.4f}")
+        recs[label] = rec
+    del spatial, q, k, v
+    _free()
+    return recs
+
+
+def run_e2e_opensora12(A, steps: int = OS12_STEPS) -> dict:
+    """``run_inference`` on configs/003_opensora/opensorav12_stdit3_720p.yaml
+    at full width and depth (STDiT3-XL/2: hidden 1152, 28 layers, 16 heads
+    of d = 72, qk-norm and temporal RoPE, bf16; T5-XXL in f32 over 300
+    tokens; the frame-wise 2D VAE at ch 128), random weights from the seed,
+    one prompt at the config's latent size, 30 × 90 × 160 (30 frames at
+    720 × 1280: ``OS12_OVERRIDES``, the config having no inference
+    section), CFG 7.5 (the default scale), the rectified flow's ``steps``
+    Euler steps, every frame decoded.  Asserts 28 spatial K2 and 28 cross
+    K4 a step, every one on the persistent kernel of flash_fwd_sm90.cu
+    unsplit, with no alignment copy, no other launch (the temporal
+    attention over 30 frames and the VAE's 512-wide attention take the
+    math path), finite latents and pixels, the video and metric.json."""
+    from videotuna_tpu_torch.cli.inference import run_inference
+    savedir = os.path.join(OUT_DIR, "e2e_opensora12")
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(A)
+    cuts = [f"flow.params.scheduler_config.params.num_steps={steps}"]
+    t0 = time.perf_counter()
+    result = run_inference([
+        "--config", CONFIG_OS12, "--device", "cuda", "--quiet",
+        "--savedir", savedir, "--prompt", OS12_PROMPT, *OS12_OVERRIDES,
+        *cuts])
+    wall = time.perf_counter() - t0
+    launches, sm90 = read_counts(A), read_sm90_counts(A)
+    m = result["metrics"]
+    peak = torch.cuda.max_memory_allocated()
+    video = _read_video(result["videos"][0])
+    k2, k4 = _os12_launches(False)
+    per = (k2 * steps, k4 * steps)
+    h, w = OS12_SIZE
+    log("e2e-opensora12", config="opensorav12_stdit3_720p",
+        overrides=" ".join(OS12_OVERRIDES + cuts), frames=OS12_FRAMES,
+        height=h, width=w, tokens_per_frame=OS12_TOKENS,
+        text_tokens=OS12_TEXT, batch="2 (CFG)", steps=m["denoise_steps"],
+        sec_per_step=f"{m['sample_sec'] / m['denoise_steps']:.4f}",
+        sample_sec=f"{m['sample_sec']:.3f}",
+        text_encode_sec=f"{m['encode_sec']:.3f}",
+        decode_sec=f"{m['decode_sec']:.3f}", run_sec=f"{wall:.1f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}", latent_shape=m["latent_shape"],
+        launches=launches, sm90_launches=sm90,
+        video_shape="x".join(map(str, video.shape)))
+    expected = dict({k: 0 for k in launches}, K2=per[0], K4=per[1])
+    if m["denoise_steps"] != steps or launches != expected \
+            or (sm90["K2"], sm90["K4"], sm90["tma_copies"]) \
+            != (per[0], per[1], 0) \
+            or m["latent_shape"] != [1, OS12_FRAMES, h // 8, w // 8, 4] \
+            or tuple(video.shape) != (OS12_FRAMES, h, w, 3) \
+            or m["nonfinite_latents"] or m["nonfinite_pixels"] \
+            or not os.path.isfile(os.path.join(savedir, "metric.json")):
+        raise AssertionError(f"e2e-opensora12: launches {launches}, {sm90}, "
+                             f"latents {m['latent_shape']}, video "
+                             f"{video.shape}: expected {expected}, all on "
+                             "flash_fwd_sm90, no copy, finite")
+    check_split_counts("e2e-opensora12", sm90)
+    del result
+    _free()
+    return dict(launches=launches, sm90=sm90, peak_gb=peak / 1e9,
+                steps=steps, sec_per_step=m["sample_sec"] / steps,
+                text_encode_sec=m["encode_sec"], decode_sec=m["decode_sec"])
+
+
+def _narrow_os12():
+    """Open-Sora 1.2 at narrow width, d = 72 kept: STDiT at hidden 144 (2
+    heads), depth 2, a 2-layer T5 of dim 64, the VAE at ch 32 with one res
+    block, 64 caption tokens."""
+    den = "flow.params.denoiser_config.params"
+    t5 = "flow.params.cond_stage_config.params"
+    return [f"{den}.hidden_size=144", f"{den}.num_heads=2", f"{den}.depth=2",
+            f"{den}.caption_channels=64", f"{t5}.dim=64", f"{t5}.heads=2",
+            f"{t5}.head_dim=32", f"{t5}.ff_dim=128", f"{t5}.num_layers=2",
+            "flow.params.model_max_length=64",
+            "flow.params.first_stage_config.params.ch=32",
+            "flow.params.first_stage_config.params.num_res_blocks=1",
+            f"flow.params.scheduler_config.params.num_steps="
+            f"{OS12_REF_STEPS}"]
+
+
+@tf32_off()
+def check_small_reference_opensora12(A) -> None:
+    """The narrow Open-Sora 1.2 flows, STDiT3 and the paired STDiT8, on the
+    card and on the CPU with the same weights, prompt and x_T, TF32 off
+    (2×256×256: 2×32×32 latents, 1,024 spatial tokens a frame (K2), 2,048
+    cross queries (K4)): one denoiser call, the latents after the rectified
+    flow's 3 steps and the decode; then one narrow rectified-flow training
+    step of the STDiT3 in bf16 on both sides (``check_train_reference``'s
+    opensora12 case: the loss within 2e-2, the gradients within 3e-2)."""
+    from videotuna_tpu_torch.core.config import load_configs
+    for config, paired in ((CONFIG_OS12, False), (CONFIG_OS12_PAIRED, True)):
+        k2, k4 = (n * (1 + OS12_REF_STEPS)
+                  for n in _os12_launches(paired, depth=2))
+        _flow_card_vs_cpu(
+            A, f"reference-opensora12 {'stdit8' if paired else 'stdit3'}",
+            load_configs([config], _narrow_os12()), (2, 256, 256),
+            lambda flow: flow.scheduler.timesteps[1].reshape(1),
+            "a lighthouse on a cliff", {"K2": k2, "K4": k4},
+            {"K2": k2, "K4": k4}, (REF_TOL_CALL, REF_TOL_TRAJ,
+                                   REF_TOL_DECODE))
+    check_train_reference(A, only=("opensora12",))
+
+
+def profile_opensora12_call() -> dict:
+    """One full-width STDiT3-XL/2 call at 720p with CFG (B=2, 30×90×160
+    latents, 300 caption tokens with 13 and 1 valid), the work of one
+    sampling step: timed with CUDA events and traced with torch.profiler,
+    device time by kernel group (the flash kernels, GEMMs, LayerNorm, the
+    rest) and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.models.layers import init_weights_
+    _free()
+    cfg = load_configs([CONFIG_OS12])["flow"]["params"]["denoiser_config"]
+    with torch.device("meta"):
+        model = instantiate(cfg)
+    model = model.to_empty(device="cuda").eval()
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((2, OS12_FRAMES, 90, 160, 4), generator=gen,
+                    device="cuda")
+    t = torch.tensor([500.0, 500.0], device="cuda")
+    y = torch.randn((2, OS12_TEXT, 4096), generator=gen, device="cuda")
+    mask = _lead_mask(2, 0, OS12_TEXT, (13, 1))
+    with torch.inference_mode():
+        call_ms = cuda_time_ms(lambda: model(x, t, y, mask), reps=3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x, t, y, mask)
+            torch.cuda.synchronize()
+    del model
+    _free()
+    return _log_profile(
+        "profile-opensora12", "one STDiT3-XL/2 call at 30×720×1280, CFG "
+        "batch 2", prof, call_ms, "flash_fwd (K2+K4)",
+        extra_groups=(("layernorm", ("layer_norm", "layernorm")),))
+
+
+def run_hunyuan_i2v(A) -> tuple:
+    """The HunyuanVideo I2V phases in order: (K-f32's records, the encode
+    run, the sampling run)."""
+    kf32 = timed_phase("K-f32", check_k_f32, A)
+    enc = timed_phase("hunyuan-i2v-encode", run_hunyuan_i2v_encode, A)
+    check_small_reference_hunyuan_i2v(A)
+    e2e = timed_phase("e2e-hunyuan-i2v", run_e2e_hunyuan_i2v, A)
+    return kf32, enc, e2e
+
+
+def run_opensora12(A, steps: int = OS12_STEPS) -> tuple:
+    """The Open-Sora 1.2 phases in order: (K-os12's records, the sampling
+    run)."""
+    kos = timed_phase("K-os12", check_k_os12, A)
+    check_small_reference_opensora12(A)
+    e2e = timed_phase("e2e-opensora12", run_e2e_opensora12, A, steps)
+    return kos, e2e
+
+
 def _prefixed(recs: dict, labels: dict) -> dict:
     """{f"{prefix}_{key}": value} of each ``labels`` prefix's record."""
     return {f"{p}_{k}": v for p, lab in labels.items()
@@ -5627,6 +6310,32 @@ def main(argv=None) -> None:
         print_result()
         return
 
+    if argv[:1] == ["--hunyuan-i2v"]:
+        # the HunyuanVideo I2V phases alone: K-f32, the full-width prompt
+        # chain, the narrow card-vs-CPU flows and their control, the
+        # sampling run
+        kf32, enc, e2e = run_hunyuan_i2v(A)
+        print(json.dumps({"hunyuan_i2v": {
+            "k_f32": kf32, "encode": {k: v for k, v in enc.items()
+                                      if k not in ("launches", "sm90")},
+            "e2e": {k: v for k, v in e2e.items()
+                    if k not in ("launches", "sm90")}}}), flush=True)
+        print_result()
+        return
+
+    if argv[:1] == ["--opensora12"]:
+        # the Open-Sora 1.2 phases alone: K-os12, the narrow card-vs-CPU
+        # flows and training step, the sampling run (a step count after
+        # the flag cuts it), then one traced STDiT3 call
+        steps = int(argv[1]) if len(argv) > 1 else OS12_STEPS
+        kos, e2e = run_opensora12(A, steps)
+        timed_phase("profile-opensora12", profile_opensora12_call)
+        print(json.dumps({"opensora12": {"k_os12": kos, "e2e": {
+            k: v for k, v in e2e.items() if k not in ("launches", "sm90")}}}),
+            flush=True)
+        print_result()
+        return
+
     if argv[:1] == ["--videocrafter"]:
         # the VideoCrafter, DynamiCrafter and Wan I2V phases alone (the
         # kernels at their shapes, the narrow card-vs-CPU checks, the
@@ -5702,8 +6411,11 @@ def main(argv=None) -> None:
     runs += step_runs
     kflux, flux_runs, flux_train, v2v_runs = run_flux_v2v(A)
     runs += flux_runs + [flux_train] + v2v_runs
+    kf32, i2v_encode, hy_i2v = run_hunyuan_i2v(A)
+    kos12, os12 = run_opensora12(A)
+    runs += [i2v_encode, hy_i2v, os12]
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the twenty-five main-path runs
+    # each kernel's launches over the twenty-eight main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
@@ -5719,12 +6431,17 @@ def main(argv=None) -> None:
     # K1's launches at CogVideoX 1.5's 9,674 tokens, apart from the 5B's
     cog15_k1 = sum(r["sm90"]["K1"] for r in cog15_runs)
     # the UNet's K2 (d = 64, 5 heads) and K1 launches, apart from STDiT's
-    # and CogVideoX's; the CLIP image encoder's f32 K2 on flash_fwd.cu; Wan
-    # I2V's K3 launches
+    # and CogVideoX's; the CLIP image encoder's f32 K2 on the f32 design
+    # (those runs' only f32 launches); Wan I2V's K3 launches
     vc_k2 = sum(r["sm90"]["K2"] for r in vc_runs + v2v_runs)
     vc_k1 = sum(r["sm90"]["K1"] for r in vc_runs + v2v_runs)
-    clip_k2 = sum(r["launches"]["K2"] - r["sm90"]["K2"] - r["sm90"]["K2_f32"]
-                  for r in vc_runs + [wan_i2v])
+    clip_k2 = sum(r["sm90"]["K2_f32"] for r in vc_runs + [wan_i2v])
+    # the HunyuanVideo I2V prompt chain's f32 launches: the LLaVA tower's
+    # K1 (d = 64) and the LLaMA's K2 over 934 tokens; Open-Sora 1.2's K2
+    # and K4 (d = 72, 3,600 tokens a frame) on the persistent kernel
+    llava_k1 = i2v_encode["sm90"]["K1_f32"]
+    i2v_llama_k2 = i2v_encode["sm90"]["K2_f32"]
+    os12_k2, os12_k4 = os12["sm90"]["K2"], os12["sm90"]["K4"]
     wan_i2v_k3 = wan_i2v["sm90"]["K3_d128"]
     # VideoCrafter2 training's launches (K5 and K8 at d = 64 on the Hopper
     # designs, K1 with the LSE and K7), apart from the other runs'
@@ -5748,9 +6465,9 @@ def main(argv=None) -> None:
               "bf16, fixed max or online, optional LSE), checked",
         "K2": "redesigned for Hopper (flash_fwd_sm90 persistent, d=64/72/80 "
               "bf16; K3's kernel with the online max at d=128 bf16), "
-              "checked; f32 at d=128 (LLaMA's causal K2) redesigned "
-              "for Hopper (flash_fwd_f32_sm90: split key ranges, a cp.async "
-              "ring, the combine), checked",
+              "checked; f32 at d=64/80/128 (LLaMA's causal K2, the CLIP "
+              "towers) redesigned for Hopper (flash_fwd_f32_sm90: split key "
+              "ranges, a cp.async ring, the combine), checked",
         "K3": "redesigned for Hopper (flash_fwd_sm90: TMA, wgmma, "
               "warp-specialised), checked",
         "K4": "redesigned for Hopper (flash_fwd_sm90 persistent with the "
@@ -5842,7 +6559,15 @@ def main(argv=None) -> None:
         entry("flash_fwd_sm90 persistent, d=64, CogVideoX 1.5 (K1)", fwd90,
               268, "K1", k1c, launches_n=cog15_k1),
         entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
-              "K2", k2, launches_n=sm90["K2"] - d128["K2"] - vc_k2),
+              "K2", k2, launches_n=sm90["K2"] - d128["K2"] - vc_k2 - os12_k2),
+        # Open-Sora 1.2 at 720p on the same kernel: the spatial K2 (B = 60,
+        # 3,600 tokens) and the cross-attention K4 over T5's 300 keys
+        entry("flash_fwd_sm90 persistent, d=72 online, Open-Sora 1.2 "
+              "spatial 3,600 tokens (K2)", fwd90, 78, "K2",
+              kos12["K2 os12 spatial"], launches_n=os12_k2),
+        entry("flash_fwd_sm90 persistent, key mask, d=72, Open-Sora 1.2 "
+              "cross-attention over 300 T5 keys (K4)", fwd90, 970, "K4",
+              kos12["K4 os12 cross"], launches_n=os12_k4),
         # the UNet's attention (VideoCrafter2 at 320x512, DynamiCrafter at
         # 576x1024, B = 32): level 1's 5 heads on K2 (DynamiCrafter's self-
         # attention's figures; VideoCrafter2's and the 77-key cross-
@@ -5866,10 +6591,16 @@ def main(argv=None) -> None:
                   for lab, rec in kvc.items() if lab.startswith("K1")
                   and lab != "K1 dc ds2 self" for k, v in rec.items()}),
               launches_n=vc_k1),
-        entry("flash_fwd.cu f32, d=80, the CLIP ViT-H/14 image encoder "
-              "(K2)", "videotuna_tpu_torch/kernels/csrc/flash_fwd.cu", 78,
-              "K2", kvc["K2 f32 clip"], launches_n=clip_k2,
-              status="ported (flash_fwd.cu, f32, any d <= 256), checked"),
+        entry("flash_fwd_f32_sm90 f32, d=80, split key ranges, the CLIP "
+              "ViT-H/14 image encoder (K2)", fwd32, 78, "K2",
+              kf32["K2 f32 clip"], design="f32", launches_n=clip_k2,
+              status="redesigned for Hopper (flash_fwd_f32_sm90 at D=80), "
+                     "checked"),
+        entry("flash_fwd_f32_sm90 f32, d=64, the LLaVA CLIP ViT-L/14-336 "
+              "tower (K1)", fwd32, 268, "K1", kf32["K1 f32 llava"],
+              design="f32", launches_n=llava_k1,
+              status="redesigned for Hopper (flash_fwd_f32_sm90 at D=64), "
+                     "checked"),
         entry("flash_fwd_sm90 static_max, d = 128 (K3)", fwd90, 581,
               "K3", k3, design="d128",
               launches_n=d128["K3"] - wan_k3 - wan_i2v_k3),
@@ -5889,7 +6620,7 @@ def main(argv=None) -> None:
                       for k, v in k3w["self 1.3B"].items()}),
               design="d128", launches_n=wan_k3),
         entry("flash_fwd_sm90 persistent, key mask (K4)", fwd90, 970, "K4",
-              k4, launches_n=sm90["K4"] - d128["K4"]),
+              k4, launches_n=sm90["K4"] - d128["K4"] - os12_k4),
         # StepVideo's and Mochi's attention on K3's kernel at d = 128: the
         # self-attention with the online max (K2), the cross-attention
         # over the CLIP and caption keys with the mask (K4, online), Mochi's
@@ -5975,10 +6706,16 @@ def main(argv=None) -> None:
         # LLaMA's f32 causal K2 on the f32 design
         entry("flash_fwd_f32_sm90 f32 causal, split key ranges, LLaMA (K2)",
               fwd32, 78, "K2", fields(k2, "llama"), design="f32",
-              launches_n=f32["K2"] - stepllm_k2,
+              launches_n=f32["K2"] - stepllm_k2 - clip_k2 - i2v_llama_k2,
               status="redesigned for Hopper (flash_fwd_f32_sm90: split key "
                      "ranges, a cp.async ring, three bf16 products a "
                      "product, the combine), checked"),
+        entry("flash_fwd_f32_sm90 f32 causal, unsplit, LLaMA over the "
+              "HunyuanVideo I2V prompt's 934 tokens (K2)", fwd32, 78, "K2",
+              kf32["K2 f32 llama i2v"], design="f32",
+              launches_n=i2v_llama_k2,
+              status="redesigned for Hopper (flash_fwd_f32_sm90), "
+                     "checked"),
     ]}), flush=True)
     print_result()
 

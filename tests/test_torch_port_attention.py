@@ -551,7 +551,7 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _BF, 80, False, False, True, False, "sm90"),
     ("K5", _BF, 80, False, False, True, True, "sm90"),
     # K1 and K6 at d=64 in bf16: the persistent kernel in either softmax
-    # mode, with or without the LSE; f32 keeps flash_fwd.cu
+    # mode, with or without the LSE; f32 takes the f32 design
     ("K1", _BF, 64, False, False, False, True, "sm90"),
     ("K1", _BF, 64, False, False, True, True, "sm90"),
     ("K1", _BF, 64, False, False, False, False, "sm90"),
@@ -560,9 +560,9 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K6", _BF, 64, False, False, True, False, "sm90"),
     ("K6", _BF, 64, False, False, False, True, "sm90"),
     ("K6", _BF, 64, False, False, True, True, "sm90"),
-    ("K1", _F32, 64, False, False, False, True, "mma"),
-    ("K1", _F32, 64, False, False, True, False, "mma"),
-    ("K6", _F32, 64, False, False, False, False, "mma"),
+    ("K1", _F32, 64, False, False, False, True, "f32"),
+    ("K1", _F32, 64, False, False, True, False, "f32"),
+    ("K6", _F32, 64, False, False, False, False, "f32"),
     # K4 at d = 72 and 80 in bf16: the persistent kernel with the key mask
     ("K4", _BF, 72, False, True, False, False, "sm90"),
     ("K4", _BF, 72, False, True, True, False, "sm90"),
@@ -584,10 +584,10 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _BF, 128, True, False, True, True, "mma"),
     ("K5", _F32, 128, False, False, True, True, "f32"),
     ("K5", _BF, 128, False, True, True, True, "mma"),
-    # f32 at d = 128 without a key mask (LLaMA's causal K2, the 2D VAE's
-    # mid attention): flash_fwd_f32_sm90.cu, causal or not, online or fixed
-    # max, with or without the LSE; the masked f32 call and other f32
-    # widths keep flash_fwd.cu
+    # f32 at d = 64, 80 and 128 without a key mask (LLaMA's causal K2, the
+    # 2D VAE's mid attention, the CLIP towers): flash_fwd_f32_sm90.cu,
+    # causal or not, online or fixed max, with or without the LSE; the
+    # masked f32 call and other f32 widths keep flash_fwd.cu
     ("K2", _F32, 128, True, False, False, False, "f32"),
     ("K2", _F32, 128, True, False, True, False, "f32"),
     ("K2", _F32, 128, False, False, False, False, "f32"),
@@ -595,21 +595,25 @@ _BF, _F32 = torch.bfloat16, torch.float32
     ("K5", _F32, 128, True, False, True, False, "f32"),
     ("K4", _F32, 128, False, True, False, False, "mma"),
     ("K4", _F32, 128, False, True, True, True, "mma"),
-    ("K2", _F32, 64, True, False, False, False, "mma"),
+    ("K2", _F32, 64, True, False, False, False, "f32"),
+    ("K2", _F32, 80, False, False, False, False, "f32"),
+    ("K2", _F32, 80, True, False, True, True, "f32"),
+    ("K4", _F32, 80, False, True, False, False, "mma"),
     ("K2", _F32, 256, True, False, True, False, "mma"),
     # K2 at d=64 in bf16 (an odd head count: the UNet's 5-head level): the
-    # same persistent kernel, non-causal; causal or f32 keep flash_fwd.cu
+    # same persistent kernel, non-causal; causal keeps flash_fwd.cu, f32
+    # takes the f32 design
     ("K2", _BF, 64, False, False, False, False, "sm90"),
     ("K2", _BF, 64, False, False, False, True, "sm90"),
     ("K2", _BF, 64, False, False, True, False, "sm90"),
     ("K2", _BF, 64, True, False, False, False, "mma"),
-    ("K2", _F32, 64, False, False, False, False, "mma"),
+    ("K2", _F32, 64, False, False, False, False, "f32"),
     # K5 at d=64 (the UNet's training forward at its 5-head level and over
     # 77 text keys): the same persistent kernel with the LSE
     ("K5", _BF, 64, False, False, True, False, "sm90"),
     ("K5", _BF, 64, False, False, True, True, "sm90"),
     ("K5", _BF, 64, True, False, True, False, "mma"),
-    ("K5", _F32, 64, False, False, True, False, "mma"),
+    ("K5", _F32, 64, False, False, True, False, "f32"),
 ])
 def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
                                                        causal, masked, lse,
@@ -623,7 +627,7 @@ def test_fwd_design_is_a_function_of_route_and_options(route, dtype, d,
     and K2, K3, K5 and the masked K4 in bf16 at d = 72 or 80, in either
     softmax mode, with or without the LSE, all non-causal and unmasked but
     for K4; the f32 design (flash_fwd_f32_sm90.cu) every unmasked f32 call
-    at d = 128; every other call keeps flash_fwd.cu."""
+    at d = 64, 80 and 128; every other call keeps flash_fwd.cu."""
     kv_valid = torch.ones((1, 8), dtype=torch.bool) if masked else None
     assert P._fwd_design(route, dtype, d, causal, kv_valid, lse,
                          0.0 if fixed else None) == design

@@ -87,7 +87,7 @@ def test_hunyuan_lora_command_resolves_like_jax():
 @pytest.mark.parametrize("name,queue", [
     ("train-flux-lora", "queue 3"),
     ("train-dynamicrafter", "queue 3"),
-    ("inference-hunyuan-i2v-720p", "queue 1, item 4"),
+    ("train-cogvideox-i2v-fullft", "item 10.1"),
     ("train-cogvideox-i2v-lora", "queue 1, item 3"),
     ("serve", "item 10.2"), ("eval", "item 10.5")])
 def test_unported_command_returns_2_naming_its_queue(name, queue, capsys):

@@ -111,6 +111,14 @@ CASES = {
                  model_channels=48, channel_mult=(1, 2), num_res_blocks=1,
                  attention_resolutions=(1, 2), num_head_channels=16,
                  addition_attention=True)),
+    # no config names these two: built from their modules' classes
+    "clip_vision": (None, dict(dim=64, heads=2, num_layers=2, patch=14,
+                               image_size=56, proj_dim=32),
+                    "models.clip_vision.CLIPVisionEncoder",
+                    lambda cw, p: cw.clip_vision_map(heads=p["heads"])),
+    "llava_projector": (None, dict(in_dim=64, out_dim=48),
+                        "tools.captioner.LlavaProjector",
+                        lambda cw, p: cw.llava_projector_map()),
     "lvdm_vc1": (_cfg("000_videocrafter", "vc1_t2v_576x1024.yaml"),
                  _UNET_NARROW, "denoiser",
                  lambda cw, p: cw.lvdm_map(
@@ -133,9 +141,9 @@ def _flat(tree, prefix=""):
 
 def _names(pattern: str, nmax: int):
     """Every name ``pattern`` matches whose ``(\\d+)`` groups are below
-    ``nmax``, whose ``(a|b)`` groups (named or not) take each alternative
-    and whose optional ``(?:x)?`` groups are left out (one name a
-    leaf)."""
+    ``nmax``, whose ``(a|b)`` groups (named or not) take each alternative,
+    whose optional ``(?:x)?`` groups are left out and whose optional
+    characters ``x?`` are kept (one name a leaf)."""
     parts = re.split(r"(\((?:\?P<\w+>|\?:)?(?:\\d\+|[\w|\\.]+)\)\??)",
                      pattern.strip("^$"))
     options = []
@@ -147,7 +155,8 @@ def _names(pattern: str, nmax: int):
                     [re.sub(r"\\(.)", r"\1", a) for a in inner.split("|")])
             options.append([""] if optional else alts)
         else:
-            options.append([re.sub(r"\\(.)", r"\1", part)])
+            options.append([re.sub(r"\\(.)", r"\1",
+                                   re.sub(r"(\w)\?", r"\1", part))])
     for combo in itertools.product(*options):
         yield "".join(combo)
 
@@ -216,11 +225,18 @@ def _case(family):
     """(the component's port module, its config params, leaf shapes,
     upstream state dict, the JAX map's tree) of a family's case."""
     config, overrides, comp, _ = CASES[family]
-    pcfg = pconfig.load_configs([config], overrides)
-    module = ckpt_tools.build_component(pcfg, comp)
+    if config is None:   # overrides: the module's params; comp: its class
+        import importlib
+        mod, cls = comp.rsplit(".", 1)
+        module = getattr(importlib.import_module(
+            f"videotuna_tpu_torch.{mod}"), cls)(**overrides)
+        params = dict(overrides)
+    else:
+        pcfg = pconfig.load_configs([config], overrides)
+        module = ckpt_tools.build_component(pcfg, comp)
+        params = dict(pcfg["flow"]["params"][f"{comp}_config"].get("params")
+                      or {})
     shapes = flax_shapes(module)
-    params = dict(pcfg["flow"]["params"][f"{comp}_config"].get("params")
-                  or {})
     build = CASES[family][3]
     sd = synthetic_state_dict(build(jcw, params), shapes)
     return module, params, shapes, sd, build(jcw, params).convert(
@@ -275,9 +291,7 @@ def test_map_reports_a_mismatched_leaf(family):
 
 
 def test_unported_maps_raise_naming_their_queue():
-    for name, item in (("clip_vision_map", "10.4"),
-                       ("aesthetic_map", "10.4"),
-                       ("llava_projector_map", "item 4")):
+    for name, item in (("aesthetic_map", "10.4"),):
         assert hasattr(jcw, name)
         with pytest.raises(NotImplementedError, match=item):
             getattr(pcw, name)(heads=24)

@@ -118,7 +118,7 @@ def test_k1_kernel_copies_what_tma_cannot_read():
 
 @pytest.mark.cuda
 def test_k1_kernel_rejects_what_it_does_not_take():
-    """Route K1 takes bf16 (its Hopper kernel) or f32 (flash_fwd.cu);
+    """Route K1 takes bf16 (its Hopper kernel) or f32 (the f32 design);
     anything else, and mismatched shapes, raise before a launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -1359,6 +1359,79 @@ def test_f32_design_matches_plain(b, sq, sk, h, causal, static_max,
         assert (lse - ref_lse).abs().max() <= 1e-4
         assert torch.equal(lse, second[1])
     assert torch.equal(out, second[0] if emit_lse else second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_lse", [False, True], ids=["no_lse", "lse"])
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,static_max", [
+    (1, 577, 577, 16, 64, False, None),   # the LLaVA tower, ViT-L/14-336
+    (1, 256, 256, 16, 80, False, None),   # the CLIP ViT-H/14 embedder
+    (2, 333, 333, 2, 64, True, None),     # ragged, causal
+    (2, 300, 130, 3, 80, True, None),     # more queries than keys
+    (1, 1, 77, 2, 64, False, 0.0),        # one query, fixed max
+    (3, 200, 4322, 2, 80, False, 0.0),    # long keys, fixed max
+])
+def test_f32_design_widths_match_plain(b, sq, sk, h, d, causal, static_max,
+                                       emit_lse):
+    """flash_fwd_f32_sm90.cu at d = 64 and 80 (routes K1 at d = 64 with an
+    even head count, else K2) against the f32 plain version (1e-4 of
+    max|o|, LSE 1e-4), counted on the f32 design, the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(sq + sk + d)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen) for s in (sq, sk, sk))
+    if static_max is not None:
+        q, k = (torch.nn.functional.layer_norm(x, (d,)) for x in (q, k))
+    q, k, v = (x.cuda() for x in (q, k, v))
+    route = "K1" if d == 64 and h % 2 == 0 and not causal else "K2"
+    before = (dict(P.flash_fwd.launches_f32), dict(P.flash_fwd.launches_sm90))
+    kw = dict(sm_scale=d ** -0.5, causal=causal, static_max=static_max,
+              route=route)
+    first = P.flash_fwd(q, k, v, emit_lse=emit_lse, **kw)
+    second = P.flash_fwd(q, k, v, emit_lse=emit_lse, **kw)
+    kw.pop("route")
+    ref, ref_lse = P.flash_fwd_plain(q, k, v, emit_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert P.flash_fwd.launches_f32 == dict(
+        before[0], **{route: before[0][route] + 2})
+    assert P.flash_fwd.launches_sm90 == before[1]
+    out, lse = first if emit_lse else (first, None)
+    assert out.dtype == torch.float32
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    if emit_lse:
+        assert (lse - ref_lse).abs().max() <= 1e-4
+        assert torch.equal(lse, second[1])
+    assert torch.equal(out, second[0] if emit_lse else second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static_max", [None, 0.0], ids=["online", "fixed"])
+def test_k2_d72_over_3600_keys(static_max):
+    """Open-Sora 1.2's spatial attention at 720p: 3,600 tokens a frame (29
+    key tiles under the online max), at 2 frames and 4 of its 16 heads of
+    d = 72, on the persistent kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(2, 3600, 3600, 4, 72, seed=36,
+                     normed=static_max is not None)
+    before = P.flash_fwd.launches_sm90["K2"]
+    _check_fwd(q, k, v, "K2", sm_scale=72 ** -0.5, static_max=static_max)
+    assert P.flash_fwd.launches_sm90["K2"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["prefix", "strided", "all_valid"])
+def test_k4_d72_over_300_caption_keys(pattern):
+    """Open-Sora 1.2's cross-attention: a frame's 3,600 queries over T5's
+    300 caption keys (3 key tiles), the caption masked, on the persistent
+    kernel with the key mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = _qkv_d(2, 3600, 300, 4, 72, seed=30)
+    before = P.flash_fwd.launches_sm90["K4"]
+    _check_fwd(q, k, v, "K4", sm_scale=72 ** -0.5,
+               kv_valid=_kv_mask(2, 300, pattern))
+    assert P.flash_fwd.launches_sm90["K4"] == before + 1
 
 
 @pytest.mark.cuda

@@ -282,9 +282,12 @@ def test_riflex_width_follows_the_dit_at_head_dim_128():
 
 
 def test_dit_options_that_wait_raise():
-    with pytest.raises(NotImplementedError, match="i2v"):
-        PDiT(dim=32, heads=2, double_blocks=1, single_blocks=1,
-             i2v_condition_type="token_replace")
+    """The staged forward waits; token replace builds (any other condition
+    type, as in the JAX package, conditions nothing)."""
+    for kind, replace in (("token_replace", True), ("latent_concat", False),
+                          (None, False)):
+        assert PDiT(dim=32, heads=2, double_blocks=1, single_blocks=1,
+                    i2v_condition_type=kind).token_replace is replace
     pm = PDiT(in_channels=4, out_channels=4, dim=32, heads=2,
               double_blocks=1, single_blocks=1, text_dim=8, pooled_dim=8)
     with pytest.raises(NotImplementedError, match="stage"):
@@ -436,12 +439,15 @@ def test_hunyuan_configs_load_and_resolve_to_the_port(path):
 
 
 def test_hunyuan_flow_parts_that_wait_raise():
+    """Image conditioning needs ``i2v_mode`` (the JAX flow's raise); in
+    i2v mode the flow builds with ``img_in`` at twice the latent
+    channels."""
     cfg = pconfig.load_configs([TINY])["flow"]
     flow = pregistry.instantiate(cfg, device="cpu")
-    for call, what in ((flow.encode_text_i2v, "i2v"),
-                       (flow.prepare_image_cond, "i2v")):
-        with pytest.raises(NotImplementedError, match=what):
-            call({})
+    assert not flow.i2v_mode
+    with pytest.raises(NotImplementedError, match="i2v_mode"):
+        flow.prepare_image_cond({}, None, torch.zeros((1, 32, 32, 3)), 9,
+                                32, 32)
     i2v = dict(cfg, params=dict(cfg["params"], i2v_mode=True))
-    with pytest.raises(NotImplementedError, match="i2v"):
-        pregistry.instantiate(i2v, device="cpu")
+    flow = pregistry.instantiate(i2v, device="cpu")
+    assert flow.i2v_mode and flow.denoiser.img_in.in_channels == 32

@@ -305,8 +305,8 @@ def test_opensora_flow_branches():
     fm = dict(cfg, params=dict(cfg["params"], scheduler_config={
         "target": "videotuna_tpu.schedulers.FlowMatchSchedule",
         "params": {"num_steps": 4}}))
-    with pytest.raises(NotImplementedError, match="Open-Sora 1.2"):
-        pregistry.instantiate(fm, device="cpu")
+    flow = pregistry.instantiate(fm, device="cpu")
+    assert flow.base_schedule is None and flow.scheduler.num_steps == 4
     spaced = dict(cfg, params=dict(cfg["params"], scheduler_config={
         "target": "videotuna_tpu.schedulers.SpacedSchedule",
         "params": {"timesteps": 100, "section_counts": "5"}}))

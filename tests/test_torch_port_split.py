@@ -1,7 +1,7 @@
 """The split-key forward on the CPU: ``_fwd_split_plan``'s units, the plain
 split-and-combine (``flash_fwd_split_plain``) against ``flash_fwd_plain``
 and the JAX package's Pallas kernels in interpret mode, the f32 design's
-tables, and two messages that name ``ROADMAP.md`` queue 1's items.
+tables, and a message that names ``ROADMAP.md`` queue 1's item 9.
 
 Inputs come from a seeded numpy generator and go to both packages; the
 comparisons are in f32 with atol = 1e-5·max|ref| (the partials and the
@@ -226,15 +226,6 @@ def test_split_counters_untouched_on_cpu():
 
 
 # ---------------------------------------------------------------- messages
-def test_opensora_12_raise_names_queue_1_item_5():
-    """Open-Sora 1.2's rectified-flow branch waits in queue 1, item 5."""
-    from videotuna_tpu_torch.flows.opensora import OpenSoraFlow
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue 1, item 5\)"):
-        OpenSoraFlow(scheduler_config={
-            "target": "videotuna_tpu.schedulers.FlowMatchSchedule"})
-
-
 def test_adafactor_raise_names_queue_1_item_9():
     """adafactor waits in queue 1, item 9 (slice C's leftovers)."""
     from videotuna_tpu_torch.training import trainer

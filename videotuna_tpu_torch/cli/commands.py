@@ -162,8 +162,6 @@ WAITING: Dict[str, str] = {
     "train-cogvideox-i2v-lora": _COGVIDEOX_I2V_TRAIN,
     "train-cogvideox-i2v-fullft": _COGVIDEOX_I2V_TRAIN
     + "; its mesh {dp: 1, fsdp: 4} waits for queue 1, item 10.1",
-    "inference-hunyuan-i2v-720p": "ROADMAP.md queue 1, item 4 "
-                                  "(HunyuanVideo i2v)",
     "train-flux-lora": "ROADMAP.md queue 3's Flux-training fault: the JAX "
                        "package's FluxFlow.training_loss reads "
                        "batch['latents'], which no dataset or trainer fills "

@@ -35,6 +35,7 @@ _MODULES = (
     "videotuna_tpu_torch.models.wan.dit",
     "videotuna_tpu_torch.models.wan.vae",
     "videotuna_tpu_torch.models.lvdm",
+    "videotuna_tpu_torch.models.clip_vision",
     "videotuna_tpu_torch.models.stepvideo.dit",
     "videotuna_tpu_torch.models.mochi.dit",
     "videotuna_tpu_torch.models.mochi_vae",

@@ -1,10 +1,10 @@
-"""OpenSoraFlow (torch): Open-Sora v1.0 STDiT text-to-video sampling and
-training, the counterpart of ``videotuna_tpu/flows/opensora.py``: T5 →
-STDiT with CFG under DDIM over the DDPM chain (or IDDPM spaced sampling with
-learned variance) → the frame-wise 2D KL VAE.  Training is the eps-MSE, plus
-IDDPM's vb term when the model's output keeps both halves.
-
-The Open-Sora 1.2 rectified-flow sampler and loss wait for a later slice.
+"""OpenSoraFlow (torch): Open-Sora text-to-video sampling and training, the
+counterpart of ``videotuna_tpu/flows/opensora.py``: T5 → STDiT with CFG
+under DDIM over the DDPM chain (v1.0), IDDPM spaced sampling with learned
+variance (v1.1) or the rectified flow's Euler steps (v1.2, a
+``FlowMatchSchedule``) → the frame-wise 2D KL VAE.  Training is the
+eps-MSE, plus IDDPM's vb term when the model's output keeps both halves;
+under the rectified flow, the velocity MSE at uniform sigmas.
 """
 
 from __future__ import annotations
@@ -15,7 +15,11 @@ import torch
 
 from videotuna_tpu_torch.core.registry import register
 from videotuna_tpu_torch.flows.generation import Cond, GenerationFlow
-from videotuna_tpu_torch.schedulers import DDIMSchedule, DDPMSchedule
+from videotuna_tpu_torch.schedulers import (DDIMSchedule, DDPMSchedule,
+                                            FlowMatchSchedule,
+                                            flow_interpolate, flow_target,
+                                            sample_sigmas)
+from videotuna_tpu_torch.schedulers.common import randn
 from videotuna_tpu_torch.schedulers.iddpm import SpacedSchedule, vb_loss_term
 
 
@@ -29,13 +33,6 @@ class OpenSoraFlow(GenerationFlow):
     def __init__(self, *args, num_frames: int = 16, height: int = 256,
                  width: int = 256, ddim_steps: int = 50,
                  ddim_eta: float = 0.0, **kwargs):
-        sched_cfg = kwargs.get("scheduler_config") or (args[1] if len(args) > 1
-                                                       else {})
-        if str(sched_cfg.get("target", "")).endswith("FlowMatchSchedule"):
-            raise NotImplementedError(
-                "Open-Sora 1.2 rectified-flow sampling and training (the "
-                "flow-match branch and STDiT's fps conditioning) are not "
-                "ported yet (ROADMAP.md queue 1, item 5)")
         super().__init__(*args, **kwargs)
         self.num_frames = num_frames
         self.height = height
@@ -52,6 +49,9 @@ class OpenSoraFlow(GenerationFlow):
             # Open-Sora 1.1: respacing is sampling-only; training uses the
             # full chain
             self.base_schedule = self.scheduler.full or self.scheduler.base
+        elif isinstance(self.scheduler, FlowMatchSchedule):
+            # Open-Sora 1.2: the rectified flow, no diffusion chain
+            self.base_schedule = None
         else:
             raise TypeError(f"Unsupported scheduler {type(self.scheduler)}")
 
@@ -71,7 +71,8 @@ class OpenSoraFlow(GenerationFlow):
                       generator: Optional[torch.Generator] = None, *,
                       t: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
-                      posterior_noise: Optional[torch.Tensor] = None
+                      posterior_noise: Optional[torch.Tensor] = None,
+                      sigma: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """eps-MSE over q_sample'd VAE latents; when ``denoise_apply`` keeps
         2·C channels (a ``pred_sigma`` model under IDDPM's
@@ -79,12 +80,17 @@ class OpenSoraFlow(GenerationFlow):
         A ``pred_sigma`` model under DDIM is handed the eps half only, as
         in the JAX package, so its loss is the eps-MSE.  NaN samples count
         as 0.  ``batch``: "video" or "latents", "text_states" and
-        optionally "text_mask"."""
+        optionally "text_mask".  Under the rectified flow (Open-Sora 1.2)
+        the loss is the velocity MSE at x_t = (1 − σ)·x0 + σ·ε, σ uniform in
+        (0, 1) (``sigma`` replaces the draw), t = 1000·σ."""
         z = batch.get("latents")
         if z is None:
             z = self.encode_video(batch["video"], generator,
                                   noise=posterior_noise)
         sched = self.base_schedule
+        if sched is None:
+            return self._rectified_flow_loss(z, batch, generator, sigma,
+                                             noise)
         t, noise = self._draw_t_noise(z, generator, t, noise)
         x_t = sched.q_sample(z, t, noise)
         model_out = self.denoise_apply(
@@ -106,3 +112,19 @@ class OpenSoraFlow(GenerationFlow):
         loss = per.mean()
         aux.update({"loss": loss, "t_mean": t.float().mean()})
         return loss, aux
+
+    def _rectified_flow_loss(self, z, batch, generator, sigma, noise):
+        if sigma is None:
+            sigma = sample_sigmas(generator, z.shape[0], "uniform",
+                                  device=z.device)
+        sigma = sigma.to(z)
+        noise = (randn(z.shape, generator, z.device) if noise is None
+                 else noise.to(z))
+        v_pred = self.denoise_apply(
+            flow_interpolate(z, noise, sigma), sigma * 1000.0,
+            {"y": batch["text_states"], "mask": batch.get("text_mask")})
+        per = ((v_pred - flow_target(z, noise)) ** 2).mean(
+            dim=tuple(range(1, z.ndim)))
+        per = torch.where(torch.isnan(per), 0.0, per)
+        loss = per.mean()
+        return loss, {"loss": loss, "t_mean": sigma.mean() * 1000.0}

@@ -24,8 +24,9 @@ math path.  The kernels it can reach, and where each is in the port:
   the persistent Hopper kernel of ``csrc/flash_fwd_sm90.cu`` (K4 with its
   key mask packed into bit words as ``_mask_words`` does), and K2 and K4
   at d = 128 without the LSE launch K3's kernel there, with its online max
-  and the key mask (StepVideo, Mochi); in f32 at d = 128
-  without a key mask (LLaMA's causal K2) ``csrc/flash_fwd_f32_sm90.cu``
+  and the key mask (StepVideo, Mochi); in f32 at d = 64, 80 and 128
+  without a key mask (LLaMA's causal K2, the CLIP towers' K1 and K2)
+  ``csrc/flash_fwd_f32_sm90.cu``
   (split key ranges, a cp.async ring, three bf16 products a product);
 - K5 (the training forward with the LSE): ``flash_fwd`` with ``emit_lse``,
   on the same two kernels as K2 (in bf16 at d = 64 the persistent kernel:
@@ -88,7 +89,8 @@ _KERNELS = {
     "K2": "generic online-softmax flash forward (flash_attention): "
           "csrc/flash_fwd_sm90.cu at d=64, 72, 80 and 128 in bf16 "
           "(non-causal), "
-          "csrc/flash_fwd_f32_sm90.cu in f32 at d=128 (LLaMA, causal), "
+          "csrc/flash_fwd_f32_sm90.cu in f32 at d=64, 80 and 128 "
+          "(LLaMA, causal; the CLIP towers), "
           "else csrc/flash_fwd.cu",
     "K3": "d<=128 non-causal fixed-max flash forward (_flash_t128): "
           "csrc/flash_fwd_sm90.cu at d=64, 72, 80 and 128 in bf16, else "
@@ -302,8 +304,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     place is copied first and counted in ``flash_fwd.tma_copies``; the
     masked K4 there reads ``mask_words`` (``_mask_words_for`` of q and
     ``kv_valid``, packed by the caller) when given, else packs the mask in
-    the same call.  The calls it names "f32" (f32 at d = 128, unmasked)
-    launch ``csrc/flash_fwd_f32_sm90.cu`` and add one to
+    the same call.  The calls it names "f32" (f32 at d = 64, 80 and 128,
+    unmasked) launch ``csrc/flash_fwd_f32_sm90.cu`` and add one to
     ``flash_fwd.launches_f32[route]``.  On both, a call whose
     ``_fwd_split_plan`` cuts the keys into ranges also adds one to
     ``flash_fwd.launches_split[route]``.  Everything else launches
@@ -410,6 +412,8 @@ flash_fwd.launches_sm90 = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
 flash_fwd.launches_d128 = dict(flash_fwd.launches_sm90)
 # the launches of the f32 design (flash_fwd_f32_sm90.cu), per route
 flash_fwd.launches_f32 = dict(flash_fwd.launches_sm90)
+# the head widths of the f32 design (flash_fwd_f32_sm90.cu)
+_F32_WIDTHS = (64, 80, 128)
 # the launches of the Hopper designs whose plan split a query tile's keys
 # into ranges (``_fwd_split_plan``), per route
 flash_fwd.launches_split = dict(flash_fwd.launches_sm90)
@@ -433,12 +437,14 @@ def _fwd_design(route: str, dtype: torch.dtype, d: int, causal: bool,
     masked K4 without the LSE under either max (StepVideo's
     cross-attention, Mochi's joint attention);
     "f32" (``csrc/flash_fwd_f32_sm90.cu``: split key ranges, a cp.async
-    ring, three bf16 products a product) for f32 calls
-    at d = 128 without a key mask, causal or not, online or fixed max,
-    with or without the LSE (LLaMA's K2); "mma" (``csrc/flash_fwd.cu``)
-    for everything else."""
+    ring, three bf16 products a product) for f32 calls on any route
+    at d = 64, 80 and 128 without a key mask, causal or not, online or
+    fixed max, with or without the LSE (LLaMA's K2; the LLaVA tower's K1
+    at d = 64 and the CLIP image embedder's K2 at d = 80); "mma"
+    (``csrc/flash_fwd.cu``) for everything else."""
     if dtype == torch.float32:
-        return "f32" if d == 128 and kv_valid is None else "mma"
+        return ("f32" if d in _F32_WIDTHS and kv_valid is None
+                else "mma")
     if dtype != torch.bfloat16 or causal:
         return "mma"
     if kv_valid is not None:
@@ -616,22 +622,23 @@ def _flash_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: float, causal: bool,
                    static_max: Optional[float], emit_lse: bool
                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Launch ``csrc/flash_fwd_f32_sm90.cu``: f32 q, k, v at d = 128,
-    causal or not, online or fixed max, with or without the LSE, on the
-    units of ``_fwd_split_plan("f32", …)`` (their tables on the device,
+    """Launch ``csrc/flash_fwd_f32_sm90.cu``: f32 q, k, v at d = 64, 80 or
+    128, causal or not, online or fixed max, with or without the LSE, on
+    the units of ``_fwd_split_plan("f32", …)`` (their tables on the device,
     made once a shape); f32 scratch for the partials of split query tiles
-    (B·H·slots·64·130 floats: 7.5 MB at LLaMA's shape), which the same
+    (B·H·slots·64·(d + 2) floats: 7.5 MB at LLaMA's shape), which the same
     call combines.  Counts nothing."""
     _check_layout("flash_fwd", q, k, v, (torch.float32,))
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d != 128:
-        raise ValueError(f"the f32 design takes head_dim 128, got {d}")
+    if d not in _F32_WIDTHS:
+        raise ValueError(f"the f32 design takes head_dim {_F32_WIDTHS}, "
+                         f"got {d}")
     if b * h > 65535:
         raise ValueError("B·H above 65535 exceeds the launch grid")
     units, combine, slots = _f32_tables(b, h, sq, sk, causal,
-                                        _sm_count(q.device), q.device)
-    part = (torch.empty(b * h * slots * 64 * 130, dtype=torch.float32,
+                                        _sm_count(q.device), q.device, d)
+    part = (torch.empty(b * h * slots * 64 * (d + 2), dtype=torch.float32,
                         device=q.device) if slots else None)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -1003,13 +1010,13 @@ def _fwd_plan(design: str, q: torch.Tensor, k: torch.Tensor, causal: bool,
 
 @functools.lru_cache(maxsize=None)
 def _f32_tables(b: int, h: int, sq: int, sk: int, causal: bool, sms: int,
-                device: torch.device):
+                device: torch.device, d: int = 128):
     """The f32 design's plan as the kernel reads it, on ``device``: (units,
     combine, slots).  units: int32 (n, 4) rows (query tile, first key tile,
     end key tile, partial slot or −1 for a tile of one range), run for every
     head; combine: int32 rows (query tile, first slot, ranges, 0) of the
     split tiles, or None; slots: partial slots a head."""
-    plan = _fwd_split_plan("f32", b, h, sq, sk, 128, causal, False, sms)
+    plan = _fwd_split_plan("f32", b, h, sq, sk, d, causal, False, sms)
     units, combine = [], []
     slots = 0
     for qt, ranges in enumerate(plan.ranges):

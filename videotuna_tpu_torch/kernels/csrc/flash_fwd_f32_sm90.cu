@@ -1,17 +1,28 @@
-// Flash-attention forward for f32 q, k, v at head width 128 on Hopper
-// (sm_90a): split key ranges, an asynchronous ring of f32 tiles, and three
-// bf16 tensor-core products a product.
+// Flash-attention forward for f32 q, k, v at head widths 64, 80 and 128 on
+// Hopper (sm_90a): split key ranges, an asynchronous ring of f32 tiles, and
+// three bf16 tensor-core products a product.
 //
-// Replaces, for f32 inputs at d = 128 without a key mask, the TPU kernel
-// K2 of the JAX package, `_flash_kernel` launched by `flash_attention`
-// (videotuna_tpu/kernels/attention.py:78, :812; `pallas_call` at :812),
-// and the same function on routes K3 and K5 (fixed max; with the LSE).
-// Its main-path caller is HunyuanVideo's LLaMA text encoder: 32 layers of
-// causal self-attention in f32 over 256 tokens, 32 heads of d = 128 (GQA's
-// kv heads repeated before the call), in sampling and in LoRA training.
-// The 2D VAE's f32 mid attention (one head of d = 128, non-causal) takes
-// it too.  Other f32 widths and the key-masked f32 forward stay on
-// flash_fwd.cu, which stays this kernel's A/B baseline.
+// Replaces, for f32 inputs at d = 64, 80 and 128 without a key mask, the
+// TPU kernel K2 of the JAX package, `_flash_kernel` launched by
+// `flash_attention` (videotuna_tpu/kernels/attention.py:78, :812;
+// `pallas_call` at :812), and the same function on routes K1, K3 and K5
+// (at d = 64 with an even head count the dispatch names it K1,
+// `_flash_packed2t`, :494).  Its main-path callers: HunyuanVideo's LLaMA
+// text encoder (32 layers of causal self-attention over 256 tokens, 32
+// heads of d = 128, GQA's kv heads repeated before the call; in the I2V
+// prompt encode over 934 tokens), the LLaVA CLIP tower of the I2V prompt
+// encode (ViT-L/14 at 336 px: 577 tokens, 16 heads of d = 64), the CLIP
+// ViT-H/14 image embedder (256 tokens, 16 heads of d = 80), and the 2D
+// VAE's f32 mid attention (one head of d = 128).  The key-masked f32
+// forward and other widths stay on flash_fwd.cu, which stays this
+// kernel's A/B baseline.
+//
+// Widths.  One template over D: a tile is 32 keys and 64 query rows at
+// every width, the ring two stages; the row pitches are D + 8 (K, Q) and
+// D + 4 (V) floats at every width, which keeps the fragment loads free of
+// bank conflicts (D + 8 is 8 or 24 mod 32, 2 (D + 4) is 8 mod 32).  At
+// D = 80 a V tile is 2.5 chunks a thread, so its loops are guarded.
+// Shared memory a block: 69,632 bytes at 128, 45,056 at 80, 36,864 at 64.
 //
 // Function.  The function of `flash_fwd` (flash_fwd.cu) on f32 inputs:
 // s = (q.k) * sm_scale * log2e, -inf above the top-left causal diagonal
@@ -83,22 +94,34 @@
 
 namespace {
 
-constexpr int D = 128;
 constexpr int BLOCK_M = 64;       // query rows of a unit: 4 warps of 16
 constexpr int BLOCK_N = 32;       // keys a tile
 constexpr int THREADS = 128;
-constexpr int LDK = D + 8;        // K row pitch in floats
-constexpr int LDV = D + 4;        // V row pitch in floats
-constexpr int LDQ = D + 8;        // Q row pitch in floats
-// floats of a stage: one K and V tile, or (stage 1, first) the Q tile
-constexpr int STAGE = BLOCK_N * (LDK + LDV) > BLOCK_M * LDQ
-                          ? BLOCK_N * (LDK + LDV)
-                          : BLOCK_M * LDQ;
-constexpr int SMEM = 2 * STAGE * 4;  // two stages: 69,632 bytes
-constexpr int KS = D / 16;        // depth steps of QK^T
 constexpr int NB = BLOCK_N / 8;   // 8-key blocks of S
 constexpr int KK = BLOCK_N / 16;  // 16-key steps of PV
-constexpr int DB = D / 8;         // 8-column blocks of O
+
+template <int D>
+struct Tile {
+  static constexpr int LDK = D + 8;  // K row pitch in floats
+  static constexpr int LDV = D + 4;  // V row pitch in floats
+  static constexpr int LDQ = D + 8;  // Q row pitch in floats
+  // floats of a stage: one K and V tile, or (stage 1, first) the Q tile
+  static constexpr int STAGE = BLOCK_N * (LDK + LDV) > BLOCK_M * LDQ
+                                   ? BLOCK_N * (LDK + LDV)
+                                   : BLOCK_M * LDQ;
+  static constexpr int SMEM = 2 * STAGE * 4;  // two stages, bytes
+  static constexpr int KS = D / 16;  // depth steps of QK^T
+  static constexpr int DB = D / 8;   // 8-column blocks of O
+  // 16-byte chunks a thread: of a K tile (whole), of a V tile's row pairs
+  // (rounded up: 2.5 at D = 80) and of the Q tile
+  static constexpr int K_CHUNKS = BLOCK_N * D / 4 / THREADS;
+  static constexpr int V_PAIRS = BLOCK_N / 2 * (D / 4);
+  static constexpr int V_CHUNKS = (V_PAIRS + THREADS - 1) / THREADS;
+  static constexpr int Q_CHUNKS = BLOCK_M * D / 4 / THREADS;
+  static_assert(D % 16 == 0 && BLOCK_N * D % (4 * THREADS) == 0 &&
+                    BLOCK_M * D % (4 * THREADS) == 0,
+                "a width whose K and Q tiles split evenly over the threads");
+};
 
 struct Params {
   const float* q;
@@ -163,9 +186,12 @@ __device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <bool STATIC_MAX>
+template <int D, bool STATIC_MAX>
 __global__ void __launch_bounds__(THREADS, 2)
     flash_fwd_f32_sm90_kernel(const Params p) {
+  using T = Tile<D>;
+  constexpr int LDK = T::LDK, LDV = T::LDV, LDQ = T::LDQ, STAGE = T::STAGE;
+  constexpr int KS = T::KS, DB = T::DB;
   extern __shared__ __align__(16) float smem[];
   const int4 unit = p.units[blockIdx.x];
   const int m0 = unit.x * BLOCK_M;
@@ -191,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     float* sv = sk + BLOCK_N * LDK;
     const int n0 = t * BLOCK_N;
     #pragma unroll
-    for (int i = 0; i < BLOCK_N * D / 4 / THREADS; ++i) {
+    for (int i = 0; i < T::K_CHUNKS; ++i) {
       const int c = threadIdx.x + i * THREADS;
       const int r = c / (D / 4);
       const int col = (c - r * (D / 4)) * 4;
@@ -200,8 +226,9 @@ __global__ void __launch_bounds__(THREADS, 2)
       cp_async16(sk + r * LDK + col, kb + key * p.k_ss + col, ok ? 16 : 0);
     }
     #pragma unroll
-    for (int i = 0; i < BLOCK_N * D / 8 / THREADS; ++i) {
+    for (int i = 0; i < T::V_CHUNKS; ++i) {
       const int c = threadIdx.x + i * THREADS;
+      if (T::V_PAIRS % THREADS != 0 && c >= T::V_PAIRS) break;
       const int r = 2 * (c / (D / 4));
       const int col = (c - (r / 2) * (D / 4)) * 4;
       #pragma unroll
@@ -224,7 +251,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     float* sk = smem + s * STAGE;
     float* sv = sk + BLOCK_N * LDK;
     #pragma unroll
-    for (int i = 0; i < BLOCK_N * D / 4 / THREADS; ++i) {
+    for (int i = 0; i < T::K_CHUNKS; ++i) {
       const int c = threadIdx.x + i * THREADS;
       const int r = c / (D / 4);
       float* at = sk + r * LDK + (c - r * (D / 4)) * 4;
@@ -235,8 +262,9 @@ __global__ void __launch_bounds__(THREADS, 2)
       *reinterpret_cast<uint4*>(at) = w;
     }
     #pragma unroll
-    for (int i = 0; i < BLOCK_N * D / 8 / THREADS; ++i) {
+    for (int i = 0; i < T::V_CHUNKS; ++i) {
       const int c = threadIdx.x + i * THREADS;
+      if (T::V_PAIRS % THREADS != 0 && c >= T::V_PAIRS) break;
       const int r = 2 * (c / (D / 4));
       float* at = sv + r * LDV + (c - (r / 2) * (D / 4)) * 4;
       const float4 x0 = *reinterpret_cast<const float4*>(at);
@@ -258,7 +286,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     float* sq = smem + STAGE;
     const float* qb = p.q + b * p.q_sb + h * p.q_sh;
     #pragma unroll
-    for (int i = 0; i < BLOCK_M * D / 4 / THREADS; ++i) {
+    for (int i = 0; i < T::Q_CHUNKS; ++i) {
       const int c = threadIdx.x + i * THREADS;
       const int r = c / (D / 4);
       const int col = (c - r * (D / 4)) * 4;
@@ -442,9 +470,10 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-template <bool STATIC_MAX>
+template <int D, bool STATIC_MAX>
 int launch(const Params& p, int n_units, int BH, cudaStream_t stream) {
-  auto kernel = flash_fwd_f32_sm90_kernel<STATIC_MAX>;
+  constexpr int SMEM = Tile<D>::SMEM;
+  auto kernel = flash_fwd_f32_sm90_kernel<D, STATIC_MAX>;
   // per device, at the first launch there: the shared-memory limit, and
   // the carve-out that lets three blocks share an SM
   static bool ready[64] = {};
@@ -467,12 +496,13 @@ int launch(const Params& p, int n_units, int BH, cudaStream_t stream) {
 
 }  // namespace
 
-// f32 q, k, v (B, S, H, 128), rows 16-byte aligned → f32 o (and the LSE
-// when `lse` is not null).  `units` holds `n_units` int4 (query tile, first
-// key tile, end key tile, partial slot or -1) of 64 query rows and 32-key
-// tiles, run for every head; `combine` holds `n_combine` int4 (query tile,
-// first slot, ranges, -) of the split query tiles, whose `slots` partial
-// slots a head live in `part`, B*H*slots*64*130 f32.  Returns the CUDA
+// f32 q, k, v (B, S, H, d), d = 64, 80 or 128, rows 16-byte aligned → f32
+// o (and the LSE when `lse` is not null).  `units` holds `n_units` int4
+// (query tile, first key tile, end key tile, partial slot or -1) of 64
+// query rows and 32-key tiles, run for every head; `combine` holds
+// `n_combine` int4 (query tile, first slot, ranges, -) of the split query
+// tiles, whose `slots` partial slots a head live in `part`,
+// B*H*slots*64*(d + 2) f32.  Returns the CUDA
 // error of the launches (0 on success); cudaErrorInvalidValue for what
 // the kernel does not take.
 extern "C" int flash_fwd_f32_sm90(
@@ -484,7 +514,7 @@ extern "C" int flash_fwd_f32_sm90(
     long long v_sh, long long o_sb, long long o_ss, long long o_sh,
     float scale_log2, int causal, int online, float static_max,
     void* stream) {
-  if (d != D || B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || n_units <= 0 ||
+  if ((d != 64 && d != 80 && d != 128) || B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || n_units <= 0 ||
       static_cast<long long>(B) * H > 65535 || units == nullptr ||
       (n_combine > 0) != (part && slots > 0 && combine))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -498,7 +528,7 @@ extern "C" int flash_fwd_f32_sm90(
   p.lse = static_cast<float*>(lse);
   p.part_o = static_cast<float*>(part);
   p.part_ml = part ? p.part_o + static_cast<long long>(BH) * slots *
-                                    BLOCK_M * D
+                                    BLOCK_M * d
                    : nullptr;
   p.units = static_cast<const int4*>(units);
   p.H = H;
@@ -520,8 +550,16 @@ extern "C" int flash_fwd_f32_sm90(
   p.scale_log2 = scale_log2;
   p.static_max = static_max;
   p.causal = causal;
-  const int err = online ? launch<false>(p, n_units, BH, s)
-                         : launch<true>(p, n_units, BH, s);
+  int err;
+  if (d == 64)
+    err = online ? launch<64, false>(p, n_units, BH, s)
+                 : launch<64, true>(p, n_units, BH, s);
+  else if (d == 80)
+    err = online ? launch<80, false>(p, n_units, BH, s)
+                 : launch<80, true>(p, n_units, BH, s);
+  else
+    err = online ? launch<128, false>(p, n_units, BH, s)
+                 : launch<128, true>(p, n_units, BH, s);
   if (err != 0 || n_combine == 0) return err;
   split::CombineParams cp;
   cp.part_o = p.part_o;
@@ -530,8 +568,8 @@ extern "C" int flash_fwd_f32_sm90(
   cp.splits = 0;
   cp.slots = slots;
   cp.block_m = BLOCK_M;
-  cp.pitch = D;
-  cp.d = D;
+  cp.pitch = d;
+  cp.d = d;
   cp.H = H;
   cp.Sq = Sq;
   cp.o_sb = o_sb;

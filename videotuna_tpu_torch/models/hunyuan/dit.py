@@ -12,7 +12,13 @@ with flow matching.
 - 3D RoPE (interleaved pairs) on the image tokens only;
 - the token refiner over the LLaMA states, with its own timestep embedder
   and a key-and-query mask whose column 0 stays valid;
-- final adaLN + linear → unpatchify.
+- final adaLN + linear → unpatchify;
+- ``i2v_condition_type="token_replace"`` (HunyuanVideo I2V): the first
+  latent frame's ``hh·ww`` image tokens are modulated with ``vec_tr``, the
+  timestep-0 vector plus the pooled-text vector (no guidance), in every
+  double- and single-stream block.  The JAX package broadcasts each
+  modulation to the whole sequence; the port applies the two modulations
+  to the two segments apart and materialises no broadcast.
 
 Both joint attentions declare bounded logits (q and k are RMSNormed), so
 under the flow's fixed max they take K3 (d ≤ 128).  The refiner carries an
@@ -24,7 +30,7 @@ package.  Latents are channel-last (B, T, H, W, C) in and f32 out.
 port holds one module per block either way.  ``remat`` recomputes each block
 in the backward with ``torch.utils.checkpoint`` whenever autograd records.
 The staged forward (``stage`` other than "all", the JAX package's compile
-workaround for the TPU) and token-replace i2v conditioning are not ported.
+workaround for the TPU) is not ported.
 """
 
 from __future__ import annotations
@@ -55,6 +61,24 @@ def _mods(linear: nn.Linear, vec: torch.Tensor, n: int):
 
 def _ln(dim: int) -> LayerNorm:
     return LayerNorm(dim, eps=1e-6, affine=False)
+
+
+def _segments(fn, x: torch.Tensor, mods, mods_tr, tr_len: int
+              ) -> torch.Tensor:
+    """fn(x, *mods) over the tokens of x (B, L, D); under token replace
+    (``mods_tr`` given) the first ``tr_len`` tokens take ``mods_tr``."""
+    if mods_tr is None:
+        return fn(x, *mods)
+    return torch.cat([fn(x[:, :tr_len], *mods_tr),
+                      fn(x[:, tr_len:], *mods)], dim=1)
+
+
+def _modulate(norm):
+    return lambda x, scale, shift: norm(x) * (1 + scale) + shift
+
+
+def _gated(linear):
+    return lambda x, gate: gate * linear(x)
 
 
 class MMDoubleStreamBlock(nn.Module):
@@ -94,11 +118,22 @@ class MMDoubleStreamBlock(nn.Module):
         return getattr(self, f"{s}_mlp2")(h)
 
     def forward(self, img: torch.Tensor, txt: torch.Tensor,
-                vec: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+                vec: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                vec_tr: Optional[torch.Tensor] = None, tr_len: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``vec_tr`` and ``tr_len``: token replace, the first ``tr_len``
+        image tokens modulated with ``vec_tr``."""
         i_s1, i_sc1, i_g1, i_s2, i_sc2, i_g2 = _mods(self.img_mod, vec, 6)
         t_s1, t_sc1, t_g1, t_s2, t_sc2, t_g2 = _mods(self.txt_mod, vec, 6)
-        iq, ik, iv = self._qkv(self.img_norm1(img) * (1 + i_sc1) + i_s1,
+        tr = (_mods(self.img_mod, vec_tr, 6) if vec_tr is not None
+              and tr_len else None)
+
+        def img_seg(fn, x, *idx):
+            return _segments(fn, x, [(i_s1, i_sc1, i_g1, i_s2, i_sc2,
+                                      i_g2)[j] for j in idx],
+                             tr and [tr[j] for j in idx], tr_len)
+
+        iq, ik, iv = self._qkv(img_seg(_modulate(self.img_norm1), img, 1, 0),
                                "img")
         tq, tk, tv = self._qkv(self.txt_norm1(txt) * (1 + t_sc1) + t_s1,
                                "txt")
@@ -109,10 +144,11 @@ class MMDoubleStreamBlock(nn.Module):
                                     torch.cat([iv, tv], dim=1),
                                     bounded_logits=True).flatten(-2)
         li = img.shape[1]
-        img = img + i_g1 * self.img_attn_out(att[:, :li])
+        img = img + img_seg(_gated(self.img_attn_out), att[:, :li], 2)
         txt = txt + t_g1 * self.txt_attn_out(att[:, li:])
-        img = img + i_g2 * self._mlp(self.img_norm2(img) * (1 + i_sc2)
-                                     + i_s2, "img")
+        img = img + img_seg(
+            _gated(lambda x: self._mlp(x, "img")),
+            img_seg(_modulate(self.img_norm2), img, 4, 3), 5)
         txt = txt + t_g2 * self._mlp(self.txt_norm2(txt) * (1 + t_sc2)
                                      + t_s2, "txt")
         return img, txt
@@ -137,11 +173,17 @@ class MMSingleStreamBlock(nn.Module):
         self.linear2 = nn.Linear(dim + mlp, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, vec: torch.Tensor,
-                cos_full: torch.Tensor, sin_full: torch.Tensor
+                cos_full: torch.Tensor, sin_full: torch.Tensor,
+                vec_tr: Optional[torch.Tensor] = None, tr_len: int = 0
                 ) -> torch.Tensor:
+        """``vec_tr`` and ``tr_len``: token replace, the first ``tr_len``
+        tokens of [img; txt] modulated with ``vec_tr``."""
         d = self.dim
         shift, scale, gate = _mods(self.mod, vec, 3)
-        h = self.linear1(self.norm(x) * (1 + scale) + shift)
+        tr = (_mods(self.mod, vec_tr, 3) if vec_tr is not None and tr_len
+              else None)
+        h = self.linear1(_segments(_modulate(self.norm), x, (scale, shift),
+                                   tr and (tr[1], tr[0]), tr_len))
         # q, k and v are views of linear1's output: v goes to the kernel
         # through its strides, without a copy
         q, k, v = (h[..., i * d:(i + 1) * d].unflatten(-1, (self.heads, -1))
@@ -153,7 +195,8 @@ class MMSingleStreamBlock(nn.Module):
         fused = torch.cat([att.flatten(-2), gelu_tanh(h[..., 3 * d:])],
                           dim=-1)
         del h, att
-        return x + gate * self.linear2(fused)
+        return x + _segments(_gated(self.linear2), fused, (gate,),
+                             tr and (tr[2],), tr_len)
 
 
 class TokenRefiner(nn.Module):
@@ -235,12 +278,9 @@ class HYVideoDiT(nn.Module):
                  dtype: Union[str, torch.dtype] = torch.float32,
                  scan_blocks: bool = False, remat: bool = False):
         super().__init__()
-        if i2v_condition_type is not None:
-            raise NotImplementedError(
-                f"HYVideoDiT i2v_condition_type={i2v_condition_type!r} "
-                "(token-replace image-to-video) waits for the i2v queue of "
-                "ROADMAP.md")
         dtype = resolve_dtype(dtype)
+        # any other type, as in the JAX package, conditions nothing here
+        self.token_replace = i2v_condition_type == "token_replace"
         self.out_channels = out_channels
         self.dim, self.heads = dim, heads
         self.patch_size = tuple(patch_size)
@@ -303,9 +343,16 @@ class HYVideoDiT(nn.Module):
         tt, hh, ww = t_in // pt, h_in // ph, w_in // pw
 
         vec = self.t_embedder(timestep)
+        vec_tr = (self.t_embedder(torch.zeros_like(timestep))
+                  if self.token_replace else None)
+        tr_len = hh * ww if self.token_replace else 0
         if pooled_text is not None:
             pv = self.vector_in(pooled_text.to(self.dtype))
-            vec = vec + self.vector_in_out(F.silu(pv))
+            vec2 = self.vector_in_out(F.silu(pv))
+            vec = vec + vec2
+            if vec_tr is not None:
+                vec_tr = vec_tr + vec2
+        # guidance enters vec, not the token-replace vector
         if self.guidance_embed and guidance is not None:
             vec = vec + self.guidance_in(guidance)
         img = self.img_in(x.to(self.dtype).permute(0, 4, 1, 2, 3))
@@ -326,7 +373,7 @@ class HYVideoDiT(nn.Module):
             return block(*args)
 
         for block in self.double_blocks:
-            img, txt = run(block, img, txt, vec, cos, sin)
+            img, txt = run(block, img, txt, vec, cos, sin, vec_tr, tr_len)
         img_len = img.shape[1]
         xcat = torch.cat([img, txt], dim=1)
         del img, txt
@@ -334,7 +381,7 @@ class HYVideoDiT(nn.Module):
         cos_full = torch.cat([cos, cos.new_ones((lt, cos.shape[1]))])
         sin_full = torch.cat([sin, sin.new_zeros((lt, sin.shape[1]))])
         for block in self.single_blocks:
-            xcat = run(block, xcat, vec, cos_full, sin_full)
+            xcat = run(block, xcat, vec, cos_full, sin_full, vec_tr, tr_len)
 
         shift, scale = _mods(self.final_mod, vec, 2)
         img = self.final_norm(xcat[:, :img_len]) * (1 + scale) + shift

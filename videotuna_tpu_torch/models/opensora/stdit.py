@@ -17,8 +17,12 @@ recomputes each block (or pair) in the backward with
 ``torch.utils.checkpoint``, as ``nn.remat`` does, whenever autograd
 records.  The temporal pos-embed goes to block 0 only (under scan it is the ``tpe_gate``, so both
 layouts are one function), except in the scanned paired layout, where the
-JAX module hands it to every pair and so does the port.  The staged forward
-(``stage`` other than "all"), the fps conditioning of Open-Sora 1.2 and
+JAX module hands it to every pair and so does the port.  With
+``dynamic_pos_embed`` (Open-Sora 1.2) the module holds ``fps_embedder``, a
+timestep embedder whose embedding of ``fps``, when a call gives it, is added
+to the timestep's and to the t0 embedding of the ``x_mask`` frames (the JAX
+module makes that embedder only when its init is given fps; the upstream
+STDiT3 always has it).  The staged forward (``stage`` other than "all") and
 sharding constraints are not ported.
 """
 
@@ -277,6 +281,8 @@ class STDiT(nn.Module):
                                        dtype=dtype)
         self.t_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
         self.t_block = nn.Linear(hidden_size, 6 * hidden_size, dtype=dtype)
+        if dynamic_pos_embed:
+            self.fps_embedder = TimestepEmbedder(hidden_size, dtype=dtype)
         if temporal_mod:
             self.t_block_temp = nn.Linear(hidden_size, 3 * hidden_size,
                                           dtype=dtype)
@@ -312,16 +318,12 @@ class STDiT(nn.Module):
                 height: Optional[torch.Tensor] = None,
                 width: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, T, H, W, C) latents; timestep (B,); y (B, L, C_cap) text
-        states; mask (B, L) bool; x_mask (B, T) bool → (B, T, H, W, C_out)
-        f32."""
+        states; mask (B, L) bool; x_mask (B, T) bool; fps (B,), read with
+        ``dynamic_pos_embed`` only → (B, T, H, W, C_out) f32."""
         if stage != "all":
             raise NotImplementedError(
                 f"STDiT stage={stage!r} is the JAX package's staged compile "
                 "for the TPU; the port runs stage='all'")
-        if fps is not None:
-            raise NotImplementedError(
-                "fps conditioning (Open-Sora 1.2) waits for the slice that "
-                "ports the Open-Sora 1.2 sampler")
         b, t_in, h_in, w_in, _ = x.shape
         pt, ph, pw = self.patch_size
         tt, hh, ww = t_in // pt, h_in // ph, w_in // pw
@@ -342,6 +344,10 @@ class STDiT(nn.Module):
         tok = tok + pos[None, None].to(self.dtype)
 
         t_emb = self.t_embedder(timestep)
+        fps_emb = (self.fps_embedder(fps)
+                   if self.dynamic_pos_embed and fps is not None else None)
+        if fps_emb is not None:
+            t_emb = t_emb + fps_emb
         t6 = self.t_block(F.silu(t_emb)).reshape(b, 6, c)
         t3 = t6_zero = t3_zero = t0_emb = None
         if self.temporal_mod:
@@ -349,6 +355,8 @@ class STDiT(nn.Module):
         if x_mask is not None:
             # masked frames are conditioned at timestep 0
             t0_emb = self.t_embedder(torch.zeros_like(timestep))
+            if fps_emb is not None:
+                t0_emb = t0_emb + fps_emb
             t6_zero = self.t_block(F.silu(t0_emb)).reshape(b, 6, c)
             if self.temporal_mod:
                 t3_zero = self.t_block_temp(F.silu(t0_emb)).reshape(b, 3, c)

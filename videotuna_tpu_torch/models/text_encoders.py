@@ -1,6 +1,7 @@
 """Text encoders (torch): the T5 encoder (CogVideoX, Open-Sora, Mochi), the
 CLIP text transformer, the LLaMA decoder used as an encoder (HunyuanVideo),
-StepVideo's Step-1 LLM, and host-side tokenisation, counterparts of
+StepVideo's Step-1 LLM, host-side tokenisation and HunyuanVideo I2V's
+LLaVA prompt encode, counterparts of
 ``videotuna_tpu/models/text_encoders.py``.
 
 T5 attention carries a relative-position bias, so it runs on the math path
@@ -289,6 +290,10 @@ class LlamaTextEncoder(nn.Module):
             x = x * mask[..., None].to(x.dtype)
         return x
 
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding alone, for assembling ``input_embeds``."""
+        return self.token_embed(input_ids)
+
 
 # ---------------------------------------------------------------------------
 # StepLLM: StepVideo's Step-1 text encoder (multi-query attention, SwiGLU,
@@ -405,3 +410,159 @@ def tokenize(texts, tokenizer_name: str = "t5", max_length: int = 120,
             ids[i, 0] = 1
             mask[i, 0] = True
     return ids, mask
+
+
+# ---------------------------------------------------------------------------
+# HunyuanVideo I2V: the LLaVA prompt encode.  The prompt goes into a chat
+# template whose system message holds an <image> slot; the slot becomes 576
+# projected CLIP patch states in the LLaMA's input; the output states are
+# cropped into [subsampled image states ; text states] for the DiT.
+# ---------------------------------------------------------------------------
+
+HUNYUAN_PROMPT_TEMPLATES = {
+    "dit-llm-encode-i2v": {
+        "template": ("<|start_header_id|>system<|end_header_id|>\n\n"
+                     "<image>\nDescribe the image by detailing the color, "
+                     "shape, size, texture, quantity, text, spatial "
+                     "relationships of the objects and background:"
+                     "<|eot_id|><|start_header_id|>user<|end_header_id|>"
+                     "\n\n{}<|eot_id|>"
+                     "<|start_header_id|>assistant<|end_header_id|>\n\n"),
+        "crop_start": 36, "image_emb_start": 5, "image_emb_end": 581,
+        "image_emb_len": 576, "double_return_token_id": 271,
+    },
+    "dit-llm-encode-video-i2v": {
+        "template": ("<|start_header_id|>system<|end_header_id|>\n\n"
+                     "<image>\nDescribe the video by detailing the "
+                     "following aspects according to the reference image: "
+                     "1. The main content and theme of the video."
+                     "2. The color, shape, size, texture, quantity, text, "
+                     "and spatial relationships of the objects."
+                     "3. Actions, events, behaviors temporal relationships, "
+                     "physical movement changes of the objects."
+                     "4. background environment, light, style and "
+                     "atmosphere."
+                     "5. camera angles, movements, and transitions used in "
+                     "the video:<|eot_id|>\n\n"
+                     "<|start_header_id|>user<|end_header_id|>\n\n{}"
+                     "<|eot_id|>"
+                     "<|start_header_id|>assistant<|end_header_id|>\n\n"),
+        "crop_start": 103, "image_emb_start": 5, "image_emb_end": 581,
+        "image_emb_len": 576, "double_return_token_id": 271,
+    },
+}
+
+# token replace keeps every 4th image state, latent concat every 2nd
+HUNYUAN_I2V_INTERLEAVE = {"token_replace": 4, "latent_concat": 2}
+
+
+def _span(start: int, stop: int, n: int) -> np.ndarray:
+    """The indices of ``x[start:stop]`` for a length-``n`` axis (Python's
+    slice rules: clipped, negative from the end)."""
+    return np.arange(*slice(start, stop).indices(n))
+
+
+def hunyuan_i2v_crop_index(input_ids: np.ndarray, lh: int, template: dict,
+                           image_embed_interleave: int
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Where ``hunyuan_i2v_crop`` takes its rows from: (rows (B, N) into
+    the LLaMA's ``lh`` states, cols (B, M) into the un-expanded (B, L)
+    mask, −1 for an image row, whose mask is 1)."""
+    crop_start = template["crop_start"]
+    emb_len = template["image_emb_len"]
+    img_s, img_e = template["image_emb_start"], template["image_emb_end"]
+    b, L = input_ids.shape
+    text_crop_start = crop_start - 1 + emb_len
+    img = _span(img_s, img_e, lh)
+    if 0 < image_embed_interleave < 6:
+        img = img[::image_embed_interleave]
+    rows, cols = [], []
+    for i in range(b):
+        dr = np.where(input_ids[i] == template["double_return_token_id"])[0]
+        # the template holds four "\n\n" tokens; where a long prompt
+        # truncates the last away, the end of the sequence stands for it
+        last_dr = L if dr.size in (0, 3) else int(dr[-1])
+        a_start, a_end = last_dr - 1 + emb_len - 4, last_dr - 1 + emb_len
+        rows.append(np.concatenate([img, _span(text_crop_start, a_start, lh),
+                                    _span(a_end, lh, lh)]))
+        cols.append(np.concatenate([np.full(img.size, -1),
+                                    _span(crop_start, last_dr - 4, L),
+                                    _span(last_dr, L, L)]))
+    if len({r.size for r in rows}) > 1:
+        raise ValueError("hunyuan_i2v_crop: the prompts crop to different "
+                         "lengths")
+    return np.stack(rows), np.stack(cols)
+
+
+def _crop_mask(attn_mask: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """The crop's mask: 1 for an image row (col −1), else the prompt's."""
+    batch = np.arange(cols.shape[0])[:, None]
+    return np.where(cols < 0, True, attn_mask[batch, np.maximum(cols, 0)]
+                    ).astype(attn_mask.dtype)
+
+
+def hunyuan_i2v_crop(hidden: np.ndarray, attn_mask: np.ndarray,
+                     input_ids: np.ndarray, template: dict,
+                     image_embed_interleave: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The crop of the I2V prompt encode.  ``hidden``: (B, L + 575, D) the
+    LLaMA's states, the one <image> token expanded to 576 patch states;
+    ``attn_mask`` and ``input_ids``: (B, L), not expanded.  Returns (y,
+    mask): the image states, every ``image_embed_interleave``-th, before the
+    text states without the template's prefix and its last "\n\n"."""
+    rows, cols = hunyuan_i2v_crop_index(input_ids, hidden.shape[1],
+                                        template, image_embed_interleave)
+    return (hidden[np.arange(rows.shape[0])[:, None], rows],
+            _crop_mask(attn_mask, cols))
+
+
+@torch.no_grad()
+def encode_hunyuan_i2v(llama: LlamaTextEncoder, texts, image_states,
+                       tokenizer: Optional[str] = None,
+                       template_name: str = "dit-llm-encode-video-i2v",
+                       text_len: int = 256,
+                       i2v_condition_type: str = "token_replace",
+                       image_token: str = "<image>"
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The I2V prompt encode: template → tokens → the 576 projected CLIP
+    patch states spliced at the <image> slot (``image_emb_start``) → the
+    LLaMA over the expanded sequence → ``hunyuan_i2v_crop``, on the LLaMA's
+    device.  ``image_states``: (B, 576, D_lm), e.g.
+    ``tools.captioner.LlavaCaptioner.image_tokens``.  Returns (y, mask).
+
+    Fewer than 576 states raise: the crop's offsets assume 576, and the JAX
+    package, given fewer (its captioner's tower at 224 gives 256), returns
+    image rows that hold text states, no text rows, and a mask longer than
+    ``y`` (ROADMAP.md queue 3)."""
+    template = HUNYUAN_PROMPT_TEMPLATES[template_name]
+    emb_len = template["image_emb_len"]
+    if image_states.shape[1] < emb_len:
+        raise ValueError(
+            f"encode_hunyuan_i2v needs {emb_len} image states a prompt, got "
+            f"{image_states.shape[1]}: the crop assumes {emb_len} (a CLIP "
+            "tower at 336 px, feature_layer -2); see ROADMAP.md queue 3")
+    prompts = [template["template"].format(t) for t in texts]
+    # the <image> slot held out as one placeholder token
+    marked = [p.replace(image_token, " \x00 ") for p in prompts]
+    ids, mask = tokenize(marked, tokenizer_name="llama",
+                         max_length=text_len + template["crop_start"],
+                         pretrained=tokenizer)
+    # the slot sits at image_emb_start with the LLaMA tokenizer, and the
+    # crop's offsets assume it there, so the splice is pinned there
+    pos = template["image_emb_start"]
+    dev = llama.token_embed.weight.device
+    tok = llama.embed_tokens(torch.as_tensor(ids, device=dev))
+    embeds = torch.cat([tok[:, :pos],
+                        image_states[:, :emb_len].to(tok),
+                        tok[:, pos + 1:]], dim=1)
+    expanded = np.concatenate([mask[:, :pos],
+                               np.ones((mask.shape[0], emb_len), mask.dtype),
+                               mask[:, pos + 1:]], axis=1)
+    hidden = llama(input_embeds=embeds,
+                   mask=torch.as_tensor(expanded, device=dev))
+    rows, cols = hunyuan_i2v_crop_index(
+        ids, hidden.shape[1], template,
+        HUNYUAN_I2V_INTERLEAVE.get(i2v_condition_type, 1))
+    y = hidden[torch.arange(len(ids), device=dev)[:, None],
+               torch.as_tensor(rows, device=dev)]
+    return y, torch.as_tensor(_crop_mask(mask, cols), device=dev)

@@ -102,6 +102,9 @@ FAMILIES = {
     "cogvideox_vae": (lambda a, p: cw.cogvideox_vae_map(), None),
     "t5": (lambda a, p: cw.t5_map(heads=_heads(a, p)), None),
     "clip_text": (lambda a, p: cw.clip_text_map(heads=_heads(a, p)), None),
+    "clip_vision": (lambda a, p: cw.clip_vision_map(heads=_heads(a, p)),
+                    None),
+    "llava_projector": (lambda a, p: cw.llava_projector_map(), None),
     "llama": (lambda a, p: cw.llama_map(
         heads=_heads(a, p), kv_heads=a.kv_heads or p.get("kv_heads")),
         None),
@@ -122,9 +125,7 @@ FAMILIES = {
 # the JAX package's families whose target module the port does not have
 # yet, with the ROADMAP.md item each waits for
 WAITING = {
-    "clip_vision": "items 10.4 and 10.5 (models/clip_vision.py)",
     "aesthetic": "items 10.4 and 10.5 (the aesthetic scorer)",
-    "llava_projector": "item 4 (HunyuanVideo i2v)",
     "raft": "item 10.5 (the evalkit)", "amt": "item 10.5 (the evalkit)",
 }
 

@@ -1095,6 +1095,57 @@ def clip_text_map(heads: int) -> ConversionMap:
     ])
 
 
+def clip_vision_map(heads: int) -> ConversionMap:
+    """HF ``CLIPVisionModelWithProjection`` state_dict → videotuna_tpu
+    CLIPVisionEncoder tree (the LLaVA tower of HunyuanVideo I2V's prompt
+    encode)."""
+    dg = t_dense_general(heads)
+    dgb = t_dense_general_bias(heads)
+    lyr = r"vision_model\.encoder\.layers\.(\d+)"
+    return ConversionMap([
+        (r"vision_model\.embeddings\.class_embedding",
+         r"class_embedding", _identity),
+        (r"vision_model\.embeddings\.patch_embedding\.weight",
+         r"patch_embed/kernel", t_conv),
+        (r"vision_model\.embeddings\.position_embedding\.weight",
+         r"pos_embed", _identity),
+        # HF ships this layer with the historical typo "pre_layrnorm"
+        (r"vision_model\.pre_layr?norm\.weight", r"pre_ln/scale", None),
+        (r"vision_model\.pre_layr?norm\.bias", r"pre_ln/bias", None),
+        (rf"{lyr}\.layer_norm1\.weight", r"block_\1/ln1/scale", None),
+        (rf"{lyr}\.layer_norm1\.bias", r"block_\1/ln1/bias", None),
+        (rf"{lyr}\.self_attn\.(q|k|v)_proj\.weight",
+         r"block_\1/\2/kernel", dg),
+        (rf"{lyr}\.self_attn\.(q|k|v)_proj\.bias",
+         r"block_\1/\2/bias", dgb),
+        (rf"{lyr}\.self_attn\.out_proj\.weight",
+         r"block_\1/attn_out/kernel", t_linear),
+        (rf"{lyr}\.self_attn\.out_proj\.bias",
+         r"block_\1/attn_out/bias", None),
+        (rf"{lyr}\.layer_norm2\.weight", r"block_\1/ln2/scale", None),
+        (rf"{lyr}\.layer_norm2\.bias", r"block_\1/ln2/bias", None),
+        (rf"{lyr}\.mlp\.fc(1|2)\.weight", r"block_\1/fc\2/kernel",
+         t_linear),
+        (rf"{lyr}\.mlp\.fc(1|2)\.bias", r"block_\1/fc\2/bias", None),
+        (r"vision_model\.post_layernorm\.weight", r"post_ln/scale", None),
+        (r"vision_model\.post_layernorm\.bias", r"post_ln/bias", None),
+        (r"visual_projection\.weight", r"proj/kernel", t_linear),
+    ])
+
+
+def llava_projector_map() -> ConversionMap:
+    """HF LLaVA ``multi_modal_projector`` (linear_1 → GELU → linear_2) →
+    videotuna_tpu LlavaProjector tree."""
+    return ConversionMap([
+        (r"multi_modal_projector\.linear_1\.weight", r"fc1/kernel",
+         t_linear),
+        (r"multi_modal_projector\.linear_1\.bias", r"fc1/bias", None),
+        (r"multi_modal_projector\.linear_2\.weight", r"fc2/kernel",
+         t_linear),
+        (r"multi_modal_projector\.linear_2\.bias", r"fc2/bias", None),
+    ])
+
+
 def llama_map(heads: int, kv_heads: Optional[int] = None) -> ConversionMap:
     """HF LlamaModel state_dict → videotuna_tpu LlamaTextEncoder tree."""
     dg = t_dense_general(heads)
@@ -1671,9 +1722,5 @@ def _waits(name: str, item: str):
     return waiting_map
 
 
-clip_vision_map = _waits("clip_vision_map",
-                         "items 10.4 and 10.5 (models/clip_vision.py)")
 aesthetic_map = _waits("aesthetic_map",
                        "items 10.4 and 10.5 (the aesthetic scorer)")
-llava_projector_map = _waits("llava_projector_map",
-                             "item 4 (HunyuanVideo i2v)")
