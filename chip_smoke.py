@@ -12,6 +12,7 @@
     python3 chip_smoke.py --v2v
     python3 chip_smoke.py --hunyuan-i2v
     python3 chip_smoke.py --opensora12 [STEPS]
+    python3 chip_smoke.py --serve
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
@@ -27,7 +28,7 @@ the StepVideo phases (46, 47, 49) or the Mochi ones (48, 50), likewise;
 the ninth and the tenth the Flux phases (51–54) or the V2V ones (55–57),
 likewise; the eleventh the HunyuanVideo I2V phases (58–61) and the
 twelfth the Open-Sora 1.2 ones (62–64, all 30 steps unless STEPS says),
-likewise.
+likewise; the thirteenth the serving phases (66–68), likewise.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -181,7 +182,7 @@ without a result line:
                 and depth (dim 3072, 20 double and 40 single blocks, 24
                 heads of d=128, bf16; LLaMA 4096×32 and CLIP-L in f32;
                 HunyuanVAE), random weights from the seed, one prompt at
-                129×720×1280.  Cut: 2 of the 50 Euler steps, and the VAE
+                129×720×1280.  Cut: 1 of the 50 Euler steps, and the VAE
                 decodes the first 2 latent frames (5 pixel frames): the f32
                 decode of all 33 does not fit.  Asserts K3 = 60 per step,
                 all on flash_fwd_sm90 with no alignment copy, K2 = 32 (the
@@ -236,7 +237,7 @@ without a result line:
                 (dim 5120, 40 layers, 40 heads of d=128, bf16; T5-XXL in
                 f32 over 512 tokens; the Wan VAE in f32), random weights
                 from the seed, one prompt at 81×720×1280 with CFG 5 and the
-                default negative prompt.  Cut: 2 of the 50 UniPC steps;
+                default negative prompt.  Cut: 1 of the 50 UniPC steps;
                 all 21 latent frames decoded by the streamed decode (one
                 latent frame a chunk).  Asserts K3 = 80 a step (40 self-
                 and 40 cross-attention launches at B=2), all on K3's
@@ -360,7 +361,7 @@ without a result line:
 40. e2e-wan-i2v — Wan 2.1 I2V-14B through ``inference-wanvideo-i2v-720p``
                 with the layout its config lacks as overrides (i2v_mode,
                 in_dim 36, cond_stage_2 the CLIP ViT-H/14 image embedder),
-                from one seeded 1280×720 PNG: 81×720×1280, 2 of 50 steps,
+                from one seeded 1280×720 PNG: 81×720×1280, 1 of 50 steps,
                 all frames by the streamed decode; K3 = 3·40 a step on K3's
                 kernel, the CLIP encoder's 32 f32 K2 on flash_fwd.cu.
 41. K-vct     — the attention of a VideoCrafter2 training step (B = 16
@@ -471,7 +472,7 @@ without a result line:
                 first frame with vec in place of vec_tr), which must fail.
 61. e2e-hunyuan-i2v — ``inference-hunyuan-i2v-720p`` as shipped (32 input
                 channels) from one seeded PNG at 129×720×1280, full width
-                and depth, 2 of 50 steps, 2 latent frames decoded: K3 60 a
+                and depth, 1 of 50 steps, 2 latent frames decoded: K3 60 a
                 step on K3's kernel, the LLaMA's 32 f32 K2 split.
 62. K-os12    — Open-Sora 1.2's spatial K2 (B=60, 3,600², H=16, d=72)
                 and cross K4 (B=2, 108,000 × 300 T5 keys, masked) on the
@@ -483,25 +484,47 @@ without a result line:
                 its latent size, 30×720×1280 (overrides, the config having
                 no inference section), full width and depth, CFG, T5-XXL
                 over 300 tokens: 28 K2 and 28 K4 a step on the persistent
-                kernel, all 30 steps.
+                kernel, 4 of the 30 steps (all 30 with --opensora12).
                 With --opensora12 alone, 65. profile-opensora12: one
                 traced full-width STDiT3 call (the work of a step).
+66. K-serve   — STDiT-XL/2's attention at the 4-slot serving engine's
+                shapes (B = 8 under CFG): the spatial K2 (B = 128 = 8 × 16
+                frames, 256², H=16, d=72) and the cross K4 (B = 8, 4,096 ×
+                120 T5 keys, masked) on the persistent kernel against the
+                plain version, timed beside flash_fwd.cu, SDPA and the
+                bound.
+67. reference-serve — the continuous engine card vs CPU in f32 with
+                staggered arrivals, on tiny_t2v.yaml's DDIM flow and on the
+                narrow HunyuanVideo flow (flow matching); the tiny flow
+                int8-quantized on both sides: a w8a8 call and 2 steps.
+68. serve     — opensorav10_256x256.yaml as shipped (STDiT-XL/2, T5-XXL,
+                the 2D VAE, DDIM 50 steps, CFG 7.0, 16×256×256), built once,
+                behind each service's HTTP server on 127.0.0.1 in this
+                process: InferenceService (2 requests, /healthz,
+                /metrics), BatchingInferenceService (4 concurrent requests,
+                one batched run), ContinuousBatchingService (4 slots, 6
+                staggered requests, one request's latents beside a solo
+                sample); the engine's seconds a step at 1–4 occupied slots
+                and one traced 4-slot step; int8: bytes (≤ 0.55× bf16), a
+                w8a8 call (within 0.05 of bf16), its step time, one request
+                through each of two services.  28 K2 and 28 K4 a denoiser
+                call on the persistent kernel.
 
 They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
 33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 41–44, 45–47, 49, 50,
-51–57, 58–64, 20, 22 (48 runs after 46).
+51–57, 58–64, 66–68, 20, 22 (48 runs after 46).
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18, 25, 32, 35, 42, 46, 48, 52, 56, 60, 63) turn TF32 off
+(7, 9, 15, 18, 25, 32, 35, 42, 46, 48, 52, 56, 60, 63, 67) turn TF32 off
 inside
 ``tf32_off`` and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
-(the twenty-one sampling runs, the I2V prompt chain and the six
-training runs) and read just after;
+(the twenty-one sampling runs, the I2V prompt chain, the six training
+runs and each served run of phase 68) and read just after;
 in each, no launch splits its keys but LLaMA's and StepLLM's f32 K2 and
 the CLIP image embedder's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
-launches summed over those twenty-eight runs (and phase 49's), per design
+launches summed over those runs (and phase 49's), per design
 and,
 for the Hopper
 designs, per width: an entry for each Hopper kernel, with HunyuanVideo
@@ -532,6 +555,7 @@ import sys
 import time
 
 import torch
+from torch import nn
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG_5B = os.path.join(ROOT, "configs", "004_cogvideox", "cogvideo5b.yaml")
@@ -589,7 +613,9 @@ CONFIG_HY = os.path.join(ROOT, "configs", "007_hunyuanvideo",
                          "hunyuanvideo_t2v.yaml")
 # 129×720×1280 → 33×45×80 video tokens after the (1, 2, 2) patch, + 256 text
 SHAPE_HY = dict(b=1, s=33 * 45 * 80 + 256, h=24)
-HY_STEPS = 2                 # of the config's 50: every step costs the same
+# of the config's 50: every step costs the same (1 since the serving
+# phases joined the whole run, 2 before)
+HY_STEPS = 1
 HY_DECODE_LATENT_FRAMES = 2  # 5 pixel frames: the f32 decode of 33 won't fit
 HY_DEPTH = 20 + 40           # double + single blocks, one K3 launch each
 HY_LLAMA_LAYERS = 32         # one f32 K2 (causal, 256 tokens) each
@@ -636,7 +662,9 @@ WAN_K3_CASES = {
     "self 1.3B": (2, SHAPE_WAN13["s"], SHAPE_WAN13["s"], 12),
     "cross 14B": (2, SHAPE_WAN14["s"], WAN_TEXT, 40),
 }
-WAN14_STEPS = 2              # of the config's 50: every step costs the same
+# of the config's 50: every step costs the same (1 since the serving
+# phases joined the whole run, 2 before)
+WAN14_STEPS = 1
 WAN14_DEPTH = 40             # layers: a self- and a cross-attention each
 # of the 1.3B config's 50 (every step costs the same): cut from 50 to keep
 # the script's time while VideoCrafter2's fine-tunes joined it
@@ -2926,7 +2954,7 @@ def run_e2e_hunyuan(A) -> dict:
     at full width and depth (dim 3072, 20 double and 40 single blocks, 24
     heads of d=128, bf16; LLaMA 4096×32 and CLIP-L in f32; HunyuanVAE),
     random weights from the seed, one prompt at 129×720×1280 (118,800 video
-    tokens + 256 text).  Cut: 2 of the 50 steps, and the VAE decodes the
+    tokens + 256 text).  Cut: 1 of the 50 steps, and the VAE decodes the
     first 2 latent frames (5 pixel frames)."""
     from videotuna_tpu_torch.cli.inference import run_inference
     savedir = os.path.join(OUT_DIR, "e2e_hunyuan")
@@ -3287,7 +3315,7 @@ def run_e2e_wan14b(A) -> dict:
     5120, 40 layers, 40 heads of d=128, ffn 13,824, bf16; T5-XXL in f32 over
     512 tokens; the Wan VAE in f32), random weights from the seed, one
     prompt at 81×720×1280 (21×90×160 latents, 75,600 tokens) with CFG 5 and
-    the default negative prompt.  Cut: 2 of the 50 UniPC steps (every step
+    the default negative prompt.  Cut: 1 of the 50 UniPC steps (every step
     costs the same); all 21 latent frames decoded by the streamed decode."""
     return _run_wan(A, "e2e-wan14b", WAN14_COMMAND, "e2e_wan14b", WAN14_STEPS,
                     WAN14_DEPTH, 81, (720, 1280), SHAPE_WAN14["s"],
@@ -3739,7 +3767,7 @@ VC2_STEPS = 50       # the config's every DDIM step
 # keep the script's time while VideoCrafter2's fine-tunes joined it
 DC_STEPS = 10
 VC1_DDIM_STEPS = 3   # ddim_steps=3: the uniform grid 1000 // 3 gives 4 steps
-WAN_I2V_STEPS = 2    # of the config's 50: every step costs the same
+WAN_I2V_STEPS = 1    # of the config's 50 (2 before the serving phases)
 CLIP_LAYERS = 32     # ViT-H/14: one f32 K2 (256 tokens, d=80) a layer
 # UNet3D at num_head_channels 64, channel_mult [1, 2, 4, 4], two res blocks
 # and attention at ds 1, 2, 4: 5 spatial transformers a level (2 down, 3
@@ -4023,7 +4051,7 @@ def run_e2e_wan_i2v(A) -> dict:
     """Wan 2.1 I2V-14B through the registry's ``inference-wanvideo-i2v-720p``
     with the layout its config lacks as overrides (i2v_mode, in_dim 36,
     cond_stage_2 the CLIP ViT-H/14 image embedder: ROADMAP.md queue 3), at
-    full width and depth from one seeded 1280×720 PNG: 81×720×1280, 2 of 50
+    full width and depth from one seeded 1280×720 PNG: 81×720×1280, 1 of 50
     steps, all frames decoded by the streamed decode.  Each layer runs K3
     three times a step: self-, text cross- and image cross-attention (256
     CLIP tokens); the CLIP encoder its 32 f32 K2."""
@@ -5553,6 +5581,9 @@ CONFIG_OS12_PAIRED = os.path.join(ROOT, "configs", "003_opensora",
                                   "opensorav12_stdit8_paired.yaml")
 OS12_PROMPT = "a lighthouse on a cliff above a stormy sea, waves breaking"
 OS12_STEPS = 30              # the config's every step
+# of them in the whole run, cut to keep it inside its time with the serving
+# phases (every step costs the same; --opensora12 alone runs all 30)
+OS12_WHOLE_STEPS = 4
 OS12_DEPTH = 28
 OS12_FRAMES = 30             # the config's input_size: 30 × 90 × 160 latents
 OS12_SIZE = (720, 1280)
@@ -5779,7 +5810,7 @@ def run_e2e_hunyuan_i2v(A) -> dict:
     width and depth (dim 3072, 20 double and 40 single blocks, bf16; LLaMA
     4096×32 and CLIP-L in f32; HunyuanVAE), random weights from the seed,
     from one seeded 1280×720 PNG (``inference.input_dir``: the config's
-    prompt_dir does not exist) at 129×720×1280.  Cuts: 2 of the 50 steps,
+    prompt_dir does not exist) at 129×720×1280.  Cuts: 1 of the 50 steps,
     the first 2 latent frames decoded (5 pixel frames), as ``e2e-hunyuan``.
     Asserts K3 60 a step on K3's kernel at d = 128, the LLaMA's 32 f32 K2
     on the split f32 design, no other launch (the VAE's attention is
@@ -5885,106 +5916,112 @@ def _os12_launches(paired: bool, depth: int = OS12_DEPTH) -> tuple:
     return depth, depth * (2 if paired else 1)
 
 
+def _held_case(A, phase, label, route, qq, kk, vv, kv_valid) -> dict:
+    """One bf16 d = 72 call as a main path makes it (route K2 unmasked, K4
+    with the key mask ``kv_valid``) on the persistent kernel of
+    flash_fwd_sm90.cu, against the plain version (a block of query rows at
+    a time), counted on the Hopper design and unsplit; timed by CUDA events
+    and device time beside its bound, the old design (flash_fwd.cu) on the
+    same tensors and SDPA's fastest backend (with the boolean mask for
+    K4).  The bound counts the kept keys of each row only."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    h, d = qq.shape[2], qq.shape[3]
+    kw = dict(sm_scale=d ** -0.5, kv_valid=kv_valid)
+
+    def new():
+        return A.flash_fwd(qq, kk, vv, route=route, **kw)
+
+    def old():
+        return A._flash_fwd_mma(qq, kk, vv, d ** -0.5, False, kv_valid,
+                                None, False)
+
+    before = (A.flash_fwd.launches_sm90[route],
+              A.flash_fwd.launches_split[route])
+    out = new()
+    torch.cuda.synchronize()
+    launched = (A.flash_fwd.launches_sm90[route],
+                A.flash_fwd.launches_split[route])
+    t0 = time.perf_counter()
+    # the plain version a block of rows at a time (scores ≤ 4 GB)
+    rows = max(128, int(1e9 / (qq.shape[0] * h * kk.shape[1])) // 128 * 128)
+    ref = _plain_masked_chunked(A, qq, kk, vv, kv_valid, None, rows)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = FWD_TOL * ref.float().abs().max().item()
+    old_err = (old().float() - ref.float()).abs().max().item()
+    ok = (err <= tol and old_err <= tol
+          and launched == (before[0] + 1, before[1]))
+    log(phase, case=label, shape=f"B{qq.shape[0]}xSq{qq.shape[1]}x"
+        f"Sk{kk.shape[1]}xH{h}xd{d}", route=route,
+        kernel="flash_fwd_sm90 persistent", max_abs_err=f"{err:.3e}",
+        tol=f"{tol:.3e}", old_design_max_abs_err=f"{old_err:.3e}",
+        plain_ms=f"{plain_ms:.1f}", ok=ok)
+    if not ok:
+        raise AssertionError(f"{phase} {label}: disagrees with its plain "
+                             f"version, or launched {launched} (from "
+                             f"{before}: one Hopper launch, unsplit)")
+    del out, ref
+    _free()
+    if kv_valid is None:
+        scores = qq.shape[0] * h * qq.shape[1] * kk.shape[1]
+        io_bytes = 4 * qq.numel() * 2
+    else:   # the kept keys of each row only
+        scores = h * qq.shape[1] * int(kv_valid.sum())
+        io_bytes = (2 * qq.numel() + 2 * kk.numel()) * 2 + kv_valid.numel()
+    exp2_ms = _exp2_floor_ms(scores)
+    bound_ms, bound_by = _bound(4.0 * scores * d, io_bytes, exp2_ms)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
+    skw = ({} if kv_valid is None
+           else {"attn_mask": kv_valid[:, None, None, :]})
+    library_ms, backend = sdpa_ms((qt, kt, vt), skw, reps=10)
+    lib_dev, dev_backend = sdpa_device_ms((qt, kt, vt), skw, 5)
+    del qt, kt, vt
+    _free()
+    rec = dict(max_abs_err=err, ms=cuda_time_ms(new, reps=10),
+               device_ms=device_ms(new, 5),
+               old_design_ms=cuda_time_ms(old, reps=10),
+               old_design_device_ms=device_ms(old, 5),
+               ms_again=cuda_time_ms(new, reps=10), plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, library_device_ms=lib_dev)
+    log(phase, case=f"{label} timing",
+        kernel="flash_fwd_sm90 persistent", ms=f"{rec['ms']:.4f}",
+        ms_again=f"{rec['ms_again']:.4f}",
+        device_ms=f"{rec['device_ms']:.4f}",
+        old_design_ms=f"{rec['old_design_ms']:.4f}",
+        old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        exp2_floor_ms=f"{exp2_ms:.4f}",
+        tflops=f"{4.0 * scores * d / rec['ms'] / 1e9:.1f}",
+        of_bound=f"{bound_ms / rec['ms']:.3f}",
+        plain_ms=f"{plain_ms:.1f}",
+        library=f"scaled_dot_product_attention[{backend}]",
+        library_ms=f"{library_ms:.4f}",
+        library_device=f"scaled_dot_product_attention[{dev_backend}]",
+        library_device_ms=f"{lib_dev:.4f}")
+    return rec
+
+
 def check_k_os12(A) -> dict:
     """Open-Sora 1.2's attention at 720p as the sampling step calls it:
     the spatial K2 (d = 72, online, B = 60: CFG 2 × 30 frames, 3,600
     tokens, 16 heads) and the cross-attention K4 (B = 2, 108,000 queries
-    over T5's 300 keys with the prompts' masks: 13 and 1 valid keys), on
-    the persistent kernel of flash_fwd_sm90.cu, against the plain version
-    (a block of query rows at a time), counted on the Hopper design and
-    unsplit; each timed by CUDA events and device time beside its bound,
-    the old design (flash_fwd.cu) on the same tensors and SDPA's fastest
-    backend (with the boolean mask for K4)."""
-    from videotuna_tpu_torch.kernels.attribution import device_ms
+    over T5's 300 keys with the prompts' masks: 13 and 1 valid keys), each
+    held by ``_held_case``."""
     gen = torch.Generator(device="cuda").manual_seed(60)
-    recs = {}
     b, s, h, d = 2 * OS12_FRAMES, OS12_TOKENS, 16, 72
     spatial = [_rand((b, s, h, d), gen) for _ in range(3)]
+    recs = {"K2 os12 spatial": _held_case(A, "K-os12", "K2 os12 spatial",
+                                          "K2", *spatial, None)}
+    del spatial
+    _free()
     q = _rand((2, OS12_FRAMES * s, h, d), gen)
     k, v = (_rand((2, OS12_TEXT, h, d), gen) for _ in range(2))
-    mask = _lead_mask(2, 0, OS12_TEXT, (13, 1))
-    for label, route, (qq, kk, vv), kv_valid in (
-            ("K2 os12 spatial", "K2", spatial, None),
-            ("K4 os12 cross", "K4", (q, k, v), mask)):
-        kw = dict(sm_scale=d ** -0.5, kv_valid=kv_valid)
-
-        def new():
-            return A.flash_fwd(qq, kk, vv, route=route, **kw)
-
-        def old():
-            return A._flash_fwd_mma(qq, kk, vv, d ** -0.5, False, kv_valid,
-                                    None, False)
-
-        before = (A.flash_fwd.launches_sm90[route],
-                  A.flash_fwd.launches_split[route])
-        out = new()
-        torch.cuda.synchronize()
-        launched = (A.flash_fwd.launches_sm90[route],
-                    A.flash_fwd.launches_split[route])
-        t0 = time.perf_counter()
-        # the plain version a block of rows at a time (scores ≤ 4 GB)
-        rows = max(128, int(1e9 / (qq.shape[0] * h * kk.shape[1]))
-                   // 128 * 128)
-        ref = _plain_masked_chunked(A, qq, kk, vv, kv_valid, None, rows)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = FWD_TOL * ref.float().abs().max().item()
-        old_err = (old().float() - ref.float()).abs().max().item()
-        ok = (err <= tol and old_err <= tol
-              and launched == (before[0] + 1, before[1]))
-        log("K-os12", case=label, shape=f"B{qq.shape[0]}xSq{qq.shape[1]}x"
-            f"Sk{kk.shape[1]}xH{h}xd{d}", route=route,
-            kernel="flash_fwd_sm90 persistent", max_abs_err=f"{err:.3e}",
-            tol=f"{tol:.3e}", old_design_max_abs_err=f"{old_err:.3e}",
-            plain_ms=f"{plain_ms:.1f}", ok=ok)
-        if not ok:
-            raise AssertionError(f"K-os12 {label}: disagrees with its plain "
-                                 f"version, or launched {launched} (from "
-                                 f"{before}: one Hopper launch, unsplit)")
-        del out, ref
-        _free()
-        if kv_valid is None:
-            scores = qq.shape[0] * h * qq.shape[1] * kk.shape[1]
-            io_bytes = 4 * qq.numel() * 2
-            exp2_ms = _exp2_floor_ms(scores)
-        else:   # the kept keys of each row only
-            scores = h * qq.shape[1] * int(kv_valid.sum())
-            io_bytes = (2 * qq.numel() + 2 * kk.numel()) * 2 \
-                + kv_valid.numel()
-            exp2_ms = _exp2_floor_ms(scores)
-        bound_ms, bound_by = _bound(4.0 * scores * d, io_bytes, exp2_ms)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qq, kk, vv))
-        skw = ({} if kv_valid is None
-               else {"attn_mask": kv_valid[:, None, None, :]})
-        library_ms, backend = sdpa_ms((qt, kt, vt), skw, reps=10)
-        lib_dev, dev_backend = sdpa_device_ms((qt, kt, vt), skw, 5)
-        del qt, kt, vt
-        _free()
-        rec = dict(max_abs_err=err, ms=cuda_time_ms(new, reps=10),
-                   device_ms=device_ms(new, 5),
-                   old_design_ms=cuda_time_ms(old, reps=10),
-                   old_design_device_ms=device_ms(old, 5),
-                   ms_again=cuda_time_ms(new, reps=10), plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms, library_device_ms=lib_dev)
-        log("K-os12", case=f"{label} timing",
-            kernel="flash_fwd_sm90 persistent", ms=f"{rec['ms']:.4f}",
-            ms_again=f"{rec['ms_again']:.4f}",
-            device_ms=f"{rec['device_ms']:.4f}",
-            old_design_ms=f"{rec['old_design_ms']:.4f}",
-            old_design_device_ms=f"{rec['old_design_device_ms']:.4f}",
-            bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-            exp2_floor_ms=f"{exp2_ms:.4f}",
-            tflops=f"{4.0 * scores * d / rec['ms'] / 1e9:.1f}",
-            of_bound=f"{bound_ms / rec['ms']:.3f}",
-            plain_ms=f"{plain_ms:.1f}",
-            library=f"scaled_dot_product_attention[{backend}]",
-            library_ms=f"{library_ms:.4f}",
-            library_device=f"scaled_dot_product_attention[{dev_backend}]",
-            library_device_ms=f"{lib_dev:.4f}")
-        recs[label] = rec
-    del spatial, q, k, v
+    recs["K4 os12 cross"] = _held_case(A, "K-os12", "K4 os12 cross", "K4",
+                                       q, k, v,
+                                       _lead_mask(2, 0, OS12_TEXT, (13, 1)))
+    del q, k, v
     _free()
     return recs
 
@@ -6144,6 +6181,645 @@ def run_opensora12(A, steps: int = OS12_STEPS) -> tuple:
     check_small_reference_opensora12(A)
     e2e = timed_phase("e2e-opensora12", run_e2e_opensora12, A, steps)
     return kos, e2e
+
+
+# ---------------------------------------------------------------- phases 66-72
+SERVE_SLOTS = 4
+SERVE_FRAMES = 16            # the config's 16×256×256: 16×32×32 latents
+SERVE_SIZE = 256
+SERVE_TOKENS = (SERVE_SIZE // 16) ** 2        # 256 spatial tokens a frame
+SERVE_TEXT = 120             # T5 tokens: the cross-attention's keys
+SERVE_TIMEOUT = 600          # seconds: every HTTP call and thread join
+SERVE_PROMPTS = [
+    "a red panda eating bamboo in a misty forest",
+    "a sailboat crossing a calm bay at sunrise",
+    "a hot air balloon drifting over a canyon",
+    "a cat chasing a paper butterfly across a wooden floor",
+    "fireworks bursting over a snowy mountain village",
+    "a hummingbird hovering beside a red flower",
+]
+SERVE_TIMED_STEPS = 5        # engine steps timed at each occupancy
+INT8_BYTES_GATE = 0.55       # int8 denoiser bytes, of bf16's
+INT8_REL_GATE = 0.05         # w8a8 vs bf16, tests/test_int8.py's gate
+SERVE_REF_BOARD = (0, 1, 3)  # narrow engines: the step each request boards
+
+
+def _http(url, payload=None):
+    """(status, JSON body) of a GET, or of a POST of ``payload``, with the
+    call's timeout."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, method="GET" if payload is None else "POST",
+        data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@contextlib.contextmanager
+def _serving(server):
+    """The server's loop in a thread of this process on 127.0.0.1, an
+    ephemeral port; shut down on the way out with its service's worker."""
+    import threading
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(timeout=SERVE_TIMEOUT)
+        if hasattr(server.service, "shutdown"):
+            server.service.shutdown()
+
+
+def _posts(url, payloads) -> list:
+    """POST each payload to /generate from a thread of its own, at once;
+    the (status, body) of each, in order."""
+    import threading
+    out = [None] * len(payloads)
+
+    def run(i):
+        out[i] = _http(url + "/generate", payloads[i])
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: a request did not return in time")
+    return out
+
+
+def _wait_for(cond, what: str) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > SERVE_TIMEOUT:
+            raise AssertionError(f"serve: timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _served(tag: str, replies, n: int, **expect) -> None:
+    """Every reply 200 with one video of the configuration's size on disk,
+    and the fields ``expect``."""
+    bad = [r for r in replies if r[0] != 200
+           or any(r[1].get(k) != v for k, v in expect.items())]
+    if len(replies) != n or bad:
+        raise AssertionError(f"{tag}: replies {replies}")
+    for _, body in replies:
+        video = _read_video(body["videos"][0])
+        if tuple(video.shape) != (SERVE_FRAMES, SERVE_SIZE, SERVE_SIZE, 3):
+            raise AssertionError(f"{tag}: video shape {video.shape}")
+
+
+def _serve_window(A, tag: str, per_call: int, calls: int) -> dict:
+    """The launches since the counts were set to 0: K2 and K4 ``per_call``
+    × ``calls`` each (28 layers a denoiser call), all on flash_fwd_sm90
+    unsplit, no other launch."""
+    launches, sm90 = read_counts(A), read_sm90_counts(A)
+    n = per_call * calls
+    expected = dict({k: 0 for k in launches}, K2=n, K4=n)
+    if launches != expected or (sm90["K2"], sm90["K4"], sm90["tma_copies"]) \
+            != (n, n, 0):
+        raise AssertionError(f"{tag}: launches {launches}, {sm90}; expected "
+                             f"{expected} on flash_fwd_sm90, no copy")
+    check_split_counts(tag, sm90)
+    return dict(launches=launches, sm90=sm90)
+
+
+def _engine_seconds(flow, occupancy, reqs, cfg_scale) -> tuple:
+    """({occupancy: seconds per step}, the engine) of a fresh 4-slot
+    engine at each occupancy of ``occupancy`` (requests boarded one by
+    one), host clock around synchronised steps."""
+    from videotuna_tpu_torch.serving import ContinuousBatchEngine
+    eng = ContinuousBatchEngine(flow, slots=SERVE_SLOTS,
+                                frames=SERVE_FRAMES, height=SERVE_SIZE,
+                                width=SERVE_SIZE, cfg_scale=cfg_scale)
+    out = {}
+    for n in occupancy:
+        while eng.n_active < n:
+            eng.submit(*reqs[eng.n_active])
+        eng.step()                   # boards the new slot's tables
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_TIMED_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        out[n] = (time.perf_counter() - t0) / SERVE_TIMED_STEPS
+    return out, eng
+
+
+def _engine_requests(flow, n):
+    """(x_T, cond, uncond) of ``n`` requests on the card: seeded x_T, the
+    prompts' and the empty prompt's T5 states."""
+    uncond = flow.encode_text([""])
+    shape = flow.latent_shape(1, SERVE_FRAMES, SERVE_SIZE, SERVE_SIZE)
+    gen = torch.Generator("cuda").manual_seed(70)
+    return [(torch.randn(shape, generator=gen, device="cuda"),
+             flow.encode_text([SERVE_PROMPTS[i]]), uncond)
+            for i in range(n)]
+
+
+def check_k_serve(A) -> dict:
+    """STDiT-XL/2's attention at the 4-slot engine's shapes (B = 2·4 =
+    8 under CFG): the spatial K2 over B = 8 × 16 frames = 128 sequences
+    of 256 tokens and the cross-attention K4 (B = 8, 4,096 queries over
+    120 T5 keys, the prompts' masks: the four prompts' 13, 11, 9, 7 valid
+    keys, the empty prompt's 1), each held by ``_held_case``."""
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    b = 2 * SERVE_SLOTS
+    spatial = [_rand((b * SERVE_FRAMES, SERVE_TOKENS, 16, 72), gen)
+               for _ in range(3)]
+    recs = {"K2 serve spatial": _held_case(A, "K-serve", "K2 serve spatial",
+                                           "K2", *spatial, None)}
+    q = _rand((b, SERVE_FRAMES * SERVE_TOKENS, 16, 72), gen)
+    k, v = (_rand((b, SERVE_TEXT, 16, 72), gen) for _ in range(2))
+    mask = _lead_mask(b, 0, SERVE_TEXT, (13, 11, 9, 7, 1, 1, 1, 1))
+    recs["K4 serve cross"] = _held_case(A, "K-serve", "K4 serve cross", "K4",
+                                        q, k, v, mask)
+    del spatial, q, k, v
+    _free()
+    return recs
+
+
+def _drive_engine(engine, reqs, board_at=SERVE_REF_BOARD) -> dict:
+    """Board request j before step ``board_at[j]``, step until every
+    request completes: {request: final latents on the CPU}."""
+    slot_of, got = {}, {}
+    for step in range(200):
+        for j, at in enumerate(board_at):
+            if at == step:
+                slot_of[engine.submit(*reqs[j])] = j
+        engine.step()
+        for slot, z in engine.poll_completed():
+            got[slot_of.pop(slot)] = z.float().cpu()
+        if len(got) == len(reqs):
+            return got
+    raise AssertionError(f"engine did not drain: {sorted(got)}")
+
+
+def _narrow_pair(cfg, quantize=False):
+    """A narrow flow on the CPU and the card with the same seeded weights
+    (each quantized by its own ``quantize_int8`` after the copy)."""
+    from videotuna_tpu_torch.core.registry import instantiate
+    cpu = instantiate(cfg["flow"], device="cpu")
+    gpu = instantiate(cfg["flow"], device="cuda")
+    cpu.init_params(seed=1)
+    for name, module in cpu.components().items():
+        gpu.components()[name].load_state_dict(module.state_dict())
+    if quantize:
+        cpu.quantize_int8()
+        gpu.quantize_int8()
+    return cpu, gpu
+
+
+def _rel(a, b) -> float:
+    return ((a.float().cpu() - b.float().cpu()).abs().max()
+            / b.float().cpu().abs().max()).item()
+
+
+@tf32_off()
+def check_small_reference_serve(A) -> None:
+    """The engine card vs CPU in f32, TF32 off: staggered arrivals (3
+    requests boarding at steps 0, 1 and 3 of a 3-slot engine, CFG) on
+    tiny_t2v.yaml's DDIM flow (4 steps) and on the narrow HunyuanVideo
+    flow (flow matching, the DiT in f32, K3 on the card's path); then the
+    tiny flow int8-quantized on both sides: one w8a8 denoiser call and its
+    2 DDIM steps (the card's product on torch._int_mm, rows padded).  A
+    call within 1e-4·max, the latents within 1e-3·max (the narrow checks'
+    f32 tolerances)."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.serving import ContinuousBatchEngine
+    den = "flow.params.denoiser_config.params"
+    tiny = os.path.join(ROOT, "configs", "000_tiny", "tiny_t2v.yaml")
+    cases = [
+        ("ddim tiny_t2v", load_configs([tiny]), (4, 64, 64), False),
+        ("flow hunyuan narrow", load_configs([CONFIG_HY], _narrow_hunyuan()
+                                             + [f"{den}.dtype=float32",
+                                                "flow.params.scheduler_config"
+                                                ".params.num_steps=3"]),
+         (9, 128, 128), False),
+        ("int8 tiny_t2v", load_configs([tiny], ["flow.params.ddim_steps=2"]),
+         (4, 64, 64), True)]
+    for label, cfg, size, int8 in cases:
+        cpu, gpu = _narrow_pair(cfg, quantize=int8)
+        gen = torch.Generator().manual_seed(3)
+        shape = cpu.latent_shape(1, *size)
+        prompts = ["a panda playing guitar", "a lake at dawn", "a red kite"]
+        uncond = cpu.encode_text([""])
+        reqs = [(torch.randn(shape, generator=gen), cpu.encode_text([p]),
+                 uncond) for p in prompts]
+        on = lambda r, dev: (r[0].to(dev),
+                             *({k: v.to(dev) for k, v in d.items()}
+                               for d in r[1:]))
+        t = cpu.scheduler.timesteps[1].reshape(1)
+        calls, got = [], []
+        for flow, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            zero_counts(A)
+            x, c, _ = on(reqs[0], dev)
+            with torch.inference_mode(), flow._attn_scope():
+                calls.append(flow.denoise_apply(x, t.to(dev), c))
+            if int8:
+                got.append({0: flow.sample(c, on(reqs[0], dev)[2], shape,
+                                           None, 2.0, x_T=x).float().cpu()})
+            else:
+                got.append(_drive_engine(ContinuousBatchEngine(
+                    flow, slots=3, frames=size[0], height=size[1],
+                    width=size[2], cfg_scale=2.0),
+                    [on(r, dev) for r in reqs]))
+            launches = {k: v for k, v in read_counts(A).items() if v}
+        errs = {"call": _rel(calls[1], calls[0]),
+                **{f"latents_{j}": _rel(got[1][j], got[0][j])
+                   for j in got[0]}}
+        ok = (sorted(got[0]) == sorted(got[1])
+              and all(math.isfinite(e) for e in errs.values())
+              and errs["call"] <= REF_VC_TOL_CALL
+              and all(e <= REF_VC_TOL_TRAJ for k, e in errs.items()
+                      if k != "call"))
+        log("reference-serve", case=label, what="engine (or int8 sample), "
+            "cuda vs cpu, f32", latent_shape=list(shape), card_launches=launches,
+            call_tol=REF_VC_TOL_CALL, latent_tol=REF_VC_TOL_TRAJ,
+            **{k: f"{e:.3e}" for k, e in errs.items()}, ok=ok)
+        if not ok:
+            raise AssertionError(f"reference-serve {label}: the card's "
+                                 "engine disagrees with the CPU's")
+        del cpu, gpu
+        _free()
+
+
+def _int8_accuracy(den, calls: dict) -> dict:
+    """The w8a8 error at full width, before the flow is quantized.  Per
+    projection (the gate): during the bf16 denoiser's first call of
+    ``calls``, each ``nn.Linear``'s input also goes through its
+    ``Int8Linear`` (a hook), and the relative (norm) error of that output
+    against the bf16 one is kept: the max, its projection, the mean.  Per
+    whole call (reported): for each call of ``calls`` (label → the
+    denoiser's inputs), the relative error of a quantized copy against
+    the bf16 call, beside the bf16 call's own against an f32 copy (how far
+    the random 28-layer model carries rounding)."""
+    import copy
+    from videotuna_tpu_torch.tools.int8 import Int8Linear, quantize_int8
+
+    def rel(a, b):
+        return (torch.linalg.norm(a - b)
+                / torch.linalg.norm(b).clamp_min(1e-30)).item()
+
+    def call(m, inputs):
+        with torch.inference_mode():
+            return m(*inputs)[..., :4].float()
+
+    errs = {}
+
+    def hook(name):
+        def fn(mod, args, out):
+            errs[name] = rel(Int8Linear(mod)(args[0]).float(), out.float())
+        return fn
+
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in den.named_modules() if isinstance(m, nn.Linear)]
+    try:
+        call(den, next(iter(calls.values())))
+    finally:
+        for h in handles:
+            h.remove()
+    worst = max(errs, key=errs.get)
+    out = {"projections": len(errs), "projection_max_rel_err": errs[worst],
+           "projection_max_at": worst,
+           "projection_mean_rel_err": sum(errs.values()) / len(errs)}
+    q = quantize_int8(copy.deepcopy(den))
+    f32 = copy.deepcopy(den).float()
+    for m in f32.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+    for label, inputs in calls.items():
+        ref = call(den, inputs)
+        out[f"call_{label}_int8_vs_bf16"] = rel(call(q, inputs), ref)
+        out[f"call_{label}_bf16_vs_f32"] = rel(ref, call(f32, inputs))
+    del q, f32
+    _free()
+    y = next(iter(calls.values()))[2].float()
+    rms = y.pow(2).mean(-1).sqrt()
+    out["caption_peak_to_rms_max"] = (y.abs().amax(-1) / rms)[rms > 0] \
+        .max().item()
+    return out
+
+
+def _int_mm_layouts() -> dict:
+    """ms of torch._int_mm at the MLP fc1's shape in the 4-slot step (M =
+    8 × 4,096 tokens, K = 1,152, N = 4,608) with the int8 weight row-major
+    (K, N) and as the transpose of a row-major (N, K) (the layout
+    ``Int8Linear`` keeps), beside the bf16 product and the whole
+    ``int8_matmul`` (quantise, product, rescale) on bf16 activations."""
+    from videotuna_tpu_torch.tools.int8 import int8_matmul
+    m, k, n = 2 * SERVE_SLOTS * SERVE_FRAMES * SERVE_TOKENS, 1152, 4608
+    gen = torch.Generator("cuda").manual_seed(67)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w_row = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    w_col = w_row.t().contiguous().t()
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    wb = torch.randn((k, n), generator=gen, device="cuda").bfloat16()
+    ws = torch.rand((n,), generator=gen, device="cuda")
+    if not torch.equal(torch._int_mm(a, w_row), torch._int_mm(a, w_col)):
+        raise AssertionError("torch._int_mm differs between the layouts")
+    return {"int_mm_row_major_ms": cuda_time_ms(
+                lambda: torch._int_mm(a, w_row), reps=20),
+            "int_mm_transposed_ms": cuda_time_ms(
+                lambda: torch._int_mm(a, w_col), reps=20),
+            "bf16_mm_ms": cuda_time_ms(lambda: x @ wb, reps=20),
+            "int8_matmul_ms": cuda_time_ms(
+                lambda: int8_matmul(x, w_col, ws), reps=20)}
+
+
+def run_serve(A) -> tuple:
+    """The serving layer on the card at full width: opensorav10_256x256
+    .yaml as shipped (STDiT-XL/2: 28 layers, hidden 1152, 16 heads of
+    d = 72, bf16; T5-XXL in f32; the 2D KL VAE; DDIM 50 steps, CFG 7.0,
+    16×256×256), built once on random weights from the seed, behind each
+    service's ThreadingHTTPServer on 127.0.0.1 (an ephemeral port) in this
+    process, driven with urllib:
+
+    (a) InferenceService: 2 /generate requests, then /healthz, /metrics;
+    (b) BatchingInferenceService(max_batch=4): 4 concurrent requests of
+        one geometry, one batched run (batched_with = 4);
+    (c) ContinuousBatchingService(slots=4): 6 requests, 2 at once, 2 more
+        after 10 engine steps, 2 more after the first finishes; each
+        step's seconds by occupancy, each request's time_sec, requests a
+        minute; one request's latents against a solo flow.sample of the
+        same x_T and prompts (reported: bf16 at another batch);
+    then the engine's seconds a step at 1–4 occupied slots and one traced
+    4-slot step (busy share), and
+    (d) int8: the w8a8 error of each projection at the served call's
+        activations (gated at 0.05) and of whole calls at a fresh 4-slot
+        engine's first step and later (beside the bf16 call's own error
+        against f32; ``_int8_accuracy``); torch._int_mm's layouts; the
+        denoiser's bytes before and after quantize_int8 (gated at 0.55×
+        of bf16), the quantized flow's call at the 4-slot engine's later
+        inputs against the bf16 call kept from before, its seconds a step
+        beside bf16's and one traced w8a8 step, then one request through
+        InferenceService and one through a one-slot
+        ContinuousBatchingService.
+
+    Launches are counted from 0 over (a)–(d)'s requests: 28 K2 and 28 K4
+    a denoiser call, all on flash_fwd_sm90.  Returns (its record, the
+    window's counts)."""
+    from videotuna_tpu_torch.cli.serve import serve
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    from videotuna_tpu_torch.tools.int8 import tree_bytes
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = load_configs([CONFIG_OS])
+    cfg["inference"]["savedir"] = os.path.join(OUT_DIR, "serve")
+    cfg_scale = float(cfg["inference"]["unconditional_guidance_scale"])
+    t0 = time.perf_counter()
+    flow = instantiate(cfg["flow"], device="cuda")
+    flow.init_params(seed=0)
+    torch.cuda.synchronize()
+    rec = {"build_sec": time.perf_counter() - t0}
+    steps = flow.scheduler.num_steps
+    per_call = OS_DEPTH
+    totals = []
+
+    # (a) one request at a time
+    zero_counts(A)
+    t0 = time.perf_counter()
+    with _serving(serve(cfg, port=0, flow=flow)) as url:
+        replies = [_http(url + "/generate", {"prompt": p, "seed": i})
+                   for i, p in enumerate(SERVE_PROMPTS[:2])]
+        health, metrics = _http(url + "/healthz"), _http(url + "/metrics")
+    wall = time.perf_counter() - t0
+    _served("serve-a", replies, 2)
+    if health[1].get("model") != "OpenSoraFlow" \
+            or metrics[1].get("requests_served") != 2:
+        raise AssertionError(f"serve-a: healthz {health}, metrics {metrics}")
+    totals.append(_serve_window(A, "serve-a", per_call, 2 * steps))
+    rec["a"] = dict(time_sec=[r[1]["time_sec"] for r in replies],
+                    requests_per_min=2 / wall * 60)
+    log("serve-a", service="InferenceService", requests=2,
+        time_sec=rec["a"]["time_sec"],
+        requests_per_min=f"{rec['a']['requests_per_min']:.3f}",
+        healthz=health[1], metrics=metrics[1], launches=totals[-1]["launches"])
+
+    # (b) four concurrent requests coalesced into one batched run
+    zero_counts(A)
+    t0 = time.perf_counter()
+    with _serving(serve(cfg, port=0, max_batch=4, max_wait_ms=2000.0,
+                        flow=flow)) as url:
+        replies = _posts(url, [{"prompt": p, "seed": 1}
+                               for p in SERVE_PROMPTS[:4]])
+    wall = time.perf_counter() - t0
+    _served("serve-b", replies, 4, batched_with=4)
+    totals.append(_serve_window(A, "serve-b", per_call, steps))
+    rec["b"] = dict(time_sec=[r[1]["time_sec"] for r in replies],
+                    requests_per_min=4 / wall * 60)
+    log("serve-b", service="BatchingInferenceService(max_batch=4)",
+        requests=4, batched_with=[r[1]["batched_with"] for r in replies],
+        time_sec=rec["b"]["time_sec"],
+        requests_per_min=f"{rec['b']['requests_per_min']:.3f}",
+        launches=totals[-1]["launches"])
+
+    # (c) step-level continuous batching, staggered arrivals
+    import threading
+    zero_counts(A)
+    server = serve(cfg, port=0, continuous_slots=SERVE_SLOTS, flow=flow)
+    svc = server.service
+    step_log, kept = [], {}
+    engine_step, finish = svc.engine.step, svc._finish
+
+    def timed_step():
+        n = svc.engine.n_active
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        engine_step()
+        torch.cuda.synchronize()
+        step_log.append((n, time.perf_counter() - t1))
+
+    def keep_first(slot, latents):
+        if not kept:
+            item = svc._slot_items[slot]
+            kept.update(prompt=item["prompt"], seed=item["req"]["seed"],
+                        latents=latents.clone())
+        finish(slot, latents)
+
+    svc.engine.step, svc._finish = timed_step, keep_first
+    payloads = [{"prompt": p, "seed": 10 + i}
+                for i, p in enumerate(SERVE_PROMPTS)]
+    replies = [None] * 6
+    t0 = time.perf_counter()
+    with _serving(server) as url:
+        def post(i):
+            replies[i] = _http(url + "/generate", payloads[i])
+        threads = []
+        for group, ready in (((0, 1), lambda: True),
+                             ((2, 3), lambda: len(step_log) >= 10),
+                             ((4, 5), lambda: svc.requests_served >= 1)):
+            _wait_for(ready, f"the arrival of requests {group}")
+            for i in group:
+                threads.append(threading.Thread(target=post, args=(i,),
+                                                daemon=True))
+                threads[-1].start()
+        for t in threads:
+            t.join(timeout=SERVE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    _served("serve-c", replies, 6, continuous=True)
+    totals.append(_serve_window(A, "serve-c", per_call, len(step_log)))
+    by_occ = {n: [dt for m, dt in step_log if m == n]
+              for n in sorted({m for m, _ in step_log})}
+    rec["c"] = dict(time_sec=[r[1]["time_sec"] for r in replies],
+                    requests_per_min=6 / wall * 60, engine_steps=len(step_log),
+                    sec_per_step_by_occupancy={
+                        n: sum(v) / len(v) for n, v in by_occ.items()})
+    # one request's latents against a solo sample of its x_T and prompts
+    x_T = torch.randn(flow.latent_shape(1, SERVE_FRAMES, SERVE_SIZE, SERVE_SIZE),
+                      generator=torch.Generator("cuda").manual_seed(
+                          kept["seed"]), device="cuda")
+    solo = flow.sample(flow.encode_text([kept["prompt"]]),
+                       flow.encode_text([""]), x_T.shape, None, cfg_scale,
+                       x_T=x_T)
+    rec["c"]["solo_max_abs_diff"] = (solo - kept["latents"]).abs().max().item()
+    rec["c"]["solo_rel_diff"] = _rel(kept["latents"], solo)
+    if not torch.isfinite(kept["latents"]).all():
+        raise AssertionError("serve-c: non-finite latents")
+    log("serve-c", service=f"ContinuousBatchingService(slots={SERVE_SLOTS})",
+        requests=6, engine_steps=len(step_log), time_sec=rec["c"]["time_sec"],
+        requests_per_min=f"{rec['c']['requests_per_min']:.3f}",
+        sec_per_step_by_occupancy={n: f"{v:.4f}" for n, v in
+                                   rec["c"]["sec_per_step_by_occupancy"]
+                                   .items()},
+        steps_by_occupancy={n: len(v) for n, v in by_occ.items()},
+        solo_max_abs_diff=f"{rec['c']['solo_max_abs_diff']:.4e}",
+        solo_rel_diff=f"{rec['c']['solo_rel_diff']:.4e}",
+        launches=totals[-1]["launches"])
+
+    # the engine alone: seconds a step at 1-4 occupied slots, one traced
+    # 4-slot step
+    from torch.profiler import ProfilerActivity, profile
+    reqs = _engine_requests(flow, SERVE_SLOTS)
+    rec["sec_per_step"], eng = _engine_seconds(flow, range(1, 5), reqs,
+                                               cfg_scale)
+    step_ms = rec["sec_per_step"][4] * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    rec["profile"] = _log_profile("profile-serve", "one 4-slot engine step "
+                                  "(STDiT-XL/2 at B = 8)", prof, step_ms,
+                                  "flash_fwd (K2+K4)")
+    # the bf16 call kept for int8's check: the 4-slot engine's inputs
+    # (its slots 6 to 21 steps in), and those of a fresh 4-slot engine's
+    # first step (every slot at t = 981)
+    def inputs(engine):
+        kk = engine.k.clamp(0, steps - 1)
+        cc = {k: torch.cat([v, engine.uncond[k]])
+              for k, v in engine.cond.items()}
+        return (torch.cat([engine.x, engine.x]),
+                torch.cat([flow.scheduler.timesteps[steps - 1 - kk]] * 2),
+                cc["y"], cc["mask"])
+
+    late = inputs(eng)
+    with torch.inference_mode():
+        ref = flow.denoise_apply(late[0], late[1], {"y": late[2],
+                                                    "mask": late[3]}).float()
+    del eng
+    _, eng = _engine_seconds(flow, (), reqs, cfg_scale)
+    for r in reqs:
+        eng.submit(*r)
+    first = inputs(eng)
+    del eng
+    log("serve-engine", slots=SERVE_SLOTS, batch=2 * SERVE_SLOTS,
+        sec_per_step={n: f"{v:.4f}" for n, v in rec["sec_per_step"].items()},
+        timed_steps=SERVE_TIMED_STEPS)
+
+    # (d) int8: its error at full width and the product's layouts, then
+    # the served flow quantized
+    acc = _int8_accuracy(flow.denoiser, {"first_step": first,
+                                         "later_steps": late})
+    log("serve-int8-accuracy", what="w8a8 vs bf16, relative (norm): each "
+        "projection at the first step's activations (gated), whole calls "
+        "(reported, beside bf16 vs f32)",
+        **{k: (f"{v:.4e}" if isinstance(v, float) else v)
+           for k, v in acc.items()})
+    layouts = _int_mm_layouts()
+    log("serve-int8-layouts", shape=f"M{2 * SERVE_SLOTS * SERVE_FRAMES}"
+        f"x{SERVE_TOKENS}xK1152xN4608",
+        **{k: f"{v:.4f}" for k, v in layouts.items()})
+    bf16_bytes = tree_bytes(flow.denoiser)
+    flow.quantize_int8()
+    int8_bytes = tree_bytes(flow.denoiser)
+    with torch.inference_mode():
+        out = flow.denoise_apply(late[0], late[1], {"y": late[2],
+                                                    "mask": late[3]}).float()
+    rel = (torch.linalg.norm(out - ref) / torch.linalg.norm(ref)).item()
+    int8_sec, eng = _engine_seconds(flow, (SERVE_SLOTS,), reqs, cfg_scale)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    rec["int8_profile"] = _log_profile(
+        "profile-serve-int8", "one 4-slot w8a8 engine step", prof,
+        int8_sec[SERVE_SLOTS] * 1e3, "flash_fwd (K2+K4)",
+        extra_groups=(("int8 gemm", ("int_mm", "imma", "igemm", "i8i8",
+                                     "s8", "int8")),))
+    del eng, out, ref, late, first
+    zero_counts(A)
+    with _serving(serve(cfg, port=0, flow=flow)) as url:
+        replies = [_http(url + "/generate", {"prompt": SERVE_PROMPTS[0],
+                                             "seed": 0})]
+    # one slot: the scoped engine's w8a8 step at B = 2 (a 4-slot w8a8
+    # step takes 0.72 s, timed above)
+    with _serving(serve(cfg, port=0, continuous_slots=1,
+                        flow=flow)) as url:
+        replies.append(_http(url + "/generate", {"prompt": SERVE_PROMPTS[1],
+                                                 "seed": 1}))
+    _served("serve-int8", replies[:1], 1)
+    _served("serve-int8", replies[1:], 1, continuous=True)
+    totals.append(_serve_window(A, "serve-int8", per_call, 2 * steps))
+    rec["int8"] = dict(accuracy=acc, layouts=layouts,
+                       bf16_bytes=bf16_bytes, int8_bytes=int8_bytes,
+                       bytes_ratio=int8_bytes / bf16_bytes, rel_err=rel,
+                       sec_per_step=int8_sec[SERVE_SLOTS],
+                       bf16_sec_per_step=rec["sec_per_step"][SERVE_SLOTS],
+                       time_sec=[r[1]["time_sec"] for r in replies])
+    ok = (int8_bytes <= INT8_BYTES_GATE * bf16_bytes and math.isfinite(rel)
+          and acc["projection_max_rel_err"] <= INT8_REL_GATE)
+    log("serve-int8", denoiser_bf16_bytes=bf16_bytes,
+        denoiser_int8_bytes=int8_bytes,
+        bytes_ratio=f"{int8_bytes / bf16_bytes:.4f}",
+        bytes_gate=INT8_BYTES_GATE, call_rel_err=f"{rel:.4e}",
+        projection_max_rel_err=f"{acc['projection_max_rel_err']:.4e}",
+        rel_gate=INT8_REL_GATE,
+        sec_per_step=f"{rec['int8']['sec_per_step']:.4f}",
+        bf16_sec_per_step=f"{rec['int8']['bf16_sec_per_step']:.4f}",
+        time_sec=rec["int8"]["time_sec"], launches=totals[-1]["launches"],
+        ok=ok)
+    if not ok:
+        raise AssertionError("serve-int8: the int8 denoiser's bytes or a "
+                             "projection's w8a8 error is above its gate")
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("serve", peak_mem_gb=f"{rec['peak_gb']:.2f}",
+        launches_per_request=per_call * steps,
+        launches_per_engine_step=per_call)
+    del flow
+    _free()
+    window = {key: {k: sum(t[key][k] for t in totals)
+                    for k in totals[0][key]} for key in ("launches", "sm90")}
+    return rec, window
+
+
+def run_serving(A) -> tuple:
+    """The serving phases in order (K-serve, reference-serve, serve):
+    (K-serve's records, the served run's record, its launch counts)."""
+    kserve = timed_phase("K-serve", check_k_serve, A)
+    check_small_reference_serve(A)
+    rec, window = timed_phase("serve", run_serve, A)
+    return kserve, rec, window
 
 
 def _prefixed(recs: dict, labels: dict) -> dict:
@@ -6336,6 +7012,15 @@ def main(argv=None) -> None:
         print_result()
         return
 
+    if argv[:1] == ["--serve"]:
+        # the serving phases alone: K2 and K4 at the 4-slot engine's
+        # shapes, the narrow card-vs-CPU engines and int8 flow, the three
+        # services and int8 at full width
+        kserve, rec, _ = run_serving(A)
+        print(json.dumps({"serve": {"k_serve": kserve, **rec}}), flush=True)
+        print_result()
+        return
+
     if argv[:1] == ["--videocrafter"]:
         # the VideoCrafter, DynamiCrafter and Wan I2V phases alone (the
         # kernels at their shapes, the narrow card-vs-CPU checks, the
@@ -6412,10 +7097,11 @@ def main(argv=None) -> None:
     kflux, flux_runs, flux_train, v2v_runs = run_flux_v2v(A)
     runs += flux_runs + [flux_train] + v2v_runs
     kf32, i2v_encode, hy_i2v = run_hunyuan_i2v(A)
-    kos12, os12 = run_opensora12(A)
-    runs += [i2v_encode, hy_i2v, os12]
+    kos12, os12 = run_opensora12(A, OS12_WHOLE_STEPS)
+    kserve, _, serve_run = run_serving(A)
+    runs += [i2v_encode, hy_i2v, os12, serve_run]
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
-    # each kernel's launches over the twenty-eight main-path runs
+    # each kernel's launches over the main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     sm90 = {k: sum(r["sm90"][k] for r in runs) for k in launches}
@@ -6442,6 +7128,8 @@ def main(argv=None) -> None:
     llava_k1 = i2v_encode["sm90"]["K1_f32"]
     i2v_llama_k2 = i2v_encode["sm90"]["K2_f32"]
     os12_k2, os12_k4 = os12["sm90"]["K2"], os12["sm90"]["K4"]
+    # the served STDiT-XL/2's K2 and K4 (the three services and int8)
+    serve_k2, serve_k4 = serve_run["sm90"]["K2"], serve_run["sm90"]["K4"]
     wan_i2v_k3 = wan_i2v["sm90"]["K3_d128"]
     # VideoCrafter2 training's launches (K5 and K8 at d = 64 on the Hopper
     # designs, K1 with the LSE and K7), apart from the other runs'
@@ -6559,7 +7247,8 @@ def main(argv=None) -> None:
         entry("flash_fwd_sm90 persistent, d=64, CogVideoX 1.5 (K1)", fwd90,
               268, "K1", k1c, launches_n=cog15_k1),
         entry("flash_fwd_sm90 persistent, d=72 online (K2)", fwd90, 78,
-              "K2", k2, launches_n=sm90["K2"] - d128["K2"] - vc_k2 - os12_k2),
+              "K2", k2, launches_n=sm90["K2"] - d128["K2"] - vc_k2 - os12_k2
+              - serve_k2),
         # Open-Sora 1.2 at 720p on the same kernel: the spatial K2 (B = 60,
         # 3,600 tokens) and the cross-attention K4 over T5's 300 keys
         entry("flash_fwd_sm90 persistent, d=72 online, Open-Sora 1.2 "
@@ -6620,7 +7309,21 @@ def main(argv=None) -> None:
                       for k, v in k3w["self 1.3B"].items()}),
               design="d128", launches_n=wan_k3),
         entry("flash_fwd_sm90 persistent, key mask (K4)", fwd90, 970, "K4",
-              k4, launches_n=sm90["K4"] - d128["K4"] - os12_k4),
+              k4, launches_n=sm90["K4"] - d128["K4"] - os12_k4 - serve_k4),
+        # the served STDiT-XL/2 at the 4-slot engine's shapes (B = 8 under
+        # CFG): the spatial K2 over 128 sequences of 256 tokens and the
+        # cross K4 over 120 T5 keys; launches over the three services and
+        # int8, with those of one solo request and of one engine step
+        entry("flash_fwd_sm90 persistent, d=72 online, the 4-slot serving "
+              "engine's spatial attention, B = 128 (K2)", fwd90, 78, "K2",
+              kserve["K2 serve spatial"], launches_n=serve_k2,
+              extra=dict(launches_per_request=OS_DEPTH * OS_STEPS,
+                         launches_per_engine_step=OS_DEPTH)),
+        entry("flash_fwd_sm90 persistent, key mask, d=72, the 4-slot serving "
+              "engine's cross-attention over 120 T5 keys (K4)", fwd90, 970,
+              "K4", kserve["K4 serve cross"], launches_n=serve_k4,
+              extra=dict(launches_per_request=OS_DEPTH * OS_STEPS,
+                         launches_per_engine_step=OS_DEPTH)),
         # StepVideo's and Mochi's attention on K3's kernel at d = 128: the
         # self-attention with the online max (K2), the cross-attention
         # over the CLIP and caption keys with the mask (K4, online), Mochi's

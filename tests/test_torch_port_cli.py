@@ -89,10 +89,22 @@ def test_hunyuan_lora_command_resolves_like_jax():
     ("train-dynamicrafter", "queue 3"),
     ("train-cogvideox-i2v-fullft", "item 10.1"),
     ("train-cogvideox-i2v-lora", "queue 1, item 3"),
-    ("serve", "item 10.2"), ("eval", "item 10.5")])
+    ("eval", "item 10.5")])
 def test_unported_command_returns_2_naming_its_queue(name, queue, capsys):
     assert pcommands.main([name, "--device", "cpu"]) == 2
     assert queue in capsys.readouterr().err
+
+
+def test_serve_command_runs_the_ports_server(monkeypatch):
+    """`serve` hands the rest of its line to the port's cli/serve.main, as
+    the JAX registry hands it to its own."""
+    import videotuna_tpu_torch.cli.serve as pserve
+    seen = []
+    monkeypatch.setattr(pserve, "main", seen.append)
+    argv = ["--config", "configs/000_tiny/tiny_t2v.yaml", "--device", "cpu",
+            "--port", "0"]
+    assert pcommands.main(["serve", *argv]) == 0
+    assert seen == [argv] and "serve" not in pcommands.WAITING
 
 
 # CogVideoX-5B I2V and CogVideoX 1.5 narrowed: the MMDiT at dim 64 (one

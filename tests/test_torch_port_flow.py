@@ -209,7 +209,6 @@ def test_run_inference_needs_cuda_unless_cpu_is_asked_for(tmp_path):
 
 @pytest.mark.parametrize("argv,what", [
     (["--lora", "{tmp}/step_4"], "LoRA"),     # a JAX (orbax) LoRA dir
-    (["inference.quantize=int8"], "int8"),
     (["inference.mesh.dp=2"], "parallelism"),
     # a JAX (orbax) checkpoint dir: the port reads its own and ckpt_tools'
     (["--ckpt", "{tmp}/step_4"], "checkpoint"),

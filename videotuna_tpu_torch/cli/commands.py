@@ -9,10 +9,11 @@ config and a mode, and the same aliases and dev commands.
 A train, inference or v2v command whose flow the port builds runs the port's
 ``run_train`` / ``run_inference`` / ``run_v2v`` with the command's config,
 its overrides and the rest of the command line (``--device``,
-``--input-dir``, dotlist overrides); the device is ``cuda`` unless the line
-asks for another.  Every other command, and ``serve`` and ``eval``, prints
-the queue of ``ROADMAP.md`` it waits for and returns 2: the port never hands
-a command to the JAX package.
+``--input-dir``, dotlist overrides); ``serve`` runs ``cli/serve.main`` with
+the rest of the line (``--config``, ``--device``, ``--port``, …); the
+device is ``cuda`` unless the line asks for another.  Every other command,
+and ``eval``, prints the queue of ``ROADMAP.md`` it waits for and returns
+2: the port never hands a command to the JAX package.
 """
 
 from __future__ import annotations
@@ -166,7 +167,6 @@ WAITING: Dict[str, str] = {
                        "package's FluxFlow.training_loss reads "
                        "batch['latents'], which no dataset or trainer fills "
                        "(a dataset batch raises KeyError 'latents')",
-    "serve": "ROADMAP.md queue 1, item 10.2 (slice F: serving)",
     "eval": "ROADMAP.md queue 1, item 10.5 (slice F: the evalkit)",
 }
 
@@ -219,7 +219,7 @@ def list_commands() -> str:
         lines.append(f"  {name.ljust(width)}{desc}")
     lines.append(" *" + "eval <videos_dir>".ljust(width)
                  + "VBench-style evaluation")
-    lines.append(" *" + "serve --config <yaml>".ljust(width)
+    lines.append("  " + "serve --config <yaml>".ljust(width)
                  + "HTTP inference server")
     return "\n".join(lines)
 
@@ -233,6 +233,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     name = ALIASES.get(name, name)
     if name in DEV_COMMANDS:
         return run_dev_command(name, rest)
+    if name == "serve":
+        from videotuna_tpu_torch.cli.serve import main as serve_main
+        serve_main(rest)
+        return 0
     if name not in COMMANDS and name not in WAITING:
         print(f"unknown command {name!r}\n\n{list_commands()}",
               file=sys.stderr)

@@ -90,9 +90,6 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
         v = getattr(args, k)
         if v is not None:
             inf[k] = v
-    if str(inf.get("quantize", "")) == "int8":
-        raise NotImplementedError(
-            "int8 serving waits for the quantization slice")
     # a mesh of one device (or none) is what the JAX package runs on one chip
     mesh = inf.get("mesh") or {}
     devices = math.prod(int(n) for n in mesh.values())
@@ -121,6 +118,10 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
               "init", file=sys.stderr)
     if args.lora:
         merge_lora_checkpoint(flow, args.lora, args.lora_alpha, config)
+    if str(inf.get("quantize", "")) == "int8":
+        # w8a8 serving (tools/int8.py): an int8-resident denoiser, applied
+        # after any LoRA merge
+        flow.quantize_int8()
     result, metrics = monitor_resources()(flow.inference)(config)
     result["metrics"]["resources"] = metrics
     if not args.quiet:

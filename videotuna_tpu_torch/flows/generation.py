@@ -101,6 +101,16 @@ class GenerationFlow:
                 attention_options(static_max=float(self.attn_static_max)))
         return stack
 
+    def quantize_int8(self) -> None:
+        """Switch the denoiser to w8a8 int8 serving (``tools/int8.py``), in
+        place: every matched projection becomes an ``Int8Linear`` (int8
+        kernel, f32 scales), so each sampling and serving path runs it.
+        Attention stays on the bf16 kernels.  Config surface:
+        ``inference.quantize: int8``, applied after any LoRA merge."""
+        from videotuna_tpu_torch.tools.int8 import quantize_int8
+        quantize_int8(self.denoiser)
+        self._int8 = True
+
     def components(self) -> Dict[str, nn.Module]:
         return {name: getattr(self, name) for name in COMPONENT_NAMES
                 if getattr(self, name) is not None}

@@ -54,7 +54,8 @@ class MLPEmbedder(nn.Module):
         self.fc2 = nn.Linear(hidden, hidden, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.silu(self.fc1(x.to(self.fc1.weight.dtype))))
+        # the bias's dtype: an int8-quantized fc1 keeps no weight
+        return self.fc2(F.silu(self.fc1(x.to(self.fc1.bias.dtype))))
 
 
 def flux_rope_dims(head_dim: int) -> Tuple[int, int, int]:

@@ -44,7 +44,9 @@ class TimestepEmbedder(nn.Module):
         self.fc2 = nn.Linear(hidden, hidden, dtype=dtype)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        x = timestep_embedding(t, self.freq_dim).to(self.fc1.weight.dtype)
+        # the bias carries the module's dtype: an int8-quantized fc1
+        # (tools/int8.py) keeps it and has no weight
+        x = timestep_embedding(t, self.freq_dim).to(self.fc1.bias.dtype)
         return self.fc2(F.silu(self.fc1(x)))
 
 

@@ -11,6 +11,10 @@ changes is the layout of each leaf:
 - ``Conv`` kernel (…spatial, I, O) → (O, I, …spatial);
 - LayerNorm / GroupNorm / RMSNorm ``scale`` → ``weight``;
 - ``Embed.embedding`` → ``Embedding.weight``;
+- an int8 tree's ``kernel_q`` (in, *out) and ``kernel_scale`` (*out) →
+  an ``Int8Linear``'s buffers (in, n) and (n,) (``tools/int8.py``: the
+  JAX package's ``quantize_params_int8`` into a module quantized by the
+  port's ``quantize_int8``);
 - ``block_{i}`` → ``blocks[i]``, ``pair_{i}`` → ``pairs[i]`` (STDiT's
   paired layout), ``double_{i}`` → ``double_blocks[i]`` and ``single_{i}``
   → ``single_blocks[i]`` (the HunyuanVideo DiT); the ``scan_blocks``
@@ -37,6 +41,7 @@ import torch
 from torch import nn
 
 from videotuna_tpu_torch.models.layers import LayerNorm, RMSNorm
+from videotuna_tpu_torch.tools.int8 import KERNEL_Q, KERNEL_SCALE, Int8Linear
 
 _NORMS = (nn.LayerNorm, nn.GroupNorm, LayerNorm, RMSNorm)
 _BLOCK = re.compile(r"^(block|pair|double|single)_(\d+)$")
@@ -62,7 +67,11 @@ def _load_leaf_module(m: nn.Module, tree: Mapping[str, Any], where: str,
         name = f"{where}.{key}"
         if isinstance(m, nn.Linear) and key == "kernel":
             _copy(m.weight, arr.reshape(arr.shape[0], -1).T, name, done)
-        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)) \
+        elif isinstance(m, Int8Linear) and key == KERNEL_Q:
+            _copy(m.kernel_q, arr.reshape(arr.shape[0], -1), name, done)
+        elif isinstance(m, Int8Linear) and key == KERNEL_SCALE:
+            _copy(m.kernel_scale, arr.reshape(-1), name, done)
+        elif isinstance(m, (nn.Linear, Int8Linear, nn.Conv2d, nn.Conv3d)) \
                 and key == "bias":
             _copy(m.bias, arr.reshape(-1), name, done)
         elif isinstance(m, (nn.Conv2d, nn.Conv3d)) and key == "kernel":
@@ -91,8 +100,8 @@ def _child(module: nn.Module, key: str, where: str) -> nn.Module:
 
 def _load(module: nn.Module, tree: Mapping[str, Any], where: str,
           done: Set[int]) -> None:
-    if isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.Embedding)
-                  + _NORMS):
+    if isinstance(module, (nn.Linear, Int8Linear, nn.Conv2d, nn.Conv3d,
+                           nn.Embedding) + _NORMS):
         _load_leaf_module(module, tree, where, done)
         return
     for key, sub in tree.items():
@@ -123,6 +132,9 @@ def load_jax_params(module: nn.Module, tree: Mapping[str, Any],
     done: Set[int] = set()
     _load(module, tree, name, done)
     missing = [n for n, p in module.named_parameters() if id(p) not in done]
+    missing += [f"{n}.{b}" for n, m in module.named_modules()
+                if isinstance(m, Int8Linear) for b in (KERNEL_Q, KERNEL_SCALE)
+                if id(getattr(m, b)) not in done]
     if missing:
         raise KeyError(f"{name}: parameters not set from the JAX tree: "
                        f"{missing[:8]}{' …' if len(missing) > 8 else ''}")
