@@ -13,6 +13,7 @@
     python3 chip_smoke.py --hunyuan-i2v
     python3 chip_smoke.py --opensora12 [STEPS]
     python3 chip_smoke.py --serve
+    python3 chip_smoke.py --parallel
 
 The second form builds the kernels and runs only the HunyuanVideo LoRA
 training (phase 21) at FRAMES×720×1280, without the resume, and prints its
@@ -28,7 +29,8 @@ the StepVideo phases (46, 47, 49) or the Mochi ones (48, 50), likewise;
 the ninth and the tenth the Flux phases (51–54) or the V2V ones (55–57),
 likewise; the eleventh the HunyuanVideo I2V phases (58–61) and the
 twelfth the Open-Sora 1.2 ones (62–64, all 30 steps unless STEPS says),
-likewise; the thirteenth the serving phases (66–68), likewise.
+likewise; the thirteenth the serving phases (66–68), likewise; the
+fourteenth the parallel phases (69–72), likewise.
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without a result line:
@@ -509,18 +511,62 @@ without a result line:
                 w8a8 call (within 0.05 of bf16), its step time, one request
                 through each of two services.  28 K2 and 28 K4 a denoiser
                 call on the persistent kernel.
+69. K-ring    — the ring's hop functions at full width without
+                collectives: HunyuanVideo 13B's self-attention at
+                129×720×1280 (B=1, S=119,056, H=24, d=128, bf16, RMSNormed
+                q and k) split into P=4 blocks of 29,764, each query block
+                attended to each key block by ``_hop_attention`` (16 K5
+                launches, online with the LSE, on K3's kernel) and merged
+                by ``merge_hop``, against one unsharded online call (K2)
+                and the unsharded LSE (K5); the backward at the LoRA shape
+                (7,456 tokens): 16 ``_hop_backward`` launches (K8 on
+                flash_bwd_sm90 with the global output and LSE) against one
+                unsharded K8; one hop each way against its plain version;
+                each hop timed (events and CUDA-graph device time) beside
+                its bound, the plain version and cuDNN (forward with the
+                LSE; SDPA's backward), the rings beside the unsharded
+                calls.  69a. K-ulysses: the Ulysses
+                local call at Wan 2.1 1.3B's shape on H/P = 6 heads
+                (flash_fwd K5 and flash_bwd K8) against its plain version,
+                timed likewise.
+70. sp-collective — ``sp_attention`` forward and backward at Wan 1.3B's
+                self-attention (B=2, 32,760 tokens, H=12, d=128, bf16)
+                through Ulysses and the ring at P=2 and 4 and the 2×2
+                hybrid, the ranks threads of this process over torch's
+                threaded process group (``tests/torch_ranks.py``: every
+                collective synchronises the device), every rank's output
+                and gradients against the unsharded call within 2e-2 of
+                their max.  The counts are set to 0 just before and read
+                just after: 28 K5 and 28 K8 ring hops and 6 Ulysses local
+                calls each way, all on the Hopper designs at d = 128.
+71. reference-parallel — at P=2 against P=1 on the card, TF32 off: the
+                narrow HunyuanVideo flow (f32) under ``use_mesh`` and
+                ``sequence_parallel``: a denoiser call and the latents
+                after 2 steps (1e-4, 1e-3); one narrow Wan training step
+                (bf16: the backward kernels take bf16 only; the online
+                softmax on both sides) at {fsdp: 2} (FSDP2 over the
+                threaded group), {sp: 2} and, on four ranks with a batch
+                of 4, {fsdp: 2, sp: 2}, through the port's ``Trainer``
+                and its ``mesh_scope`` (gates ``PAR_TRAIN_TOL``); the
+                narrow StepVideo denoiser call (f32) after
+                ``shard_for_tp`` at {tp: 2} (1e-4).
+72. sp-torchrun — with two or more cards, ``torch.distributed.run``
+                starts an NCCL rank a card (``--parallel-rank``): Ulysses
+                and the ring at P = the card count, printed by rank 0; with
+                one card it logs that it did not run.
 
 They run in the order 1–5, 28, 16, 23, 11, 12, 6, 7, 29, 30, 31, 32,
 33, 8–10, 13–15, 17–19, 21, 24, 25, 26, 27, 34–40, 41–44, 45–47, 49, 50,
-51–57, 58–64, 66–68, 20, 22 (48 runs after 46).
+51–57, 58–64, 66–68, 69–72, 20, 22 (48 runs after 46).
 Each timed phase first logs the TF32 flags it runs under: PyTorch's
 defaults (TF32 convolutions, f32 matrix products); the card-vs-CPU checks
-(7, 9, 15, 18, 25, 32, 35, 42, 46, 48, 52, 56, 60, 63, 67) turn TF32 off
+(7, 9, 15, 18, 25, 32, 35, 42, 46, 48, 52, 56, 60, 63, 67, 71) turn TF32 off
 inside
 ``tf32_off`` and restore the flags.
 Every launch count (K1–K10) is set to 0 just before each main-path run
 (the twenty-one sampling runs, the I2V prompt chain, the six training
-runs and each served run of phase 68) and read just after;
+runs, each served run of phase 68 and phase 70's collective path) and
+read just after;
 in each, no launch splits its keys but LLaMA's and StepLLM's f32 K2 and
 the CLIP image embedder's f32 K2;
 the kernels' JSON record, on the line before the last, gives each kernel's
@@ -537,7 +583,9 @@ K10; K2, K4, K5 and K8 also the device times, K8 its host times and the
 cross-attention's figures as cross_*; K1 its time at the training shape
 with the LSE; K6 device and host times beside its unsplit walk's
 (unsplit_*); K2 LLaMA's figures as llama_*, device and host times
-beside flash_fwd.cu's).  K1's and K6's bound_ms is
+beside flash_fwd.cu's; the ring's K5 and K8 hops and the Ulysses local
+call with phase 70's launches, the ring's and the unsharded call's ms).
+K1's and K6's bound_ms is
 the largest of three floors: the bytes, the products and the exp2 (the
 special-function units).  The last line is
 {"ok": true, "device": {...}}.
@@ -6822,6 +6870,742 @@ def run_serving(A) -> tuple:
     return kserve, rec, window
 
 
+# ---------------------------------------------------------------- phases 69-72
+# the ring's hops at full width: HunyuanVideo 13B's self-attention at
+# 129×720×1280 (33·45·80 video + 256 text tokens) over P = 4 sequence
+# blocks of 29,764; the backward at the HunyuanVideo LoRA run's 7,456
+RING_P = 4
+RING_FWD_S = SHAPE_HY["s"]
+RING_BWD_S = HY_TRAIN_TOKENS
+# the collective path: Wan 2.1 1.3B's self-attention (B=2 under CFG,
+# 21·30·52 = 32,760 tokens, 12 heads of d = 128) through sp_attention on
+# threaded ranks of this process on the one card
+SHAPE_SP = dict(b=2, s=SHAPE_WAN13["s"], h=12)
+SP_MODES = {   # label: (mesh axes, Ulysses axis, ring axis)
+    "ulysses P=2": ({"sp": 2}, "sp", None),
+    "ring P=2": ({"sp": 2}, None, "sp"),
+    "ulysses P=4": ({"sp": 4}, "sp", None),
+    "ring P=4": ({"sp": 4}, None, "sp"),
+    "hybrid 2x2": ({"sp": 2, "tp": 2}, "sp", "tp"),
+}
+# the narrow checks at P = 2 against P = 1 on the card, f32, TF32 off
+PAR_TOL_CALL = 1e-4
+PAR_TOL_TRAJ = 1e-3
+PAR_MIN_SEQ = 128            # the narrow flows' sequences are short
+# the narrow Wan training steps at P > 1: label → (mesh axes, batch)
+PAR_TRAIN = {"fsdp2": ({"fsdp": 2}, 2), "sp2": ({"sp": 2}, 2),
+             "fsdp2_sp2": ({"fsdp": 2, "sp": 2}, 4)}
+# their gates against P = 1 (bf16, the online softmax on both sides):
+# label → (loss and gradient norm, relative; a gradient, of its max).
+# Ulysses only moves heads, so sp 2's forward is P = 1's and its
+# gradients differ by dq's f32 atomic adds rounded to bf16; FSDP2 reduces
+# bf16 gradients of half the batch, about 2 bf16 ulps of a leaf's max
+# (7.3e-3 on the card before these gates).  A rank that attends another
+# rank's samples is off by O(1).
+PAR_TRAIN_TOL = {"fsdp2": (5e-4, 2e-2), "sp2": (1e-4, 1e-2),
+                 "fsdp2_sp2": (5e-4, 2e-2)}
+
+
+def _torch_ranks():
+    """``tests/torch_ranks.py`` of this checkout (the threaded ranks), by
+    its path: an installed package named ``tests`` would shadow it."""
+    import importlib.util
+    if "torch_ranks" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "torch_ranks", os.path.join(ROOT, "tests", "torch_ranks.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["torch_ranks"] = module
+        spec.loader.exec_module(module)
+    return sys.modules["torch_ranks"]
+
+
+def _hop_blocks(x, p):
+    n = x.shape[1] // p
+    return [x[:, i * n:(i + 1) * n].contiguous() for i in range(p)]
+
+
+def _cudnn_lse_ms(q, k, v, scale, reps):
+    """cuDNN attention writing the LSE on the same tensors ((B, H, S, D)
+    copies), a yardstick only; flash-attention's op where cuDNN does not
+    take them.  (ms by events, device ms, the op's name)."""
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ops = (("cudnn", lambda: torch.ops.aten._scaled_dot_product_cudnn_attention(
+                qt, kt, vt, None, True, 0.0, False, False, scale=scale)),
+           ("flash", lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, False, False, scale=scale)))
+    for name, call in ops:
+        try:
+            call()
+            torch.cuda.synchronize()
+            return cuda_time_ms(call, reps), device_ms(call, reps), name
+        except (RuntimeError, TypeError) as e:
+            log("K-ring", library=name, unavailable=str(e)[:80])
+    return None, None, None
+
+
+def check_ring_hops(A) -> dict:
+    """The ring's hop functions at full width, without collectives: P = 4
+    query blocks of HunyuanVideo's 119,056 tokens each attended to the 4
+    key/value blocks by ``_hop_attention`` (K5, online with the LSE, on
+    K3's kernel at d = 128: 16 launches) and merged by ``merge_hop``,
+    against one unsharded online call (K2 on K3's kernel) and the
+    unsharded LSE (K5); one hop against its plain version.  The backward
+    at the LoRA shape (7,456 tokens): 16 ``_hop_backward`` launches (K8 on
+    flash_bwd_sm90 at d = 128, each with the global output and LSE over
+    one key block), dq, dk and dv summed over the hops, against one
+    unsharded K8 call; one hop against its plain version.  Each hop timed
+    by events and by device time (a CUDA graph's replay) beside its bound
+    (the forward's with the exp2 floor), the plain version and cuDNN (the
+    forward writing the LSE; SDPA's backward), each ring beside its
+    unsharded call."""
+    from videotuna_tpu_torch.parallel import sequence as PS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, h, d, p = 1, SHAPE_HY["h"], 128, RING_P
+    sm = d ** -0.5
+    recs = {}
+
+    def qkv(s):
+        q, k = (_rms(torch.randn((b, s, h, d), generator=gen,
+                                 device="cuda")).bfloat16()
+                for _ in range(2))
+        return q, k, torch.randn((b, s, h, d), generator=gen,
+                                 device="cuda").bfloat16()
+
+    # ---- forward
+    q, k, v = qkv(RING_FWD_S)
+    qs, ks, vs = (_hop_blocks(x, p) for x in (q, k, v))
+    n = qs[0].shape[1]
+
+    def ring():
+        outs, lses = [], []
+        for qi in qs:
+            acc = run = None
+            for kj, vj in zip(ks, vs):
+                acc, run = PS.merge_hop(acc, run,
+                                        *PS._hop_attention(qi, kj, vj, sm))
+            outs.append(acc.to(q.dtype))
+            lses.append(run)
+        return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+    before = (A.flash_fwd.launches["K5"], A.flash_fwd.launches_d128["K5"])
+    out, lse = ring()
+    hops = A.flash_fwd.launches["K5"] - before[0]
+    on_d128 = A.flash_fwd.launches_d128["K5"] - before[1]
+    ref = A.flash_fwd(q, k, v, sm_scale=sm, route="K2")
+    _, ref_lse = A.flash_fwd(q, k, v, sm_scale=sm, emit_lse=True, route="K5")
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = FWD_TOL * ref.float().abs().max().item()
+    lse_err = (lse - ref_lse.transpose(1, 2)).abs().max().item()
+    del ref, ref_lse, out, lse
+    # one hop against its plain version, the query block 0 on key block 1
+    o_h, lse_h = PS._hop_attention(qs[0], ks[1], vs[1], sm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_h, ref_lse_h = _plain_chunked(A, qs[0], ks[1], vs[1], None)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hop_err = (o_h - ref_h.float()).abs().max().item()
+    hop_tol = FWD_TOL * ref_h.float().abs().max().item()
+    hop_lse_err = (lse_h - ref_lse_h.transpose(1, 2)).abs().max().item()
+    del o_h, lse_h, ref_h, ref_lse_h
+    ok = (hops == on_d128 == p * p and err <= tol and lse_err <= LSE_TOL
+          and hop_err <= hop_tol and hop_lse_err <= LSE_TOL)
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    ms = cuda_time_ms(lambda: PS._hop_attention(qs[0], ks[1], vs[1], sm),
+                      reps=5)
+    dev_ms = device_ms(lambda: PS._hop_attention(qs[0], ks[1], vs[1], sm),
+                       reps=3)
+    ring_ms = cuda_time_ms(ring, reps=2)
+    whole_ms = cuda_time_ms(lambda: A.flash_fwd(
+        q, k, v, sm_scale=sm, emit_lse=True, route="K5"), reps=3)
+    library_ms, library_dev_ms, library = _cudnn_lse_ms(
+        qs[0], ks[1], vs[1], sm, reps=3)
+    flops = 4.0 * b * h * n * n * d
+    bound_ms, bound_by = _bound(flops, 4 * qs[0].numel() * 2 + b * h * n * 4,
+                                _exp2_floor_ms(h * n * n))
+    recs["K5 ring hop"] = dict(
+        max_abs_err=hop_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, lse_err=hop_lse_err,
+        device_ms=dev_ms, library_device_ms=library_dev_ms,
+        ring_ms=ring_ms, unsharded_ms=whole_ms, ring_max_abs_err=err,
+        ring_lse_err=lse_err, hops=hops)
+    log("K-ring", case="HunyuanVideo 13B 129x720x1280 self-attention, "
+        f"P={p} ring hops, no collectives",
+        shape=f"B{b}xS{RING_FWD_S}xH{h}xd{d}, hop {n}x{n}",
+        kernel="flash_fwd_sm90 (K3's kernel, online, with the LSE)",
+        hop_launches=hops, on_d128=on_d128,
+        ring_max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+        ring_lse_err=f"{lse_err:.3e}", lse_tol=LSE_TOL,
+        hop_max_abs_err=f"{hop_err:.3e}", hop_tol=f"{hop_tol:.3e}",
+        hop_lse_err=f"{hop_lse_err:.3e}",
+        hop_ms=f"{ms:.3f}", hop_tflops=f"{flops / ms / 1e9:.1f}",
+        hop_device_ms=f"{dev_ms:.3f}",
+        bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.1f}", library=f"{library} with the LSE",
+        library_ms=(f"{library_ms:.3f}" if library_ms else None),
+        library_device_ms=(f"{library_dev_ms:.3f}" if library_dev_ms
+                           else None),
+        ring_ms=f"{ring_ms:.2f}", unsharded_k5_ms=f"{whole_ms:.2f}",
+        ring_over_unsharded=f"{ring_ms / whole_ms:.3f}", ok=ok)
+    if not ok:
+        raise AssertionError("the ring's K5 hops disagree with the "
+                             "unsharded call or their plain version")
+    del q, k, v, qs, ks, vs
+    _free()
+
+    # ---- backward
+    q, k, v = qkv(RING_BWD_S)
+    g = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    out, lse = A.flash_fwd(q, k, v, sm_scale=sm, emit_lse=True, route="K5")
+    qs, ks, vs, os_, gs = (_hop_blocks(x, p) for x in (q, k, v, out, g))
+    n = qs[0].shape[1]
+    lses = [lse[:, :, i * n:(i + 1) * n].contiguous() for i in range(p)]
+    before = (A.flash_bwd.launches["K8"], A.flash_bwd.launches_d128["K8"])
+
+    def ring_bwd():
+        dq = [torch.zeros(x.shape, dtype=torch.float32, device="cuda")
+              for x in qs]
+        dk = [torch.zeros_like(x) for x in dq]
+        dv = [torch.zeros_like(x) for x in dq]
+        for i in range(p):
+            for j in range(p):
+                a, bb, c = PS._hop_backward(qs[i], ks[j], vs[j], os_[i],
+                                            lses[i], gs[i], sm)
+                dq[i] += a.float()
+                dk[j] += bb.float()
+                dv[j] += c.float()
+        return [torch.cat(x, dim=1) for x in (dq, dk, dv)]
+
+    got = ring_bwd()
+    hops = A.flash_bwd.launches["K8"] - before[0]
+    on_d128 = A.flash_bwd.launches_d128["K8"] - before[1]
+    ref = A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm)
+    torch.cuda.synchronize()
+    err, ring_ok, rows = _bwd_errs(got, ref)
+    del got, ref
+
+    def hop():
+        return PS._hop_backward(qs[0], ks[1], vs[1], os_[0], lses[0], gs[0],
+                                sm)
+
+    h_got = hop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_ref = _bwd_plain_chunked(A, qs[0], ks[1], vs[1], os_[0], gs[0],
+                               lses[0], sm)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hop_err, hop_ok, hop_rows = _bwd_errs(h_got, h_ref)
+    del h_got, h_ref
+    ok = hops == on_d128 == p * p and ring_ok and hop_ok
+    ms = cuda_time_ms(hop, reps=5)
+    dev_ms = device_ms(hop, reps=5)
+    library_dev_ms = sdpa_bwd_device_ms(qs[0], ks[1], vs[1], gs[0],
+                                        reps=3)[0]
+    ring_ms = cuda_time_ms(ring_bwd, reps=3)
+    whole_ms = cuda_time_ms(lambda: A.flash_bwd(q, k, v, out, g, lse,
+                                                sm_scale=sm), reps=3)
+    library_ms, backend = sdpa_bwd_ms(qs[0], ks[1], vs[1], gs[0], reps=5)
+    flops = 10.0 * b * h * n * n * d
+    bound_ms, bound_by = _bound(flops, 8 * qs[0].numel() * 2 + b * h * n * 4)
+    recs["K8 ring hop"] = dict(
+        max_abs_err=hop_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, ring_max_abs_err=err,
+        device_ms=dev_ms, library_device_ms=library_dev_ms,
+        ring_ms=ring_ms, unsharded_ms=whole_ms, hops=hops)
+    log("K-ring", case="HunyuanVideo LoRA shape, P=4 ring backward hops "
+        "with the global output and LSE, no collectives",
+        shape=f"B{b}xS{RING_BWD_S}xH{h}xd{d}, hop {n}x{n}",
+        kernel="flash_bwd_sm90 d=128", hop_launches=hops, on_d128=on_d128,
+        ring_dq=rows[0], ring_dk=rows[1], ring_dv=rows[2],
+        hop_dq=hop_rows[0], hop_dk=hop_rows[1], hop_dv=hop_rows[2],
+        hop_ms=f"{ms:.3f}", hop_tflops=f"{flops / ms / 1e9:.1f}",
+        hop_device_ms=f"{dev_ms:.4f}",
+        bound_ms=f"{bound_ms:.3f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.1f}", library=f"sdpa backward[{backend}]",
+        library_ms=f"{library_ms:.3f}",
+        library_device_ms=f"{library_dev_ms:.4f}", ring_ms=f"{ring_ms:.3f}",
+        unsharded_k8_ms=f"{whole_ms:.3f}",
+        ring_over_unsharded=f"{ring_ms / whole_ms:.3f}", ok=ok)
+    if not ok:
+        raise AssertionError("the ring's K8 hops disagree with the "
+                             "unsharded backward or their plain version")
+    del q, k, v, g, out, lse, qs, ks, vs, os_, gs, lses
+    _free()
+    return recs
+
+
+def _sp_inputs():
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    shape = (SHAPE_SP["b"], SHAPE_SP["s"], SHAPE_SP["h"], 128)
+    q, k = (_rms(torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+            for _ in range(2))
+    return q, k, torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+
+def check_ulysses_local(A) -> dict:
+    """The Ulysses local call at Wan 1.3B's shape on H/P = 6 heads (P = 2):
+    ``flash_attention_diff``'s forward (K5 with the LSE on K3's kernel at
+    d = 128) against its plain version, and its backward (K8 on
+    flash_bwd_sm90), each timed by events and device time beside its
+    bound, the plain version and cuDNN (with the LSE; SDPA's backward)."""
+    q, k, v = (x[:, :, :SHAPE_SP["h"] // 2].contiguous()
+               for x in _sp_inputs())
+    b, s, h, d = q.shape
+    sm = d ** -0.5
+
+    def fwd():
+        return A.flash_fwd(q, k, v, sm_scale=sm, emit_lse=True, route="K5")
+
+    out, lse = fwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_lse = _plain_chunked(A, q, k, v, None, rows=512)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = FWD_TOL * ref.float().abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    del ref, ref_lse
+    from videotuna_tpu_torch.kernels.attribution import device_ms
+    ms = cuda_time_ms(fwd, reps=5)
+    dev_ms = device_ms(fwd, reps=3)
+    library_ms, library_dev_ms, library = _cudnn_lse_ms(q, k, v, sm, reps=3)
+    flops = 4.0 * b * h * s * s * d
+    bound_ms, bound_by = _bound(flops, 4 * q.numel() * 2 + b * h * s * 4,
+                                _exp2_floor_ms(b * h * s * s))
+    g = torch.randn(q.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(31)
+                    ).bfloat16()
+
+    def bwd():
+        return A.flash_bwd(q, k, v, out, g, lse, sm_scale=sm)
+
+    got = bwd()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bref = _bwd_plain_chunked(A, q, k, v, out, g, lse, sm, rows=512)
+    torch.cuda.synchronize()
+    bwd_plain_ms = (time.perf_counter() - t0) * 1e3
+    bwd_err, bwd_ok, rows = _bwd_errs(got, bref)
+    del got, bref
+    bwd_ms = cuda_time_ms(bwd, reps=5)
+    bwd_dev_ms = device_ms(bwd, reps=3)
+    bwd_library_ms, backend = sdpa_bwd_ms(q, k, v, g, reps=5)
+    bwd_library_dev_ms = sdpa_bwd_device_ms(q, k, v, g, reps=3)[0]
+    bwd_flops = 10.0 * b * h * s * s * d
+    bwd_bound_ms, bwd_bound_by = _bound(bwd_flops, 8 * q.numel() * 2
+                                        + b * h * s * 4)
+    ok = err <= tol and lse_err <= LSE_TOL and bwd_ok
+    log("K-ulysses", case="Wan 2.1 1.3B self-attention, the Ulysses local "
+        "call at P=2 (H/P = 6 heads)", shape=f"B{b}xS{s}xH{h}xd{d}",
+        kernel="flash_fwd_sm90 (K3's kernel, online, LSE) + flash_bwd_sm90",
+        max_abs_err=f"{err:.3e}", tol=f"{tol:.3e}",
+        lse_err=f"{lse_err:.3e}", ms=f"{ms:.3f}",
+        device_ms=f"{dev_ms:.3f}",
+        tflops=f"{flops / ms / 1e9:.1f}", bound_ms=f"{bound_ms:.3f}",
+        bound_by=bound_by, plain_ms=f"{plain_ms:.1f}",
+        library=f"{library} with the LSE",
+        library_ms=(f"{library_ms:.3f}" if library_ms else None),
+        library_device_ms=(f"{library_dev_ms:.3f}" if library_dev_ms
+                           else None),
+        bwd=",".join(rows), bwd_ms=f"{bwd_ms:.3f}",
+        bwd_device_ms=f"{bwd_dev_ms:.3f}",
+        bwd_tflops=f"{bwd_flops / bwd_ms / 1e9:.1f}",
+        bwd_bound_ms=f"{bwd_bound_ms:.3f}",
+        bwd_plain_ms=f"{bwd_plain_ms:.1f}",
+        bwd_library=f"sdpa backward[{backend}]",
+        bwd_library_ms=f"{bwd_library_ms:.3f}",
+        bwd_library_device_ms=f"{bwd_library_dev_ms:.3f}", ok=ok)
+    if not ok:
+        raise AssertionError("the Ulysses local call disagrees with its "
+                             "plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, lse_err=lse_err,
+                device_ms=dev_ms, library_device_ms=library_dev_ms,
+                bwd_max_abs_err=bwd_err, bwd_ms=bwd_ms,
+                bwd_device_ms=bwd_dev_ms, bwd_plain_ms=bwd_plain_ms,
+                bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by,
+                bwd_library_ms=bwd_library_ms,
+                bwd_library_device_ms=bwd_library_dev_ms)
+
+
+def run_sp_collective(A) -> dict:
+    """The collective path on the one card: ``sp_attention`` forward and
+    backward (the gradients of Σ out²) at Wan 1.3B's shape through
+    Ulysses and the ring at P = 2 and 4 and the 2×2 hybrid, the ranks
+    threads of this process over a threaded process group
+    (``tests/torch_ranks.py``), every rank's global output and gradients
+    against the unsharded differentiable call (K5 + K8) within 2e-2 of
+    their max.  The counts are set to 0 just before these runs and read
+    just after: the ring's K5 and K8 hops (P² a ring, 2 a hybrid rank),
+    the Ulysses local calls' (P each way), all on the Hopper designs at
+    d = 128."""
+    run_threaded = _torch_ranks().run_threaded
+    sp_attention_rank = _torch_ranks().sp_attention_rank
+    q, k, v = _sp_inputs()
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    out = A.flash_attention_diff(qq, kk, vv)
+    (out.float() ** 2).sum().backward()
+    ref = [out.detach(), qq.grad, kk.grad, vv.grad]
+    tols = [FWD_TOL * ref[0].float().abs().max().item()] + [
+        BWD_TOL * r.float().abs().max().item() for r in ref[1:]]
+    del qq, kk, vv, out
+    zero_counts(A)
+    walls = {}
+    # the launch-site counts of each mode's run: a ring's or hybrid's are
+    # its hops, a Ulysses run's its local calls
+    hops = {"K5": 0, "K8": 0}
+    for label, (axes, u, r) in SP_MODES.items():
+        world = math.prod(axes.values())
+        before = read_counts(A)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_threaded(world, sp_attention_rank, axes, u, r, q, k, v,
+                           ("dp", "fsdp"), "cuda")
+        torch.cuda.synchronize()
+        walls[label] = (time.perf_counter() - t0) * 1e3
+        if r is not None:
+            after = read_counts(A)
+            for key in hops:
+                hops[key] += after[key] - before[key]
+        errs = [max((x.float() - y.float()).abs().max().item()
+                    for x in (rank[i] for rank in res)) for i, y in
+                enumerate(ref)]
+        ok = all(e <= t for e, t in zip(errs, tols))
+        log("sp-collective", mode=label, ranks=world,
+            shape=f"B{SHAPE_SP['b']}xS{SHAPE_SP['s']}xH{SHAPE_SP['h']}xd128",
+            out_err=f"{errs[0]:.3e}/{tols[0]:.3e}",
+            dq=f"{errs[1]:.3e}/{tols[1]:.3e}",
+            dk=f"{errs[2]:.3e}/{tols[2]:.3e}",
+            dv=f"{errs[3]:.3e}/{tols[3]:.3e}",
+            wall_ms=f"{walls[label]:.1f}", ok=ok)
+        if not ok:
+            raise AssertionError(f"sp_attention {label} disagrees with the "
+                                 "unsharded call")
+        del res
+    counts, sm90 = read_counts(A), read_sm90_counts(A)
+    ring = sum(math.prod(a.values()) ** 2 for lab, (a, u, r)
+               in SP_MODES.items() if u is None)
+    ring += sum(math.prod(a.values()) * a["tp"] for lab, (a, u, r)
+                in SP_MODES.items() if u and r)
+    ulysses = sum(math.prod(a.values()) for lab, (a, u, r)
+                  in SP_MODES.items() if r is None)
+    expected = {"K5": ring + ulysses, "K8": ring + ulysses}
+    got = {key: n for key, n in counts.items() if n}
+    ok = (got == expected and hops["K5"] == hops["K8"] == ring
+          and sm90["K5_d128"] == sm90["K5"] == expected["K5"]
+          and sm90["K8_d128"] == sm90["K8"] == expected["K8"])
+    log("sp-collective", launches=got, hop_launches=hops,
+        expected=dict(expected, ring_hops=ring, ulysses_local=ulysses),
+        ok=ok)
+    if not ok:
+        raise AssertionError("the collective path's launches are not the "
+                             "ring's hops and the Ulysses local calls on "
+                             "the Hopper designs at d = 128")
+    del q, k, v, ref
+    _free()
+    return dict(hops_k5=hops["K5"], hops_k8=hops["K8"],
+                ulysses_k5=counts["K5"] - hops["K5"],
+                ulysses_k8=counts["K8"] - hops["K8"],
+                wall_ms=walls)
+
+
+def _rel_close(got, ref, tol):
+    """(max|got − ref| / max|ref|, whether it is finite and within tol)."""
+    err = ((got.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    return err, math.isfinite(err) and err <= tol
+
+
+def _hy_rank(rank, flows, x_T, t, prompt, world):
+    """One rank of the narrow HunyuanVideo flow under ``use_mesh`` and
+    ``sequence_parallel`` over sp = ``world``: (a denoiser call, the
+    sampled latents)."""
+    from videotuna_tpu_torch.core.mesh import MeshConfig, make_mesh, use_mesh
+    from videotuna_tpu_torch.kernels.attention import sequence_parallel
+    flow = flows[rank]
+    mesh = make_mesh(MeshConfig(sp=world), "cuda")
+    with use_mesh(mesh), sequence_parallel(mesh, min_seq=PAR_MIN_SEQ):
+        cond = flow.encode_text([prompt])
+        with torch.inference_mode(), flow._attn_scope():
+            call = flow.denoise_apply(x_T, t, cond)
+        z = flow.sample(cond, None, x_T.shape, None, 1.0, x_T=x_T)
+    return call.float().cpu(), z.float().cpu()
+
+
+def _step_rank(rank, flows, x, t, cond, world):
+    """One rank of the narrow StepVideo flow's denoiser call after
+    ``shard_for_tp`` over tp = ``world`` (none at 1)."""
+    from videotuna_tpu_torch.core.mesh import MeshConfig, make_mesh
+    flow = flows[rank]
+    if world > 1:
+        flow.shard_for_tp(make_mesh(MeshConfig(tp=world), "cuda"))
+    with torch.inference_mode():
+        return flow.denoise_apply(x, t, cond).float().cpu()
+
+
+@tf32_off()
+def check_parallel_reference(A) -> None:
+    """At P = 2 against P = 1 on the card, f32, TF32 off, the ranks threads
+    over the threaded group: (a) the narrow HunyuanVideo flow (dim 256, 2
+    heads of d = 128) under ``use_mesh`` and ``sequence_parallel``
+    (Ulysses, min_seq 128: the 352 joint tokens split): one denoiser call
+    and the latents after 2 steps, 1e-4 and 1e-3 of max; (b) one narrow
+    Wan training step (dim 256, 2 layers) at {fsdp: 2} (FSDP2 over the
+    threaded group), at {sp: 2} and at {fsdp: 2, sp: 2} (four ranks, a
+    batch of 4: each fsdp rank's block of 2 shared by its sp ranks): the
+    loss, the gradient norm and every weight's gradient, in bf16 (the
+    card's backward kernels take bf16 only), every attention call on the
+    online softmax on both sides, within ``PAR_TRAIN_TOL``; (c) the narrow StepVideo flow's denoiser call at {tp: 2}
+    (DTensor column/row sharding), 1e-4 of max."""
+    from videotuna_tpu_torch.core.config import load_configs
+    from videotuna_tpu_torch.core.registry import instantiate
+    # (a) HunyuanVideo sampling under SP
+    den = "flow.params.denoiser_config.params"
+    cfg = load_configs([CONFIG_HY], _narrow_hunyuan() + [
+        f"{den}.dtype=float32",
+        f"flow.params.scheduler_config.params.num_steps={HY_REF_STEPS}"])
+    flows = []
+    for _ in range(3):
+        f = instantiate(cfg["flow"], device="cuda")
+        f.init_params(seed=1)
+        flows.append(f)
+    shape = flows[0].latent_shape(1, 9, 128, 128)
+    x_T = torch.randn(shape, generator=torch.Generator().manual_seed(2)
+                      ).cuda()
+    t = flows[0].scheduler.timesteps[1].reshape(1).cuda()
+    prompt = "a panda playing guitar by a lake"
+    run_threaded = _torch_ranks().run_threaded
+    train_step_rank = _torch_ranks().train_step_rank
+    single = _hy_rank(0, flows[2:], x_T, t, prompt, 1)
+    zero_counts(A)
+    pair = run_threaded(2, _hy_rank, flows[:2], x_T, t, prompt, 2)
+    launches = {k: n for k, n in read_counts(A).items() if n}
+    rows = []
+    for rank, (call, z) in enumerate(pair):
+        e_call, ok_call = _rel_close(call, single[0], PAR_TOL_CALL)
+        e_z, ok_z = _rel_close(z, single[1], PAR_TOL_TRAJ)
+        rows.append((e_call, e_z, ok_call and ok_z))
+    ok = all(r[2] for r in rows)
+    log("reference-parallel", what="narrow HunyuanVideo, sp=2 vs P=1, "
+        "f32", latent_shape=list(shape), card_launches=launches,
+        call_rel_err=",".join(f"{r[0]:.3e}" for r in rows),
+        call_tol=PAR_TOL_CALL,
+        latent_rel_err=",".join(f"{r[1]:.3e}" for r in rows),
+        latent_tol=PAR_TOL_TRAJ, ok=ok)
+    if not ok:
+        raise AssertionError("reference-parallel: HunyuanVideo at sp=2 "
+                             "disagrees with P=1")
+    del flows, pair
+    _free()
+
+    # (b) one Wan training step at {fsdp: 2}, {sp: 2} and {fsdp: 2, sp: 2}
+    cfg = load_configs([CONFIG_WAN13], _narrow_wan())
+    workdir = os.path.join(OUT_DIR, "parallel_train")
+
+    def inputs(n):
+        gen = torch.Generator().manual_seed(4)
+        return ({"latents": torch.randn((n, 3, 16, 16, 16), generator=gen),
+                 "text_states": torch.randn((n, 32, 64), generator=gen)},
+                {"sigma": torch.rand((n,), generator=gen),
+                 "noise": torch.randn((n, 3, 16, 16, 16), generator=gen)})
+
+    def wan_flows(n):
+        out = []
+        for _ in range(n):
+            f = instantiate(cfg["flow"], device="cuda")
+            f.init_params(seed=1)
+            # every call on the online softmax, which the routed SP calls
+            # run: both sides compute one function
+            f.attn_static_max = None
+            out.append(f)
+        return out
+
+    refs = {}
+    for label, (axes, n) in PAR_TRAIN.items():
+        batch, draws = inputs(n)
+        if n not in refs:
+            refs[n] = train_step_rank(0, {}, wan_flows(1), batch, draws,
+                                      workdir, "cuda")
+        ref = refs[n]
+        world = math.prod(axes.values())
+        res = run_threaded(world, train_step_rank, axes, wan_flows(world),
+                           batch, draws, workdir, "cuda",
+                           PAR_MIN_SEQ if "sp" in axes else None)
+        loss_tol, grad_tol = PAR_TRAIN_TOL[label]
+        worst, worst_loss, ok = 0.0, 0.0, True
+        for loss, gnorm, grads, n_sharded in res:
+            worst_loss = max(worst_loss, abs(loss - ref[0]) / abs(ref[0]),
+                             abs(gnorm - ref[1]) / ref[1])
+            for name, r in ref[2].items():
+                e, good = _rel_close(grads[name], r, grad_tol)
+                worst = max(worst, e)
+                ok = ok and good
+            ok = ok and (n_sharded > 0) == ("fsdp" in axes)
+        ok = ok and worst_loss <= loss_tol
+        log("reference-parallel", what=f"narrow Wan training step {axes}, "
+            f"batch {n}, vs P=1, bf16, online softmax on both",
+            loss=f"{res[0][0]:.6f}", ref_loss=f"{ref[0]:.6f}",
+            grad_norm=f"{res[0][1]:.6f}", ref_grad_norm=f"{ref[1]:.6f}",
+            sharded_weights=res[0][3],
+            worst_loss_rel_err=f"{worst_loss:.3e}",
+            worst_grad_rel_err=f"{worst:.3e}", loss_tol=loss_tol,
+            grad_tol=grad_tol, ok=ok)
+        if not ok:
+            raise AssertionError(f"reference-parallel: the Wan step at "
+                                 f"{axes} disagrees with P=1")
+    _free()
+
+    # (c) StepVideo's denoiser at {tp: 2}
+    sd = "flow.params.denoiser_config.params"
+    cfg = load_configs([CONFIG_STEP], [
+        f"{sd}.dim=256", f"{sd}.heads=2", f"{sd}.num_layers=2",
+        f"{sd}.ffn_dim=512", f"{sd}.text_dim=256", f"{sd}.clip_dim=32",
+        f"{sd}.dtype=float32", f"{sd}.scan_blocks=false",
+        "flow.params.cond_stage_config.params.dim=256",
+        "flow.params.cond_stage_config.params.heads=2",
+        "flow.params.cond_stage_config.params.groups=1",
+        "flow.params.cond_stage_config.params.num_layers=1",
+        "flow.params.cond_stage_config.params.vocab_size=32768",
+        "flow.params.cond_stage_2_config.params.dim=32",
+        "flow.params.cond_stage_2_config.params.heads=2",
+        "flow.params.cond_stage_2_config.params.num_layers=1",
+        "flow.params.first_stage_config.params.ch=32",
+        "flow.params.first_stage_config.params.num_res_blocks=1"])
+    flows = []
+    for _ in range(3):
+        f = instantiate(cfg["flow"], device="cuda")
+        f.init_params(seed=1)
+        flows.append(f)
+    gen = torch.Generator().manual_seed(5)
+    mask = torch.ones((2, 24), dtype=torch.bool)
+    mask[1, 9:] = False
+    x = torch.randn((2, 2, 8, 8, 64), generator=gen).cuda()
+    tt = torch.tensor([500.0, 500.0], device="cuda")
+    cond = {"y": torch.randn((2, 24, 256), generator=gen).cuda(),
+            "y2": torch.randn((2, 77, 32), generator=gen).cuda(),
+            "y_mask": mask.cuda()}
+    single = _step_rank(0, flows[2:], x, tt, cond, 1)
+    res = run_threaded(2, _step_rank, flows[:2], x, tt, cond, 2)
+    errs = [_rel_close(o, single, PAR_TOL_CALL) for o in res]
+    ok = all(good for _, good in errs)
+    log("reference-parallel", what="narrow StepVideo denoiser call, tp=2 "
+        "vs P=1, f32", rel_err=",".join(f"{e:.3e}" for e, _ in errs),
+        tol=PAR_TOL_CALL, ok=ok)
+    if not ok:
+        raise AssertionError("reference-parallel: StepVideo at tp=2 "
+                             "disagrees with P=1")
+    del flows
+    _free()
+
+
+def run_sp_torchrun() -> dict:
+    """On a machine with two or more cards: ``python -m
+    torch.distributed.run`` starts one NCCL rank a card, each running
+    Ulysses and the ring at P = the card count on Wan 1.3B's shape
+    (``--parallel-rank``); rank 0 prints what they gave.  With one card it
+    does not run (NCCL takes one rank a device), and says so."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("sp-torchrun", ran=False, cards=cards,
+            reason="one card: NCCL takes one rank a device; the collective "
+                   "path ran on threaded ranks (sp-collective)")
+        return {"ran": False, "cards": cards}
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={cards}", os.path.join(ROOT, "chip_smoke.py"),
+         "--parallel-rank"], capture_output=True, text=True, timeout=600,
+        cwd=ROOT)
+    lines = [l for l in res.stdout.splitlines() if l.startswith("{")]
+    log("sp-torchrun", cards=cards, rc=res.returncode,
+        result=lines[-1] if lines else None, stderr=res.stderr[-800:])
+    if res.returncode != 0 or not lines:
+        raise AssertionError("the torchrun ranks failed")
+    return dict(json.loads(lines[-1]), ran=True, cards=cards)
+
+
+def parallel_rank() -> None:
+    """One torchrun rank of ``run_sp_torchrun``: Ulysses and the ring over
+    every card, against the unsharded call on rank 0's card."""
+    import torch.distributed as dist
+    from videotuna_tpu_torch.core.mesh import initialize_distributed
+    import videotuna_tpu_torch.kernels.attention as A
+    initialize_distributed("cuda")
+    world = dist.get_world_size()
+    q, k, v = _sp_inputs()
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    out = A.flash_attention_diff(qq, kk, vv)
+    (out.float() ** 2).sum().backward()
+    ref = [out.detach(), qq.grad, kk.grad, vv.grad]
+    rec = {}
+    for label, u, r in (("ulysses", "sp", None), ("ring", None, "sp")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = _torch_ranks().sp_attention_rank(
+            dist.get_rank(), {"sp": world}, u, r, q, k, v, ("dp", "fsdp"),
+            "cuda")
+        torch.cuda.synchronize()
+        rec[label] = dict(
+            ms=(time.perf_counter() - t0) * 1e3,
+            rel_errs=[((x.float() - y.float()).abs().max()
+                       / y.float().abs().max()).item()
+                      for x, y in zip(got, ref)])
+    if dist.get_rank() == 0:
+        print(json.dumps({"world": world, **rec}), flush=True)
+    dist.destroy_process_group()
+
+
+def parallel_entries(entry, kring, sp_run, fwd90, bwd90) -> list:
+    """The kernels line's entries of the parallel phases: the ring's K5 and
+    K8 hops and the Ulysses local call, each with the launches of the
+    collective path's run (sp-collective)."""
+    hop5, hop8, uly = (kring["K5 ring hop"], kring["K8 ring hop"],
+                       kring["Ulysses local"])
+    return [
+        entry("flash_fwd_sm90 K3's kernel, online with the LSE, d = 128, a "
+              "ring hop over one key block (HunyuanVideo 720p, P = 4) "
+              "(K5)", fwd90, 867, "K5", hop5, design="d128",
+              launches_n=sp_run["hops_k5"],
+              extra={k: hop5[k] for k in ("ring_ms", "unsharded_ms",
+                                          "ring_max_abs_err",
+                                          "ring_lse_err")},
+              status="redesigned for Hopper (K3's kernel), as a ring hop: "
+                     "the LSE merged outside the kernel, checked"),
+        entry("flash_bwd_sm90 d=128 single pass, a ring hop with the "
+              "global output and LSE (HunyuanVideo LoRA shape, P = 4) (K8)",
+              bwd90, 1148, "K8", hop8, design="d128",
+              launches_n=sp_run["hops_k8"],
+              extra={k: hop8[k] for k in ("ring_ms", "unsharded_ms",
+                                          "ring_max_abs_err")},
+              status="redesigned for Hopper (flash_bwd_sm90), as a ring "
+                     "hop over one key block with the global LSE, checked"),
+        entry("flash_fwd_sm90 K3's kernel with the LSE, d = 128, the "
+              "Ulysses local call at H/P heads (Wan 2.1 1.3B, P = 2) (K5)",
+              fwd90, 867, "K5", uly, design="d128",
+              launches_n=sp_run["ulysses_k5"],
+              extra=dict({k: v for k, v in uly.items()
+                          if k.startswith("bwd_")},
+                         bwd_launches=sp_run["ulysses_k8"]),
+              status="redesigned for Hopper (K3's kernel; backward "
+                     "flash_bwd_sm90), checked"),
+    ]
+
+
+def run_parallel(A) -> tuple:
+    """The parallel phases in order (K-ring, K-ulysses, sp-collective,
+    reference-parallel, sp-torchrun): (the hop and local-call records, the
+    collective path's launch counts)."""
+    kring = timed_phase("K-ring", check_ring_hops, A)
+    kring["Ulysses local"] = timed_phase("K-ulysses", check_ulysses_local, A)
+    sp = timed_phase("sp-collective", run_sp_collective, A)
+    timed_phase("reference-parallel", check_parallel_reference, A)
+    sp["torchrun"] = timed_phase("sp-torchrun", run_sp_torchrun)
+    return kring, sp
+
+
 def _prefixed(recs: dict, labels: dict) -> dict:
     """{f"{prefix}_{key}": value} of each ``labels`` prefix's record."""
     return {f"{p}_{k}": v for p, lab in labels.items()
@@ -6842,6 +7626,9 @@ def main(argv=None) -> None:
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)   # configs name their defaults relative to the root
+    if argv[:1] == ["--parallel-rank"]:
+        parallel_rank()   # one torchrun rank of phase 72
+        return
     import videotuna_tpu_torch
     if not os.path.abspath(videotuna_tpu_torch.__file__).startswith(ROOT):
         raise SystemExit("chip_smoke: videotuna_tpu_torch is not this "
@@ -7012,6 +7799,16 @@ def main(argv=None) -> None:
         print_result()
         return
 
+    if argv[:1] == ["--parallel"]:
+        # the parallel phases alone: the ring's hops and the Ulysses local
+        # call at full width, the collective path on threaded ranks, the
+        # narrow P = 2 checks, torchrun ranks where there are cards
+        kring, sp_run = run_parallel(A)
+        print(json.dumps({"parallel": {"k_ring": kring, "sp": sp_run}}),
+              flush=True)
+        print_result()
+        return
+
     if argv[:1] == ["--serve"]:
         # the serving phases alone: K2 and K4 at the 4-slot engine's
         # shapes, the narrow card-vs-CPU engines and int8 flow, the three
@@ -7100,6 +7897,7 @@ def main(argv=None) -> None:
     kos12, os12 = run_opensora12(A, OS12_WHOLE_STEPS)
     kserve, _, serve_run = run_serving(A)
     runs += [i2v_encode, hy_i2v, os12, serve_run]
+    kring, sp_run = run_parallel(A)
     timed_phase("device", device_times, A, k2, bwd["K5"], k4, bwd["K8"])
     # each kernel's launches over the main-path runs
     launches = {k: sum(r["launches"][k] for r in runs)
@@ -7419,6 +8217,7 @@ def main(argv=None) -> None:
               launches_n=i2v_llama_k2,
               status="redesigned for Hopper (flash_fwd_f32_sm90), "
                      "checked"),
+        *parallel_entries(entry, kring, sp_run, fwd90, bwd90),
     ]}), flush=True)
     print_result()
 

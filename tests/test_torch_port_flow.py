@@ -207,18 +207,23 @@ def test_run_inference_needs_cuda_unless_cpu_is_asked_for(tmp_path):
                        str(tmp_path)])
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["--lora", "{tmp}/step_4"], "LoRA"),     # a JAX (orbax) LoRA dir
-    (["inference.mesh.dp=2"], "parallelism"),
+@pytest.mark.parametrize("argv,what,error", [
+    # a JAX (orbax) LoRA dir
+    pytest.param(["--lora", "{tmp}/step_4"], "LoRA", NotImplementedError,
+                 id="argv0-LoRA"),
+    # a mesh of 2 devices in one process: make_mesh's world-size check
+    pytest.param(["inference.mesh.dp=2"], "!= device count 1", ValueError,
+                 id="argv1-parallelism"),
     # a JAX (orbax) checkpoint dir: the port reads its own and ckpt_tools'
-    (["--ckpt", "{tmp}/step_4"], "checkpoint"),
+    pytest.param(["--ckpt", "{tmp}/step_4"], "checkpoint",
+                 NotImplementedError, id="argv2-checkpoint"),
 ])
-def test_unported_inference_options_raise(argv, what, tmp_path):
+def test_unported_inference_options_raise(argv, what, error, tmp_path):
     from videotuna_tpu_torch.cli.inference import run_inference
     (tmp_path / "step_4" / "lora").mkdir(parents=True)
     (tmp_path / "step_4" / "denoiser").mkdir()
     argv = [a.format(tmp=tmp_path) for a in argv]
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(error, match=what):
         run_inference(["--config", TINY, "--device", "cpu", "--quiet",
                        "--savedir", str(tmp_path), *argv])
 
@@ -231,7 +236,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
     ``schedulers/fm_solvers.py``), and so do the narrow DynamiCrafter and
     Wan I2V flows from an image (``flows/videocrafter.py``,
     ``models/lvdm``), with them blocked, and every module of the port
-    imports."""
+    imports, the mesh and the parallel modules among them, whose Ulysses
+    and ring attention then run on two threaded ranks."""
     import cv2
     from tests.test_torch_port_videocrafter import NARROW_DC
     from tests.test_torch_port_wan import NARROW as WAN_NARROW
@@ -273,6 +279,18 @@ def test_port_runs_with_jax_blocked(tmp_path):
                   f"'--savedir', {str(out)!r}, *{narrow!r}, "
                   f"'inference.input_dir={inputs}']) == 0\n"
                   for name, narrow, out in i2v)
+        + "import torch\n"
+        "import videotuna_tpu_torch.core.mesh as M\n"
+        "import videotuna_tpu_torch.parallel.sequence as S\n"
+        "import videotuna_tpu_torch.parallel.sharding\n"
+        "import videotuna_tpu_torch.parallel.tensor_parallel\n"
+        "from tests.torch_ranks import run_threaded\n"
+        "q = torch.randn(1, 8, 2, 8)\n"
+        "for u, r in (('sp', None), (None, 'sp')):\n"
+        "    outs = run_threaded(2, lambda rank: S.sp_attention(M.make_mesh("
+        "M.MeshConfig(sp=2), 'cpu'), q, q, q, ulysses_axis=u, "
+        "ring_axis=r))\n"
+        "    assert outs[0].shape == q.shape\n"
         + "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'videotuna_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")

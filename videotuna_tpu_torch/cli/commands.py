@@ -161,8 +161,7 @@ _DC_TRAIN = ("ROADMAP.md queue 3's DynamiCrafter training fault: the JAX "
 WAITING: Dict[str, str] = {
     "train-dynamicrafter": _DC_TRAIN,
     "train-cogvideox-i2v-lora": _COGVIDEOX_I2V_TRAIN,
-    "train-cogvideox-i2v-fullft": _COGVIDEOX_I2V_TRAIN
-    + "; its mesh {dp: 1, fsdp: 4} waits for queue 1, item 10.1",
+    "train-cogvideox-i2v-fullft": _COGVIDEOX_I2V_TRAIN,
     "train-flux-lora": "ROADMAP.md queue 3's Flux-training fault: the JAX "
                        "package's FluxFlow.training_loss reads "
                        "batch['latents'], which no dataset or trainer fills "
@@ -187,9 +186,9 @@ DEV_COMMANDS: Dict[str, tuple] = {
               "tests"], "lint (ruff)"),
     "type-check": ([sys.executable, "-m", "mypy", "videotuna_tpu_torch"],
                    "type check (mypy)"),
-    "install-deepspeed": (None, "no-op: the port trains on one card; "
-                          "sharding waits for the parallelism slice "
-                          "(ROADMAP.md slice F)"),
+    "install-deepspeed": (None, "no-op: the port shards with PyTorch's "
+                          "FSDP2 (train.mesh.fsdp under torchrun), no "
+                          "DeepSpeed"),
     "install-flash-attn": (None, "no-op: the port's flash attention is its "
                            "own CUDA kernels (videotuna_tpu_torch/kernels/"
                            "csrc), built with nvcc at first use"),

@@ -6,13 +6,22 @@ Usage:
     python -m videotuna_tpu_torch.cli.inference --config configs/.../x.yaml \
         [--device cpu] [key.sub=value ...]
 
-Runs on ``cuda`` unless ``--device`` says otherwise.
+Runs on ``cuda`` unless ``--device`` says otherwise.  ``inference.mesh``
+({dp, fsdp, sp, tp}) builds the mesh over the ranks ``torchrun`` started:
+the denoiser's weights go through FSDP2 over ``fsdp``, or the flow's
+``shard_for_tp`` over ``tp``; ``sp`` above 1 routes long self-attention
+through Ulysses SP.  Every rank draws the same noise and samples the same
+videos; rank 0 alone writes them and ``metric.json``.  E.g. StepVideo's
+``tp: 4`` on four cards:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m videotuna_tpu_torch \
+        inference-stepvideo-t2v-544x992 --prompt "a koi pond"
 """
 
 from __future__ import annotations
 
 import argparse
-import math
+import contextlib
 import os
 import sys
 from typing import List, Optional
@@ -20,6 +29,7 @@ from typing import List, Optional
 from videotuna_tpu_torch.core.config import (apply_inference_mapping,
                                              check_required, format_config,
                                              load_configs)
+from videotuna_tpu_torch.core.mesh import build_mesh, use_mesh
 from videotuna_tpu_torch.core.monitor import monitor_resources
 from videotuna_tpu_torch.core.registry import instantiate, populate
 
@@ -81,6 +91,28 @@ def merge_lora_checkpoint(flow, path: str, alpha: Optional[float],
         merge_lora(comps[c], tree[c], alpha)
 
 
+@contextlib.contextmanager
+def shard_flow(flow, mesh):
+    """The flow's denoiser sharded over ``mesh`` (FSDP2 over ``fsdp``, the
+    flow's ``shard_for_tp`` over ``tp``) and the scopes its sampling runs
+    in: the mesh, and ``sequence_parallel`` when ``sp`` is above 1 (JAX
+    ``cli/inference.py:106-127``)."""
+    if mesh is None or mesh.size == 1:
+        yield
+        return
+    from videotuna_tpu_torch.kernels.attention import sequence_parallel
+    from videotuna_tpu_torch.parallel.sharding import shard_params
+    if mesh.shape["tp"] > 1 and hasattr(flow, "shard_for_tp"):
+        flow.shard_for_tp(mesh)
+    else:
+        shard_params(flow.denoiser, mesh)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(use_mesh(mesh))
+        if mesh.shape["sp"] > 1:
+            stack.enter_context(sequence_parallel(mesh))
+        yield
+
+
 def run_inference(argv: Optional[List[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
     config = load_configs(args.config, args.overrides)
@@ -90,14 +122,9 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
         v = getattr(args, k)
         if v is not None:
             inf[k] = v
-    # a mesh of one device (or none) is what the JAX package runs on one chip
-    mesh = inf.get("mesh") or {}
-    devices = math.prod(int(n) for n in mesh.values())
-    if devices != 1:
-        raise NotImplementedError(
-            f"multi-device inference (a mesh of {devices} devices, "
-            f"{dict(mesh)}) waits for the parallelism slice, ROADMAP.md "
-            "queue 1, item 10.1; on one card set each of its axes to 1")
+    device, mesh = args.device, None
+    if inf.get("mesh"):
+        device, mesh = build_mesh(inf["mesh"], args.device)
     if args.shard:
         i, _, n = args.shard.partition("/")
         from videotuna_tpu_torch.flows.generation import load_prompts
@@ -107,7 +134,7 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
         print(format_config(config, "inference config"))
 
     populate()
-    flow = instantiate(config["flow"], device=args.device)
+    flow = instantiate(config["flow"], device=device)
     # seeded weights first: a component the checkpoint lacks keeps them
     flow.init_params(seed=int(inf.get("seed", 0)))
     ckpt = args.ckpt or config["flow"].get("pretrained")
@@ -122,7 +149,8 @@ def run_inference(argv: Optional[List[str]] = None) -> dict:
         # w8a8 serving (tools/int8.py): an int8-resident denoiser, applied
         # after any LoRA merge
         flow.quantize_int8()
-    result, metrics = monitor_resources()(flow.inference)(config)
+    with shard_flow(flow, mesh):
+        result, metrics = monitor_resources()(flow.inference)(config)
     result["metrics"]["resources"] = metrics
     if not args.quiet:
         print(f"[videotuna-tpu-torch] wrote {len(result['videos'])} video(s) "

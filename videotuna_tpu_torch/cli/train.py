@@ -8,17 +8,24 @@ Usage:
         [--device cpu] [--workdir DIR] [--resume] [key.sub=value ...]
 
 Runs on ``cuda`` unless ``--device`` says otherwise.  Checkpoints are the
-port's own (``core/checkpoint.py``).
+port's own (``core/checkpoint.py``).  ``train.mesh`` ({dp, fsdp, sp, tp})
+builds the mesh over the ranks ``torchrun`` started (all of them on ``dp``
+without it), e.g. on four cards:
+
+    python -m torch.distributed.run --nproc-per-node 4 -m videotuna_tpu_torch \
+        train-cogvideox-t2v-lora ... train.mesh.fsdp=4
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import random
 from typing import List, Optional
 
 from videotuna_tpu_torch.core.config import (check_required, format_config,
                                              load_configs)
+from videotuna_tpu_torch.core.mesh import build_mesh
 from videotuna_tpu_torch.core.registry import instantiate, populate
 from videotuna_tpu_torch.data.datasets import EpochLoader
 from videotuna_tpu_torch.training.trainer import TrainConfig, Trainer
@@ -49,11 +56,7 @@ def build_trainer(argv: Optional[List[str]] = None):
         print(format_config(config, "train config"))
 
     tcfg_raw = dict(config.get("train", {}))
-    mesh_cfg = tcfg_raw.pop("mesh", None) or {}
-    if any(int(v) > 1 for v in mesh_cfg.values()):
-        raise NotImplementedError(
-            f"train.mesh {mesh_cfg}: multi-device training waits for the "
-            "parallelism slice (ROADMAP.md slice F)")
+    device, mesh = build_mesh(tcfg_raw.pop("mesh", None), args.device)
     seed = int(tcfg_raw.pop("seed", 42))
     fields = {f.name for f in dataclasses.fields(TrainConfig)}
     tcfg = TrainConfig(**{k: v for k, v in tcfg_raw.items() if k in fields})
@@ -61,7 +64,7 @@ def build_trainer(argv: Optional[List[str]] = None):
         tcfg.max_steps = args.max_steps
 
     populate()
-    flow = instantiate(config["flow"], device=args.device)
+    flow = instantiate(config["flow"], device=device)
     flow.init_params(seed=seed)
     if config["flow"].get("pretrained"):
         # a checkpoint of the port: save_pretrained's or ckpt_tools'
@@ -71,11 +74,17 @@ def build_trainer(argv: Optional[List[str]] = None):
     if "dataset" not in data_cfg:
         raise ValueError("train config needs data.dataset: {target:, params:}")
     dataset = instantiate(data_cfg["dataset"])
+    if mesh.size > 1:
+        # the transforms' crops draw from the ``random`` module: seeded with
+        # the run's seed, every rank's host pipeline gives the same global
+        # batch, of which each takes its block
+        random.seed(seed)
     loader = EpochLoader(dataset, batch_size=int(data_cfg.get("batch_size",
                                                               1)),
                          seed=seed)
     workdir = args.workdir or config.get("workdir", "logs/run")
-    return Trainer(flow, tcfg, workdir=workdir, seed=seed), loader, args
+    return (Trainer(flow, tcfg, workdir=workdir, seed=seed, mesh=mesh),
+            loader, args)
 
 
 def run_train(argv: Optional[List[str]] = None):

@@ -1,14 +1,15 @@
 """Background batch preparation, the counterpart of
-``videotuna_tpu/data/prefetch.py`` on one device (the mesh waits for the
-parallelism slice).
+``videotuna_tpu/data/prefetch.py``.
 
 A daemon thread runs the host pipeline (decode, transforms, collate), the
-``prepare`` hook (the trainer's caption encode) and the copy to the device,
-so that batch n+1 is ready while step n runs.  The thread issues its work on
-the stream that was current where iteration began, the step's own, so the
-stream's order alone makes each batch complete before a step reads it and
-the results are exactly those of the loop without the thread; what overlaps
-is the host's work: decoding, transforms, tokenizing and launching.
+``prepare`` hook (the trainer's caption encode), this rank's block of the
+batch on a mesh (``parallel/sharding.shard_batch``) and the copy to the
+device, so that batch n+1 is ready while step n runs.  The thread issues
+its work on the stream that was current where iteration began, the step's
+own, so the stream's order alone makes each batch complete before a step
+reads it and the results are exactly those of the loop without the
+thread; what overlaps is the host's work: decoding, transforms,
+tokenizing and launching.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
+
+from videotuna_tpu_torch.parallel.sharding import shard_batch, splits_batch
 
 
 def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -36,21 +39,27 @@ def to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
 
 
 class DevicePrefetcher:
-    """Wrap a host batch iterable; yields batches on ``device``, at most
-    ``depth`` of them prepared ahead.  An exception in the worker is raised
+    """Wrap a host batch iterable; yields batches on ``device`` (this
+    rank's block of each over ``mesh``'s dp×fsdp), at most ``depth`` of
+    them prepared ahead.  ``split`` says of the batch just yielded whether
+    the ranks took different blocks of it (False where each holds it
+    whole).  An exception in the worker is raised
     in the consumer at the batch where it happened.  Leaving the iteration
     early stops the worker after the batch it is preparing."""
 
     def __init__(self, loader: Iterable, device: Union[str, torch.device],
                  depth: int = 2,
                  prepare: Optional[Callable[[Dict[str, Any]],
-                                            Dict[str, Any]]] = None):
+                                            Dict[str, Any]]] = None,
+                 mesh=None):
         if depth < 1:
             raise ValueError(f"depth must be at least 1, got {depth}")
         self.loader = loader
         self.device = torch.device(device)
         self.depth = depth
         self.prepare = prepare
+        self.mesh = mesh
+        self.split = False
 
     def _stream_scope(self):
         if self.device.type != "cuda":
@@ -78,7 +87,11 @@ class DevicePrefetcher:
                     for batch in self.loader:
                         if self.prepare is not None:
                             batch = self.prepare(batch)
-                        if not put(to_device(batch, self.device)):
+                        split = (self.mesh is not None
+                                 and splits_batch(batch, self.mesh))
+                        if self.mesh is not None:
+                            batch = shard_batch(batch, self.mesh)
+                        if not put((to_device(batch, self.device), split)):
                             return
                 put(done)
             except BaseException as e:  # noqa: BLE001 — to the consumer
@@ -94,7 +107,8 @@ class DevicePrefetcher:
                     return
                 if isinstance(item, BaseException):
                     raise item
-                yield item
+                batch, self.split = item
+                yield batch
         finally:
             stop.set()
             thread.join()

@@ -25,6 +25,7 @@ from torch import nn
 
 from videotuna_tpu_torch.core import checkpoint as ckpt_lib
 from videotuna_tpu_torch.core.config import resolve_device, resolve_dtype
+from videotuna_tpu_torch.core.mesh import is_writer
 from videotuna_tpu_torch.core.monitor import save_metrics
 from videotuna_tpu_torch.core.prng import KeyChain
 from videotuna_tpu_torch.core.registry import instantiate
@@ -347,7 +348,9 @@ class GenerationFlow:
         the prompts and images of ``load_inputs_i2v``, through
         ``prepare_image_cond``.  ``inference.decode_latent_frames`` (port
         only) decodes just the first n kept latent frames, for a run whose
-        full-length decode does not fit in device memory."""
+        full-length decode does not fit in device memory.  Of the ranks of
+        a process group, which all sample the same videos, rank 0 alone
+        writes them and metric.json."""
         inf = config.get("inference", config)
         if inf.get("vbench_format", inf.get("standard_vbench", False)):
             raise NotImplementedError(
@@ -378,7 +381,9 @@ class GenerationFlow:
         fps = int(inf.get("fps", 8))
         keys = KeyChain(int(inf.get("seed", 42)), self.device)
         decode_frames = inf.get("decode_latent_frames")
-        os.makedirs(savedir, exist_ok=True)
+        writer = is_writer()
+        if writer:
+            os.makedirs(savedir, exist_ok=True)
 
         results = []
         per_prompt: Dict[str, float] = {}
@@ -425,9 +430,9 @@ class GenerationFlow:
                 sample_sec += t1 - t0
                 decode_sec += t2 - t1
                 for j, prompt in enumerate(chunk):
-                    name = savename(prompt, i + j, s)
-                    results.append(save_video(
-                        videos[j], os.path.join(savedir, name), fps=fps))
+                    path = os.path.join(savedir, savename(prompt, i + j, s))
+                    results.append(save_video(videos[j], path, fps=fps)
+                                   if writer else path)
             for prompt in chunk:
                 per_prompt[prompt] = round(
                     (time.perf_counter() - t_p) / len(chunk), 3)
@@ -446,7 +451,8 @@ class GenerationFlow:
                    "nonfinite_latents": nonfinite_latents,
                    "nonfinite_pixels": nonfinite_pixels,
                    "device": str(self.device)}
-        save_metrics(metrics, savedir, config)
+        if writer:
+            save_metrics(metrics, savedir, config)
         return {"videos": results, "metrics": metrics}
 
 

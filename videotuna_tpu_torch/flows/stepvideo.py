@@ -7,8 +7,9 @@ sigmas, x_t = (1 − σ)·x0 + σ·ε, and regresses the velocity ε − x0.
 
 The flow sets no fixed max, so the DiT's attention runs the online softmax
 (its self-attention on route K2, its masked cross-attention on route K4,
-both at d = 128).  The JAX flow's tensor parallelism over the mesh's ``tp``
-axis waits for ROADMAP.md queue 1, item 10.1.
+both at d = 128).  ``shard_for_tp`` shards the DiT's linear layers over
+the mesh's ``tp`` axis (``parallel/tensor_parallel.py``), as the JAX flow
+places its parameters.
 """
 
 from __future__ import annotations
@@ -66,11 +67,10 @@ class StepVideoFlow(GenerationFlow):
         return self.denoiser(x, t, cond["y"], cond.get("y2"),
                              cond.get("y_mask"))
 
-    def shard_for_tp(self, mesh=None) -> None:
-        raise NotImplementedError(
-            "StepVideo's tensor parallelism over the mesh's tp axis waits "
-            "for ROADMAP.md queue 1, item 10.1; one card runs "
-            "inference.mesh.tp=1")
+    def shard_for_tp(self, mesh) -> None:
+        """Shard the denoiser with the TP rules over ``mesh``'s tp axis."""
+        from videotuna_tpu_torch.parallel.tensor_parallel import apply_tp
+        apply_tp(self.denoiser, mesh)
 
     def training_loss(self, batch: Dict[str, Any],
                       generator: Optional[torch.Generator] = None, *,

@@ -60,7 +60,9 @@ whose plan (a function of the shape and the SM count) split the keys.
 
 Under autograd (``torch.is_grad_enabled()`` and q, k or v requiring grad)
 ``dot_product_attention`` takes the custom VJPs: the forward kernel with
-its LSE, and ``flash_bwd`` for the gradients.  Every wrapper runs its
+its LSE, and ``flash_bwd`` for the gradients.  Inside
+``sequence_parallel`` (JAX :2088-2160) the long self-attention calls run
+``parallel/sequence.py``'s ``sp_attention`` over the mesh instead.  Every wrapper runs its
 kernel's plain version for a CPU tensor and launches the kernel, or raises,
 for a CUDA tensor.
 """
@@ -1295,18 +1297,86 @@ def attention_options(static_max: Optional[float] = None):
         _ATTN_OPTS.cfg = prev
 
 
+# ---------------------------------------------------------------------------
+# Sequence-parallel routing context
+# ---------------------------------------------------------------------------
+
+_SP_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def sequence_parallel(mesh, ulysses_axis: Optional[str] = "sp",
+                      ring_axis: Optional[str] = None,
+                      batch_axes=("dp", "fsdp"), min_seq: int = 1024):
+    """Route long self-attention calls through Ulysses/ring SP (JAX
+    ``sequence_parallel``, :2088): within this context every
+    ``dot_product_attention`` whose query and key lengths are equal, at
+    least ``min_seq`` and divisible by the SP extent, with the heads
+    divisible by the Ulysses extent, and that has no bias, no causal mask
+    and no ``kv_valid``, runs as ``parallel.sequence.sp_attention`` over the
+    given mesh axes, with the online softmax.  Other calls (text
+    cross-attention, per-frame spatial attention, masked calls) stay local.
+    The scope is the thread's own, so ranks that are threads of one process
+    each enter theirs."""
+    prev = getattr(_SP_CTX, "cfg", None)
+    _SP_CTX.cfg = {"mesh": mesh, "ulysses_axis": ulysses_axis,
+                   "ring_axis": ring_axis, "batch_axes": tuple(batch_axes),
+                   "min_seq": min_seq}
+    try:
+        yield
+    finally:
+        _SP_CTX.cfg = prev
+
+
+def _maybe_sp(q, k, v, bias, causal, scale=None):
+    """The SP output of a call the context routes, else None (JAX
+    ``_maybe_sp``, :2138)."""
+    cfg = getattr(_SP_CTX, "cfg", None)
+    if cfg is None or bias is not None or causal:
+        return None
+    if q.ndim != 4 or q.shape[1] != k.shape[1] \
+            or q.shape[1] < cfg["min_seq"]:
+        return None
+    mesh = cfg["mesh"]
+    extent = 1
+    for ax in (cfg["ulysses_axis"], cfg["ring_axis"]):
+        if ax:
+            extent *= mesh.shape.get(ax, 1)
+    if extent <= 1 or q.shape[1] % extent != 0:
+        return None
+    hx = mesh.shape.get(cfg["ulysses_axis"], 1) if cfg["ulysses_axis"] \
+        else 1
+    if q.shape[2] % max(hx, 1) != 0:
+        return None
+    from videotuna_tpu_torch.parallel.sequence import sp_attention
+    return sp_attention(mesh, q, k, v, ulysses_axis=cfg["ulysses_axis"],
+                        ring_axis=cfg["ring_axis"],
+                        batch_axes=cfg["batch_axes"], scale=scale)
+
+
 def remat_contexts():
     """``context_fn`` of ``torch.utils.checkpoint`` for the models' remat:
     (the forward's context, the recompute's).  A checkpointed block is
     recomputed in the backward, for a CUDA tensor on autograd's own thread,
-    where the forward's thread-local ``attention_options`` are not set, so
-    the recompute would take the online softmax where the forward took the
-    fixed max.  The recompute re-enters the options the forward ran under,
-    and so computes what the forward did, as the JAX package's ``nn.remat``
-    replays its traced forward."""
+    where the forward's thread-local ``attention_options`` and
+    ``sequence_parallel`` are not set, so the recompute would take the
+    online softmax where the forward took the fixed max, or attend locally
+    where the forward split the sequence.  The recompute re-enters the
+    scopes the forward ran under, and so computes what the forward did, as
+    the JAX package's ``nn.remat`` replays its traced forward."""
     cfg = getattr(_ATTN_OPTS, "cfg", None)
-    return (contextlib.nullcontext(),
-            attention_options(**cfg) if cfg else contextlib.nullcontext())
+    sp = getattr(_SP_CTX, "cfg", None)
+    return contextlib.nullcontext(), _replay_scopes(cfg, sp)
+
+
+@contextlib.contextmanager
+def _replay_scopes(cfg, sp):
+    with contextlib.ExitStack() as stack:
+        if cfg:
+            stack.enter_context(attention_options(**cfg))
+        if sp:
+            stack.enter_context(sequence_parallel(**sp))
+        yield
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1322,7 +1392,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch.  ``kv_valid``: optional (B, Sk) bool key-validity mask.
     ``bounded_logits``: the call site's declaration that q and k are
     normalised, which lets the scoped ``attention_options(static_max=…)``
-    apply.  When autograd records (grad enabled and q, k or v requiring
+    apply.  Inside ``sequence_parallel`` the calls it routes run
+    ``sp_attention`` (online softmax) before any of this.  When autograd records (grad enabled and q, k or v requiring
     grad) the flash routes run ``flash_attention_diff`` /
     ``_flash_diff_masked``, whose backward is a kernel too; otherwise they
     run the forward kernels alone."""
@@ -1346,6 +1417,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"q heads {h} not a multiple of kv heads {kh}")
         k = k.repeat_interleave(h // kh, dim=-2)
         v = v.repeat_interleave(h // kh, dim=-2)
+
+    sp_out = None if kv_valid is not None else _maybe_sp(q, k, v, bias,
+                                                         causal, scale)
+    if sp_out is not None:
+        return sp_out.reshape(orig_shape)
 
     use_flash = (not force_reference and bias is None
                  and q.shape[-1] <= 256 and q.shape[1] >= 128)

@@ -28,6 +28,16 @@ place.
 - ``fit`` prepares the batches (host pipeline, caption encode, copy to the
   device) in a ``DevicePrefetcher`` thread, on the step's CUDA stream, as
   the JAX trainer does; the losses are those of the plain loop.
+- On a mesh (``core/mesh.py``) the trainable components go through FSDP2
+  over the ``fsdp`` axis (``parallel/sharding.py``: replicated over ``dp``,
+  small parameters whole on every rank), each rank takes its block of the
+  batch over dp×fsdp and draws its own noise, and the f32 masters, the
+  optimizer's moments and the EMA are each rank's blocks of the sharded
+  weights; the global gradient norm sums the blocks over the ``fsdp``
+  group, and the metrics are averaged over the batch's ranks.  ``fit``
+  routes long self-attention through ``sequence_parallel`` when ``sp`` is
+  above 1.  Rank 0 writes the whole state, and every rank reads it back and
+  keeps its blocks.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import contextlib
 import dataclasses
 import itertools
 import math
+import os
 import signal
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -43,8 +54,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from videotuna_tpu_torch.core import checkpoint as ckpt_lib
+from videotuna_tpu_torch.core.mesh import (Mesh, is_writer,
+                                           single_device_mesh, use_mesh)
 from videotuna_tpu_torch.core.prng import KeyChain
 from videotuna_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+from videotuna_tpu_torch.parallel import sharding
 from videotuna_tpu_torch.training.lora import (count_lora_params,
                                                default_match, flatten_tree,
                                                init_lora, lora_scope,
@@ -64,9 +78,10 @@ class TrainState:
     ema_params: Optional[Params] = None
 
     def state_dict(self) -> Dict[str, Any]:
-        return _to_cpu({"step": self.step, "params": self.params,
-                        "opt_state": self.opt_state,
-                        "ema_params": self.ema_params})
+        """The state's tensors, where they are (``Trainer.save`` gathers a
+        sharded state whole and copies it to the host)."""
+        return {"step": self.step, "params": self.params,
+                "opt_state": self.opt_state, "ema_params": self.ema_params}
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
@@ -161,8 +176,12 @@ class Optimizer:
     def __init__(self, schedule: Callable[[int], float], b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-4, max_norm: float = 1.0,
-                 every_k: int = 1):
+                 every_k: int = 1,
+                 norm: Callable[[Params], torch.Tensor] = global_norm):
         self.schedule = schedule
+        # ‖g‖ of a gradient dict; a sharded trainer sums its blocks over
+        # the ranks
+        self.global_norm = norm
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_norm = max_norm
@@ -203,7 +222,7 @@ class Optimizer:
 
     def _adamw(self, grads: Params, state: Dict[str, Any],
                params: Params) -> Params:
-        g_norm = global_norm(grads)
+        g_norm = self.global_norm(grads)
         clip = not bool(g_norm < self.max_norm)
         lr = self.schedule(state["count"])
         state["count"] += 1
@@ -231,7 +250,9 @@ def apply_updates(params: Params, updates: Params) -> None:
         params[k].add_(u)
 
 
-def make_optimizer(cfg: TrainConfig, num_devices: int = 1) -> Optimizer:
+def make_optimizer(cfg: TrainConfig, num_devices: int = 1,
+                   norm: Callable[[Params], torch.Tensor] = global_norm
+                   ) -> Optimizer:
     if cfg.optimizer != "adamw":
         raise NotImplementedError(
             f"optimizer {cfg.optimizer!r} is not ported: the port has AdamW "
@@ -246,7 +267,8 @@ def make_optimizer(cfg: TrainConfig, num_devices: int = 1) -> Optimizer:
             return lr
     return Optimizer(schedule, b1=cfg.beta1, b2=cfg.beta2,
                      weight_decay=cfg.weight_decay, max_norm=cfg.grad_clip,
-                     every_k=max(int(cfg.accumulate_grad_batches), 1))
+                     every_k=max(int(cfg.accumulate_grad_batches), 1),
+                     norm=norm)
 
 
 # ---------------------------------------------------------------- train step
@@ -289,7 +311,7 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
             loss.backward()
         grads = grads_of(state.params)
         with torch.no_grad():
-            gnorm = global_norm(grads)
+            gnorm = optimizer.global_norm(grads)
             updates, state.opt_state = optimizer.update(
                 grads, state.opt_state, state.params)
             apply_updates(state.params, updates)
@@ -310,14 +332,20 @@ class Trainer:
     resume."""
 
     def __init__(self, flow, cfg: TrainConfig, workdir: str = "logs/run",
-                 seed: int = 42):
+                 seed: int = 42, mesh: Optional[Mesh] = None):
         self.flow = flow
         self.cfg = cfg
+        self.mesh = mesh or single_device_mesh(torch.device(flow.device).type)
         self.workdir = workdir
         self.keys = KeyChain(seed, flow.device)
-        self.optimizer = make_optimizer(cfg)
+        self.optimizer = make_optimizer(cfg, self.mesh.size,
+                                        norm=self._global_norm)
         self.lora: Optional[Dict[str, Any]] = None
         self._trainable: Dict[str, torch.nn.Parameter] = {}
+        # the trainable weights FSDP shards: the state holds this rank's
+        # block of each
+        self._sharded: Dict[str, torch.Tensor] = {}
+        self._batch = sharding.batch_sharding(self.mesh)
         self.callbacks: list = []     # callables (step, metrics, state)
         self._step_fn = None
         self._want_ckpt = False
@@ -333,6 +361,8 @@ class Trainer:
         for module in comps.values():
             module.requires_grad_(False)
         trainable = [c for c in self.flow.trainable_components if c in comps]
+        for c in trainable:   # a LoRA run's frozen base is sharded too
+            sharding.shard_params(comps[c], self.mesh)
         if self.cfg.lora:
             lcfg = dict(self.cfg.lora)
             targets = lcfg.get("targets")
@@ -347,7 +377,9 @@ class Trainer:
                                for n, p in comps[c].named_parameters()}
             for p in self._trainable.values():
                 p.requires_grad_(True)
-            params = {k: p.detach().float().clone()
+            self._sharded = {k: p for k, p in self._trainable.items()
+                             if sharding.is_sharded(p)}
+            params = {k: sharding.local(p).detach().float().clone()
                       for k, p in self._trainable.items()}
         ema = ({k: v.detach().clone() for k, v in params.items()}
                if self.cfg.ema_decay else None)
@@ -367,21 +399,75 @@ class Trainer:
         saved = ckpt_lib.restore_components(step_dir, ["state"],
                                             map_location=self.flow.device)
         if "state" in saved:
-            state.load_state_dict(saved["state"])
+            state.load_state_dict(self._map_sharded(
+                saved["state"], sharding.local_shard))
         return state
+
+    # ------------------------------------------------------- sharded state
+    def _map_sharded(self, tree, fn):
+        """``tree`` with fn(tensor, the sharded weight) applied to each
+        tensor under the name of a weight FSDP shards (the masters, the
+        moments, the EMA)."""
+        if not self._sharded or not isinstance(tree, dict):
+            return tree
+        return {k: (fn(v, self._sharded[k])
+                    if k in self._sharded and isinstance(v, torch.Tensor)
+                    else self._map_sharded(v, fn))
+                for k, v in tree.items()}
+
+    def _global_norm(self, grads: Params) -> torch.Tensor:
+        """‖g‖ over the whole weights: the blocks' squares summed over the
+        ``fsdp`` group (dp replicas hold the same blocks)."""
+        if not self._sharded:
+            return global_norm(grads)
+        sq = [(g.float() ** 2).sum() for k, g in grads.items()
+              if k in self._sharded]
+        whole = [(g.float() ** 2).sum() for k, g in grads.items()
+                 if k not in self._sharded]
+        blocks = torch.stack(sq).sum()
+        group = self.mesh.group("fsdp")
+        if group is not None:
+            torch.distributed.all_reduce(blocks, group=group)
+        return torch.sqrt(blocks + (torch.stack(whole).sum() if whole
+                                    else 0.0))
+
+    def _mean_over_batch(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        """Each scalar metric averaged over the ranks that split the batch
+        (the loss of the whole batch, as the JAX step reports it)."""
+        if self._batch.count == 1:
+            return metrics
+        return {k: (sharding.all_reduce_mean(v.detach().float().clone(),
+                                             self.mesh)
+                    if isinstance(v, torch.Tensor) and v.ndim == 0
+                    and k != "grad_norm" else v)
+                for k, v in metrics.items()}
 
     # ----------------------------------------------------------- running
     @torch.no_grad()
     def _bind(self, params: Params) -> None:
-        """Copy the f32 masters into the module (full fine-tune)."""
+        """Copy the f32 masters into the module (full fine-tune): into
+        this rank's block of a sharded weight."""
         for k, p in self._trainable.items():
-            p.copy_(params[k])
+            sharding.local(p).copy_(params[k])
 
     def _module_grads(self, params: Params) -> Params:
+        """The f32 gradients of the module's weights (this rank's block of
+        a sharded one, which FSDP averaged over the batch's ranks; a whole
+        one averaged here)."""
+        sharding.sync_replicated_grads(self._trainable.values(), self.mesh)
         grads = {}
         for k, p in self._trainable.items():
-            grads[k] = (p.grad if p.grad is not None
-                        else torch.zeros_like(p)).float()
+            grads[k] = (sharding.local(p.grad) if p.grad is not None
+                        else torch.zeros_like(params[k])).float()
+            p.grad = None
+        return grads
+
+    def _lora_grads(self, params: Params) -> Params:
+        """The LoRA leaves' gradients, averaged over the batch's ranks."""
+        grads = {}
+        for k, p in params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            grads[k] = sharding.all_reduce_mean(g.float(), self.mesh)
             p.grad = None
         return grads
 
@@ -402,12 +488,29 @@ class Trainer:
     def compiled_step(self) -> Callable:
         if self._step_fn is None:
             full = self.lora is None
-            self._step_fn = make_train_step(
+            step = make_train_step(
                 self.flow.training_loss, self.optimizer, self.cfg.ema_decay,
                 bind=self._bind if full else None,
-                grads_of=self._module_grads if full else None,
+                grads_of=(self._module_grads if full
+                          else self._lora_grads if self._batch.count > 1
+                          else None),
                 loss_ctx=self.loss_scope)
+
+            def step_fn(state, batch, generator):
+                state, metrics = step(state, batch, generator)
+                return state, self._mean_over_batch(metrics)
+            self._step_fn = step_fn
         return self._step_fn
+
+    def _train_stream(self, split: bool) -> str:
+        """The noise stream of the step: a rank's own where the ranks split
+        the batch (each draws for its samples), the same one where they
+        hold the same samples (sp and tp ranks, and every rank when the
+        batch does not divide over dp×fsdp and ``shard_batch`` replicated
+        it: one draw, as on one device)."""
+        if not split:
+            return "train_step"
+        return f"train_step/{self._batch.index}"
 
     @contextlib.contextmanager
     def signal_checkpoint(self):
@@ -434,6 +537,28 @@ class Trainer:
         state = state if state is not None else self.init_state()
         state = self.maybe_resume(state)
         step_fn = self.compiled_step()
+        with self.mesh_scope():
+            return self._fit(state, loader, step_fn, max_steps, val_loader,
+                             val_every)
+
+    def mesh_scope(self, **sp_options) -> contextlib.ExitStack:
+        """The scopes a step runs in: ``use_mesh`` and, when ``sp`` is
+        above 1, ``sequence_parallel`` (long self-attention through Ulysses
+        SP in the forward and the backward; ``sp_options`` such as
+        ``min_seq`` go to it).  Its batch axes are none: unlike the JAX
+        package's global batch, a rank's batch is already its block over
+        dp×fsdp, which the sp ranks of the block share."""
+        scopes = contextlib.ExitStack()
+        scopes.enter_context(use_mesh(self.mesh))
+        if self.mesh.shape["sp"] > 1:
+            from videotuna_tpu_torch.kernels.attention import \
+                sequence_parallel
+            scopes.enter_context(sequence_parallel(
+                self.mesh, batch_axes=(), **sp_options))
+        return scopes
+
+    def _fit(self, state, loader, step_fn, max_steps, val_loader,
+             val_every) -> TrainState:
         with self.signal_checkpoint():
             max_steps = max_steps or self.cfg.max_steps
             done = state.step
@@ -445,11 +570,15 @@ class Trainer:
                 # only the batches the remaining steps take, so the host's
                 # draws (augmentation, dummy clips) are those of the plain
                 # loop and a resumed run continues them
-                for batch in DevicePrefetcher(
-                        itertools.islice(loader, max_steps - done),
-                        self.flow.device, prepare=self.prepare_batch):
+                batches = DevicePrefetcher(
+                    itertools.islice(loader, max_steps - done),
+                    self.flow.device, prepare=self.prepare_batch,
+                    mesh=self.mesh)
+                for batch in batches:
                     state, metrics = step_fn(
-                        state, batch, self.keys.fixed("train_step", done))
+                        state, batch,
+                        self.keys.fixed(self._train_stream(batches.split),
+                                        done))
                     done += 1
                     if done % self.cfg.log_every == 0:
                         m = {k: float(v) for k, v in metrics.items()}
@@ -490,9 +619,11 @@ class Trainer:
             for i, batch in enumerate(val_loader):
                 if i >= max_batches:
                     break
-                batch = to_device(self.prepare_batch(batch), self.flow.device)
+                batch = to_device(sharding.shard_batch(
+                    self.prepare_batch(batch), self.mesh), self.flow.device)
                 loss, _ = self.flow.training_loss(batch, self.keys("val_step"))
-                losses.append(float(loss))
+                losses.append(float(self._mean_over_batch(
+                    {"loss": loss})["loss"]))
         return {"val_loss": sum(losses) / max(len(losses), 1),
                 "val_batches": float(len(losses))}
 
@@ -517,12 +648,19 @@ class Trainer:
         ``cli/inference.py --lora`` merges) under ``workdir/step_<step>``.
         A full fine-tune's module then holds the trained weights, as the
         JAX flow's params do; a LoRA run keeps its base weights, which the
-        side branch reads."""
-        comps: Dict[str, Any] = {"state": state.state_dict()}
-        if self.lora is not None:
-            comps["lora"] = _to_cpu(self.lora)
-        step_dir = ckpt_lib.save_components(self.workdir, step, comps,
-                                            keep=self.cfg.ckpt_keep)
+        side branch reads.  On a mesh the sharded tensors are gathered
+        whole, and rank 0 alone writes."""
+        whole = self._map_sharded(state.state_dict(), sharding.full_tensor)
+        step_dir = os.path.join(os.path.abspath(self.workdir),
+                                f"step_{step}")
+        if is_writer():
+            comps: Dict[str, Any] = {"state": _to_cpu(whole)}
+            if self.lora is not None:
+                comps["lora"] = _to_cpu(self.lora)
+            step_dir = ckpt_lib.save_components(self.workdir, step, comps,
+                                                keep=self.cfg.ckpt_keep)
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()
         if self.lora is None:
             self._bind(state.params)
         return step_dir
